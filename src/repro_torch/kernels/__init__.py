@@ -1,0 +1,29 @@
+"""The port's hand-written CUDA kernels and their plain PyTorch versions.
+
+Each kernel module holds the wrapper (which launches the CUDA kernel for a
+CUDA tensor and runs the plain version for a CPU tensor, and raises for
+anything else), the plain version (``*_plain``) and a ``launches`` counter
+that only the kernel launch increments. :func:`launch_counts` and
+:func:`reset_launches` read and zero the four counters, so a run can show
+that a path went through the kernels.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import (addnorm_quant, dynamic_quant, fused_embed,
+                                 quant_linear)
+
+KERNEL_MODULES = {
+    "quant_linear": quant_linear,
+    "addnorm_quant": addnorm_quant,
+    "dynamic_quant": dynamic_quant,
+    "fused_embed": fused_embed,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+
+
+def reset_launches() -> None:
+    for mod in KERNEL_MODULES.values():
+        mod.launches = 0

@@ -1,0 +1,445 @@
+"""Quantization-aware building blocks — the BERT subset of
+``repro.models.layers``.
+
+Every GEMM goes through :func:`dense` (projections) or :func:`quant_bmm`
+(the attention score/value batched matmuls), so the precision plan applies
+uniformly: a layer's parameters hold float weights (tensors) or
+:class:`~repro_torch.core.quantize.QuantizedTensor` weights plus static
+activation scales, and dispatch is structural (leaf type), not flag-driven.
+
+Conventions
+-----------
+* params are plain nested dicts of tensors; a "linear" is
+  ``{"w": Tensor|QuantizedTensor, ["b": Tensor], ["xs": 0-d Tensor]}``,
+  ``xs`` the calibrated per-tensor activation scale (absent => float GEMM,
+  or dynamic per-token quantization when ``w`` is quantized);
+* activations are float32 throughout (the JAX encoder's compute dtype);
+* observer capture: functions record per-site ``amax`` tensors into an
+  ``obs`` dict when one is passed (calibration); ``obs=None`` is the
+  serving path and adds no ops.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.core.quantize import (EXACT_FLOAT_K, UINT8_MAX,
+                                       QuantizedTensor,
+                                       compute_scale_symmetric, divide,
+                                       int8_matmul,
+                                       int_matmul, quantize,
+                                       quantize_per_token, quantize_unsigned)
+from repro_torch.kernels.addnorm_quant import row_sum
+from repro_torch.kernels.backend import ACTIVATIONS as _ACT
+from repro_torch.kernels.backend import QuantActivation
+
+# ---------------------------------------------------------------------------
+# observer plumbing
+# ---------------------------------------------------------------------------
+
+
+def observe(obs: Optional[dict], site: str, x) -> None:
+    """Record max|x| for a quantization site (calibration mode only)."""
+    if obs is not None and not isinstance(x, QuantActivation):
+        obs[site] = x.abs().max().to(torch.float32)
+
+
+def observe_values(obs: Optional[dict], site: str, x) -> None:
+    """Record raw values for histogram calibrators (small models only)."""
+    if obs is not None and obs.get("__values__", False) \
+            and not isinstance(x, QuantActivation):
+        obs.setdefault("__raw__", {})[site] = x
+
+
+# ---------------------------------------------------------------------------
+# quant-aware GEMMs
+# ---------------------------------------------------------------------------
+
+
+def _act_quantize(x: torch.Tensor,
+                  xs: Optional[torch.Tensor]) -> QuantizedTensor:
+    """Static per-tensor scale when calibrated, per-token dynamic otherwise."""
+    if xs is not None:
+        return QuantizedTensor(quantize(x, xs), xs, None)
+    return quantize_per_token(x)
+
+
+def dense(x, p: dict, obs: Optional[dict] = None, site: str = "x",
+          backend=None, act: Optional[str] = None) -> torch.Tensor:
+    """y = act(x @ w (+ b)); float GEMM for a tensor ``w``, W8A8 with int32
+    accumulation for a QuantizedTensor ``w``. ``backend`` may claim the op
+    (the fused backend routes int8 blocks through ``quant_linear``) or
+    decline. ``x`` may arrive pre-quantized (a QuantActivation from the
+    fused addnorm); the reference path dequantizes it."""
+    observe(obs, site, x)
+    observe_values(obs, site, x)
+    if "out_xs" in p:
+        raise NotImplementedError(
+            "out_xs (the schema-v3 norm='int8' span) is not ported yet")
+    if backend is not None:
+        y = backend.linear(x, p, act=act)
+        if y is not None:
+            return y
+    if isinstance(x, QuantActivation):
+        x = x.dequantize()
+    w = p["w"]
+    if isinstance(w, QuantizedTensor):
+        y = int8_matmul(_act_quantize(x, p.get("xs")), w, out_dtype=x.dtype)
+    else:
+        y = torch.matmul(x, w.to(x.dtype))
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return _ACT[act](y) if act is not None else y
+
+
+def quant_bmm(a: torch.Tensor, b: torch.Tensor,
+              a_scale: Optional[torch.Tensor],
+              b_scale: Optional[torch.Tensor], *,
+              transpose_b: bool = False,
+              unsigned_a: bool = False) -> torch.Tensor:
+    """Quantized batched matmul for the MHA score/value paths: both float
+    operands are quantized at their static scales (dynamically when None),
+    multiplied as int8 with exact int32 accumulation, and dequantized.
+    Contracts the last dim of ``a`` with the last (``transpose_b``) or
+    second-to-last dim of ``b``; leading dims are batch."""
+    if unsigned_a:
+        aq = quantize_unsigned(a, None if a_scale is None
+                               else a_scale * UINT8_MAX)
+    elif a_scale is None:
+        aq = quantize_per_token(a)
+    else:
+        aq = QuantizedTensor(quantize(a, a_scale), a_scale, None)
+    if b_scale is None:
+        b_scale = compute_scale_symmetric(b.abs().max())
+    bq_vals = quantize(b, b_scale)
+    bdim = b.ndim - 1 if transpose_b else b.ndim - 2
+    # on the card the int8 product runs as float32 matmuls of the codes,
+    # exact only while each contraction stays within EXACT_FLOAT_K terms
+    # (hd = 64, Sk <= max_position = 512 here)
+    if a.shape[-1] > EXACT_FLOAT_K:
+        raise ValueError(f"quant_bmm contraction {a.shape[-1]} exceeds "
+                         f"{EXACT_FLOAT_K}, where float32 stops being exact")
+    rhs = bq_vals.transpose(-1, -2) if transpose_b else bq_vals
+    acc = int_matmul(aq.values, rhs)
+    if unsigned_a:
+        # zero-point correction: sum over the contracted axis of b
+        bsum = bq_vals.to(torch.int32).sum(dim=bdim)
+        acc = acc - aq.zero_point * bsum[..., None, :]
+    return (acc.to(torch.float32) * (aq.scale * b_scale)).to(a.dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, p: dict, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = divide(row_sum(torch.square(xf)), xf.shape[-1])
+    y = xf * torch.reciprocal(torch.sqrt(var + eps)) \
+        * p["scale"].to(torch.float32)
+    return y.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, p: dict, eps: float = 1e-6) -> torch.Tensor:
+    """Float32 mean, then the mean of squared deviations, then
+    1/sqrt(var + eps) — the JAX package's formulation (eps 1e-6, not
+    PyTorch's 1e-5), with the summation order and the IEEE divisions of the
+    ``addnorm_quant`` kernel, so the fused and reference paths round
+    alike."""
+    xf = x.to(torch.float32)
+    D = xf.shape[-1]
+    mu = divide(row_sum(xf), D)
+    var = divide(row_sum(torch.square(xf - mu)), D)
+    y = (xf - mu) * torch.reciprocal(torch.sqrt(var + eps))
+    y = y * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
+    return y.to(x.dtype)
+
+
+def norm(x: torch.Tensor, p: dict, kind: str,
+         eps: float = 1e-6) -> torch.Tensor:
+    return layer_norm(x, p, eps) if kind == "layernorm" \
+        else rms_norm(x, p, eps)
+
+
+def residual_norm(delta, x: torch.Tensor, p: dict, kind: str, *,
+                  next_scale=None, backend=None):
+    """The residual boundary: ``(x + delta, norm(x + delta))``. A fused
+    backend claims it when ``next_scale`` carries the consuming GEMM's
+    static activation scale: ``addnorm_quant`` computes both outputs in one
+    pass and returns the norm output pre-quantized (a QuantActivation)."""
+    if backend is not None and next_scale is not None:
+        fused = backend.addnorm(delta, x, p, kind, next_scale)
+        if fused is not None:
+            return fused
+    if isinstance(delta, QuantActivation):
+        delta = delta.dequantize()
+    x_new = x + delta
+    return x_new, norm(x_new, p, kind)
+
+
+def init_norm(kind: str, dim: int, *, device=None,
+              dtype=torch.float32) -> dict:
+    p = {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((dim,), dtype=dtype, device=device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnQuant:
+    """Static quant plan for one attention block's batched matmuls.
+    ``softmax_mode``: 'symmetric' (the paper's scheme), 'unsigned', or
+    'none' (float softmax output). ``plan_scheme`` is the layer's schema-v3
+    softmax scheme ('uint8' or None)."""
+    enabled: bool = False
+    softmax_mode: str = "symmetric"
+    plan_scheme: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class MaskSpec:
+    """Attention-visibility rule."""
+    causal: bool = True
+    window: Optional[int] = None
+    prefix_len: int = 0
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return (torch.tanh(divide(x.to(torch.float32), cap)) * cap).to(x.dtype)
+
+
+def band_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
+              spec: MaskSpec) -> torch.Tensor:
+    """Boolean (..., Sq, Sk) mask, True = attend. Positions are (Sq,)/(Sk,)
+    or (B, Sq)/(B, Sk); key positions of -1 (padding) are masked."""
+    qp = q_pos[..., :, None]
+    kp = k_pos[..., None, :]
+    valid = kp >= 0
+    if spec.causal:
+        m = kp <= qp
+        if spec.prefix_len:
+            m = m | (kp < spec.prefix_len)
+    else:
+        m = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
+                       dtype=torch.bool, device=kp.device)
+    if spec.window is not None:
+        m = m & (kp > qp - spec.window)
+    return m & valid
+
+
+def _softmax(s: torch.Tensor) -> torch.Tensor:
+    # jax.nn.softmax's formulation: exp(s - max) / sum
+    e = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+    return e / torch.sum(e, dim=-1, keepdim=True)
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   q_pos: torch.Tensor, k_pos: torch.Tensor, spec: MaskSpec,
+                   *, scale: float, attn_softcap: Optional[float] = None,
+                   quant: AttnQuant = AttnQuant(),
+                   scales: Optional[dict] = None,
+                   obs: Optional[dict] = None,
+                   chunk: Optional[int] = None) -> torch.Tensor:
+    """softmax(q k^T * scale) v with optional int8 score/value matmuls (the
+    Fully-Quant MHA path). q: (B, Sq, Hq, d); k, v: (B, Sk, Hkv, d).
+    ``chunk`` processes queries in blocks of that many rows (a Python loop
+    standing in for the JAX package's ``lax.scan``)."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    groups = Hq // Hkv
+    qh = q.transpose(1, 2)                          # (B, Hq, Sq, d)
+    kh = k.transpose(1, 2)                          # (B, Hkv, Sk, d)
+    vh = v.transpose(1, 2)
+    if groups > 1:
+        kh = kh.repeat_interleave(groups, dim=1)
+        vh = vh.repeat_interleave(groups, dim=1)
+    sc = scales or {}
+    if q_pos.ndim == 1:
+        q_pos = q_pos[None]
+    if k_pos.ndim == 1:
+        k_pos = k_pos[None]
+
+    def block(qb: torch.Tensor, qp: torch.Tensor) -> torch.Tensor:
+        mb = band_mask(qp, k_pos, spec)             # (B|1, bq, Sk)
+        qs = qb * scale
+        observe(obs, "q", qs)
+        observe(obs, "k", kh)
+        if quant.enabled:
+            s = quant_bmm(qs, kh, sc.get("q"), sc.get("k"), transpose_b=True)
+        else:
+            s = torch.matmul(qs, kh.transpose(-1, -2))
+        s = softcap(s, attn_softcap)
+        # a Python scalar, not a new device tensor: building one from the
+        # host would synchronize the stream once per layer
+        s = torch.where(mb[:, None], s.to(torch.float32), NEG_INF)
+        p = _softmax(s).to(qb.dtype)
+        observe(obs, "p", p)
+        observe_values(obs, "p", p)
+        observe(obs, "v", vh)
+        if (not quant.enabled and quant.plan_scheme == "uint8"
+                and sc.get("p") is not None):
+            p = quantize_unsigned(p, sc["p"] * UINT8_MAX).dequantize(p.dtype)
+        if quant.enabled and (quant.softmax_mode != "none"
+                              or quant.plan_scheme == "uint8"):
+            return quant_bmm(p, vh, sc.get("p"), sc.get("v"),
+                             unsigned_a=(quant.softmax_mode == "unsigned"
+                                         or quant.plan_scheme == "uint8"))
+        return torch.matmul(p, vh)
+
+    if chunk is not None and Sq % chunk != 0:
+        c = chunk
+        while c > 1 and Sq % c:
+            c -= 1
+        chunk = c if c > 1 else None
+    if chunk is None or Sq <= chunk:
+        out = block(qh, q_pos)
+    else:
+        out = torch.cat([block(qh[:, :, i:i + chunk], q_pos[:, i:i + chunk])
+                         for i in range(0, Sq, chunk)], dim=2)
+    return out.transpose(1, 2)                      # (B, Sq, Hq, d)
+
+
+def init_linear(gen: torch.Generator, d_in: int, d_out: int,
+                bias: bool = False, *, device=None, dtype=torch.float32,
+                init_scale: float = 1.0) -> dict:
+    std = init_scale / math.sqrt(d_in)
+    p = {"w": torch.randn((d_in, d_out), generator=gen, dtype=dtype,
+                          device=device) * std}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
+
+
+def init_attention(gen: torch.Generator, cfg, *, device=None,
+                   dtype=torch.float32) -> dict:
+    kw = dict(device=device, dtype=dtype)
+    return {
+        "wq": init_linear(gen, cfg.d_model, cfg.q_dim, cfg.qkv_bias, **kw),
+        "wk": init_linear(gen, cfg.d_model, cfg.kv_dim, cfg.qkv_bias, **kw),
+        "wv": init_linear(gen, cfg.d_model, cfg.kv_dim, cfg.qkv_bias, **kw),
+        "wo": init_linear(gen, cfg.q_dim, cfg.d_model, False, **kw),
+    }
+
+
+def attention_block(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
+                    spec: MaskSpec, quant: AttnQuant = AttnQuant(),
+                    obs: Optional[dict] = None, chunk: Optional[int] = None,
+                    backend=None) -> torch.Tensor:
+    """Full-sequence (encoder) attention block: projections + core + output
+    projection. Decode caches arrive with the decode slice."""
+    if cfg.position == "rope":
+        raise NotImplementedError("rotary positions are not ported yet")
+    B, S, _ = x.shape
+    observe(obs, "attn_in", x)
+    observe_values(obs, "attn_in", x)
+    q = dense(x, p["wq"], backend=backend).reshape(
+        B, S, cfg.num_heads, cfg.head_dim)
+    k = dense(x, p["wk"], backend=backend).reshape(
+        B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = dense(x, p["wv"], backend=backend).reshape(
+        B, S, cfg.num_kv_heads, cfg.head_dim)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    o = None
+    if backend is not None and quant.enabled and quant.plan_scheme == "uint8":
+        o = backend.attention(q, k, v, p, k_pos=positions, spec=spec,
+                              scale=scale, softcap=cfg.attn_softcap)
+    if o is None:
+        sc = {s: p[f"{s}_scale"] for s in ("q", "k", "p", "v")
+              if f"{s}_scale" in p} or None
+        o = attention_core(q, k, v, positions, positions, spec, scale=scale,
+                           attn_softcap=cfg.attn_softcap, quant=quant,
+                           scales=sc, obs=obs, chunk=chunk)
+    o = o.reshape(B, S, cfg.q_dim)
+    observe(obs, "attn_out", o)
+    observe_values(obs, "attn_out", o)
+    out = dense(o, p["wo"], backend=backend)
+    observe(obs, "attn_delta", out)
+    observe_values(obs, "attn_delta", out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# FFN (GELU, the BERT family)
+# ---------------------------------------------------------------------------
+
+
+def init_ffn(gen: torch.Generator, cfg, d_ff: Optional[int] = None, *,
+             device=None, dtype=torch.float32) -> dict:
+    if cfg.ffn_kind != "gelu":
+        raise NotImplementedError(
+            f"ffn_kind {cfg.ffn_kind!r} is not ported yet")
+    d_ff = d_ff or cfg.d_ff
+    kw = dict(device=device, dtype=dtype)
+    return {"wi": init_linear(gen, cfg.d_model, d_ff, True, **kw),
+            "wo": init_linear(gen, d_ff, cfg.d_model, True, **kw)}
+
+
+def ffn_block(x, p: dict, cfg, obs: Optional[dict] = None, prefix: str = "",
+              backend=None) -> torch.Tensor:
+    if cfg.ffn_kind != "gelu":
+        raise NotImplementedError(
+            f"ffn_kind {cfg.ffn_kind!r} is not ported yet")
+    observe(obs, prefix + "ffn_in", x)
+    observe_values(obs, prefix + "ffn_in", x)
+    h = dense(x, p["wi"], backend=backend, act="gelu")
+    observe(obs, prefix + "ffn_hidden", h)
+    observe_values(obs, prefix + "ffn_hidden", h)
+    return dense(h, p["wo"], backend=backend)
+
+
+# ---------------------------------------------------------------------------
+# embeddings
+# ---------------------------------------------------------------------------
+
+
+def init_embeddings(gen: torch.Generator, cfg, *, device=None,
+                    dtype=torch.float32) -> dict:
+    if cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.frontend!r} front-ends are not ported yet")
+    kw = dict(generator=gen, dtype=dtype, device=device)
+    p = {"tok": torch.randn((cfg.vocab_size, cfg.d_model), **kw) * 0.02}
+    if cfg.position == "learned":
+        p["pos"] = torch.randn((cfg.max_position, cfg.d_model), **kw) * 0.02
+    if cfg.num_segments:
+        p["seg"] = torch.randn((cfg.num_segments, cfg.d_model), **kw) * 0.02
+    if cfg.norm_kind == "layernorm" and cfg.family == "bert":
+        p["emb_norm"] = init_norm("layernorm", cfg.d_model, device=device,
+                                  dtype=dtype)
+    return p
+
+
+def embed(tokens: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
+          segments: Optional[torch.Tensor] = None,
+          backend=None) -> torch.Tensor:
+    """Token (+segment) (+position) embedding — the paper's Tensor-fusion
+    target. A fused backend routes learned-position archs through the
+    ``fused_embed`` kernel; otherwise three gathers."""
+    if backend is not None:
+        y = backend.embed(tokens, p, cfg, positions=positions,
+                          segments=segments)
+        if y is not None:
+            return y
+    x = p["tok"][tokens.long()].to(torch.float32)
+    if "pos" in p:
+        x = x + p["pos"][positions.long()].to(torch.float32)
+    if "seg" in p and segments is not None:
+        x = x + p["seg"][segments.long()].to(torch.float32)
+    if cfg.emb_scale_by_sqrt_dim:
+        x = x * math.sqrt(cfg.d_model)
+    if "emb_norm" in p:
+        x = layer_norm(x, p["emb_norm"])
+    return x

@@ -1,0 +1,259 @@
+"""Post-training quantization: apply a precision plan to float params (port
+of ``repro.quant.ptq``, the schema-v1 paths).
+
+    float params --capture_stats(calibration batches)--> amax per (layer, site)
+                 --apply_plan(PrecisionPlan)--> mixed-precision params + plan
+
+Per layer and GEMM block, the plan's QuantSpec names the weight scheme
+(int8 per channel or per tensor), the activation scheme (static per-tensor
+``xs`` from the calibrator, or per-token dynamic: no ``xs``) and the
+calibrator. A statically quantized qkv block also gets the attention bmm
+scales ``{q,k,p,v}_scale``. Plans that use the schema-v2/v3 fields
+(``kv_cache``, ``softmax``, ``norm``) or quantized v4 block families are
+refused until the slices that port them.
+"""
+from __future__ import annotations
+
+import inspect
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig, BlockKind
+from repro_torch.core.calibration import (CALIBRATORS, Calibrator,
+                                          make_calibrator)
+from repro_torch.core.plan import LayerPlan, PrecisionPlan
+from repro_torch.core.quantize import (UINT8_MAX, QuantizedTensor,
+                                       compute_scale_symmetric, divide,
+                                       quantize)
+from repro_torch.models import transformer as T
+
+# (group, param_path, site, block): ``block`` is the PrecisionPlan block
+# whose QuantSpec governs the weight; ``site`` the activation observation
+# feeding the GEMM.
+SITE_MAP: dict[str, list[tuple[str, tuple[str, ...], str, str]]] = {
+    "attn": [
+        ("mha", ("attn", "wq"), "attn_in", "qkv"),
+        ("mha", ("attn", "wk"), "attn_in", "qkv"),
+        ("mha", ("attn", "wv"), "attn_in", "qkv"),
+        ("mha", ("attn", "wo"), "attn_out", "attn_out"),
+    ],
+    "ffn_gelu": [
+        ("ffn", ("ffn", "wi"), "ffn_in", "ffn_in"),
+        ("ffn", ("ffn", "wo"), "ffn_hidden", "ffn_out"),
+    ],
+}
+
+BMM_SITES = ("q", "k", "p", "v")    # attention batched-matmul operands
+
+SITE_BLOCK: dict[str, str] = {
+    site: block
+    for entries in SITE_MAP.values()
+    for (_g, _p, site, block) in entries
+}
+SITE_BLOCK.update({s: "qkv" for s in BMM_SITES})
+SITE_BLOCK["attn_delta"] = "attn_out"
+
+HIST_SITES = ("attn_in", "attn_out", "attn_delta", "ffn_in", "ffn_hidden",
+              "p")
+
+
+def _kind_entries(cfg: ArchConfig, kind: BlockKind):
+    if kind.body != "attn" or kind.moe or cfg.mla is not None \
+            or cfg.ffn_kind != "gelu":
+        raise NotImplementedError(
+            f"PTQ of layer body {kind} with ffn_kind {cfg.ffn_kind!r} is not "
+            f"ported yet")
+    return SITE_MAP["attn"] + SITE_MAP["ffn_gelu"]
+
+
+def quantize_weight(w: torch.Tensor,
+                    scheme: str = "int8_per_channel") -> QuantizedTensor:
+    """Symmetric int8 weight quantization: ``int8_per_channel`` (scale
+    (1, N) for a (K, N) weight) or ``int8_per_tensor`` (scale (1, 1))."""
+    if scheme == "int8_per_tensor":
+        amax = w.abs().max().reshape((1,) * w.ndim)
+    elif scheme == "int8_per_channel":
+        reduce_axes = ((w.ndim - 2,) if w.ndim == 3
+                       else tuple(range(w.ndim - 1)))
+        amax = torch.amax(w.abs(), dim=reduce_axes, keepdim=True)
+    else:
+        raise ValueError(f"unknown weight scheme {scheme!r}")
+    scale = compute_scale_symmetric(amax)
+    return QuantizedTensor(quantize(w, scale), scale, None)
+
+
+def _scale_of(amax: float, device) -> torch.Tensor:
+    """A calibrated amax -> 0-d float32 scale tensor, computed as the JAX
+    package computes it (``compute_scale_symmetric(jnp.float32(amax))``)."""
+    return compute_scale_symmetric(
+        torch.tensor(amax, dtype=torch.float32, device=device))
+
+
+def _get_path(d: dict, path: tuple[str, ...]):
+    for k in path:
+        if not isinstance(d, dict) or k not in d:
+            return None
+        d = d[k]
+    return d
+
+
+def _set_path(d: dict, path: tuple[str, ...], value) -> None:
+    for k in path[:-1]:
+        d = d[k]
+    d[path[-1]] = value
+
+
+def _copy_dicts(tree):
+    if isinstance(tree, dict):
+        return {k: _copy_dicts(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_copy_dicts(v) for v in tree)
+    return tree
+
+
+def _check_ported(layer: LayerPlan, i: int) -> None:
+    unported = [f for f in ("kv_cache", "softmax", "norm")
+                if getattr(layer, f) != "float"]
+    unported += [f for f in ("experts", "shared_ffn")
+                 if getattr(layer, f) is not None
+                 and getattr(layer, f).quantized]
+    if unported:
+        raise NotImplementedError(
+            f"layer {i} uses {unported}; this port applies schema-v1 plans "
+            f"(quantized GEMM blocks) only")
+
+
+def quantize_layer(lp: dict, cfg: ArchConfig, kind: BlockKind,
+                   layer: LayerPlan, amax: dict, scheme: T.QuantScheme
+                   ) -> dict:
+    """A quantized copy of one layer's params under ``layer``; ``amax``
+    maps site name -> calibrated amax for THIS layer."""
+    if not (layer.quant_mha or layer.quant_ffn):
+        return lp
+    lp = _copy_dicts(lp)                     # containers copied, leaves shared
+    for _group, path, site, block in _kind_entries(cfg, kind):
+        spec = layer.spec(block)
+        if not spec.quantized:
+            continue
+        sub = _get_path(lp, path)
+        if sub is None:
+            continue
+        new = dict(sub)
+        new["w"] = quantize_weight(sub["w"], spec.weight)
+        if spec.static_acts and site in amax:
+            new["xs"] = _scale_of(amax[site], sub["w"].device)
+        _set_path(lp, path, new)
+    if layer.qkv.quantized and layer.qkv.static_acts:
+        attn = lp["attn"]
+        dev = attn["wq"]["w"].values.device
+        for s in BMM_SITES:
+            if s not in amax:
+                continue
+            if s == "p" and scheme.softmax_mode == "unsigned":
+                # softmax outputs live in [0, 1]: asymmetric unsigned scale
+                attn["p_scale"] = divide(torch.tensor(
+                    max(amax[s], 1e-8), dtype=torch.float32, device=dev),
+                    float(UINT8_MAX))
+            else:
+                attn[f"{s}_scale"] = _scale_of(amax[s], dev)
+    return lp
+
+
+def capture_stats(params: dict, batches: Sequence[dict], cfg: ArchConfig,
+                  plan, scheme: T.QuantScheme = T.QuantScheme(), *,
+                  calibrator: Optional[str] = None,
+                  precision: Optional[PrecisionPlan] = None,
+                  hist_sites: tuple[str, ...] = HIST_SITES,
+                  **calib_kw) -> dict[str, dict[str, float]]:
+    """Run calibration batches (dicts of (B, S) token / segment arrays)
+    through the float model with observers on and reduce per-(layer, site)
+    statistics to amax values: ``{"layer{i}": {site: amax}}``.
+
+    Calibrator selection: ``calibrator=`` for every site; else
+    ``precision=``'s per-block choices via :data:`SITE_BLOCK`; else min-max.
+    Histogram calibrators consume raw values on ``hist_sites``."""
+    device = params["final_norm"]["scale"].device
+
+    def site_calibrator(layer_idx: int, site: str) -> str:
+        if calibrator is not None:
+            return calibrator
+        if precision is not None:
+            block = SITE_BLOCK.get(site)
+            if block is not None and layer_idx < precision.num_layers:
+                spec = precision.layers[layer_idx].spec(block)
+                if spec.quantized:
+                    return spec.calibrator
+        return "minmax"
+
+    if calibrator is not None:
+        use_hist = calibrator != "minmax"
+    else:
+        use_hist = precision is not None and any(
+            s is not None and s.quantized and s.calibrator != "minmax"
+            for lp in precision.layers for s in
+            (lp.qkv, lp.attn_out, lp.ffn_in, lp.ffn_out,
+             lp.experts, lp.shared_ffn))
+
+    def calibrator_kw(name: str) -> dict:
+        accepted = inspect.signature(CALIBRATORS[name].__init__).parameters
+        return {k: v for k, v in calib_kw.items() if k in accepted}
+
+    cals: dict[str, Calibrator] = {}
+    scalar_amax: dict[str, float] = {}
+    with torch.inference_mode():
+        for batch in batches:
+            obs: dict = {"__values__": True} if use_hist else {}
+            tensors = {k: torch.as_tensor(np.asarray(v), device=device)
+                       for k, v in batch.items()}
+            T.forward(params, tensors, cfg, plan, scheme, obs=obs)
+            raw = obs.pop("__raw__", {}) if use_hist else {}
+            obs.pop("__values__", None)
+            for key, v in obs.items():
+                if key.startswith("layer"):
+                    scalar_amax[key] = max(scalar_amax.get(key, 0.0),
+                                           float(v))
+            for key, v in raw.items():
+                layer, site = key.split("/", 1)
+                if site not in hist_sites:
+                    continue
+                name = site_calibrator(int(layer[len("layer"):]), site)
+                if name == "minmax":
+                    continue        # scalar running max already covers it
+                cals.setdefault(key, make_calibrator(
+                    name, **calibrator_kw(name))).observe(v)
+
+    out: dict[str, dict[str, float]] = {}
+    for key, amax in scalar_amax.items():
+        layer, site = key.split("/", 1)
+        out.setdefault(layer, {})[site] = amax
+    for key, cal in cals.items():
+        layer, site = key.split("/", 1)
+        out.setdefault(layer, {})[site] = float(cal.compute_amax())
+    return out
+
+
+def apply_plan(params: dict, cfg: ArchConfig, precision: PrecisionPlan,
+               stats: dict[str, dict[str, float]], *,
+               scheme: T.QuantScheme = T.QuantScheme(), float_plan=None):
+    """float params (packed under ``float_plan``) + calibration stats ->
+    (quantized params, the plan's execution plan)."""
+    if not isinstance(precision, PrecisionPlan):
+        raise TypeError(f"expected a PrecisionPlan, got "
+                        f"{type(precision).__name__}")
+    if precision.num_layers != cfg.num_layers:
+        raise ValueError(f"plan has {precision.num_layers} layers, arch "
+                         f"{cfg.num_layers}")
+    for i, layer in enumerate(precision.layers):
+        _check_ported(layer, i)
+    float_plan = float_plan or T.build_plan(
+        cfg, PrecisionPlan.full_float(cfg.num_layers, precision.float_dtype))
+    new_plan = T.build_plan(cfg, precision)
+    kinds = cfg.layer_kinds()
+
+    def transform(i: int, lp: dict) -> dict:
+        return quantize_layer(lp, cfg, kinds[i], precision.layers[i],
+                              stats.get(f"layer{i}", {}), scheme)
+
+    return T.repack(params, float_plan, new_plan, transform), new_plan

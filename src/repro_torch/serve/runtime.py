@@ -1,0 +1,151 @@
+"""Bucketed encoder runtime (port of the encode half of
+``repro.serve.runtime``).
+
+A :class:`Runtime` is bound to one ``(cfg, plan, scheme, head, backend)``
+deployment on one device:
+
+* request shapes are rounded up to power-of-two (batch, length) buckets, so
+  a mixed-length stream runs a bounded set of shapes;
+* padded positions carry ``-1``, which
+  :func:`repro_torch.models.layers.band_mask` drops from attention, and are
+  clamped to 0 for the embedding gather, so a padded forward matches the
+  natural-shape forward on the real rows and positions;
+* the built forward callables are cached per (backend name, plan
+  fingerprint, batch bucket, length bucket) — the JAX package's executable
+  key without the mesh and cluster parts, which arrive with their slices;
+* ``stats`` counts calls, real and padded tokens, and cached callables.
+
+PyTorch runs eagerly: there is no trace, and the cache holds the callable
+each bucket runs (the place a CUDA graph per bucket would go).
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.device import full_float32, resolve_device
+from repro_torch.kernels.backend import get_backend
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+HeadFn = Callable[[dict, torch.Tensor], torch.Tensor]   # (params, hidden)
+
+
+def bucket_size(n: int, floor: int = 1, cap: Optional[int] = None) -> int:
+    """Smallest power of two >= n (and >= floor); clamped to ``cap`` when
+    the cap itself can hold ``n``."""
+    if n <= 0:
+        raise ValueError(f"bucket_size needs n >= 1, got {n}")
+    b = max(int(floor), 1)
+    while b < n:
+        b *= 2
+    if cap is not None and cap >= n:
+        b = min(b, cap)
+    return b
+
+
+class Runtime:
+    """Cached, bucketed full-sequence forwards for one deployment.
+
+    ``head`` maps ``(params, hidden) -> logits`` (a TargetSpec's apply);
+    None returns the final-norm hidden states. ``token_level`` marks
+    per-position outputs so :meth:`encode` slices padding back off.
+    """
+
+    def __init__(self, cfg: ArchConfig, plan, *,
+                 scheme: T.QuantScheme = T.QuantScheme(), precision=None,
+                 head: Optional[HeadFn] = None, token_level: bool = False,
+                 min_batch: int = 1, min_len: int = 8,
+                 max_len: Optional[int] = None,
+                 chunk: Optional[int] = T.DEFAULT_CHUNK,
+                 backend="reference",
+                 device: Union[str, torch.device] = "cuda"):
+        self.device = resolve_device(device)
+        # TF32 off, float32 matmuls at "highest": the JAX reference computes
+        # in full float32, and int_matmul's float32 products must stay exact
+        full_float32()
+        self.cfg = cfg
+        self.plan = plan
+        self.scheme = scheme
+        self.precision = precision          # Optional[PrecisionPlan]
+        self.head = head
+        self.token_level = token_level
+        self.min_batch = min_batch
+        self.min_len = min_len
+        self.max_len = max_len
+        self.chunk = chunk
+        self.backend = get_backend(backend)
+        # cache key half that names the scheme: the backend (one plan runs
+        # different code per backend) and the plan's stable fingerprint, or
+        # a structural hash of (execution plan, scheme) without one
+        self._plan_key = (self.backend.name,
+                          precision.fingerprint() if precision is not None
+                          else hash((plan, scheme)))
+        self._exe: dict[tuple, Callable] = {}
+        self._stats = {"calls": 0, "real_tokens": 0, "padded_tokens": 0}
+
+    @property
+    def stats(self) -> dict:
+        return dict(self._stats, executables=len(self._exe),
+                    buckets=sorted(k[2:4] for k in self._exe))
+
+    def _build_encode(self) -> Callable:
+        cfg, plan, scheme = self.cfg, self.plan, self.scheme
+        head, chunk, backend = self.head, self.chunk, self.backend
+
+        def fn(params, inputs: dict, lengths: torch.Tensor) -> torch.Tensor:
+            S = inputs["tokens"].shape[1]
+            idx = torch.arange(S, dtype=torch.int32, device=lengths.device)
+            valid = idx[None, :] < lengths[:, None]               # (B, S)
+            # -1 on padding: band_mask drops these keys, so real rows
+            # attend only over their true tokens
+            positions = torch.where(valid, idx[None], -1)
+            x = T.embed_inputs(params, inputs, cfg,
+                               positions=torch.clamp(positions, min=0),
+                               backend=backend)
+            x = T.run_groups(x, params, cfg, plan, scheme,
+                             positions=positions, chunk=chunk,
+                             backend=backend)
+            x = L.norm(x, params["final_norm"], cfg.norm_kind)
+            return head(params, x) if head is not None else x
+        return fn
+
+    def encode(self, params, inputs: dict,
+               lengths: Optional[np.ndarray] = None) -> np.ndarray:
+        """Full-sequence forward through the bucketed cache. ``inputs`` maps
+        ``"tokens"`` (and ``"segments"``) to (B, S) integer arrays;
+        ``lengths`` (B,) gives each row's true token count (default S).
+        Returns the head's output for the real rows as numpy."""
+        arrs = {k: np.asarray(v) for k, v in inputs.items()}
+        B, S = arrs["tokens"].shape
+        if lengths is None:
+            lengths = np.full((B,), S, np.int32)
+        lengths = np.asarray(lengths, np.int32)
+        Bb = bucket_size(B, self.min_batch)
+        Sb = bucket_size(S, self.min_len, self.max_len)
+        padded = {}
+        for k, v in arrs.items():
+            pad = [(0, Bb - B), (0, Sb - v.shape[1])] + \
+                [(0, 0)] * (v.ndim - 2)
+            padded[k] = np.pad(v.astype(np.int32), pad)
+        full_len = np.zeros((Bb,), np.int32)
+        full_len[:B] = lengths
+        key = ("encode", self._plan_key, Bb, Sb)
+        fn = self._exe.get(key)
+        if fn is None:
+            fn = self._exe[key] = self._build_encode()
+        with torch.inference_mode():
+            out = fn(params,
+                     {k: torch.from_numpy(v).to(self.device)
+                      for k, v in padded.items()},
+                     torch.from_numpy(full_len).to(self.device))
+            out = out[:B].to("cpu").numpy()
+        self._stats["calls"] += 1
+        self._stats["real_tokens"] += int(lengths.sum())
+        self._stats["padded_tokens"] += Bb * Sb - int(lengths.sum())
+        if self.token_level and out.ndim >= 2:
+            out = out[:, :S]
+        return out

@@ -31,3 +31,5 @@ def pytest_configure(config):
         "markers", "kernels: Pallas kernel sweeps (excluded from fast CI)")
     config.addinivalue_line(
         "markers", "system: end-to-end system tests (excluded from fast CI)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (CUDA kernels); skipped without one")

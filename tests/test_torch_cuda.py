@@ -1,0 +1,159 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Every test here needs an NVIDIA GPU and skips without one. The file imports
+no JAX (the machine with the card has none), so it runs there on its own,
+without the suite's conftest:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+The shapes cover what ``chip_smoke.py`` does not: ragged edges of the GEMM
+tile (M, N not multiples of 64; K not a multiple of 8, which turns off the
+8-byte loads), rows wider than the block, int8 inputs to addnorm, RMSNorm,
+absent biases, and embedding rows that do not split into float4s.
+"""
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels import (addnorm_quant, dynamic_quant, fused_embed,
+                                 quant_linear)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda", 0)
+
+
+def _rel(a, b) -> float:
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).abs().max() / (a.abs().max() + 1e-9))
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 768, 768), (37, 768, 3072),
+                                   (100, 3072, 768), (64, 36, 70),
+                                   (130, 1030, 65)])
+@pytest.mark.parametrize("act", [None, "gelu", "silu", "relu"])
+@pytest.mark.parametrize("per_token", [False, True])
+def test_quant_linear(dev, M, K, N, act, per_token):
+    g = torch.Generator(device=dev).manual_seed(M * N + K)
+    xq = torch.randint(-128, 128, (M, K), generator=g, device=dev,
+                       dtype=torch.int8)
+    wq = torch.randint(-128, 128, (K, N), generator=g, device=dev,
+                       dtype=torch.int8)
+    ws = torch.rand(N, generator=g, device=dev) * 1e-3 + 1e-5
+    xs = (torch.rand((M, 1), generator=g, device=dev) * 0.02 + 1e-3
+          if per_token else torch.tensor(0.013, device=dev))
+    b = torch.randn(N, generator=g, device=dev) if act else None
+    before = quant_linear.launches
+    y = quant_linear.quant_linear(xq, wq, ws, xs, bias=b, act=act)
+    assert quant_linear.launches == before + 1
+    y_ref = quant_linear.quant_linear_plain(xq, wq, ws, xs, bias=b, act=act)
+    assert y.dtype == torch.float32 and y.shape == (M, N)
+    assert _rel(y_ref, y) <= 1e-6
+    os_ = torch.tensor(float(y_ref.abs().max()) / 100.0, device=dev)
+    q = quant_linear.quant_linear(xq, wq, ws, xs, bias=b, act=act,
+                                  out_scale=os_)
+    q_ref = quant_linear.quant_linear_plain(xq, wq, ws, xs, bias=b, act=act,
+                                            out_scale=os_)
+    assert q.dtype == torch.int8
+    assert int((q.int() - q_ref.int()).abs().max()) <= 1
+
+
+def test_quant_linear_requant_ties(dev):
+    """Outputs on exact ties (acc + 0.5 at unit scales) round half to even
+    in the kernel's epilogue, as in the plain version."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    M, K, N = 70, 40, 130
+    xq = torch.randint(-3, 4, (M, K), generator=g, device=dev,
+                       dtype=torch.int8)
+    wq = torch.randint(-3, 4, (K, N), generator=g, device=dev,
+                       dtype=torch.int8)
+    ones = torch.ones(N, device=dev)
+    half = torch.full((N,), 0.5, device=dev)
+    args = (xq, wq, ones, torch.tensor(1.0, device=dev))
+    kw = dict(bias=half, out_scale=torch.tensor(1.0, device=dev))
+    q = quant_linear.quant_linear(*args, **kw)
+    assert q.equal(quant_linear.quant_linear_plain(*args, **kw))
+    acc = xq.cpu().int() @ wq.cpu().int()
+    assert q.cpu().equal(torch.round(acc + 0.5).clamp(-128, 127).to(
+        torch.int8))
+
+
+@pytest.mark.parametrize("M,D", [(1, 768), (33, 3072), (7, 100), (5, 5000)])
+def test_dynamic_quant(dev, M, D):
+    g = torch.Generator(device=dev).manual_seed(D)
+    x = torch.randn((M, D), generator=g, device=dev) * 3
+    (q, s), (q_ref, s_ref) = (dynamic_quant.dynamic_quant(x),
+                              dynamic_quant.dynamic_quant_plain(x))
+    assert q.equal(q_ref) and s.equal(s_ref) and s.shape == (M, 1)
+
+
+@pytest.mark.parametrize("M,D", [(1, 768), (50, 768), (9, 100), (4, 2000)])
+@pytest.mark.parametrize("kind", ["layernorm", "rmsnorm"])
+@pytest.mark.parametrize("int8_in", [False, True])
+@pytest.mark.parametrize("beta", [False, True])
+def test_addnorm_quant(dev, M, D, kind, int8_in, beta):
+    g = torch.Generator(device=dev).manual_seed(M + D)
+    if int8_in:
+        x = torch.randint(-128, 128, (M, D), generator=g, device=dev,
+                          dtype=torch.int8)
+        x_in = torch.tensor(0.03, device=dev)
+    else:
+        x, x_in = torch.randn((M, D), generator=g, device=dev), None
+    res = torch.randn((M, D), generator=g, device=dev) * 2
+    bias = torch.randn(D, generator=g, device=dev) * 0.1
+    gamma = 1 + 0.1 * torch.randn(D, generator=g, device=dev)
+    bt = 0.1 * torch.randn(D, generator=g, device=dev) if beta else None
+    args = (x, res, bias, gamma, bt, torch.tensor(0.025, device=dev))
+    h, q = addnorm_quant.addnorm_quant(*args, x_in_scale=x_in, kind=kind)
+    h_ref, q_ref = addnorm_quant.addnorm_quant_plain(*args, x_in_scale=x_in,
+                                                     kind=kind)
+    assert h.equal(h_ref)
+    diff = (q.int() - q_ref.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 5e-3
+
+
+@pytest.mark.parametrize("N,D", [(1, 768), (300, 768), (17, 30)])
+@pytest.mark.parametrize("segments", [False, True])
+def test_fused_embed(dev, N, D, segments):
+    g = torch.Generator(device=dev).manual_seed(N + D)
+    tok = torch.randn((1000, D), generator=g, device=dev)
+    pos = torch.randn((512, D), generator=g, device=dev)
+    seg = torch.randn((2, D), generator=g, device=dev) if segments else None
+    ids = torch.randint(0, 1000, (N,), generator=g, device=dev)
+    segs = (torch.randint(0, 2, (N,), generator=g, device=dev)
+            if segments else None)
+    positions = torch.arange(N, device=dev) % 128
+    out = fused_embed.fused_embed(ids, tok, pos, seg, segs,
+                                  positions=positions)
+    assert out.equal(fused_embed.fused_embed_plain(ids, tok, pos, seg, segs,
+                                                   positions=positions))
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = torch.randn((8, 16), device=dev)
+    with pytest.raises(ValueError):
+        dynamic_quant.dynamic_quant(x.t())              # not contiguous
+    with pytest.raises(TypeError):
+        dynamic_quant.dynamic_quant(x.double())
+    xq = torch.zeros((8, 16), dtype=torch.int8, device=dev)
+    wq = torch.zeros((16, 4), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):
+        quant_linear.quant_linear(xq, wq, torch.ones(3, device=dev), 0.1)
+    with pytest.raises(ValueError):
+        quant_linear.quant_linear(xq, wq.cpu(), torch.ones(4, device=dev),
+                                  0.1)
+    big = torch.zeros((2, 20000), device=dev)
+    with pytest.raises(ValueError):
+        addnorm_quant.addnorm_quant(big, big, big[0], big[0], None, 0.1)
+
+
+def test_counters_reset(dev):
+    dynamic_quant.dynamic_quant(torch.randn((4, 8), device=dev))
+    assert kernels.launch_counts()["dynamic_quant"] >= 1
+    kernels.reset_launches()
+    assert kernels.launch_counts() == {k: 0 for k in kernels.KERNEL_MODULES}
