@@ -228,6 +228,32 @@ class LayerPlan:
                 kw[field] = d[field]
         return cls(**kw)
 
+    @classmethod
+    def for_mode(cls, mode: LayerMode, *, dynamic_acts: bool = False,
+                 calibrator: str = "minmax", softmax: str = "float",
+                 norm: str = "float") -> "LayerPlan":
+        """The paper's per-layer modes as block plans; ``softmax``/``norm``
+        add the schema-v3 dataflow schemes (validated against the mode —
+        e.g. ``softmax='uint8'`` needs ``quant_mha``)."""
+        act = "int8_per_token" if dynamic_acts else "int8_per_tensor"
+        q = QuantSpec(weight="int8_per_channel", act=act,
+                      calibrator=calibrator)
+        return cls(qkv=q if mode.quant_mha else FLOAT_SPEC,
+                   attn_out=q if mode.quant_mha else FLOAT_SPEC,
+                   ffn_in=q if mode.quant_ffn else FLOAT_SPEC,
+                   ffn_out=q if mode.quant_ffn else FLOAT_SPEC,
+                   softmax=softmax, norm=norm)
+
+    def with_dataflow(self, *, softmax: Optional[str] = None,
+                      norm: Optional[str] = None) -> "LayerPlan":
+        """Same GEMM blocks, different inter-kernel dataflow schemes."""
+        kw = {}
+        if softmax is not None:
+            kw["softmax"] = softmax
+        if norm is not None:
+            kw["norm"] = norm
+        return dataclasses.replace(self, **kw) if kw else self
+
 
 FLOAT_LAYER = LayerPlan()
 

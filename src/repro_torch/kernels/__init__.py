@@ -4,19 +4,20 @@ Each kernel module holds the wrapper (which launches the CUDA kernel for a
 CUDA tensor and runs the plain version for a CPU tensor, and raises for
 anything else), the plain version (``*_plain``) and a ``launches`` counter
 that only the kernel launch increments. :func:`launch_counts` and
-:func:`reset_launches` read and zero the four counters, so a run can show
-that a path went through the kernels.
+:func:`reset_launches` read and zero the counters, so a run can show that a
+path went through the kernels.
 """
 from __future__ import annotations
 
-from repro_torch.kernels import (addnorm_quant, dynamic_quant, fused_embed,
-                                 quant_linear)
+from repro_torch.kernels import (addnorm_quant, dynamic_quant,
+                                 flash_attention, fused_embed, quant_linear)
 
 KERNEL_MODULES = {
     "quant_linear": quant_linear,
     "addnorm_quant": addnorm_quant,
     "dynamic_quant": dynamic_quant,
     "fused_embed": fused_embed,
+    "quant_flash_attention": flash_attention,
 }
 
 

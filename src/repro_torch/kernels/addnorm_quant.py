@@ -31,28 +31,30 @@ _MAX_D = (48 * 1024) // 4 - 8
 _THREADS, _WARP = 256, 32
 
 
-def row_sum(x: torch.Tensor) -> torch.Tensor:
+def row_sum(x: torch.Tensor, threads: int = _THREADS) -> torch.Tensor:
     """Sum over the last axis in the CUDA kernel's order, (..., D) ->
-    (..., 1): thread t adds x[t], x[t + 256], ... in turn; each warp adds
-    its 32 partials in a butterfly (pairs 16 apart, then 8, 4, 2, 1); the 8
-    warp sums are added in turn. Float32 addition is not associative, so
-    the norm statistics of the fused and the reference paths round alike
-    only when both sum in one order; every norm of the port sums this way."""
+    (..., 1): thread t adds x[t], x[t + threads], ... in turn; each warp
+    adds its 32 partials in a butterfly (pairs 16 apart, then 8, 4, 2, 1);
+    the warp sums are added in turn. Float32 addition is not associative,
+    so the norm statistics of the fused and the reference paths round alike
+    only when both sum in one order; every norm of the port sums this way
+    (256 threads, the addnorm kernel's block), and so does the softmax of
+    the uint8 attention path (``threads=32``, one warp per query row)."""
     lead, D = x.shape[:-1], x.shape[-1]
-    J = -(-D // _THREADS)
-    if J * _THREADS != D:
-        x = torch.nn.functional.pad(x, (0, J * _THREADS - D))
-    x = x.reshape(*lead, J, _THREADS)
+    J = -(-D // threads)
+    if J * threads != D:
+        x = torch.nn.functional.pad(x, (0, J * threads - D))
+    x = x.reshape(*lead, J, threads)
     acc = x[..., 0, :]
     for j in range(1, J):
         acc = acc + x[..., j, :]
-    acc = acc.reshape(*lead, _THREADS // _WARP, _WARP)
+    acc = acc.reshape(*lead, threads // _WARP, _WARP)
     half = _WARP // 2
     while half:
         acc = acc[..., :half] + acc[..., half:2 * half]
         half //= 2
     out = acc[..., 0, :]
-    for w in range(1, _THREADS // _WARP):
+    for w in range(1, threads // _WARP):
         out = out + acc[..., w, :]
     return out
 

@@ -8,16 +8,19 @@ The PrecisionPlan decides *what* is quantized; the compute backend decides
   implementation (``backend=None`` and ``"reference"`` are identical).
 * ``fused``     — int8 block GEMMs through ``quant_linear`` (dequant + bias
   + activation in the epilogue; per-token activation scales from
-  ``dynamic_quant``), the attn→ffn residual boundary through
-  ``addnorm_quant`` (emitting the int8 tensor the FFN input GEMM consumes)
-  and the embedding gather through ``fused_embed``. The kernel wrappers run
+  ``dynamic_quant``; requantized to int8 at ``out_xs`` inside a schema-v3
+  ``norm='int8'`` span), the attn→ffn residual boundary through
+  ``addnorm_quant`` (emitting the int8 tensor the FFN input GEMM consumes,
+  and taking an int8 delta inside the span), the bidirectional attention
+  core of ``softmax='uint8'`` layers through ``quant_flash_attention`` and
+  the embedding gather through ``fused_embed``. The kernel wrappers run
   their plain versions on CPU tensors, so ``fused`` also runs on the CPU,
   where it exercises the same dispatch.
 * ``auto``      — ``fused`` for CUDA tensors, ``reference`` on the CPU.
 
 Every op returns a result or ``None`` ("decline — use the reference path").
-``attention``, ``decode_attention`` and ``expert_gemm`` decline in every
-backend until the slices that port their kernels.
+``decode_attention`` and ``expert_gemm`` decline in every backend until the
+slices that port their kernels.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import torch
 from repro_torch.core.quantize import QuantizedTensor, quantize
 from repro_torch.kernels.addnorm_quant import addnorm_quant
 from repro_torch.kernels.dynamic_quant import dynamic_quant
+from repro_torch.kernels.flash_attention import quant_flash_attention
 from repro_torch.kernels.fused_embed import fused_embed
 from repro_torch.kernels.quant_linear import ACTIVATIONS, quant_linear
 
@@ -42,8 +46,9 @@ FUSABLE_ACTS = tuple(ACTIVATIONS)
 class QuantActivation:
     """A pre-quantized activation handed between fused ops: the int8
     layer-boundary tensor of the paper's Figure 2, plus the float dtype the
-    consumer should emit. Produced by the fused ``addnorm`` op, consumed by
-    the next block's ``linear``."""
+    consumer should emit. Produced by the fused ``addnorm``, ``attention``
+    and requantizing ``linear`` ops, consumed by the next ``linear`` or
+    ``addnorm``."""
 
     q: QuantizedTensor
     out_dtype: Any
@@ -52,8 +57,28 @@ class QuantActivation:
     def shape(self):
         return self.q.values.shape
 
+    @property
+    def dtype(self):
+        return self.out_dtype
+
     def dequantize(self) -> torch.Tensor:
         return self.q.dequantize(self.out_dtype)
+
+    def reshape(self, *shape) -> "QuantActivation":
+        """Reshape the int8 payload (every producer here quantizes per
+        tensor), so model-code reshapes between GEMMs, such as the
+        (B, S, H, hd) -> (B, S, q_dim) head fold before attn_out, work on
+        pre-quantized activations unchanged."""
+        if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+            shape = tuple(shape[0])
+        return QuantActivation(
+            QuantizedTensor(self.q.values.reshape(shape), self.q.scale,
+                            self.q.zero_point), self.out_dtype)
+
+    def transpose(self, dim0: int, dim1: int) -> "QuantActivation":
+        return QuantActivation(
+            QuantizedTensor(self.q.values.transpose(dim0, dim1),
+                            self.q.scale, self.q.zero_point), self.out_dtype)
 
 
 def ffn_input_scale(ffn_p: dict, ffn_kind: str) -> Optional[torch.Tensor]:
@@ -93,8 +118,9 @@ class ComputeBackend:
 
     def attention(self, q, k, v, p: dict, *, k_pos, spec, scale,
                   softcap=None):
-        """Fully-quantized encoder attention core (``quant_flash_attention``,
-        not ported yet): declines."""
+        """Fully-quantized encoder attention core: q (B, Sq, Hq, d), k, v
+        (B, Sk, Hkv, d) float, ``k_pos`` the key positions (-1 = padding).
+        Return (B, Sq, Hq, d) float or a QuantActivation, or None."""
         return None
 
     def decode_attention(self, q, kv_cache, pages, *, positions, active,
@@ -127,8 +153,8 @@ class FusedBackend(ComputeBackend):
         K, N = w.values.shape
         lead = x.shape[:-1]
         if isinstance(x, QuantActivation):
-            # already int8 — the fused addnorm quantized it at the static
-            # scale this GEMM was calibrated on
+            # already int8 — the producing kernel quantized it at the
+            # static scale this GEMM was calibrated on
             x_q = x.q.values.reshape(-1, K)
             x_scale = x.q.scale
         else:
@@ -141,19 +167,34 @@ class FusedBackend(ComputeBackend):
         w_scale = w.scale.to(torch.float32).reshape(-1)
         if w_scale.shape[0] != N:                  # int8_per_tensor weights
             w_scale = w_scale.expand(N)
+        # ``out_xs`` (attached by apply_plan under a norm='int8' span) is
+        # the next consumer's calibrated activation scale: the epilogue
+        # requantizes, and the result stays int8 between the GEMMs
+        out_xs = p.get("out_xs")
         y = quant_linear(x_q.contiguous(), w.values, w_scale.contiguous(),
-                         x_scale, bias=p.get("b"), act=act)
-        return y.reshape(*lead, N)
+                         x_scale, bias=p.get("b"), act=act,
+                         out_scale=out_xs).reshape(*lead, N)
+        if out_xs is not None:
+            return QuantActivation(QuantizedTensor(y, out_xs, None),
+                                   x.dtype)
+        return y
 
     def addnorm(self, delta, residual, p: dict, kind: str, next_scale,
                 eps: float = 1e-6):
         if next_scale is None or residual.ndim != 3:
             return None
         B, S, D = residual.shape
+        if isinstance(delta, QuantActivation):
+            # the producing GEMM requantized its output (norm='int8' span):
+            # the kernel dequantizes the int8 payload by x_in_scale
+            d2, d_scale = delta.q.values.reshape(-1, D), delta.q.scale
+        else:
+            d2, d_scale = delta.reshape(-1, D), None
         h2, q2 = addnorm_quant(
-            delta.reshape(-1, D), residual.reshape(-1, D),
+            d2.contiguous(), residual.reshape(-1, D),
             torch.zeros((D,), dtype=torch.float32, device=residual.device),
-            p["scale"], p.get("bias"), next_scale, kind=kind, eps=eps)
+            p["scale"], p.get("bias"), next_scale, x_in_scale=d_scale,
+            kind=kind, eps=eps)
         qa = QuantActivation(
             QuantizedTensor(q2.reshape(B, S, D), next_scale, None),
             residual.dtype)
@@ -178,6 +219,38 @@ class FusedBackend(ComputeBackend):
             from repro_torch.models.layers import layer_norm
             x = layer_norm(x, p["emb_norm"])
         return x
+
+    def attention(self, q, k, v, p: dict, *, k_pos, spec, scale,
+                  softcap=None):
+        # Claims the bidirectional core when the plan calibrated all four
+        # scheme scales (softmax='uint8' with a static int8 qkv block). The
+        # kernel holds the whole key axis and masks on validity only, so
+        # causal and windowed specs keep the reference path.
+        if (spec.causal or spec.window is not None
+                or any(f"{s}_scale" not in p for s in ("q", "k", "p", "v"))):
+            return None
+        Hq, Hkv = q.shape[2], k.shape[2]
+        if Hq % Hkv:
+            return None
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        # the score scaling rides the q quantization, as in the reference
+        # quant_bmm, which quantizes q * rsqrt(d)
+        qq = quantize(qh * scale, p["q_scale"]).contiguous()
+        kq = quantize(kh, p["k_scale"]).contiguous()
+        vq = quantize(vh, p["v_scale"]).contiguous()
+        # requantize at the attn_out GEMM's calibrated activation scale, so
+        # the span's first hop is int8
+        wo = p.get("wo", {})
+        o_scale = (wo.get("xs") if isinstance(wo.get("w"), QuantizedTensor)
+                   else None)
+        out = quant_flash_attention(
+            qq, kq, vq, k_pos, q_scale=p["q_scale"], k_scale=p["k_scale"],
+            p_scale=p["p_scale"], v_scale=p["v_scale"], o_scale=o_scale,
+            softcap=softcap).transpose(1, 2)        # (B, Sq, Hq, d)
+        if o_scale is not None:
+            return QuantActivation(QuantizedTensor(out, o_scale, None),
+                                   q.dtype)
+        return out
 
 
 def _on_cuda(t) -> bool:
@@ -207,6 +280,13 @@ class AutoBackend(FusedBackend):
             return None
         return super().embed(tokens, p, cfg, positions=positions,
                              segments=segments)
+
+    def attention(self, q, k, v, p: dict, *, k_pos, spec, scale,
+                  softcap=None):
+        if not _on_cuda(q):
+            return None
+        return super().attention(q, k, v, p, k_pos=k_pos, spec=spec,
+                                 scale=scale, softcap=softcap)
 
 
 BACKENDS: dict[str, type] = {

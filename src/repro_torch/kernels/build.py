@@ -151,15 +151,17 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def function(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+def function(name: str, argtypes: Sequence,
+             restype=ctypes.c_int) -> ctypes._CFuncPtr:
     """The library's C entry point ``name`` with its argument types set (a
     pointer or the stream is ``c_void_p``; without ``argtypes`` ctypes would
-    pass a Python int as a 32-bit int and cut the pointer)."""
+    pass a Python int as a 32-bit int and cut the pointer). Launchers
+    return a CUDA error code (``c_int``)."""
     fn = _funcs.get(name)
     if fn is None:
         fn = getattr(library(), name)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _funcs[name] = fn
     return fn
 

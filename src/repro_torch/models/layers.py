@@ -35,6 +35,7 @@ from repro_torch.core.quantize import (EXACT_FLOAT_K, UINT8_MAX,
 from repro_torch.kernels.addnorm_quant import row_sum
 from repro_torch.kernels.backend import ACTIVATIONS as _ACT
 from repro_torch.kernels.backend import QuantActivation
+from repro_torch.kernels.flash_attention import NEG_INF, softmax_sum
 
 # ---------------------------------------------------------------------------
 # observer plumbing
@@ -72,13 +73,10 @@ def dense(x, p: dict, obs: Optional[dict] = None, site: str = "x",
     """y = act(x @ w (+ b)); float GEMM for a tensor ``w``, W8A8 with int32
     accumulation for a QuantizedTensor ``w``. ``backend`` may claim the op
     (the fused backend routes int8 blocks through ``quant_linear``) or
-    decline. ``x`` may arrive pre-quantized (a QuantActivation from the
-    fused addnorm); the reference path dequantizes it."""
+    decline. ``x`` may arrive pre-quantized (a QuantActivation from a fused
+    kernel); the reference path dequantizes it."""
     observe(obs, site, x)
     observe_values(obs, site, x)
-    if "out_xs" in p:
-        raise NotImplementedError(
-            "out_xs (the schema-v3 norm='int8' span) is not ported yet")
     if backend is not None:
         y = backend.linear(x, p, act=act)
         if y is not None:
@@ -92,7 +90,14 @@ def dense(x, p: dict, obs: Optional[dict] = None, site: str = "x",
         y = torch.matmul(x, w.to(x.dtype))
     if "b" in p:
         y = y + p["b"].to(y.dtype)
-    return _ACT[act](y) if act is not None else y
+    y = _ACT[act](y) if act is not None else y
+    if "out_xs" in p:
+        # norm='int8' span: the fused kernel requantizes this GEMM's output
+        # in its epilogue; the reference path mirrors that as a QDQ at the
+        # same calibrated scale, so the backend never changes the numerics
+        oxs = p["out_xs"]
+        y = QuantizedTensor(quantize(y, oxs), oxs, None).dequantize(y.dtype)
+    return y
 
 
 def quant_bmm(a: torch.Tensor, b: torch.Tensor,
@@ -193,8 +198,6 @@ def init_norm(kind: str, dim: int, *, device=None,
 # attention
 # ---------------------------------------------------------------------------
 
-NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
-
 
 @dataclasses.dataclass(frozen=True)
 class AttnQuant:
@@ -240,10 +243,13 @@ def band_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
     return m & valid
 
 
-def _softmax(s: torch.Tensor) -> torch.Tensor:
-    # jax.nn.softmax's formulation: exp(s - max) / sum
+def _softmax(s: torch.Tensor, ordered: bool = False) -> torch.Tensor:
+    # jax.nn.softmax's formulation: exp(s - max) / sum. ``ordered`` sums in
+    # the quant_flash_attention kernel's order, so that the reference and
+    # the fused uint8 path round p, and hence its codes at ties, alike
     e = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
-    return e / torch.sum(e, dim=-1, keepdim=True)
+    return e / (softmax_sum(e) if ordered
+                else torch.sum(e, dim=-1, keepdim=True))
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -285,7 +291,8 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # a Python scalar, not a new device tensor: building one from the
         # host would synchronize the stream once per layer
         s = torch.where(mb[:, None], s.to(torch.float32), NEG_INF)
-        p = _softmax(s).to(qb.dtype)
+        p = _softmax(s, ordered=quant.enabled
+                     and quant.plan_scheme == "uint8").to(qb.dtype)
         observe(obs, "p", p)
         observe_values(obs, "p", p)
         observe(obs, "v", vh)
@@ -354,6 +361,9 @@ def attention_block(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
     scale = 1.0 / math.sqrt(cfg.head_dim)
     o = None
     if backend is not None and quant.enabled and quant.plan_scheme == "uint8":
+        # the fully-quantized core: int8 QK^T, the uint8 softmax and int8
+        # P.V in one kernel, which under a norm='int8' span returns its
+        # output requantized at attn_out's scale (a QuantActivation)
         o = backend.attention(q, k, v, p, k_pos=positions, spec=spec,
                               scale=scale, softcap=cfg.attn_softcap)
     if o is None:

@@ -8,9 +8,12 @@ Per layer and GEMM block, the plan's QuantSpec names the weight scheme
 (int8 per channel or per tensor), the activation scheme (static per-tensor
 ``xs`` from the calibrator, or per-token dynamic: no ``xs``) and the
 calibrator. A statically quantized qkv block also gets the attention bmm
-scales ``{q,k,p,v}_scale``. Plans that use the schema-v2/v3 fields
-(``kv_cache``, ``softmax``, ``norm``) or quantized v4 block families are
-refused until the slices that port them.
+scales ``{q,k,p,v}_scale``. The schema-v3 dataflow fields attach their
+kernel operands: ``softmax='uint8'`` an unsigned ``p_scale`` (amax / 255),
+``norm='int8'`` the requant scales ``out_xs`` of the attn_out GEMM (from the
+pre-norm ``attn_delta`` site) and of the FFN input GEMM (from
+``ffn_hidden``). Plans that use the schema-v2 ``kv_cache`` field or
+quantized v4 block families are refused until the slices that port them.
 """
 from __future__ import annotations
 
@@ -114,15 +117,21 @@ def _copy_dicts(tree):
 
 
 def _check_ported(layer: LayerPlan, i: int) -> None:
-    unported = [f for f in ("kv_cache", "softmax", "norm")
-                if getattr(layer, f) != "float"]
+    unported = ["kv_cache"] if layer.kv_cache != "float" else []
     unported += [f for f in ("experts", "shared_ffn")
                  if getattr(layer, f) is not None
                  and getattr(layer, f).quantized]
     if unported:
         raise NotImplementedError(
-            f"layer {i} uses {unported}; this port applies schema-v1 plans "
-            f"(quantized GEMM blocks) only")
+            f"layer {i} uses {unported}; this port applies the quantized "
+            f"GEMM blocks and the schema-v3 softmax/norm dataflow only")
+
+
+def _unsigned_scale(amax: float, device) -> torch.Tensor:
+    """The uint8 softmax scale: max(amax, 1e-8) / 255, a float32 division
+    as the JAX package computes it."""
+    return divide(torch.tensor(max(amax, 1e-8), dtype=torch.float32,
+                               device=device), float(UINT8_MAX))
 
 
 def quantize_layer(lp: dict, cfg: ArchConfig, kind: BlockKind,
@@ -145,19 +154,40 @@ def quantize_layer(lp: dict, cfg: ArchConfig, kind: BlockKind,
         if spec.static_acts and site in amax:
             new["xs"] = _scale_of(amax[site], sub["w"].device)
         _set_path(lp, path, new)
+    attn = lp["attn"]
+    w = attn["wo"]["w"]
+    dev = (w.values if isinstance(w, QuantizedTensor) else w).device
     if layer.qkv.quantized and layer.qkv.static_acts:
-        attn = lp["attn"]
-        dev = attn["wq"]["w"].values.device
         for s in BMM_SITES:
             if s not in amax:
                 continue
-            if s == "p" and scheme.softmax_mode == "unsigned":
+            if s == "p" and (scheme.softmax_mode == "unsigned"
+                             or layer.softmax == "uint8"):
                 # softmax outputs live in [0, 1]: asymmetric unsigned scale
-                attn["p_scale"] = divide(torch.tensor(
-                    max(amax[s], 1e-8), dtype=torch.float32, device=dev),
-                    float(UINT8_MAX))
+                # (amax / 255, zero point -128) uses the whole code space;
+                # softmax='uint8' forces it per layer
+                attn["p_scale"] = _unsigned_scale(amax[s], dev)
             else:
                 attn[f"{s}_scale"] = _scale_of(amax[s], dev)
+    elif layer.softmax == "uint8" and "p" in amax:
+        # a per-token qkv block: the probabilities still quantize unsigned
+        attn["p_scale"] = _unsigned_scale(amax["p"], dev)
+    if layer.norm == "int8":
+        # whole-layer int8 span: the attn_out GEMM requantizes its output
+        # (the pre-norm residual delta), so the fused add+norm takes int8
+        if "attn_delta" not in amax:
+            raise ValueError(
+                "norm='int8' needs calibrated attn_delta stats for this "
+                "layer; re-run capture_stats on this plan")
+        attn["wo"] = dict(attn["wo"],
+                          out_xs=_scale_of(amax["attn_delta"], dev))
+        if (layer.ffn_out.quantized and layer.ffn_out.static_acts
+                and "ffn_hidden" in amax):
+            # the span runs on through the FFN: wi requantizes its GELU'd
+            # hidden at the scale the FFN's wo consumes it at (its own xs),
+            # so the boundary is numerics-neutral through wo
+            lp["ffn"]["wi"] = dict(lp["ffn"]["wi"], out_xs=_scale_of(
+                amax["ffn_hidden"], dev))
     return lp
 
 

@@ -9,14 +9,17 @@ without the suite's conftest:
 The shapes cover what ``chip_smoke.py`` does not: ragged edges of the GEMM
 tile (M, N not multiples of 64; K not a multiple of 8, which turns off the
 8-byte loads), rows wider than the block, int8 inputs to addnorm, RMSNorm,
-absent biases, and embedding rows that do not split into float4s.
+absent biases, embedding rows that do not split into float4s, and for the
+attention kernel GQA, padded keys, an all-padding batch row, query counts
+that are not a multiple of the 32-row tile, the softcap, and 512 keys
+(which need more than 48 KB of shared memory).
 """
 import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.kernels import (addnorm_quant, dynamic_quant, fused_embed,
-                                 quant_linear)
+from repro_torch.kernels import (addnorm_quant, dynamic_quant,
+                                 flash_attention, fused_embed, quant_linear)
 
 pytestmark = pytest.mark.cuda
 
@@ -157,3 +160,91 @@ def test_counters_reset(dev):
     assert kernels.launch_counts()["dynamic_quant"] >= 1
     kernels.reset_launches()
     assert kernels.launch_counts() == {k: 0 for k in kernels.KERNEL_MODULES}
+
+
+# (B, Hq, Hkv, Sq, Sk, d, key lengths per batch row)
+ATTN_SHAPES = [
+    (2, 4, 4, 16, 16, 16, (16, 16)),
+    (2, 4, 2, 16, 16, 16, (16, 9)),
+    (2, 4, 2, 8, 8, 16, (8, 0)),
+    (3, 2, 1, 12, 12, 16, (12, 5, 1)),
+    (8, 12, 12, 128, 128, 64, (128, 100, 77, 64, 31, 8, 0, 0)),
+    (2, 12, 12, 512, 512, 64, (512, 300)),
+    (1, 4, 2, 40, 72, 64, (70,)),
+]
+
+
+def _attn_case(dev, B, Hq, Hkv, Sq, Sk, d, lens):
+    g = torch.Generator(device=dev).manual_seed(B * Sq + Sk + d)
+    q = torch.randint(-128, 128, (B, Hq, Sq, d), generator=g, device=dev,
+                      dtype=torch.int8)
+    k = torch.randint(-128, 128, (B, Hkv, Sk, d), generator=g, device=dev,
+                      dtype=torch.int8)
+    v = torch.randint(-128, 128, (B, Hkv, Sk, d), generator=g, device=dev,
+                      dtype=torch.int8)
+    idx = torch.arange(Sk, device=dev, dtype=torch.int32)
+    k_pos = torch.where(idx[None] < torch.tensor(lens, device=dev)[:, None],
+                        idx[None], -1).to(torch.int32)
+    # scores of a few units; p_scale = amax / 255 with amax 0.6
+    qs = torch.tensor(0.35 / d, device=dev)
+    scales = dict(q_scale=qs, k_scale=torch.tensor(0.013, device=dev),
+                  p_scale=torch.tensor(0.6, device=dev) / 255.0,
+                  v_scale=torch.tensor(0.02, device=dev))
+    return q, k, v, k_pos, scales
+
+
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+@pytest.mark.parametrize("requant", [False, True])
+@pytest.mark.parametrize("softcap", [None, 5.0])
+def test_quant_flash_attention(dev, shape, requant, softcap):
+    """Kernel against its plain version: int8 output within one code on at
+    most 0.5% of elements, float output within rel-Linf 5e-3."""
+    q, k, v, k_pos, kw = _attn_case(dev, *shape)
+    if requant:
+        kw["o_scale"] = torch.tensor(0.01, device=dev)
+    before = flash_attention.launches
+    out = flash_attention.quant_flash_attention(q, k, v, k_pos,
+                                                softcap=softcap, **kw)
+    assert flash_attention.launches == before + 1
+    want = flash_attention.quant_flash_attention_plain(q, k, v, k_pos,
+                                                       softcap=softcap, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == want.shape == q.shape
+    if requant:
+        assert out.dtype == torch.int8
+        diff = (out.int() - want.int()).abs()
+        assert int(diff.max()) <= 1
+        assert float((diff > 0).float().mean()) <= 5e-3
+    else:
+        assert torch.isfinite(out).all()
+        assert _rel(want, out) <= 5e-3
+
+
+def test_quant_flash_attention_takes_shared_k_pos(dev):
+    """(Sk,) key positions broadcast over the batch, as (B, Sk) do."""
+    q, k, v, k_pos, kw = _attn_case(dev, 2, 4, 2, 16, 16, 16, (16, 16))
+    a = flash_attention.quant_flash_attention(q, k, v, k_pos[0], **kw)
+    b = flash_attention.quant_flash_attention(q, k, v, k_pos, **kw)
+    assert a.equal(b)
+
+
+def test_quant_flash_attention_refuses(dev):
+    q, k, v, k_pos, kw = _attn_case(dev, 2, 4, 2, 16, 16, 16, (16, 16))
+    fa = flash_attention.quant_flash_attention
+    with pytest.raises(ValueError):                     # not contiguous
+        fa(q.transpose(2, 3), k, v, k_pos, **kw)
+    with pytest.raises(TypeError):                      # float q
+        fa(q.float(), k, v, k_pos, **kw)
+    with pytest.raises(ValueError):                     # Hq % Hkv
+        fa(q[:, :3].contiguous(), k, v, k_pos, **kw)
+    with pytest.raises(ValueError):                     # d % 4
+        fa(q[..., :6].contiguous(), k[..., :6].contiguous(),
+           v[..., :6].contiguous(), k_pos, **kw)
+    with pytest.raises(ValueError):                     # k_pos size
+        fa(q, k, v, k_pos[:, :5], **kw)
+    with pytest.raises(ValueError):                     # k_pos on the CPU
+        fa(q, k, v, k_pos.cpu(), **kw)
+    with pytest.raises(ValueError):                     # keys over smem
+        big = torch.zeros((1, 1, 4096, 64), dtype=torch.int8, device=dev)
+        fa(big[:, :, :8].contiguous(), big, big,
+           torch.zeros(4096, dtype=torch.int32, device=dev), **kw)

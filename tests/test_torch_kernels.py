@@ -248,7 +248,8 @@ def test_wrappers_raise_on_other_devices():
 def test_build_recipe():
     names = sorted(p.name for p in build.sources())
     assert names == ["addnorm_quant.cu", "dynamic_quant.cu",
-                     "fused_embed.cu", "quant_linear.cu"]
+                     "fused_embed.cu", "quant_flash_attention.cu",
+                     "quant_linear.cu"]
     flags = " ".join(build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "-fmad=false" in flags
@@ -258,6 +259,7 @@ def test_build_recipe():
         assert "src/repro/kernels/" in text       # names the TPU kernel
         assert "extern \"C\" int samp_" in text
         assert "roundf(" not in text.replace("rintf(", "")
+        assert "__expf(" not in text and "__fdividef(" not in text
 
 
 # ---------------------------------------------------------------------------
@@ -300,9 +302,9 @@ def test_reference_declines_every_op():
 
 @pytest.mark.parametrize("name", ["fused", "auto"])
 def test_unported_ops_decline(name):
+    """Decode attention and the MoE expert GEMM wait for their slices;
+    ``attention`` is ported (tests/test_torch_dataflow.py)."""
     b = get_backend(name)
-    assert b.attention(None, None, None, {}, k_pos=None, spec=None,
-                       scale=1.0) is None
     assert b.expert_gemm(None, None) is None
     assert b.decode_attention(None, None, None, positions=None, active=None,
                               scale=1.0) is None

@@ -241,16 +241,22 @@ def test_apply_plan_leaves_match(s):
 
 
 def test_apply_plan_refuses_unported_schemes(s):
+    """The v2 KV-cache schemes wait for the decode slice; the v3 softmax /
+    norm schemes now apply and attach their kernel operands."""
     from repro_torch.core.plan import INT8_SPEC, LayerPlan
     n = s["cfg"].num_layers
-    for layer in (LayerPlan(qkv=INT8_SPEC, softmax="uint8"),
-                  LayerPlan(attn_out=INT8_SPEC, ffn_in=INT8_SPEC,
-                            norm="int8"),
-                  LayerPlan(kv_cache="int8_per_head")):
-        with pytest.raises(NotImplementedError):
-            ptq.apply_plan(s["params"], s["cfg"],
-                           PrecisionPlan.uniform(n, layer, "float32"),
-                           s["jstats"])
+    with pytest.raises(NotImplementedError, match="kv_cache"):
+        ptq.apply_plan(s["params"], s["cfg"], PrecisionPlan.uniform(
+            n, LayerPlan(kv_cache="int8_per_head"), "float32"), s["jstats"])
+    q, _ = ptq.apply_plan(s["params"], s["cfg"], PrecisionPlan.uniform(
+        n, LayerPlan(qkv=INT8_SPEC, softmax="uint8"), "float32"),
+        s["jstats"])
+    assert all("p_scale" in lp["attn"] for lp in q["layers"])
+    q, _ = ptq.apply_plan(s["params"], s["cfg"], PrecisionPlan.uniform(
+        n, LayerPlan(attn_out=INT8_SPEC, ffn_in=INT8_SPEC, norm="int8"),
+        "float32"), s["jstats"])
+    assert all("out_xs" in lp["attn"]["wo"] and "out_xs" not in
+               lp["ffn"]["wi"] for lp in q["layers"])   # ffn_out is float
     with pytest.raises(ValueError):
         ptq.apply_plan(s["params"], s["cfg"],
                        PrecisionPlan.full_float(n + 1), s["jstats"])
@@ -286,9 +292,13 @@ def test_run_groups_capture_names_every_layer(s):
 
 
 def test_dense_refuses_the_unported_int8_span():
-    p = {"w": torch.zeros(4, 4), "out_xs": torch.tensor(0.1)}
-    with pytest.raises(NotImplementedError):
-        L.dense(torch.zeros(2, 4), p)
+    """The int8 span is ported: ``out_xs`` requantizes a dense output on
+    the reference path too (a QDQ onto the scale's grid)."""
+    x = torch.tensor([[1.0, -2.0, 0.5, 3.0]])
+    p = {"w": torch.eye(4) * 0.3, "out_xs": torch.tensor(0.1)}
+    y = L.dense(x, p)
+    assert y.equal(torch.round(x * 0.3 / 0.1) * 0.1)
+    assert not y.equal(L.dense(x, {"w": p["w"]}))
 
 
 def test_cls_target_matches_apply_head(s):

@@ -10,12 +10,14 @@ import numpy as np
 from repro.configs import get_config as jax_get_config
 from repro.core.plan import PrecisionPlan as JaxPlan
 from repro.core.quantize import QuantizedTensor as JaxQT
+from repro.core.samp import int8_dataflow_variant as jax_dataflow_variant
 from repro.models import transformer as JT
 from repro.quant import ptq as jptq
 
 from repro_torch.configs import get_config
 from repro_torch.core.calibration import synthetic_calibration_batches
 from repro_torch.core.plan import PrecisionPlan
+from repro_torch.core.samp import int8_dataflow_variant
 from repro_torch.interop import params_from_numpy
 from repro_torch.models import transformer as T
 
@@ -51,13 +53,17 @@ def to_jax_batches(batches):
     return [{k: jnp.asarray(v) for k, v in b.items()} for b in batches]
 
 
-def bert_slice(plan_path: str = GOLDEN) -> dict:
+def bert_slice(plan_path: str = GOLDEN, *, dataflow: bool = False) -> dict:
     """Reduced bert-base in both packages: JAX float params (seeded) carried
     into the port, calibration stats from each package on the same numpy
-    batches, and the JAX-quantized params under ``plan_path``."""
+    batches, and the JAX-quantized params under ``plan_path`` — or, with
+    ``dataflow``, under each package's ``int8_dataflow_variant`` of it (the
+    schema-v3 whole-layer int8 span)."""
     jcfg = jax_get_config("bert-base").reduced()
     cfg = get_config("bert-base").reduced()
     jplan, plan = JaxPlan.load(plan_path), PrecisionPlan.load(plan_path)
+    if dataflow:
+        jplan, plan = jax_dataflow_variant(jplan), int8_dataflow_variant(plan)
     jfloat = JaxPlan.full_float(jcfg.num_layers, "float32")
     tfloat = PrecisionPlan.full_float(cfg.num_layers, "float32")
     jfloat_plan = JT.build_plan(jcfg, jfloat)
