@@ -25,20 +25,37 @@ line per phase:
   JAX package's), and the launches per forward with their sub-counts:
   ``quant_flash_attention`` with ``o_scale``, requantizing ``quant_linear``
   and int8-input ``addnorm_quant``;
-* ``kernel``: each kernel against its plain version at every shape either
-  path gave it, and at the (8, 128) bucket its time, its plain version's and
-  a PyTorch library call's where one computes the same function (CUDA
-  events, median of 25, L2 flushed), beside its bound: the larger of its
-  bytes over 3.35 TB/s and its operations over 1979 TOP/s (int8) or 67
-  TFLOP/s (float32);
-* ``profile``: ``torch.profiler`` over forwards of each path at the (8, 128)
-  bucket: device-busy ms per forward, idle share, ms per forward of each
-  ported kernel and the top device kernels.
+* ``setup_decoder``: full-width qwen2-0.5b (random weights from seed 0),
+  the golden plan tiled 6x to 24 layers, its calibration batches (2 of
+  4 x 128 tokens) and 16 requests (prompt lengths uniform in 8-64, tokens
+  uniform, both from numpy seed 0; 32 greedy tokens each);
+* ``decode_path``: the requests served by ``ServeEngine(kv_cache=
+  "int8_per_token")`` over a paged pool (8 slots, pages of 16, max_len 128,
+  no oversubscription) on the fused backend, counted, and on the reference
+  backend: identical tokens, logits within rel-Linf 5e-3 at every tick where
+  both engines saw the same inputs, the launches per tick the plan implies
+  (``decode_attention`` on the 12 layers whose qkv block is float), no page
+  in use afterwards, the int8 pool's bytes beside a float pool's;
+* ``decode_head_path``: the same with every layer's KV cache
+  ``int8_per_head`` and ``softmax='uint8'`` on the float-qkv layers (schema
+  v3, fingerprint held to the JAX package's): the kernel's per-head scales
+  and its two-pass ``p_scale`` mode;
+* ``kernel``: each kernel against its plain version at every shape a path
+  gave it, and at the (8, 128) bucket (the decode paths: 8 slots, the
+  longest tick) its time, its plain version's and a PyTorch library call's
+  where one computes the same function (CUDA events, median of 25, L2
+  flushed), beside its bound: the larger of its bytes over 3.35 TB/s and its
+  operations over 1979 TOP/s (int8) or 67 TFLOP/s (float32);
+* ``profile``: ``torch.profiler`` over forwards of each encoder path at the
+  (8, 128) bucket and over a window of full decode ticks: device-busy ms per
+  forward or tick, idle share, ms of each ported kernel and the top device
+  kernels.
 
-Then the kernel summary line (per kernel, its sums over one forward of
-the span path at (8, 128), and over one forward of each path under
-``by_path``) and, last, ``{"ok": true, "device": ...}``. A failed check or a
-missing CUDA device exits non-zero before the ok line.
+Then the kernel summary line (per kernel, its sums over one forward of the
+span path at (8, 128), or over one tick of the decode path, and over one
+forward or tick of each path under ``by_path``) and, last, ``{"ok": true,
+"device": ...}``. A failed check or a missing CUDA device exits non-zero
+before the ok line.
 """
 from __future__ import annotations
 
@@ -74,6 +91,23 @@ EXPECTED_SUB = {"quant_flash_attention with o_scale": 6,
                 "quant_linear with out_scale": 12,
                 "addnorm_quant with an int8 delta": 6}
 
+DECODE_TILE = 6                  # golden plan (4 layers) x 6 = 24 layers
+DECODE_REQUESTS = 16
+DECODE_MAX_TOKENS = 32
+DECODE_SLOTS = 8
+PAGE_SIZE = 16
+DECODE_MAX_LEN = 128             # <= EXACT_FLOAT_K, for the int8 P.V
+DECODE_BUCKET = (DECODE_SLOTS, 1)
+# the JAX package's fingerprint of the decode_head_path plan
+HEAD_FINGERPRINT = ("2c48bdf24412c6c9ca841741bb5088ad"
+                    "b664eb99e9791e86a62cf21e257e3b11")
+# launches per tick each decode plan implies, with the p_scale sub-count
+EXPECTED_DECODE = {"quant_linear": 102, "addnorm_quant": 12,
+                   "dynamic_quant": 18, "decode_attention": 12}
+EXPECTED_DECODE_SUB = {
+    "decode_path": {"decode_attention with p_scale": 0},
+    "decode_head_path": {"decode_attention with p_scale": 12}}
+
 KERNELS = {
     # name: (source, the TPU kernel it replaces)
     "quant_linear": ("src/repro_torch/kernels/csrc/quant_linear.cu",
@@ -87,6 +121,8 @@ KERNELS = {
     "quant_flash_attention": (
         "src/repro_torch/kernels/csrc/quant_flash_attention.cu",
         "src/repro/kernels/flash_attention.py:131"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:134"),
 }
 
 
@@ -203,11 +239,19 @@ def serve(engine, requests):
 
 
 class SubCounts:
-    """Counts, over one served run, the fused backend's calls of the span's
-    kernel variants (on CUDA tensors every call launches): spies around the
-    wrappers the backend module calls, removed on exit."""
+    """Counts, over one served run, the fused backend's calls of the
+    kernels' variants (on CUDA tensors every call launches): spies around
+    the wrappers the backend module calls, removed on exit. When
+    ``capture`` is set, the next ``decode_attention`` call's operands are
+    cloned into ``decode_args`` (the decode phases set it at each new
+    longest tick)."""
 
-    NAMES = ("quant_flash_attention", "quant_linear", "addnorm_quant")
+    NAMES = ("quant_flash_attention", "quant_linear", "addnorm_quant",
+             "paged_decode_attention")
+
+    def __init__(self):
+        self.capture = False
+        self.decode_args = None
 
     def __enter__(self):
         import torch
@@ -229,8 +273,17 @@ class SubCounts:
             c["addnorm_quant with an int8 delta"] += x.dtype == torch.int8
             return orig["addnorm_quant"](x, *a, **kw)
 
+        def decode(**kw):
+            c["decode_attention with p_scale"] += kw.get("p_scale") is not None
+            if self.capture:
+                self.capture = False
+                self.decode_args = {k: v.clone() if torch.is_tensor(v)
+                                    else v for k, v in kw.items()}
+            return orig["paged_decode_attention"](**kw)
+
         B.quant_flash_attention, B.quant_linear, B.addnorm_quant = \
             flash, linear, addnorm
+        B.paged_decode_attention = decode
         return self
 
     def __exit__(self, *exc):
@@ -321,16 +374,259 @@ def phase_serve(name, model, plan, device):
             fail(f"span sub-counts {dict(sub.counts)} over {forwards} "
                  f"forwards; the plan implies {dict(sub_fwd)} per forward, "
                  f"expected {EXPECTED_SUB}")
-    return {"name": name, "qparams": qparams, "fused": fused,
-            "launches": launches, "per_fwd": per_fwd, "cases": cases}
+    buckets = set(map(tuple, fused.runtime.stats["buckets"]))
+    return {"name": name, "cfg": cfg, "qparams": qparams, "fused": fused,
+            "launches": launches, "per_fwd": per_fwd, "cases": cases,
+            "buckets": sorted(buckets | {PROFILE_BUCKET}),
+            "timed_bucket": PROFILE_BUCKET, "unit": "forward"}
 
 
-def kernel_cases(cfg, plan):
+def setup_decoder(device):
+    """Full-width qwen2-0.5b with seeded float weights, the golden plan
+    tiled to 24 layers, its calibration batches and the decode requests."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.calibration import synthetic_calibration_batches
+    from repro_torch.core.plan import PrecisionPlan
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("qwen2-0.5b")
+    golden = PrecisionPlan.load(str(GOLDEN_PLAN))
+    plan = PrecisionPlan(golden.layers * DECODE_TILE, golden.float_dtype)
+    if plan.num_layers != cfg.num_layers:
+        fail(f"tiled plan has {plan.num_layers} layers, qwen2-0.5b "
+             f"{cfg.num_layers}")
+    t0 = time.perf_counter()
+    float_policy = PrecisionPlan.full_float(cfg.num_layers, "float32")
+    params = T.init_params(cfg, float_policy, seed=0, device=device)
+    batches = synthetic_calibration_batches(cfg, num_batches=2, batch_size=4,
+                                            seq_len=128, seed=0)
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(8, 65, DECODE_REQUESTS)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in lengths]
+    emit({"phase": "setup_decoder", "model": cfg.name,
+          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+          "plan": plan.describe(), "requests": DECODE_REQUESTS,
+          "prompt_tokens": int(lengths.sum()),
+          "init_s": time.perf_counter() - t0})
+    return {"cfg": cfg, "plan": plan, "params": params, "batches": batches,
+            "float_plan": T.build_plan(cfg, float_policy),
+            "prompts": prompts}
+
+
+def decode_head_plan(plan):
+    """Every layer's KV cache int8_per_head, and softmax='uint8' on the
+    layers whose qkv block is float (they take the decode kernel): the
+    kernel's per-head scales and its two-pass p_scale mode."""
+    from repro_torch.core.plan import PrecisionPlan
+    return PrecisionPlan(tuple(
+        lp.with_kv("int8_per_head") if lp.qkv.quantized else
+        lp.with_kv("int8_per_head").with_dataflow(softmax="uint8")
+        for lp in plan.layers), plan.float_dtype)
+
+
+class Ticks:
+    """Wraps an engine's decode step: records each tick's inputs, its wall
+    (to the synchronized end of the step) and, without ``against``, a
+    device copy of its logits; with ``against`` (the fused run's Ticks),
+    compares the logits of the live rows at every tick whose inputs equal
+    that run's. ``on_tick(pos, active)`` runs before each step."""
+
+    def __init__(self, engine, against=None, on_tick=None):
+        self.step, engine._decode = engine._decode, self
+        self.against, self.on_tick = against, on_tick
+        self.inputs, self.logits, self.walls = [], [], []
+        self.compared, self.max_rel, self.finite = 0, 0.0, True
+
+    def __call__(self, params, caches, tokens, pos, active, pages=None):
+        import numpy as np
+        import torch
+        if self.on_tick is not None:
+            self.on_tick(pos, active)
+        t = time.perf_counter()
+        out, caches = self.step(params, caches, tokens, pos, active, pages)
+        torch.cuda.synchronize()
+        self.walls.append(time.perf_counter() - t)
+        i = len(self.inputs)
+        self.inputs.append((tokens.copy(), pos.copy(), active.copy()))
+        live = torch.from_numpy(active).to(out.device)
+        if self.against is None:
+            self.logits.append(out.clone())
+            self.finite &= bool(torch.isfinite(out[live]).all())
+        elif i < len(self.against.inputs) and all(
+                np.array_equal(a, b)
+                for a, b in zip(self.inputs[i], self.against.inputs[i])):
+            ref = self.against.logits[i]
+            self.against.logits[i] = None
+            self.max_rel = max(self.max_rel, rel_linf(ref[live], out[live]))
+            self.compared += 1
+        return out, caches
+
+
+def serve_decode(engine, prompts, max_tokens=DECODE_MAX_TOKENS):
+    """Submit every prompt, run the engine dry; (outputs by uid, wall s)."""
+    from repro_torch.serve import Request
+    for i, p in enumerate(prompts):
+        engine.submit(Request(uid=i, prompt=list(p), max_tokens=max_tokens))
+    t = time.perf_counter()
+    done = engine.run()
+    return {r.uid: r.output for r in done}, time.perf_counter() - t
+
+
+def phase_decode(name, model, plan, device, kv_cache=None):
+    """Calibrate and quantize the decoder under ``plan``, serve the requests
+    on the fused backend (counters zeroed just before the counted run, read
+    just after) and on the reference backend, and check them."""
+    import statistics as st
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import ptq
+    from repro_torch.serve import ServeEngine
+
+    cfg = model["cfg"]
+    t0 = time.perf_counter()
+    stats = ptq.capture_stats(model["params"], model["batches"], cfg,
+                              model["float_plan"], precision=plan)
+    qparams, qplan = ptq.apply_plan(model["params"], cfg, plan, stats,
+                                    float_plan=model["float_plan"])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    kw = dict(batch_slots=DECODE_SLOTS, max_len=DECODE_MAX_LEN,
+              page_size=PAGE_SIZE, kv_cache=kv_cache, precision=plan,
+              device=device)
+    schemes = ((kv_cache,) * cfg.num_layers if kv_cache is not None
+               else plan.kv_schemes)
+    prompts = model["prompts"]
+    serve_decode(ServeEngine(cfg, qparams, qplan, backend="fused", **kw),
+                 prompts[:2], max_tokens=4)            # warm-up, not counted
+
+    fused = ServeEngine(cfg, qparams, qplan, backend="fused", **kw)
+    with SubCounts() as sub:
+        longest = [-1]
+
+        def on_tick(pos, active):
+            total = int((pos + 1)[active].sum())
+            if total >= longest[0]:
+                longest[0], sub.capture = total, True
+        ticks = Ticks(fused, on_tick=on_tick)
+        kernels.reset_launches()
+        outputs, wall = serve_decode(fused, prompts)
+        launches = kernels.launch_counts()
+    fused._decode = ticks.step          # the profile times the bare engine
+    n_ticks = fused.stats["ticks"]
+    in_use = fused.kv_pages_in_use
+
+    reference = ServeEngine(cfg, qparams, qplan, backend="reference", **kw)
+    ref_ticks = Ticks(reference, against=ticks)
+    ref_outputs, ref_wall = serve_decode(reference, prompts)
+
+    cases = kernel_cases(cfg, plan, schemes)
+    per_tick, sub_tick = collections.Counter(), collections.Counter()
+    for key, case in cases.items():
+        per_tick[key[0]] += case["count"]
+        if case["sub"]:
+            sub_tick[case["sub"]] += case["count"]
+    sub_tick = {k: sub_tick[k] for k in EXPECTED_DECODE_SUB[name]}
+    want = {k: per_tick[k] * n_ticks for k in launches}
+    with torch.inference_mode():
+        float_pool = T.cache_bytes(T.init_caches(
+            cfg, qplan, DECODE_SLOTS, DECODE_MAX_LEN, page_size=PAGE_SIZE,
+            kv_schemes=("float",) * cfg.num_layers, device=device))
+    generated = sum(len(o) for o in outputs.values())
+    slot_tokens = fused.stats["tokens"]
+    rec = {"phase": name, "model": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "plan": plan.describe(),
+           "plan_fingerprint": plan.fingerprint(),
+           "kv_schemes": sorted(set(schemes)), "setup_s": setup_s,
+           "requests": len(prompts), "slots": DECODE_SLOTS,
+           "page_size": PAGE_SIZE, "max_len": DECODE_MAX_LEN,
+           "ticks": n_ticks, "slot_tokens": slot_tokens,
+           "generated_tokens": generated, "wall_s": wall,
+           "tokens_per_s": slot_tokens / wall,
+           "generated_tokens_per_s": generated / wall,
+           "median_tick_ms": st.median(ticks.walls) * 1e3,
+           "reference_wall_s": ref_wall,
+           "reference_median_tick_ms": st.median(ref_ticks.walls) * 1e3,
+           "launches": launches, "expected_launches": want,
+           "launches_per_tick": dict(per_tick),
+           "sub_counts": dict(sub.counts), "sub_counts_per_tick": sub_tick,
+           "ticks_compared": ref_ticks.compared,
+           "fused_vs_reference_rel_linf": ref_ticks.max_rel,
+           "tokens_equal": outputs == ref_outputs,
+           "kv_pages_in_use_after": [in_use, reference.kv_pages_in_use],
+           "kv_cache_bytes": fused.kv_cache_bytes,
+           "float_pool_kv_cache_bytes": float_pool,
+           "kv_bytes_ratio": fused.kv_cache_bytes / float_pool,
+           "longest_tick_tokens": longest[0]}
+    emit(rec)
+    if outputs != ref_outputs:
+        fail(f"{name}: fused and reference tokens differ")
+    if sorted(outputs) != list(range(len(prompts))) or any(
+            len(o) != DECODE_MAX_TOKENS or not all(0 <= t < cfg.vocab_size
+                                                   for t in o)
+            for o in outputs.values()) or not ticks.finite:
+        fail(f"{name}: outputs are not {DECODE_MAX_TOKENS} in-vocabulary "
+             f"tokens per request from finite logits")
+    if ref_ticks.compared == 0 or ref_ticks.max_rel > REL_LINF_BUDGET:
+        fail(f"{name}: fused vs reference logits rel-Linf "
+             f"{ref_ticks.max_rel} over {ref_ticks.compared} ticks (budget "
+             f"{REL_LINF_BUDGET})")
+    expected = dict(EXPECTED_DECODE)
+    if {k: v for k, v in per_tick.items()} != expected:
+        fail(f"{name}: the plan implies {dict(per_tick)} launches per tick, "
+             f"not {expected}")
+    if launches != want or any(launches[k] == 0 for k in expected):
+        fail(f"{name}: launch counts {launches} != plan-implied {want}")
+    if sub_tick != EXPECTED_DECODE_SUB[name] or dict(sub.counts).get(
+            "decode_attention with p_scale", 0) != \
+            EXPECTED_DECODE_SUB[name]["decode_attention with p_scale"] \
+            * n_ticks:
+        fail(f"{name}: p_scale sub-counts {dict(sub.counts)} over "
+             f"{n_ticks} ticks; the plan implies {sub_tick} per tick")
+    if in_use or reference.kv_pages_in_use:
+        fail(f"{name}: {in_use} / {reference.kv_pages_in_use} pages still "
+             f"in use after the run")
+    if name == "decode_head_path" and plan.fingerprint() != HEAD_FINGERPRINT:
+        fail(f"decode head plan fingerprint {plan.fingerprint()} is not the "
+             f"JAX package's {HEAD_FINGERPRINT}")
+    if sub.decode_args is None:
+        fail(f"{name}: no decode_attention call was captured")
+    return {"name": name, "cfg": cfg, "qparams": qparams, "fused": fused,
+            "launches": launches, "per_fwd": per_tick, "cases": cases,
+            "buckets": [DECODE_BUCKET], "timed_bucket": DECODE_BUCKET,
+            "unit": "tick", "decode_args": sub.decode_args,
+            "prompts": prompts}
+
+
+def _gemms(cfg):
+    """(block, K, N, activation, param path) of each GEMM of a layer."""
+    D, F, Q, KV = cfg.d_model, cfg.d_ff, cfg.q_dim, cfg.kv_dim
+    out = [("qkv", D, Q, None, ("attn", "wq")),
+           ("qkv", D, KV, None, ("attn", "wk")),
+           ("qkv", D, KV, None, ("attn", "wv")),
+           ("attn_out", Q, D, None, ("attn", "wo"))]
+    if cfg.ffn_kind == "glu":
+        return out + [("ffn_in", D, F, "silu", ("ffn", "wg")),
+                      ("ffn_in", D, F, None, ("ffn", "wu")),
+                      ("ffn_out", F, D, None, ("ffn", "wd"))]
+    return out + [("ffn_in", D, F, "gelu", ("ffn", "wi")),
+                  ("ffn_out", F, D, None, ("ffn", "wo"))]
+
+
+def kernel_cases(cfg, plan, kv_schemes=None):
     """The kernel calls one forward of the fused backend makes under
-    ``plan``, grouped by shape class and variant, each with its count per
-    forward, the layer whose parameters it reads and the span variant it
-    is (``sub``, or None)."""
-    D, F = cfg.d_model, cfg.d_ff
+    ``plan`` (with ``kv_schemes``, the served per-layer KV-cache schemes:
+    one decode tick), grouped by shape class and variant, each with its
+    count, the layer whose parameters it reads and the sub-count variant it
+    is (``sub``, or None). GEMMs of one block and shape form one class,
+    named by the first one's parameters."""
+    D = cfg.d_model
     cases = collections.OrderedDict()
 
     def add(key, layer, n=1, sub=None):
@@ -341,30 +637,40 @@ def kernel_cases(cfg, plan):
     for i, lp in enumerate(plan.layers):
         span = lp.norm == "int8"
         ffn_out_static = lp.ffn_out.quantized and lp.ffn_out.static_acts
-        for block, n, K, N, act, path in (
-                ("qkv", 3, D, D, None, ("attn", "wq")),
-                ("attn_out", 1, D, D, None, ("attn", "wo")),
-                ("ffn_in", 1, D, F, "gelu", ("ffn", "wi")),
-                ("ffn_out", 1, F, D, None, ("ffn", "wo"))):
+        first = {}
+        for block, K, N, act, path in _gemms(cfg):
             spec = lp.spec(block)
             if not spec.quantized:
                 continue
             token = not spec.static_acts
-            out = span and (block == "attn_out" or (block == "ffn_in"
-                                                    and ffn_out_static))
-            add(("quant_linear", K, N, act, token, path, out), i, n,
+            out = span and (block == "attn_out" or (
+                block == "ffn_in" and ffn_out_static
+                and cfg.ffn_kind != "glu"))
+            path = first.setdefault((block, K, N, act), path)
+            add(("quant_linear", K, N, act, token, path, out), i, 1,
                 "quant_linear with out_scale" if out else None)
             if token:
-                add(("dynamic_quant", K), i, n)
+                add(("dynamic_quant", K), i)
         if lp.ffn_in.quantized and lp.ffn_in.static_acts:
-            add(("addnorm_quant", D, span), i, 1,
+            add(("addnorm_quant", D, span, cfg.norm_kind), i, 1,
                 "addnorm_quant with an int8 delta" if span else None)
-        if (lp.softmax == "uint8" and lp.qkv.quantized
-                and lp.qkv.static_acts):
+        if kv_schemes is not None:
+            # the kernel takes the one-token step of float-bmm layers over
+            # int8 pages; int8-bmm layers gather the pages
+            if not lp.qkv.quantized and kv_schemes[i] != "float":
+                quant_p = lp.softmax == "uint8"
+                mode = ("per_token" if kv_schemes[i] == "int8_per_token"
+                        else "per_head")
+                add(("decode_attention", mode + ("_p_scale" if quant_p
+                                                 else "")), i, 1,
+                    "decode_attention with p_scale" if quant_p else None)
+        elif (lp.softmax == "uint8" and lp.qkv.quantized
+              and lp.qkv.static_acts):
             requant = lp.attn_out.quantized and lp.attn_out.static_acts
             add(("quant_flash_attention", requant), i, 1,
                 "quant_flash_attention with o_scale" if requant else None)
-    add(("fused_embed", D), 0)
+    if cfg.position == "learned":
+        add(("fused_embed", D), 0)
     return cases
 
 
@@ -438,7 +744,10 @@ def run_case(cfg, key, layer, bucket, qparams, device, timer=None):
             def lib():
                 acc = torch._int_mm(x_q, w.values)
                 y = acc.to(torch.float32) * (xs * ws) + bias
-                y = Fn.gelu(y, approximate="tanh") if act else y
+                if act == "gelu":
+                    y = Fn.gelu(y, approximate="tanh")
+                elif act == "silu":
+                    y = Fn.silu(y)
                 if out:
                     return torch.clamp(torch.round(y / os_), -128, 127).to(
                         torch.int8)
@@ -455,7 +764,8 @@ def run_case(cfg, key, layer, bucket, qparams, device, timer=None):
         rec.update(D=K, max_abs_err=err, tolerance="codes and scales exact")
         t_bytes, t_ops = bound(5.0 * M * K + 4 * M, f32_ops=6.0 * M * K)
     elif key[0] == "addnorm_quant":
-        D, int8_in = key[1], key[2]
+        D, int8_in, kind = key[1], key[2], key[3]
+        rms = kind == "rmsnorm"
         if int8_in:
             x = torch.randint(-128, 128, (M, D), generator=gen,
                               device=device, dtype=torch.int8)
@@ -466,34 +776,36 @@ def run_case(cfg, key, layer, bucket, qparams, device, timer=None):
         res = torch.randn((M, D), generator=gen, device=device) * 2.0
         bias = torch.zeros(D, device=device)
         gamma = 1.0 + 0.1 * torch.randn(D, generator=gen, device=device)
-        beta = 0.1 * torch.randn(D, generator=gen, device=device)
-        s = lp["ffn"]["wi"]["xs"]
+        beta = None if rms else 0.1 * torch.randn(D, generator=gen,
+                                                  device=device)
+        s = lp["ffn"]["wg" if cfg.ffn_kind == "glu" else "wi"]["xs"]
         args = (x, res, bias, gamma, beta, s)
         kern = lambda: addnorm_quant.addnorm_quant(       # noqa
-            *args, x_in_scale=x_in)
+            *args, x_in_scale=x_in, kind=kind)
         plain = lambda: addnorm_quant.addnorm_quant_plain(  # noqa
-            *args, x_in_scale=x_in)
+            *args, x_in_scale=x_in, kind=kind)
         (h, q), (h_ref, q_ref) = kern(), plain()
         diff = (q.to(torch.int32) - q_ref.to(torch.int32)).abs()
         flipped = float((diff > 0).to(torch.float32).mean())
         err = float((h - h_ref).abs().max())
         ok = (rel_linf(h_ref, h) <= 1e-6 and flipped < 0.005
               and int(diff.max()) <= 1)
-        rec.update(D=D, int8_delta=int8_in, max_abs_err=err,
+        rec.update(D=D, norm=kind, int8_delta=int8_in, max_abs_err=err,
                    h_rel_linf=rel_linf(h_ref, h),
                    q_flipped_share=flipped, q_max_code_diff=int(diff.max()),
                    tolerance="h rel-Linf <= 1e-6; < 0.5% of codes flipped, "
                              "each by <= 1")
         t_bytes, t_ops = bound((1.0 if int8_in else 4.0) * M * D
-                               + 9.0 * M * D + 12 * D + 8,
+                               + 9.0 * M * D + (8 if rms else 12) * D + 8,
                                f32_ops=16.0 * M * D)
-
-        def lib():
-            xf = x.to(torch.float32) * x_in if int8_in else x
-            hh = xf + res + bias
-            y = Fn.layer_norm(hh, (D,), gamma, beta, eps=1e-6)
-            return hh, torch.clamp(torch.round(y / s), -128, 127).to(
-                torch.int8)
+        if not rms or hasattr(Fn, "rms_norm"):
+            def lib():
+                xf = x.to(torch.float32) * x_in if int8_in else x
+                hh = xf + res + bias
+                y = (Fn.rms_norm(hh, (D,), gamma, eps=1e-6) if rms else
+                     Fn.layer_norm(hh, (D,), gamma, beta, eps=1e-6))
+                return hh, torch.clamp(torch.round(y / s), -128, 127).to(
+                    torch.int8)
     elif key[0] == "quant_flash_attention":
         requant = key[1]
         attn = lp["attn"]
@@ -594,33 +906,171 @@ def run_case(cfg, key, layer, bucket, qparams, device, timer=None):
     return rec, (t_bytes, t_ops)
 
 
-def phase_kernels(cfg, paths, device):
-    """Every kernel against its plain version at every shape either path
-    gave it (each shape class at each served bucket), timed at the profile
-    bucket; returns the per-kernel summary entries: sums over one forward
-    of the span path, and of each path under ``by_path``."""
-    buckets = set()
-    for path in paths:
-        buckets |= set(map(tuple, path["fused"].runtime.stats["buckets"]))
-    buckets = sorted(buckets | {PROFILE_BUCKET})
+def gathered_kv(args):
+    """The decode operands' pages gathered per slot and dequantized: K and
+    V as (B, Hkv, pages_per_slot * page_size, hd) float32, and the mask of
+    the keys a slot holds (its table entry names a page, the token is below
+    its length) as (B, T)."""
+    import torch
+    table, lengths = args["page_table"], args["lengths"]
+    NP, ps, Hkv, hd = args["k_pages"].shape
+    B, pps = table.shape
+    safe = table.clamp(0, NP - 1).long()
+    kf = args["k_pages"][safe].float()            # (B, pps, ps, Hkv, hd)
+    vf = args["v_pages"][safe].float()
+    if args["per_head"]:
+        kf = kf * args["k_scale"].reshape(1, 1, 1, Hkv, 1)
+        vf = vf * args["v_scale"].reshape(1, 1, 1, Hkv, 1)
+    else:
+        kf = kf * args["k_scale"][safe][..., None]
+        vf = vf * args["v_scale"][safe][..., None]
+    kf, vf = (t.reshape(B, pps * ps, Hkv, hd).transpose(1, 2)
+              for t in (kf, vf))
+    tok = torch.arange(pps * ps, device=table.device)
+    mask = (((table >= 0) & (table < NP)).repeat_interleave(ps, dim=1)
+            & (tok[None] < lengths[:, None]))
+    return kf, vf, mask
+
+
+def decode_witness(args):
+    """Paged decode attention by gather: one softmax over all of a slot's
+    dequantized keys at once, and with ``p_scale`` the probabilities coded
+    to uint8 before P.V. It shares neither the page recurrence nor the
+    order of sums with the kernel and its plain version."""
+    import torch
+    q = args["q"]
+    B, Hkv, g, hd = q.shape
+    kf, vf, mask = gathered_kv(args)
+    scale = args.get("scale") or hd ** -0.5
+    s = torch.einsum("bhgd,bhtd->bhgt", q * scale, kf)
+    if args.get("softcap") is not None:
+        s = torch.tanh(s / args["softcap"]) * args["softcap"]
+    keep = mask[:, None, None, :]
+    s = torch.where(keep, s, float("-inf"))
+    m = s.amax(-1, keepdim=True).clamp(min=-3e38)    # rows with no keys
+    p = torch.where(keep, torch.exp(s - m), 0.0)
+    p = p / p.sum(-1, keepdim=True).clamp(min=1e-30)
+    if args.get("p_scale") is not None:
+        p = torch.clamp(torch.round(p / args["p_scale"]), 0, 255) \
+            * args["p_scale"]
+    return torch.einsum("bhgt,bhtd->bhgd", p, vf)
+
+
+def run_decode_case(path, mode, device, timer=None):
+    """Check ``decode_attention`` against its plain version on the operands
+    one layer gave it at the decode path's longest tick (``mode``
+    "per_head" drops the head path's ``p_scale``), and against
+    :func:`decode_witness`, the gathered float attention; with ``timer``,
+    also time kernel and plain. No one PyTorch call computes paged int8
+    decode: SDPA on the gathered, dequantized K/V is timed as a labelled
+    aside."""
+    import torch
+    import torch.nn.functional as Fn
+    from repro_torch.kernels import decode_attention as DA
+    args = dict(path["decode_args"])
+    if mode == "per_head":
+        args["p_scale"] = None
+    q, table, lengths = args["q"], args["page_table"], args["lengths"]
+    B, Hkv, g, hd = q.shape
+    NP, ps = args["k_pages"].shape[:2]
+    pps = table.shape[1]
+    out = DA.decode_attention(**args)
+    want = DA.decode_attention_plain(**args)
+    err = float((out - want).abs().max())
+    rel = rel_linf(want, out)
+    quant_p = args["p_scale"] is not None
+    ok = (rel <= REL_LINF_BUDGET) if quant_p else (err <= 2e-5)
+    # the independent witness: float rounding only, and in the p_scale
+    # mode the uint8 codes at ties
+    witness_rel = rel_linf(decode_witness(args), out)
+    witness_tol = REL_LINF_BUDGET if quant_p else 1e-4
+    ok = ok and witness_rel <= witness_tol
+    # each input read once: the valid tokens' K and V rows of both heads
+    # (and their per-token scales), q, the table and lengths; out written
+    # once. The operations this data needs: two hd-long dots per valid
+    # token and query head, about ten float32 operations per score for the
+    # softmax, and in the p_scale mode the recomputed dot and the codes
+    live = sum(int(((table[b] >= 0) & (lengths[b] > torch.arange(
+        pps, device=device) * ps)).sum()) for b in range(B))
+    tokens = int(lengths.sum())
+    per_token = not args["per_head"]
+    nbytes = (8.0 * q.numel() + tokens * Hkv * (2 * hd
+                                                + (8 if per_token else 0))
+              + 4.0 * table.numel() + 4.0 * B + 8.0 * Hkv + 4.0)
+    f32_ops = tokens * Hkv * g * (4.0 * hd + 10.0
+                                  + (2.0 * hd + 8.0 if quant_p else 0.0))
+    t_bytes, t_ops = bound(nbytes, f32_ops=f32_ops)
+    rec = {"phase": "kernel", "kernel": "decode_attention", "path":
+           path["name"], "mode": mode, "slots": B, "kv_heads": Hkv,
+           "group": g, "head_dim": hd, "page_size": ps, "pages": NP,
+           "pages_per_slot": pps, "live_pages": live, "valid_tokens": tokens,
+           "max_abs_err": err, "rel_linf": rel, "exact": bool(out.equal(want)),
+           "tolerance": ("float out rel-Linf <= 5e-3 (uint8 codes at ties)"
+                         if quant_p else "max abs <= 2e-5"),
+           "witness_rel_linf": witness_rel,
+           "witness_tolerance": f"rel-Linf <= {witness_tol:g}",
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if timer is not None:
+        rec["ms"] = timer.ms(lambda: DA.decode_attention(**args))
+        rec["plain_ms"] = timer.ms(lambda: DA.decode_attention_plain(**args))
+        rec["library_ms"] = None
+        # the aside: float SDPA over the gathered, dequantized pages
+        kf, vf, mask = gathered_kv(args)
+        kf, vf = (t.repeat_interleave(g, dim=1) for t in (kf, vf))
+        mask = mask[:, None, None, :]
+        qf = q.reshape(B, Hkv * g, 1, hd)
+        rec["sdpa_float_aside_ms"] = timer.ms(
+            lambda: Fn.scaled_dot_product_attention(qf, kf, vf,
+                                                    attn_mask=mask))
+    torch.cuda.synchronize()
+    emit(rec)
+    if not ok:
+        fail(f"decode_attention ({mode}) disagrees with its plain version "
+             f"or the gathered witness: {rec}")
+    return rec, (t_bytes, t_ops)
+
+
+def phase_kernels(paths, device):
+    """Every kernel against its plain version at every shape a path gave it
+    (each shape class at each of that path's buckets; the decode kernel on
+    the operands of the longest tick, in all three modes), timed at the
+    profile bucket of encoder paths and at the decode paths' 8 slots;
+    returns the per-kernel summary entries: sums over one forward of the
+    span path (one tick of the decode path for ``decode_attention``), and
+    over one forward or tick of each path under ``by_path``."""
     classes = collections.OrderedDict()
     for path in paths:
         for key, case in path["cases"].items():
-            classes.setdefault(key, (case["layer"], path["qparams"]))
+            c = classes.setdefault(key, {"layer": case["layer"],
+                                         "path": path, "buckets": set()})
+            c["buckets"] |= set(path["buckets"])
     timer = Timer(device)
     timed, max_err = {}, collections.defaultdict(float)
-    for key, (layer, qparams) in classes.items():
-        for bucket in buckets:
-            rec, tb = run_case(cfg, key, layer, bucket, qparams, device,
-                               timer if bucket == PROFILE_BUCKET else None)
+    for key, c in classes.items():
+        path = c["path"]
+        if key[0] == "decode_attention":
+            rec, tb = run_decode_case(path, key[1], device, timer)
+            timed[key] = (rec, tb)
             max_err[key[0]] = max(max_err[key[0]], rec["max_abs_err"])
-            if bucket == PROFILE_BUCKET:
+            if key[1] == "per_head_p_scale":       # the third mode
+                rec, _ = run_decode_case(path, "per_head", device)
+                max_err[key[0]] = max(max_err[key[0]], rec["max_abs_err"])
+            continue
+        for bucket in sorted(c["buckets"]):
+            at = bucket == path["timed_bucket"]
+            rec, tb = run_case(path["cfg"], key, c["layer"], bucket,
+                               path["qparams"], device,
+                               timer if at else None)
+            max_err[key[0]] = max(max_err[key[0]], rec["max_abs_err"])
+            if at:
                 timed[key] = (rec, tb)
 
     def sums(path, name):
         out = {"launches": path["launches"][name],
-               "launches_per_forward": path["per_fwd"][name], "ms": 0.0,
-               "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+               "launches_per_" + path["unit"]: path["per_fwd"][name],
+               "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+               "library_ms": 0.0}
         t_bytes = t_ops = 0.0
         for key, case in path["cases"].items():
             if key[0] != name:
@@ -642,19 +1092,21 @@ def phase_kernels(cfg, paths, device):
     for name, (src, rep) in KERNELS.items():
         by_path = {p["name"]: sums(p, name) for p in paths
                    if p["per_fwd"][name]}
-        span = by_path["span_path"]
+        top = next(by_path[n] for n in ("span_path", "decode_path",
+                                        "main_path") if n in by_path)
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": rep,
                  "launches": sum(b["launches"] for b in by_path.values()),
                  "max_abs_err": max_err[name]}
-        entry.update({f: span[f] for f in ("ms", "plain_ms", "bound_ms",
-                                           "bound_by", "library_ms",
-                                           "launches_per_forward")})
+        entry.update({f: top[f] for f in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")})
         entry["by_path"] = by_path
-        entry["per"] = (f"one forward at bucket {PROFILE_BUCKET}: the sum "
-                        f"over that forward's launches (span path; "
-                        f"by_path for each path); launches: the counted "
-                        f"runs of both paths")
+        entry["per"] = (f"one forward of the span path at bucket "
+                        f"{PROFILE_BUCKET}, or one tick of the decode path "
+                        f"at its longest ({DECODE_SLOTS} slots) where the "
+                        f"span path does not run the kernel: the sum over "
+                        f"its launches (by_path for each path); launches: "
+                        f"the counted runs of every path")
         summary.append(entry)
     return summary
 
@@ -681,6 +1133,7 @@ def phase_profile(model, paths, device):
         for _ in range(n):
             path["fused"].runtime.encode(path["qparams"], inputs, lengths)
 
+    paths = [p for p in paths if p["unit"] == "forward"]
     for path in paths:
         for _ in range(3):
             path["fused"].runtime.encode(path["qparams"], inputs, lengths)
@@ -728,6 +1181,64 @@ def phase_profile(model, paths, device):
               "top_device_kernels": top, "top_host_ops": top_host})
 
 
+def phase_profile_decode(path):
+    """A window of full decode ticks (every slot live) of the decode path's
+    fused engine: the host's wall per tick over 10 ticks, then
+    ``torch.profiler`` over 10 more: device-busy ms per tick, idle share,
+    ms per tick of each ported kernel, the top device kernels and host
+    ops."""
+    import statistics as st
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import Request
+
+    eng, n = path["fused"], 10
+    for i, p in enumerate(path["prompts"][:DECODE_SLOTS]):
+        eng.submit(Request(uid=i, prompt=list(p),
+                           max_tokens=DECODE_MAX_TOKENS))
+    for _ in range(5):
+        eng.step()
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.step()
+        walls.append((time.perf_counter() - t) * 1e3)
+    live = len(eng.sched.live())
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            eng.step()
+        torch.cuda.synchronize()
+    eng.run()
+    by_name, kernels_run = collections.Counter(), 0
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            by_name[evt.name] += evt.time_range.elapsed_us() / 1e3
+            kernels_run += 1
+    busy = sum(by_name.values()) / n
+    if busy <= 0.0:
+        fail("the profiler recorded no device time in the decode window")
+    wall_ms = st.median(walls)
+    ported = {k: sum(v for name, v in by_name.items()
+                     if f"{k}_kernel" in name) / n for k in KERNELS}
+    top = [{"kernel": name[:100], "ms_per_tick": v / n,
+            "share_of_busy": v / n / busy}
+           for name, v in by_name.most_common(8)]
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    top_host = [{"op": e.key[:80], "calls_per_tick": e.count / n,
+                 "self_ms_per_tick": e.self_cpu_time_total / 1e3 / n}
+                for e in host[:8]]
+    emit({"phase": "profile", "path": path["name"], "slots_live": live,
+          "tick_wall_ms": wall_ms, "tick_wall_ms_runs": walls,
+          "device_busy_ms_per_tick": busy,
+          "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
+          "device_kernels_per_tick": kernels_run / n,
+          "ported_kernels_ms_per_tick": ported,
+          "top_device_kernels": top, "top_host_ops": top_host})
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{ROOT} holds no src/repro_torch: run from a checkout of the "
@@ -747,8 +1258,14 @@ def main() -> int:
     paths = [phase_serve("main_path", model, model["plan"], device),
              phase_serve("span_path", model,
                          int8_dataflow_variant(model["plan"]), device)]
-    summary = phase_kernels(model["cfg"], paths, device)
+    decoder = setup_decoder(device)
+    paths += [phase_decode("decode_path", decoder, decoder["plan"], device,
+                           kv_cache="int8_per_token"),
+              phase_decode("decode_head_path", decoder,
+                           decode_head_plan(decoder["plan"]), device)]
+    summary = phase_kernels(paths, device)
     phase_profile(model, paths, device)
+    phase_profile_decode(paths[2])
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

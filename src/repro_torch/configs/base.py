@@ -2,8 +2,8 @@
 
 The dataclasses are field-for-field copies of the JAX package's, so a config
 built here compares equal, field by field, to its JAX twin. Only the configs
-this slice serves are registered (``bert-base``); the others arrive with the
-slices that run them.
+the ported slices serve are registered (``bert-base``, ``qwen2-0.5b``); the
+others arrive with the slices that run them.
 """
 from __future__ import annotations
 
@@ -158,8 +158,8 @@ class ArchConfig:
 
 _REGISTRY: dict[str, ArchConfig] = {}
 
-# config modules registered by this slice (import side-effect registration)
-_MODULES = ("bert_base",)
+# config modules of the ported slices (import side-effect registration)
+_MODULES = ("bert_base", "qwen2_0_5b")
 
 
 def register(cfg: ArchConfig) -> ArchConfig:

@@ -244,6 +244,10 @@ class LayerPlan:
                    ffn_out=q if mode.quant_ffn else FLOAT_SPEC,
                    softmax=softmax, norm=norm)
 
+    def with_kv(self, kv_cache: str) -> "LayerPlan":
+        """Same GEMM blocks, different KV-cache scheme (schema v2)."""
+        return dataclasses.replace(self, kv_cache=kv_cache)
+
     def with_dataflow(self, *, softmax: Optional[str] = None,
                       norm: Optional[str] = None) -> "LayerPlan":
         """Same GEMM blocks, different inter-kernel dataflow schemes."""
@@ -279,6 +283,15 @@ class PrecisionPlan:
         """Whether the attention score/value batched matmuls of layer
         ``layer_idx`` run int8 — they belong to the qkv block."""
         return self.layers[layer_idx].qkv.quantized
+
+    @property
+    def kv_schemes(self) -> tuple:
+        """Per-layer KV-cache schemes (what ``init_caches`` consumes)."""
+        return tuple(lp.kv_cache for lp in self.layers)
+
+    @property
+    def num_quant_kv(self) -> int:
+        return sum(lp.kv_cache != "float" for lp in self.layers)
 
     def softmax_scheme(self, layer_idx: int) -> str:
         """The softmax dataflow scheme of layer ``layer_idx`` (schema v3)."""

@@ -9,8 +9,9 @@ path went through the kernels.
 """
 from __future__ import annotations
 
-from repro_torch.kernels import (addnorm_quant, dynamic_quant,
-                                 flash_attention, fused_embed, quant_linear)
+from repro_torch.kernels import (addnorm_quant, decode_attention,
+                                 dynamic_quant, flash_attention, fused_embed,
+                                 quant_linear)
 
 KERNEL_MODULES = {
     "quant_linear": quant_linear,
@@ -18,6 +19,7 @@ KERNEL_MODULES = {
     "dynamic_quant": dynamic_quant,
     "fused_embed": fused_embed,
     "quant_flash_attention": flash_attention,
+    "decode_attention": decode_attention,
 }
 
 

@@ -4,23 +4,28 @@ kernels (port of ``repro.kernels.backend``).
 The PrecisionPlan decides *what* is quantized; the compute backend decides
 *how* each quantized op executes:
 
-* ``reference`` — declines every op, so model code runs its inline PyTorch
-  implementation (``backend=None`` and ``"reference"`` are identical).
+* ``reference`` — declines every op but ``decode_attention``, so model code
+  runs its inline PyTorch implementation (``backend=None`` and
+  ``"reference"`` are identical). The one-token decode step over int8 KV
+  pages runs the ``decode_attention`` kernel's plain version, so fused and
+  reference decode agree exactly on the card.
 * ``fused``     — int8 block GEMMs through ``quant_linear`` (dequant + bias
   + activation in the epilogue; per-token activation scales from
   ``dynamic_quant``; requantized to int8 at ``out_xs`` inside a schema-v3
   ``norm='int8'`` span), the attn→ffn residual boundary through
   ``addnorm_quant`` (emitting the int8 tensor the FFN input GEMM consumes,
   and taking an int8 delta inside the span), the bidirectional attention
-  core of ``softmax='uint8'`` layers through ``quant_flash_attention`` and
+  core of ``softmax='uint8'`` layers through ``quant_flash_attention``, the
+  one-token decode step over int8 KV pages through ``decode_attention``, and
   the embedding gather through ``fused_embed``. The kernel wrappers run
   their plain versions on CPU tensors, so ``fused`` also runs on the CPU,
   where it exercises the same dispatch.
-* ``auto``      — ``fused`` for CUDA tensors, ``reference`` on the CPU.
+* ``auto``      — ``fused`` for CUDA tensors, ``reference`` on the CPU
+  (where ``decode_attention`` is the same plain version in both).
 
 Every op returns a result or ``None`` ("decline — use the reference path").
-``decode_attention`` and ``expert_gemm`` decline in every backend until the
-slices that port their kernels.
+``expert_gemm`` declines in every backend until the slice that ports its
+kernel.
 """
 from __future__ import annotations
 
@@ -32,6 +37,10 @@ import torch
 
 from repro_torch.core.quantize import QuantizedTensor, quantize
 from repro_torch.kernels.addnorm_quant import addnorm_quant
+from repro_torch.kernels.decode_attention import (decode_attention as
+                                                  paged_decode_attention)
+from repro_torch.kernels.decode_attention import (decode_attention_plain,
+                                                  paged_operands)
 from repro_torch.kernels.dynamic_quant import dynamic_quant
 from repro_torch.kernels.flash_attention import quant_flash_attention
 from repro_torch.kernels.fused_embed import fused_embed
@@ -94,8 +103,9 @@ def ffn_input_scale(ffn_p: dict, ffn_kind: str) -> Optional[torch.Tensor]:
 
 
 class ComputeBackend:
-    """Reference backend: decline every op so model code runs its inline
-    PyTorch implementation. Also the base class of the fused backends."""
+    """Reference backend: decline every op but ``decode_attention`` so model
+    code runs its inline PyTorch implementation. Also the base class of the
+    fused backends."""
 
     name = "reference"
 
@@ -126,9 +136,25 @@ class ComputeBackend:
     def decode_attention(self, q, kv_cache, pages, *, positions, active,
                          scale, softcap=None, static_scales=None,
                          p_scale=None):
-        """Paged decode attention (``decode_attention``, not ported yet):
-        declines."""
-        return None
+        """One decode step over a paged cache: q (B, 1, Hq, d) against the
+        cache's pages through the page table ``pages``, at per-row
+        ``positions`` (B, 1), with ``active`` (B,) gating slots. Return
+        (B, 1, Hq, d) from :meth:`paged_decode` over int8 pages, or None
+        (float pages, a missing per-head scale) so the model gathers the
+        pages and runs its attention core."""
+        ops = paged_operands(q, kv_cache, pages, positions=positions,
+                             active=active, static_scales=static_scales)
+        if ops is None:
+            return None
+        out = self.paged_decode(**ops, scale=float(scale), softcap=softcap,
+                                p_scale=p_scale)
+        B, _, Hq, d = q.shape
+        return out.reshape(B, 1, Hq, d)
+
+    def paged_decode(self, **ops):
+        """The decode step over int8 pages: the ``decode_attention``
+        kernel's plain version here, its wrapper in the fused backends."""
+        return decode_attention_plain(**ops)
 
     def expert_gemm(self, xe, w, xs=None):
         """Routed MoE expert GEMM (``quant_expert_gemm``, not ported yet):
@@ -251,6 +277,12 @@ class FusedBackend(ComputeBackend):
             return QuantActivation(QuantizedTensor(out, o_scale, None),
                                    q.dtype)
         return out
+
+    def paged_decode(self, **ops):
+        # int8 pages only (float pages decline in paged_operands): the
+        # kernel's gain is reading the int8 pool with the dequantization
+        # fused into both dots; on the CPU the wrapper runs the plain version
+        return paged_decode_attention(**ops)
 
 
 def _on_cuda(t) -> bool:

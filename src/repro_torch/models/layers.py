@@ -1,5 +1,6 @@
-"""Quantization-aware building blocks — the BERT subset of
-``repro.models.layers``.
+"""Quantization-aware building blocks — the attention-body subset of
+``repro.models.layers``: BERT encoders and the rope / GQA / GLU decoders
+(qwen2), with their dense and paged decode caches.
 
 Every GEMM goes through :func:`dense` (projections) or :func:`quant_bmm`
 (the attention score/value batched matmuls), so the precision plan applies
@@ -16,7 +17,10 @@ Conventions
 * activations are float32 throughout (the JAX encoder's compute dtype);
 * observer capture: functions record per-site ``amax`` tensors into an
   ``obs`` dict when one is passed (calibration); ``obs=None`` is the
-  serving path and adds no ops.
+  serving path and adds no ops;
+* decode caches are dicts of tensors that the cache writes update in place
+  (the JAX package returns rebuilt arrays); the returned dict is a new dict
+  over the same tensors, with new ``pos`` bookkeeping.
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ from repro_torch.core.quantize import (EXACT_FLOAT_K, UINT8_MAX,
                                        quantize_per_token, quantize_unsigned)
 from repro_torch.kernels.addnorm_quant import row_sum
 from repro_torch.kernels.backend import ACTIVATIONS as _ACT
-from repro_torch.kernels.backend import QuantActivation
+from repro_torch.kernels.backend import QuantActivation, get_backend
 from repro_torch.kernels.flash_attention import NEG_INF, softmax_sum
 
 # ---------------------------------------------------------------------------
@@ -53,6 +57,13 @@ def observe_values(obs: Optional[dict], site: str, x) -> None:
     if obs is not None and obs.get("__values__", False) \
             and not isinstance(x, QuantActivation):
         obs.setdefault("__raw__", {})[site] = x
+
+
+def observe_per_head(obs: Optional[dict], site: str, x) -> None:
+    """Record per-head max|x| over (B, S, H, d): the KV-cache calibration
+    sites (``k_cache``/``v_cache``), whose static scales are per head."""
+    if obs is not None and not isinstance(x, QuantActivation):
+        obs[site] = torch.amax(x.abs(), dim=(0, 1, 3)).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -195,6 +206,34 @@ def init_norm(kind: str, dim: int, *, device=None,
 
 
 # ---------------------------------------------------------------------------
+# rotary position embedding
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """Inverse frequencies for the even half of the head dim (float32)."""
+    half = head_dim // 2
+    exps = divide(torch.arange(0, half, dtype=torch.float32, device=device),
+                  float(half))
+    return 1.0 / torch.pow(theta, exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               heads_axis: bool = True) -> torch.Tensor:
+    """x: (..., S, H, hd) when ``heads_axis`` else (..., S, hd); positions:
+    (S,) (uniform across the batch) or (B, S) (per row, as continuous
+    batching decodes). Split-half convention."""
+    inv = rope_frequencies(x.shape[-1], theta, x.device)       # (hd/2,)
+    ang = positions.to(torch.float32)[..., :, None] * inv      # (..., S, hd/2)
+    if heads_axis:
+        ang = ang[..., :, None, :]                             # (..., S, 1, hd/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
 
@@ -259,19 +298,24 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scales: Optional[dict] = None,
                    obs: Optional[dict] = None,
                    chunk: Optional[int] = None) -> torch.Tensor:
-    """softmax(q k^T * scale) v with optional int8 score/value matmuls (the
-    Fully-Quant MHA path). q: (B, Sq, Hq, d); k, v: (B, Sk, Hkv, d).
+    """softmax(q k^T * scale) v with GQA and optional int8 score/value
+    matmuls (the Fully-Quant MHA path). q: (B, Sq, Hq, d); k, v:
+    (B, Sk, Hkv, d); positions (Sq,)/(Sk,) or per row (B, Sq)/(B, Sk).
     ``chunk`` processes queries in blocks of that many rows (a Python loop
     standing in for the JAX package's ``lax.scan``)."""
     B, Sq, Hq, D = q.shape
+    Dv = v.shape[-1]
     Hkv = k.shape[2]
     groups = Hq // Hkv
     qh = q.transpose(1, 2)                          # (B, Hq, Sq, d)
     kh = k.transpose(1, 2)                          # (B, Hkv, Sk, d)
     vh = v.transpose(1, 2)
-    if groups > 1:
+    if groups > 1 and quant.enabled:
+        # the int8 batched matmuls take matching head counts
         kh = kh.repeat_interleave(groups, dim=1)
         vh = vh.repeat_interleave(groups, dim=1)
+    # float GQA folds the query-head groups into an extra axis instead
+    grouped = groups > 1 and not quant.enabled
     sc = scales or {}
     if q_pos.ndim == 1:
         q_pos = q_pos[None]
@@ -285,6 +329,11 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         observe(obs, "k", kh)
         if quant.enabled:
             s = quant_bmm(qs, kh, sc.get("q"), sc.get("k"), transpose_b=True)
+        elif grouped:
+            bq = qs.shape[2]
+            qg = qs.reshape(B, Hkv, groups, bq, D)
+            s = torch.matmul(qg, kh[:, :, None].transpose(-1, -2))
+            s = s.reshape(B, Hq, bq, -1)
         else:
             s = torch.matmul(qs, kh.transpose(-1, -2))
         s = softcap(s, attn_softcap)
@@ -304,6 +353,10 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return quant_bmm(p, vh, sc.get("p"), sc.get("v"),
                              unsigned_a=(quant.softmax_mode == "unsigned"
                                          or quant.plan_scheme == "uint8"))
+        if grouped:
+            bq = p.shape[2]
+            o = torch.matmul(p.reshape(B, Hkv, groups, bq, -1), vh[:, :, None])
+            return o.reshape(B, Hq, bq, Dv)
         return torch.matmul(p, vh)
 
     if chunk is not None and Sq % chunk != 0:
@@ -341,14 +394,198 @@ def init_attention(gen: torch.Generator, cfg, *, device=None,
     }
 
 
+# ---------------------------------------------------------------------------
+# decode caches: the dense ring and the paged pool
+# ---------------------------------------------------------------------------
+
+
+def _cache_write(kv_cache: dict, new: dict, positions: torch.Tensor,
+                 active: Optional[torch.Tensor]) -> dict:
+    """Write new K/V into a ring-buffer cache ``{"k", "v": (B, W, Hkv, d),
+    "k_pos": (B, W), "pos": (B,)}``, in place.
+
+    * uniform positions (``positions`` (S,), prefill or a synchronized
+      batch): a contiguous write at slot ``pos[0] % W`` for every row (the
+      tail of S when the ring is narrower);
+    * per-row positions (``positions`` (B, 1), continuous batching): one
+      token per row at that row's own slot; rows with ``active`` False keep
+      their old value, so idle slots are never corrupted.
+
+    ``new`` maps cache key -> (B, S, ...). Returns the cache dict with the
+    new ``pos``."""
+    W = kv_cache["k_pos"].shape[-1]
+    B = kv_cache["k_pos"].shape[0]
+    out = dict(kv_cache)
+    if positions.ndim == 1:                          # uniform path
+        S = positions.shape[0]
+        write_S = min(S, W)      # ring smaller than prefill: keep the tail
+        slot = 0 if write_S < S else int(kv_cache["pos"][0]) % W
+        start = min(slot, W - write_S)   # dynamic_update_slice's clamp
+        for key, val in new.items():
+            kv_cache[key][:, start:start + write_S] = \
+                val[:, S - write_S:].to(kv_cache[key].dtype)
+        kv_cache["k_pos"][:, start:start + write_S] = \
+            positions[S - write_S:].to(torch.int32)
+        out["pos"] = kv_cache["pos"] + S
+    else:                                            # per-row path (S == 1)
+        rows = torch.arange(B, device=positions.device)
+        pos_vec = positions[:, 0].to(torch.int64)
+        slot = pos_vec % W
+        act = (active if active is not None
+               else torch.ones((B,), dtype=torch.bool,
+                               device=positions.device))
+        for key, val in new.items():
+            leaf = kv_cache[key]
+            val_row = val[:, 0].to(leaf.dtype)
+            gate = act.reshape((B,) + (1,) * (val_row.ndim - 1))
+            leaf[rows, slot] = torch.where(gate, val_row, leaf[rows, slot])
+        kp = kv_cache["k_pos"]
+        kp[rows, slot] = torch.where(act, pos_vec.to(torch.int32),
+                                     kp[rows, slot])
+        out["pos"] = kv_cache["pos"] + act.to(kv_cache["pos"].dtype)
+    return out
+
+
+# The paged layout: the per-slot (B, W, ...) ring becomes a pool of
+# fixed-size token pages shared by every slot:
+#
+#   pages_k / pages_v : (NP, ps, Hkv, hd)   int8 or the cache dtype
+#   pages_ks/pages_vs : (NP, ps, Hkv) f32   per-token scales (dynamic only)
+#   pages_pos         : (NP, ps) int32      absolute position, -1 = invalid
+#   pos               : (B,) int32          per-slot next position
+#
+# plus the page-table operand (B, pages_per_slot) int32 that the serving
+# scheduler's PagePool owns (-1 = unallocated). Token t of slot b lives at
+# flat index pages[b, t // ps] * ps + t % ps.
+
+
+def _page_flat_index(pages: torch.Tensor, positions: torch.Tensor,
+                     active: Optional[torch.Tensor],
+                     page_size: int) -> torch.Tensor:
+    """(B, S) flat token indices into a (NP * ps, ...) page pool; -1 where
+    the write must be dropped (inactive row, unallocated page, out of
+    range)."""
+    pidx = torch.div(positions, page_size, rounding_mode="floor")
+    within = positions - pidx * page_size
+    pps = pages.shape[1]
+    safe = torch.clamp(pidx, 0, pps - 1).to(torch.int64)
+    pt = torch.gather(pages.to(torch.int64), 1, safe)
+    ok = (pt >= 0) & (pidx >= 0) & (pidx < pps)
+    if active is not None:
+        ok = ok & active[:, None]
+    return torch.where(ok, pt * page_size + within, -1)
+
+
+def _paged_cache_write(kv_cache: dict, new: dict, positions: torch.Tensor,
+                       active: Optional[torch.Tensor], pages: torch.Tensor,
+                       static_scales: Optional[dict] = None) -> dict:
+    """Scatter new K/V tokens into their slots' pages, in place.
+
+    ``new`` maps short key ("k"/"v") -> (B, S, ...); the cache holds it
+    under ``pages_<key>``. Quantization is structural: int8 pages with a
+    ``pages_<key>s`` sibling get per-token scales computed here, int8 pages
+    without one use the calibrated per-head scale from ``static_scales``,
+    float pages store the value. Writes of inactive rows, to unallocated
+    pages or out of range are dropped: only the valid indices are written,
+    so a -1 never wraps around to the pool's last row."""
+    ps = kv_cache["pages_pos"].shape[1]
+    npages = kv_cache["pages_pos"].shape[0]
+    B = kv_cache["pos"].shape[0]
+    pos2 = positions.to(torch.int64)
+    if positions.ndim == 1:                              # uniform prefill
+        pos2 = torch.broadcast_to(pos2[None, :], (B, positions.shape[0]))
+    S = pos2.shape[1]
+    flat = _page_flat_index(pages, pos2, active, ps).reshape(-1)  # (B*S,)
+    keep = torch.nonzero(flat >= 0)[:, 0]
+    idx = flat[keep]
+    out = dict(kv_cache)
+    for key, val in new.items():
+        leaf = kv_cache["pages_" + key]
+        skey = "pages_" + key + "s"
+        if leaf.dtype == torch.int8:
+            if skey in kv_cache:                         # per-token dynamic
+                amax = torch.amax(val.to(torch.float32).abs(), dim=-1)
+                scl = compute_scale_symmetric(amax)      # (B, S, H)
+                rows = quantize(val, scl[..., None])
+                spages = kv_cache[skey]
+                spages.view((npages * ps,) + spages.shape[2:])[idx] = \
+                    scl.reshape((-1,) + spages.shape[2:])[keep]
+            else:                                        # per-head static
+                s = (static_scales or {}).get(key)
+                if s is None:
+                    raise ValueError(
+                        f"int8_per_head KV cache for {key!r} needs a "
+                        f"calibrated static scale ({key}c_scale); "
+                        f"re-calibrate with kv_cache='int8_per_head' or "
+                        f"serve with kv_cache='int8_per_token'")
+                rows = quantize(val, s.reshape((1, 1, -1, 1)))
+        else:
+            rows = val.to(leaf.dtype)
+        leaf.view((npages * ps,) + leaf.shape[2:])[idx] = \
+            rows.reshape((-1,) + leaf.shape[2:])[keep]
+    kv_cache["pages_pos"].view(-1)[idx] = pos2.reshape(-1)[keep].to(
+        torch.int32)
+    if positions.ndim == 1:
+        out["pos"] = kv_cache["pos"] + S
+    else:
+        act = (active if active is not None
+               else torch.ones((B,), dtype=torch.bool,
+                               device=positions.device))
+        out["pos"] = kv_cache["pos"] + act.to(kv_cache["pos"].dtype)
+    return out
+
+
+def _paged_cache_read(kv_cache: dict, pages: torch.Tensor, keys, dtype,
+                      static_scales: Optional[dict] = None):
+    """Gather and dequantize a slot-major view of the paged cache: each key
+    comes back (B, pages_per_slot * ps, ...), with k_pos
+    (B, pages_per_slot * ps) carrying -1 for unallocated pages and unwritten
+    entries."""
+    pt = pages.to(torch.int64)
+    safe = torch.clamp(pt, min=0)                        # gatherable
+    B, pps = pt.shape
+    ps = kv_cache["pages_pos"].shape[1]
+    kpos = kv_cache["pages_pos"][safe]                   # (B, pps, ps)
+    kpos = torch.where(pt[:, :, None] >= 0, kpos, -1)
+    outs = []
+    for key in keys:
+        leaf = kv_cache["pages_" + key]
+        g = leaf[safe]                                   # (B, pps, ps, ...)
+        if leaf.dtype == torch.int8:
+            skey = "pages_" + key + "s"
+            if skey in kv_cache:
+                g = g.to(torch.float32) * kv_cache[skey][safe][..., None]
+            else:
+                s = (static_scales or {})[key]
+                g = g.to(torch.float32) * s.reshape((1, 1, 1, -1, 1))
+        outs.append(g.to(dtype).reshape((B, pps * ps) + leaf.shape[2:]))
+    return outs, kpos.reshape(B, pps * ps)
+
+
+def is_paged(kv_cache: Optional[dict]) -> bool:
+    return kv_cache is not None and "pages_pos" in kv_cache
+
+
 def attention_block(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
                     spec: MaskSpec, quant: AttnQuant = AttnQuant(),
-                    obs: Optional[dict] = None, chunk: Optional[int] = None,
-                    backend=None) -> torch.Tensor:
-    """Full-sequence (encoder) attention block: projections + core + output
-    projection. Decode caches arrive with the decode slice."""
-    if cfg.position == "rope":
-        raise NotImplementedError("rotary positions are not ported yet")
+                    obs: Optional[dict] = None,
+                    kv_cache: Optional[dict] = None,
+                    active: Optional[torch.Tensor] = None,
+                    chunk: Optional[int] = None,
+                    pages: Optional[torch.Tensor] = None, backend=None):
+    """The GQA attention block: QKV projections (with bias where the config
+    has it), rope, the core and the output projection. Returns the output,
+    or ``(output, new_cache)`` when a ``kv_cache`` is given.
+
+    ``kv_cache`` (decode) is a dense ring (:func:`_cache_write`) or a paged
+    pool (``pages_*`` keys) that takes ``pages``, the scheduler's
+    (B, pages_per_slot) page table; ``positions`` may be per row (B, 1).
+    A one-token step over a paged cache with float batched matmuls is
+    offered to ``backend.decode_attention``, which runs the
+    ``decode_attention`` kernel (fused) or its plain version (reference)
+    over int8 pages. A step it declines (float pages), and layers whose
+    batched matmuls are int8, gather and dequantize the pages and run
+    :func:`attention_core`."""
     B, S, _ = x.shape
     observe(obs, "attn_in", x)
     observe_values(obs, "attn_in", x)
@@ -358,18 +595,54 @@ def attention_block(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
         B, S, cfg.num_kv_heads, cfg.head_dim)
     v = dense(x, p["wv"], backend=backend).reshape(
         B, S, cfg.num_kv_heads, cfg.head_dim)
-    scale = 1.0 / math.sqrt(cfg.head_dim)
+    if cfg.position == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    observe_per_head(obs, "k_cache", k)
+    observe_per_head(obs, "v_cache", v)
+    new_cache = None
+    k_pos = positions
     o = None
-    if backend is not None and quant.enabled and quant.plan_scheme == "uint8":
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    static_sc = {key: p[f"{key}c_scale"] for key in ("k", "v")
+                 if f"{key}c_scale" in p}
+    if is_paged(kv_cache):
+        if pages is None:
+            raise ValueError("paged kv_cache requires the page-table "
+                             "operand (pages=)")
+        new_cache = _paged_cache_write(kv_cache, {"k": k, "v": v},
+                                       positions, active, pages, static_sc)
+        if S == 1:
+            if not quant.enabled:
+                p_scale = (p.get("p_scale") if quant.plan_scheme == "uint8"
+                           else None)
+                o = get_backend(backend).decode_attention(
+                    q, new_cache, pages, positions=positions, active=active,
+                    scale=scale, softcap=cfg.attn_softcap,
+                    static_scales=static_sc, p_scale=p_scale)
+            if o is None:
+                (k, v), k_pos = _paged_cache_read(
+                    new_cache, pages, ("k", "v"), x.dtype, static_sc)
+        # prefill (S > 1): attend over in-sequence K/V
+    elif kv_cache is not None:
+        new_cache = _cache_write(kv_cache, {"k": k, "v": v}, positions,
+                                 active)
+        if S == 1:
+            # decode: attend over the ring
+            k = new_cache["k"].to(x.dtype)
+            v = new_cache["v"].to(x.dtype)
+            k_pos = new_cache["k_pos"]
+    if (o is None and kv_cache is None and backend is not None
+            and quant.enabled and quant.plan_scheme == "uint8"):
         # the fully-quantized core: int8 QK^T, the uint8 softmax and int8
         # P.V in one kernel, which under a norm='int8' span returns its
         # output requantized at attn_out's scale (a QuantActivation)
-        o = backend.attention(q, k, v, p, k_pos=positions, spec=spec,
+        o = backend.attention(q, k, v, p, k_pos=k_pos, spec=spec,
                               scale=scale, softcap=cfg.attn_softcap)
     if o is None:
         sc = {s: p[f"{s}_scale"] for s in ("q", "k", "p", "v")
               if f"{s}_scale" in p} or None
-        o = attention_core(q, k, v, positions, positions, spec, scale=scale,
+        o = attention_core(q, k, v, positions, k_pos, spec, scale=scale,
                            attn_softcap=cfg.attn_softcap, quant=quant,
                            scales=sc, obs=obs, chunk=chunk)
     o = o.reshape(B, S, cfg.q_dim)
@@ -378,32 +651,36 @@ def attention_block(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
     out = dense(o, p["wo"], backend=backend)
     observe(obs, "attn_delta", out)
     observe_values(obs, "attn_delta", out)
-    return out
+    return out if kv_cache is None else (out, new_cache)
 
 
 # ---------------------------------------------------------------------------
-# FFN (GELU, the BERT family)
+# FFN: GLU (qwen2 and the llama family), GELU (BERT)
 # ---------------------------------------------------------------------------
 
 
 def init_ffn(gen: torch.Generator, cfg, d_ff: Optional[int] = None, *,
              device=None, dtype=torch.float32) -> dict:
-    if cfg.ffn_kind != "gelu":
-        raise NotImplementedError(
-            f"ffn_kind {cfg.ffn_kind!r} is not ported yet")
     d_ff = d_ff or cfg.d_ff
     kw = dict(device=device, dtype=dtype)
+    if cfg.ffn_kind == "glu":
+        return {"wg": init_linear(gen, cfg.d_model, d_ff, False, **kw),
+                "wu": init_linear(gen, cfg.d_model, d_ff, False, **kw),
+                "wd": init_linear(gen, d_ff, cfg.d_model, False, **kw)}
     return {"wi": init_linear(gen, cfg.d_model, d_ff, True, **kw),
             "wo": init_linear(gen, d_ff, cfg.d_model, True, **kw)}
 
 
 def ffn_block(x, p: dict, cfg, obs: Optional[dict] = None, prefix: str = "",
               backend=None) -> torch.Tensor:
-    if cfg.ffn_kind != "gelu":
-        raise NotImplementedError(
-            f"ffn_kind {cfg.ffn_kind!r} is not ported yet")
     observe(obs, prefix + "ffn_in", x)
     observe_values(obs, prefix + "ffn_in", x)
+    if cfg.ffn_kind == "glu":
+        h = (dense(x, p["wg"], backend=backend, act="silu")
+             * dense(x, p["wu"], backend=backend))
+        observe(obs, prefix + "ffn_hidden", h)
+        observe_values(obs, prefix + "ffn_hidden", h)
+        return dense(h, p["wd"], backend=backend)
     h = dense(x, p["wi"], backend=backend, act="gelu")
     observe(obs, prefix + "ffn_hidden", h)
     observe_values(obs, prefix + "ffn_hidden", h)

@@ -1,11 +1,13 @@
-"""Config-driven encoder model (port of ``repro.models.transformer``, the
-attention-body subset).
+"""Config-driven model driver (port of ``repro.models.transformer``, the
+attention-body subset): BERT encoders, and rope / GQA / GLU decoders with
+their decode caches.
 
 Parameters are ``{"embed", "layers": [one dict per layer], "final_norm",
 ["lm_head"], ["head"]}``: a plain Python list of per-layer dicts where the
 JAX package stacks each execution group for ``lax.scan``. The execution
 plan (:func:`build_plan`) is the same tuple of :class:`Group` runs as in the
-JAX package; here it drives a Python loop over layers.
+JAX package; here it drives a Python loop over layers. Decode caches are
+likewise a plain list with one dict per layer (:func:`init_caches`).
 """
 from __future__ import annotations
 
@@ -174,11 +176,12 @@ def repack(params: dict, old_plan: tuple[Group, ...],
 
 def layer_forward(x, lp, cfg: ArchConfig, kind: BlockKind, mode: LayerMode,
                   scheme: QuantScheme, *, positions, obs, chunk,
-                  quant_bmm=None, softmax=None, backend=None):
+                  quant_bmm=None, softmax=None, backend=None, cache=None,
+                  active=None, pages=None):
     """One pre-LN attention layer: x + attn(norm1(x)), then
     x + ffn(norm2(x)); the fused backend collapses the add + norm2 +
     requantization into ``addnorm_quant`` when the ffn_in GEMM has a static
-    int8 scale to feed."""
+    int8 scale to feed. Returns x, or ``(x, new_cache)`` with a ``cache``."""
     if kind.body != "attn" or kind.moe or cfg.mla is not None:
         raise NotImplementedError(f"layer body {kind} is not ported yet")
     quant = L.AttnQuant(enabled=(mode.quant_mha if quant_bmm is None
@@ -189,23 +192,30 @@ def layer_forward(x, lp, cfg: ArchConfig, kind: BlockKind, mode: LayerMode,
                       window=cfg.sliding_window if kind.local else None)
     h = L.norm(x, lp["norm1"], cfg.norm_kind)
     a = L.attention_block(h, lp["attn"], cfg, positions=positions, spec=spec,
-                          quant=quant, obs=obs, chunk=chunk, backend=backend)
+                          quant=quant, obs=obs, chunk=chunk, backend=backend,
+                          kv_cache=cache, active=active, pages=pages)
+    if cache is not None:
+        a, new_cache = a
     ns = (ffn_input_scale(lp["ffn"], cfg.ffn_kind)
           if backend is not None else None)
     x, h2 = L.residual_norm(a, x, lp["norm2"], cfg.norm_kind, next_scale=ns,
                             backend=backend)
-    return x + L.ffn_block(h2, lp["ffn"], cfg, obs=obs, backend=backend)
+    x = x + L.ffn_block(h2, lp["ffn"], cfg, obs=obs, backend=backend)
+    return x if cache is None else (x, new_cache)
 
 
 def run_groups(x, params, cfg: ArchConfig, plan: tuple[Group, ...],
                scheme: QuantScheme, *, positions, obs=None,
-               chunk=DEFAULT_CHUNK, backend=None):
+               chunk=DEFAULT_CHUNK, backend=None, caches=None, active=None,
+               pages=None):
     """Execute every layer of every group, in order. Observer capture
     (``obs`` not None) always runs the reference path and records each
-    layer's sites as ``obs["layer{i}/{site}"]``."""
+    layer's sites as ``obs["layer{i}/{site}"]``. With ``caches`` (one per
+    layer) returns ``(x, new_caches)``, else x."""
     if obs is not None:
         backend = None
     layers = params["layers"]
+    new_caches = [] if caches is not None else None
     for g in plan:
         for s in range(g.steps):
             for j, kind in enumerate(g.kinds):
@@ -217,7 +227,13 @@ def run_groups(x, params, cfg: ArchConfig, plan: tuple[Group, ...],
                 x = layer_forward(x, layers[idx], cfg, kind, g.mode, scheme,
                                   positions=positions, obs=lobs, chunk=chunk,
                                   quant_bmm=g.quant_bmm, softmax=g.softmax,
-                                  backend=backend)
+                                  backend=backend,
+                                  cache=None if caches is None
+                                  else caches[idx],
+                                  active=active, pages=pages)
+                if caches is not None:
+                    x, nc = x
+                    new_caches.append(nc)
                 if obs is not None:
                     for site, v in lobs.pop("__raw__", {}).items():
                         obs.setdefault("__raw__", {})[
@@ -225,7 +241,7 @@ def run_groups(x, params, cfg: ArchConfig, plan: tuple[Group, ...],
                     lobs.pop("__values__", None)
                     for site, v in lobs.items():
                         obs[f"layer{idx}/{site}"] = v
-    return x
+    return x if caches is None else (x, new_caches)
 
 
 def embed_inputs(params, batch: dict, cfg: ArchConfig, *, positions,
@@ -250,21 +266,36 @@ def unembed(x, params, cfg: ArchConfig) -> torch.Tensor:
 def forward(params, batch: dict, cfg: ArchConfig, plan: tuple[Group, ...],
             scheme: QuantScheme = QuantScheme(), *,
             obs: Optional[dict] = None, chunk: Optional[int] = DEFAULT_CHUNK,
-            return_hidden: bool = False, backend=None) -> torch.Tensor:
-    """Full-sequence forward of token tensors ``batch["tokens"]`` (B, S)
-    (+ ``"segments"``). Returns the final-norm hidden states when the params
-    carry a task head (or ``return_hidden``), else the logits."""
-    S = batch["tokens"].shape[1]
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=batch["tokens"].device)
+            return_hidden: bool = False, backend=None, caches=None, pos=None,
+            active=None, pages=None):
+    """Full-sequence (encode, prefill) or incremental (decode) forward of
+    token tensors ``batch["tokens"]`` (B, S) (+ ``"segments"``). Returns the
+    final-norm hidden states when the params carry a task head (or
+    ``return_hidden``), else the logits; with ``caches``, the pair
+    ``(output, new_caches)``.
+
+    Decode passes ``caches`` (:func:`init_caches`) and ``pos``: an int (a
+    synchronized batch) or a (B,) tensor (continuous batching: per-row
+    positions, with ``active`` (B,) bool gating idle slots' cache writes);
+    ``pages`` is the (B, pages_per_slot) page table of paged caches."""
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    if pos is not None:
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
+        positions = (positions[None] + pos[:, None] if pos.ndim == 1
+                     else positions + pos)
     x = embed_inputs(params, batch, cfg, positions=positions,
                      backend=None if obs is not None else backend)
     x = run_groups(x, params, cfg, plan, scheme, positions=positions,
-                   obs=obs, chunk=chunk, backend=backend)
+                   obs=obs, chunk=chunk, backend=backend, caches=caches,
+                   active=active, pages=pages)
+    if caches is not None:
+        x, caches = x
     x = L.norm(x, params["final_norm"], cfg.norm_kind)
-    if return_hidden or "head" in params:
-        return x
-    return unembed(x, params, cfg)
+    if not (return_hidden or "head" in params):
+        x = unembed(x, params, cfg)
+    return x if caches is None else (x, caches)
 
 
 def apply_head(hidden, params, kind: str) -> torch.Tensor:
@@ -276,3 +307,112 @@ def apply_head(hidden, params, kind: str) -> torch.Tensor:
     if kind == "ner":
         return L.dense(hidden, params["head"]["out"])
     raise ValueError(f"unknown head kind {kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# decode caches
+# ---------------------------------------------------------------------------
+
+
+def _layer_cache(cfg: ArchConfig, kind: BlockKind, batch: int, max_len: int,
+                 dtype, device, *, page_size: Optional[int] = None,
+                 num_pages: int = 0, kv_scheme: str = "float") -> dict:
+    if kind.body != "attn" or kind.moe or kind.local or cfg.mla is not None:
+        raise NotImplementedError(
+            f"decode caches of layer body {kind} are not ported yet (full "
+            f"attention only)")
+    H, hd = cfg.num_kv_heads, cfg.head_dim
+    kw = dict(device=device)
+    if page_size is not None:
+        # pooled token pages + per-slot pos; the (B, pages_per_slot) page
+        # table is a separate operand (PagePool), not a cache entry
+        ps, NP = page_size, num_pages
+        kv_dtype = torch.int8 if kv_scheme.startswith("int8") else dtype
+        d = {"pages_k": torch.zeros((NP, ps, H, hd), dtype=kv_dtype, **kw),
+             "pages_v": torch.zeros((NP, ps, H, hd), dtype=kv_dtype, **kw),
+             "pages_pos": torch.full((NP, ps), -1, dtype=torch.int32, **kw),
+             "pos": torch.zeros((batch,), dtype=torch.int32, **kw)}
+        if kv_scheme == "int8_per_token":
+            d["pages_ks"] = torch.zeros((NP, ps, H), dtype=torch.float32,
+                                        **kw)
+            d["pages_vs"] = torch.zeros((NP, ps, H), dtype=torch.float32,
+                                        **kw)
+        return d
+    return {"k": torch.zeros((batch, max_len, H, hd), dtype=dtype, **kw),
+            "v": torch.zeros((batch, max_len, H, hd), dtype=dtype, **kw),
+            "k_pos": torch.full((batch, max_len), -1, dtype=torch.int32,
+                                **kw),
+            "pos": torch.zeros((batch,), dtype=torch.int32, **kw)}
+
+
+def pages_per_slot(max_len: int, page_size: int) -> int:
+    return -(-max_len // page_size)
+
+
+def init_caches(cfg: ArchConfig, plan: tuple[Group, ...], batch: int,
+                max_len: int, dtype=torch.float32, *,
+                page_size: Optional[int] = None,
+                num_pages: Optional[int] = None,
+                kv_schemes: Optional[Sequence[str]] = None,
+                device: Union[str, torch.device] = "cuda") -> list:
+    """Decode caches, one dict per layer. ``page_size`` switches to the
+    paged layout (see :mod:`repro_torch.models.layers`); ``num_pages``
+    sizes the shared page pool (default ``batch * pages_per_slot``: no
+    oversubscription); ``kv_schemes`` gives each layer's KV-cache scheme
+    (``PrecisionPlan.kv_schemes``), default all float. A scheme may not
+    change inside an execution group, as in the JAX package, whose scan
+    groups share one cache layout."""
+    device = resolve_device(device)
+    if page_size is not None and num_pages is None:
+        num_pages = batch * pages_per_slot(max_len, page_size)
+    kinds = cfg.layer_kinds()
+    caches = []
+    for g in plan:
+        for li in range(g.start, g.stop):
+            if kv_schemes is not None and \
+                    kv_schemes[li] != kv_schemes[g.start]:
+                raise ValueError(
+                    f"kv_cache scheme changes inside execution group "
+                    f"[{g.start}, {g.stop}) at layer {li}; rebuild the "
+                    f"execution plan from the PrecisionPlan")
+            scheme = kv_schemes[li] if kv_schemes is not None else "float"
+            caches.append(_layer_cache(cfg, kinds[li], batch, max_len, dtype,
+                                       device, page_size=page_size,
+                                       num_pages=num_pages or 0,
+                                       kv_scheme=scheme))
+    return caches
+
+
+def cache_bytes(caches) -> int:
+    """Total KV cache footprint in bytes, every tensor of every layer."""
+    return int(sum(t.numel() * t.element_size()
+                   for c in caches for t in c.values()))
+
+
+def kv_geometry(caches) -> tuple:
+    """Structural (scheme, page_size, num_pages) summary of the caches: part
+    of the runtime's callable key, so float and int8 caches, and different
+    page geometries, never share an entry."""
+    ps = np_ = None
+    has_scales = has_int8 = False
+    for c in caches:
+        if "pages_pos" in c:
+            np_, ps = (int(n) for n in c["pages_pos"].shape)
+        has_scales |= "pages_ks" in c or "pages_vs" in c
+        has_int8 |= any(c[k].dtype == torch.int8
+                        for k in ("pages_k", "pages_v") if k in c)
+    scheme = ("int8_per_token" if has_scales
+              else "int8_per_head" if has_int8 else "float")
+    return (scheme, ps, np_)
+
+
+def decode_step(params, tokens, caches, pos, cfg: ArchConfig, plan,
+                scheme: QuantScheme = QuantScheme(), *, active=None,
+                pages=None, backend=None):
+    """One serving step: tokens (B, 1) at absolute position(s) ``pos`` (an
+    int: a synchronized batch; (B,): continuous batching, with ``active``
+    gating idle slots). ``pages`` is the (B, pages_per_slot) page table of
+    paged caches. Returns (logits (B, 1, V), new_caches)."""
+    return forward(params, {"tokens": tokens}, cfg, plan, scheme,
+                   caches=caches, pos=pos, active=active, chunk=None,
+                   pages=pages, backend=backend)

@@ -1,5 +1,5 @@
 """Post-training quantization: apply a precision plan to float params (port
-of ``repro.quant.ptq``, the schema-v1 paths).
+of ``repro.quant.ptq``, without the cluster-conditional capture).
 
     float params --capture_stats(calibration batches)--> amax per (layer, site)
                  --apply_plan(PrecisionPlan)--> mixed-precision params + plan
@@ -11,9 +11,12 @@ calibrator. A statically quantized qkv block also gets the attention bmm
 scales ``{q,k,p,v}_scale``. The schema-v3 dataflow fields attach their
 kernel operands: ``softmax='uint8'`` an unsigned ``p_scale`` (amax / 255),
 ``norm='int8'`` the requant scales ``out_xs`` of the attn_out GEMM (from the
-pre-norm ``attn_delta`` site) and of the FFN input GEMM (from
-``ffn_hidden``). Plans that use the schema-v2 ``kv_cache`` field or
-quantized v4 block families are refused until the slices that port them.
+pre-norm ``attn_delta`` site) and of a GELU FFN's input GEMM (from
+``ffn_hidden``). The schema-v2 ``kv_cache='int8_per_head'`` attaches the
+static per-head KV-cache scales ``kc_scale``/``vc_scale`` from the per-head
+``k_cache``/``v_cache`` sites, and a layer that quantizes only its KV cache
+under ``softmax='uint8'`` gets the decode-side ``p_scale``. Plans with
+quantized v4 block families are refused until the slice that ports MoE.
 """
 from __future__ import annotations
 
@@ -42,6 +45,11 @@ SITE_MAP: dict[str, list[tuple[str, tuple[str, ...], str, str]]] = {
         ("mha", ("attn", "wv"), "attn_in", "qkv"),
         ("mha", ("attn", "wo"), "attn_out", "attn_out"),
     ],
+    "ffn_glu": [
+        ("ffn", ("ffn", "wg"), "ffn_in", "ffn_in"),
+        ("ffn", ("ffn", "wu"), "ffn_in", "ffn_in"),
+        ("ffn", ("ffn", "wd"), "ffn_hidden", "ffn_out"),
+    ],
     "ffn_gelu": [
         ("ffn", ("ffn", "wi"), "ffn_in", "ffn_in"),
         ("ffn", ("ffn", "wo"), "ffn_hidden", "ffn_out"),
@@ -63,12 +71,11 @@ HIST_SITES = ("attn_in", "attn_out", "attn_delta", "ffn_in", "ffn_hidden",
 
 
 def _kind_entries(cfg: ArchConfig, kind: BlockKind):
-    if kind.body != "attn" or kind.moe or cfg.mla is not None \
-            or cfg.ffn_kind != "gelu":
+    if kind.body != "attn" or kind.moe or cfg.mla is not None:
         raise NotImplementedError(
-            f"PTQ of layer body {kind} with ffn_kind {cfg.ffn_kind!r} is not "
-            f"ported yet")
-    return SITE_MAP["attn"] + SITE_MAP["ffn_gelu"]
+            f"PTQ of layer body {kind} is not ported yet")
+    return SITE_MAP["attn"] + SITE_MAP[
+        "ffn_glu" if cfg.ffn_kind == "glu" else "ffn_gelu"]
 
 
 def quantize_weight(w: torch.Tensor,
@@ -117,14 +124,14 @@ def _copy_dicts(tree):
 
 
 def _check_ported(layer: LayerPlan, i: int) -> None:
-    unported = ["kv_cache"] if layer.kv_cache != "float" else []
-    unported += [f for f in ("experts", "shared_ffn")
-                 if getattr(layer, f) is not None
-                 and getattr(layer, f).quantized]
+    unported = [f for f in ("experts", "shared_ffn")
+                if getattr(layer, f) is not None
+                and getattr(layer, f).quantized]
     if unported:
         raise NotImplementedError(
             f"layer {i} uses {unported}; this port applies the quantized "
-            f"GEMM blocks and the schema-v3 softmax/norm dataflow only")
+            f"GEMM blocks, the KV-cache schemes and the schema-v3 "
+            f"softmax/norm dataflow only")
 
 
 def _unsigned_scale(amax: float, device) -> torch.Tensor:
@@ -138,8 +145,10 @@ def quantize_layer(lp: dict, cfg: ArchConfig, kind: BlockKind,
                    layer: LayerPlan, amax: dict, scheme: T.QuantScheme
                    ) -> dict:
     """A quantized copy of one layer's params under ``layer``; ``amax``
-    maps site name -> calibrated amax for THIS layer."""
-    if not (layer.quant_mha or layer.quant_ffn):
+    maps site name -> calibrated amax for THIS layer (a list of per-head
+    values at the ``k_cache``/``v_cache`` sites)."""
+    if not (layer.quant_mha or layer.quant_ffn
+            or layer.kv_cache != "float"):
         return lp
     lp = _copy_dicts(lp)                     # containers copied, leaves shared
     for _group, path, site, block in _kind_entries(cfg, kind):
@@ -170,7 +179,8 @@ def quantize_layer(lp: dict, cfg: ArchConfig, kind: BlockKind,
             else:
                 attn[f"{s}_scale"] = _scale_of(amax[s], dev)
     elif layer.softmax == "uint8" and "p" in amax:
-        # a per-token qkv block: the probabilities still quantize unsigned
+        # a per-token qkv block, or a layer that quantizes only its KV
+        # cache: the decode kernel requantizes the probabilities at p_scale
         attn["p_scale"] = _unsigned_scale(amax["p"], dev)
     if layer.norm == "int8":
         # whole-layer int8 span: the attn_out GEMM requantizes its output
@@ -181,13 +191,25 @@ def quantize_layer(lp: dict, cfg: ArchConfig, kind: BlockKind,
                 "layer; re-run capture_stats on this plan")
         attn["wo"] = dict(attn["wo"],
                           out_xs=_scale_of(amax["attn_delta"], dev))
-        if (layer.ffn_out.quantized and layer.ffn_out.static_acts
-                and "ffn_hidden" in amax):
+        if (cfg.ffn_kind != "glu" and layer.ffn_out.quantized
+                and layer.ffn_out.static_acts and "ffn_hidden" in amax):
             # the span runs on through the FFN: wi requantizes its GELU'd
             # hidden at the scale the FFN's wo consumes it at (its own xs),
-            # so the boundary is numerics-neutral through wo
+            # so the boundary is numerics-neutral through wo. A GLU hidden
+            # is the product of two GEMMs and keeps the float boundary
             lp["ffn"]["wi"] = dict(lp["ffn"]["wi"], out_xs=_scale_of(
                 amax["ffn_hidden"], dev))
+    if layer.kv_cache == "int8_per_head":
+        # static KV-cache scales from the per-head amax vectors of the
+        # k_cache / v_cache sites (after rope)
+        for key, site in (("k", "k_cache"), ("v", "v_cache")):
+            if site not in amax:
+                raise ValueError(
+                    f"kv_cache='int8_per_head' needs calibrated {site} "
+                    f"stats for this layer; re-run capture_stats on this "
+                    f"plan (or use kv_cache='int8_per_token')")
+            attn[f"{key}c_scale"] = compute_scale_symmetric(torch.tensor(
+                amax[site], dtype=torch.float32, device=dev))
     return lp
 
 
@@ -231,7 +253,7 @@ def capture_stats(params: dict, batches: Sequence[dict], cfg: ArchConfig,
         return {k: v for k, v in calib_kw.items() if k in accepted}
 
     cals: dict[str, Calibrator] = {}
-    scalar_amax: dict[str, float] = {}
+    scalar_amax: dict = {}          # float per scalar site, (H,) per head
     with torch.inference_mode():
         for batch in batches:
             obs: dict = {"__values__": True} if use_hist else {}
@@ -241,7 +263,14 @@ def capture_stats(params: dict, batches: Sequence[dict], cfg: ArchConfig,
             raw = obs.pop("__raw__", {}) if use_hist else {}
             obs.pop("__values__", None)
             for key, v in obs.items():
-                if key.startswith("layer"):
+                if not key.startswith("layer"):
+                    continue
+                if v.ndim:          # per-head sites (k_cache/v_cache): (H,)
+                    v = v.cpu().numpy()
+                    prev = scalar_amax.get(key)
+                    scalar_amax[key] = v if prev is None \
+                        else np.maximum(prev, v)
+                else:
                     scalar_amax[key] = max(scalar_amax.get(key, 0.0),
                                            float(v))
             for key, v in raw.items():
@@ -257,7 +286,10 @@ def capture_stats(params: dict, batches: Sequence[dict], cfg: ArchConfig,
     out: dict[str, dict[str, float]] = {}
     for key, amax in scalar_amax.items():
         layer, site = key.split("/", 1)
-        out.setdefault(layer, {})[site] = amax
+        # per-head stats as plain lists, as the JAX package emits them
+        out.setdefault(layer, {})[site] = (
+            [float(x) for x in amax] if isinstance(amax, np.ndarray)
+            else amax)
     for key, cal in cals.items():
         layer, site = key.split("/", 1)
         out.setdefault(layer, {})[site] = float(cal.compute_amax())

@@ -1,8 +1,11 @@
-"""Encoder serving (port of ``repro.serve``): the bucketed runtime, the
-micro-batching scheduler and the encoder engine."""
+"""Serving (port of ``repro.serve``): the runtime, the schedulers, the
+encoder engine and the token-level decode engine."""
 from repro_torch.serve.encoder import EncoderServeEngine
+from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.runtime import Runtime, bucket_size
-from repro_torch.serve.scheduler import EncoderRequest, MicroBatcher
+from repro_torch.serve.scheduler import (EncoderRequest, MicroBatcher,
+                                         PagePool, SlotScheduler)
 
-__all__ = ["EncoderServeEngine", "EncoderRequest", "MicroBatcher", "Runtime",
+__all__ = ["EncoderServeEngine", "EncoderRequest", "MicroBatcher", "PagePool",
+           "Request", "Runtime", "ServeEngine", "SlotScheduler",
            "bucket_size"]

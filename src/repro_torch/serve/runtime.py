@@ -1,5 +1,6 @@
-"""Bucketed encoder runtime (port of the encode half of
-``repro.serve.runtime``).
+"""The runtime every inference path goes through (port of
+``repro.serve.runtime``, without meshes and clusters): bucketed encodes and
+the decode step.
 
 A :class:`Runtime` is bound to one ``(cfg, plan, scheme, head, backend)``
 deployment on one device:
@@ -13,6 +14,9 @@ deployment on one device:
 * the built forward callables are cached per (backend name, plan
   fingerprint, batch bucket, length bucket) — the JAX package's executable
   key without the mesh and cluster parts, which arrive with their slices;
+* the decode step (:meth:`Runtime.decode_fn`) is cached per (backend name,
+  plan fingerprint, slot count, ``kv_geometry``), so float and int8 caches
+  never share an entry;
 * ``stats`` counts calls, real and padded tokens, and cached callables.
 
 PyTorch runs eagerly: there is no trace, and the cache holds the callable
@@ -90,7 +94,8 @@ class Runtime:
     @property
     def stats(self) -> dict:
         return dict(self._stats, executables=len(self._exe),
-                    buckets=sorted(k[2:4] for k in self._exe))
+                    buckets=sorted(k[2:4] for k in self._exe
+                                   if k[0] == "encode"))
 
     def _build_encode(self) -> Callable:
         cfg, plan, scheme = self.cfg, self.plan, self.scheme
@@ -149,3 +154,46 @@ class Runtime:
         if self.token_level and out.ndim >= 2:
             out = out[:, :S]
         return out
+
+    # -- decode / token-level path -------------------------------------------
+    def _build_decode(self) -> Callable:
+        cfg, plan, scheme, backend = (self.cfg, self.plan, self.scheme,
+                                      self.backend)
+
+        def fn(params, caches, tokens, pos, active, pages):
+            logits, caches = T.decode_step(params, tokens, caches, pos, cfg,
+                                           plan, scheme, active=active,
+                                           pages=pages, backend=backend)
+            return logits[:, -1, :], caches
+        return fn
+
+    def decode_fn(self, params, caches) -> Callable:
+        """Resolve the decode step for this slot count and cache geometry
+        once; the returned callable is the per-tick hot path. It takes the
+        tick's numpy operands (tokens (B, 1), pos (B,), active (B,), and the
+        page table for paged caches, else None) and returns (logits (B, V)
+        on the device, new caches)."""
+        key = ("decode", self._plan_key, int(caches[0]["pos"].shape[0]),
+               T.kv_geometry(caches))
+        fn = self._exe.get(key)
+        if fn is None:
+            fn = self._exe[key] = self._build_decode()
+        dev = self.device
+
+        def step(params, caches, tokens, pos, active, pages=None):
+            self._stats["calls"] += 1
+            with torch.inference_mode():
+                return fn(params, caches,
+                          torch.from_numpy(np.asarray(tokens, np.int32))
+                          .to(dev),
+                          torch.from_numpy(np.asarray(pos, np.int32)).to(dev),
+                          torch.from_numpy(np.asarray(active, bool)).to(dev),
+                          None if pages is None else torch.from_numpy(
+                              np.asarray(pages, np.int32)).to(dev))
+        return step
+
+    def decode(self, params, caches, tokens, pos, active, pages=None):
+        """One decode step through a per-call key resolution (engines bind
+        :meth:`decode_fn` once instead)."""
+        return self.decode_fn(params, caches)(params, caches, tokens, pos,
+                                              active, pages)

@@ -1,10 +1,14 @@
-"""Encoder admission: requests and dynamic micro-batching (port of the
-``EncoderRequest`` / ``MicroBatcher`` half of ``repro.serve.scheduler``).
+"""Scheduling for both serving engines (port of ``repro.serve.scheduler``,
+without cluster-pure admission).
 
-:class:`MicroBatcher` keeps per-(length bucket, cluster) FIFO queues,
-flushed when a bucket reaches ``max_batch``, when its oldest request has
-waited ``max_wait`` seconds, or on demand (drain), so similar-length
-requests batch together and padding waste stays bounded.
+* :class:`SlotScheduler` — token-level continuous batching: a fixed number
+  of batch slots, FIFO admission into free slots, per-slot token cursors,
+  release on retirement; with a :class:`PagePool` it also owns the KV
+  pages' lifecycle.
+* :class:`MicroBatcher` — per-(length bucket, cluster) FIFO queues of
+  encoder requests, flushed when a bucket reaches ``max_batch``, when its
+  oldest request has waited ``max_wait`` seconds, or on demand (drain), so
+  similar-length requests batch together and padding waste stays bounded.
 """
 from __future__ import annotations
 
@@ -32,6 +36,119 @@ class EncoderRequest:
     logits: Optional[np.ndarray] = None
     prediction: Optional[np.ndarray] = None
     done: bool = False
+
+
+class PagePool:
+    """Fixed pool of KV-cache pages with a per-slot page table.
+
+    ``table`` is the dense ``(slots, pages_per_slot)`` int32 array the
+    decode step takes as an operand: row ``s`` lists the page ids slot ``s``
+    owns in token order, ``-1`` beyond its allocation. Pages are handed out
+    on demand (:meth:`ensure`) as a slot's sequence crosses a page boundary
+    and returned wholesale on :meth:`release`."""
+
+    def __init__(self, num_pages: int, page_size: int, slots: int,
+                 pages_per_slot: int):
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self.pages_per_slot = pages_per_slot
+        self.table = -np.ones((slots, pages_per_slot), np.int32)
+        self.free: deque = deque(range(num_pages))
+        self.alloc_failures = 0
+
+    def ensure(self, s: int, tokens: int) -> bool:
+        """Grow slot ``s`` to cover ``tokens`` tokens. Returns False (table
+        untouched) when the pool cannot supply enough pages: the caller
+        stalls the slot until a release frees some."""
+        need = -(-tokens // self.page_size) if tokens > 0 else 0
+        if need > self.pages_per_slot:
+            raise ValueError(f"slot {s} needs {need} pages > "
+                             f"pages_per_slot={self.pages_per_slot}")
+        have = int((self.table[s] >= 0).sum())
+        if need - have > len(self.free):
+            self.alloc_failures += 1
+            return False
+        for j in range(have, need):
+            self.table[s, j] = self.free.popleft()
+        return True
+
+    def release(self, s: int) -> list[int]:
+        """Free every page slot ``s`` owns; returns the freed ids (the
+        engine invalidates their ``pages_pos`` rows before reuse)."""
+        freed = [int(p) for p in self.table[s] if p >= 0]
+        self.free.extend(freed)
+        self.table[s] = -1
+        return freed
+
+    def pages_in_use(self) -> int:
+        return self.num_pages - len(self.free)
+
+    def bytes_per_page(self, caches) -> int:
+        """One page's bytes summed over every paged tensor of ``caches``
+        (the port's list of per-layer cache dicts)."""
+        return sum(t.numel() // t.shape[0] * t.element_size()
+                   for c in caches for name, t in c.items()
+                   if name.startswith("pages_"))
+
+
+class SlotScheduler:
+    """Slot, admission and queue bookkeeping for token-level continuous
+    batching. ``active[s]`` holds the request in slot ``s`` (None = free);
+    ``cursor[s]`` counts the tokens it has consumed (prompt, then generated).
+    With a :class:`PagePool`, release and cancel return the slot's pages and
+    stash their ids in ``freed_pages`` for the engine to invalidate."""
+
+    def __init__(self, slots: int, pool: Optional[PagePool] = None):
+        self.slots = slots
+        self.queue: deque = deque()
+        self.active: list = [None] * slots
+        self.cursor = np.zeros(slots, np.int64)
+        self.evicted = 0        # cancellations
+        self.pool = pool
+        self.freed_pages: list[int] = []
+
+    def submit(self, req) -> None:
+        self.queue.append(req)
+
+    def admit(self) -> list[int]:
+        """Fill free slots FIFO; returns the newly occupied slot ids (the
+        caller resets their per-slot state)."""
+        newly = []
+        for s in range(self.slots):
+            if self.active[s] is None and self.queue:
+                self.active[s] = self.queue.popleft()
+                self.cursor[s] = 0
+                newly.append(s)
+        return newly
+
+    def live(self) -> list[int]:
+        return [s for s in range(self.slots) if self.active[s] is not None]
+
+    def release(self, s: int) -> None:
+        self.active[s] = None
+        if self.pool is not None:
+            self.freed_pages.extend(self.pool.release(s))
+
+    def cancel(self, req) -> Optional[str]:
+        """Abandon ``req``: drop it from the queue (``"queued"``) or free
+        its slot mid-generation (``"active"``). None when this scheduler
+        does not hold it."""
+        try:
+            self.queue.remove(req)
+            self.evicted += 1
+            return "queued"
+        except ValueError:
+            pass
+        for s in range(self.slots):
+            if self.active[s] is req:
+                self.release(s)
+                self.evicted += 1
+                return "active"
+        return None
+
+    @property
+    def busy(self) -> bool:
+        return bool(self.queue) or any(a is not None for a in self.active)
 
 
 class MicroBatcher:

@@ -12,14 +12,18 @@ tile (M, N not multiples of 64; K not a multiple of 8, which turns off the
 absent biases, embedding rows that do not split into float4s, and for the
 attention kernel GQA, padded keys, an all-padding batch row, query counts
 that are not a multiple of the 32-row tile, the softcap, and 512 keys
-(which need more than 48 KB of shared memory).
+(which need more than 48 KB of shared memory); for the paged decode kernel
+every built head dim and page size, GQA groups of 1 to 7, per-token and
+per-head scales, the two-pass uint8 softmax, page tables out of order with
+holes, a slot of length 0, and the decode engine end to end.
 """
 import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.kernels import (addnorm_quant, dynamic_quant,
-                                 flash_attention, fused_embed, quant_linear)
+from repro_torch.kernels import (addnorm_quant, decode_attention,
+                                 dynamic_quant, flash_attention, fused_embed,
+                                 quant_linear)
 
 pytestmark = pytest.mark.cuda
 
@@ -248,3 +252,136 @@ def test_quant_flash_attention_refuses(dev):
         big = torch.zeros((1, 1, 4096, 64), dtype=torch.int8, device=dev)
         fa(big[:, :, :8].contiguous(), big, big,
            torch.zeros(4096, dtype=torch.int32, device=dev), **kw)
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention
+# ---------------------------------------------------------------------------
+
+
+def _decode_case(dev, B, Hkv, g, hd, ps, pps, mode, seed=0):
+    """Pages in a scrambled order with a hole, lengths from one token to
+    every page, one slot of length 0."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    NP = B * pps + 3
+    q = torch.randn((B, Hkv, g, hd), generator=gen, device=dev)
+    k = torch.randint(-127, 128, (NP, ps, Hkv, hd), generator=gen,
+                      device=dev, dtype=torch.int8)
+    v = torch.randint(-127, 128, (NP, ps, Hkv, hd), generator=gen,
+                      device=dev, dtype=torch.int8)
+    perm = torch.randperm(NP, generator=gen, device=dev).to(torch.int32)
+    table = perm[:B * pps].reshape(B, pps).contiguous()
+    lengths = torch.randint(1, ps * pps + 1, (B,), generator=gen,
+                            device=dev, dtype=torch.int32)
+    lengths[0] = ps * pps
+    lengths[-1] = 0
+    if pps > 2:
+        table[0, 1] = -1                    # a hole inside a live range
+    idx = torch.arange(pps, device=dev)[None] * ps
+    table = torch.where(idx < lengths[:, None].clamp(min=1), table,
+                        -1).to(torch.int32).contiguous()
+    if mode == "per_token":
+        ks = torch.rand((NP, ps, Hkv), generator=gen, device=dev) * 0.04 \
+            + 0.01
+        vs = torch.rand((NP, ps, Hkv), generator=gen, device=dev) * 0.04 \
+            + 0.01
+    else:
+        ks = torch.rand((Hkv,), generator=gen, device=dev) * 0.04 + 0.01
+        vs = torch.rand((Hkv,), generator=gen, device=dev) * 0.04 + 0.01
+    kw = dict(k_scale=ks, v_scale=vs, per_head=mode != "per_token",
+              p_scale=(torch.tensor(0.9 / 255, device=dev)
+                       if mode == "p_scale" else None))
+    return (q, k, v, table, lengths), kw
+
+
+DECODE_SHAPES = [(8, 2, 7, 64, 16, 8), (3, 2, 2, 16, 8, 3),
+                 (4, 1, 4, 128, 32, 2), (5, 4, 1, 32, 4, 5),
+                 (2, 2, 3, 64, 16, 1)]
+
+
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+@pytest.mark.parametrize("mode", ["per_token", "per_head", "p_scale"])
+@pytest.mark.parametrize("softcap", [None, 30.0])
+def test_decode_attention_matches_plain(dev, shape, mode, softcap):
+    """The kernel sums in the plain version's order: equal bit for bit."""
+    args, kw = _decode_case(dev, *shape, mode)
+    before = decode_attention.launches
+    out = decode_attention.decode_attention(*args, softcap=softcap, **kw)
+    assert decode_attention.launches == before + 1
+    want = decode_attention.decode_attention_plain(*args, softcap=softcap,
+                                                   **kw)
+    torch.cuda.synchronize()
+    assert out.shape == want.shape == args[0].shape
+    assert torch.isfinite(out).all()
+    assert out.equal(want), float((out - want).abs().max())
+    assert bool((out[-1] == 0).all())       # the slot of length 0
+
+
+@pytest.mark.parametrize("mode", ["per_token", "p_scale"])
+def test_decode_attention_skips_out_of_range_pages(dev, mode):
+    """A page id at or past num_pages is skipped like -1, by the kernel and
+    the plain version alike."""
+    (q, k, v, table, lengths), kw = _decode_case(dev, 4, 2, 7, 64, 16, 3,
+                                                 mode)
+    table[1, 0] = k.shape[0]
+    table[2, -1] = k.shape[0] + 5
+    holes = torch.where(table >= k.shape[0], -1, table)
+    out = decode_attention.decode_attention(q, k, v, table, lengths, **kw)
+    want = decode_attention.decode_attention_plain(q, k, v, holes, lengths,
+                                                   **kw)
+    torch.cuda.synchronize()
+    assert out.equal(want), float((out - want).abs().max())
+
+
+def test_decode_attention_refuses(dev):
+    args, kw = _decode_case(dev, 2, 2, 2, 64, 16, 2, "per_token")
+    q, k, v, table, lengths = args
+    da = decode_attention.decode_attention
+    with pytest.raises(ValueError):                     # head dim not built
+        da(q[..., :48].contiguous(), k[..., :48].contiguous(),
+           v[..., :48].contiguous(), table, lengths, **kw)
+    with pytest.raises(TypeError):                      # float pages
+        da(q, k.float(), v.float(), table, lengths, **kw)
+    with pytest.raises(TypeError):                      # int64 table
+        da(q, k, v, table.long(), lengths, **kw)
+    with pytest.raises(ValueError):                     # scales' shape
+        da(q, k, v, table, lengths, **dict(kw, per_head=True))
+    with pytest.raises(ValueError):                     # table on the CPU
+        da(q, k, v, table.cpu(), lengths, **kw)
+
+
+def test_decode_engine_fused_equals_reference(dev):
+    """Reduced qwen2 served greedily under int8 KV pages: the fused backend
+    (the decode kernel and the GEMM kernels) gives the reference's tokens
+    and logits exactly, and launches the decode kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import PrecisionPlan
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_config("qwen2-0.5b").reduced()
+    fp = PrecisionPlan.full_float(cfg.num_layers, "float32")
+    plan = T.build_plan(cfg, fp)
+    params = T.init_params(cfg, fp, seed=0, device=dev)
+    outs, logits = [], []
+    for backend in ("reference", "fused"):
+        eng = ServeEngine(cfg, params, plan, batch_slots=2, max_len=64,
+                          page_size=8, kv_cache="int8_per_token",
+                          backend=backend, device=dev)
+        seen = []
+        step = eng._decode
+
+        def record(*a, step=step, seen=seen):
+            out, caches = step(*a)
+            seen.append(out.clone())
+            return out, caches
+        eng._decode = record
+        for i, p in enumerate([[2, 17, 9], [5, 40], [11, 3, 7, 1]]):
+            eng.submit(Request(uid=i, prompt=p, max_tokens=6))
+        kernels.reset_launches()
+        outs.append({r.uid: r.output for r in eng.run()})
+        logits.append(torch.stack(seen))
+        assert eng.kv_pages_in_use == 0
+    assert kernels.launch_counts()["decode_attention"] == \
+        cfg.num_layers * len(logits[1])
+    assert outs[0] == outs[1]
+    assert logits[0].equal(logits[1])

@@ -247,9 +247,9 @@ def test_wrappers_raise_on_other_devices():
 
 def test_build_recipe():
     names = sorted(p.name for p in build.sources())
-    assert names == ["addnorm_quant.cu", "dynamic_quant.cu",
-                     "fused_embed.cu", "quant_flash_attention.cu",
-                     "quant_linear.cu"]
+    assert names == ["addnorm_quant.cu", "decode_attention.cu",
+                     "dynamic_quant.cu", "fused_embed.cu",
+                     "quant_flash_attention.cu", "quant_linear.cu"]
     flags = " ".join(build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "-fmad=false" in flags
@@ -289,25 +289,38 @@ def test_registry_names_and_errors():
 
 
 def test_reference_declines_every_op():
+    """Every op but the decode step over int8 pages, which runs the
+    ``decode_attention`` plain version (tests/test_torch_decode.py); over
+    float pages it declines too."""
     b = get_backend("reference")
     assert b.linear(torch.zeros(2, 4), {"w": torch.zeros(4, 4)}) is None
     assert b.addnorm(None, None, {}, "layernorm", 0.1) is None
     assert b.embed(None, {}, None, positions=None, segments=None) is None
     assert b.attention(None, None, None, {}, k_pos=None, spec=None,
                        scale=1.0) is None
-    assert b.decode_attention(None, None, None, positions=None, active=None,
-                              scale=1.0) is None
+    pages = {"pages_k": torch.zeros((2, 4, 1, 8)),
+             "pages_v": torch.zeros((2, 4, 1, 8))}
+    assert b.decode_attention(torch.zeros((1, 1, 2, 8)), pages,
+                              torch.zeros((1, 2), dtype=torch.int32),
+                              positions=torch.zeros((1, 1), dtype=torch.int32),
+                              active=None, scale=1.0) is None
     assert b.expert_gemm(None, None) is None
 
 
 @pytest.mark.parametrize("name", ["fused", "auto"])
 def test_unported_ops_decline(name):
-    """Decode attention and the MoE expert GEMM wait for their slices;
-    ``attention`` is ported (tests/test_torch_dataflow.py)."""
+    """The MoE expert GEMM waits for its slice; ``attention`` and
+    ``decode_attention`` are ported (tests/test_torch_dataflow.py and
+    tests/test_torch_decode.py), and decode attention declines float pages,
+    which keep the gather path."""
     b = get_backend(name)
     assert b.expert_gemm(None, None) is None
-    assert b.decode_attention(None, None, None, positions=None, active=None,
-                              scale=1.0) is None
+    pages = {"pages_k": torch.zeros((2, 4, 1, 8)),
+             "pages_v": torch.zeros((2, 4, 1, 8))}
+    assert b.decode_attention(torch.zeros((1, 1, 2, 8)), pages,
+                              torch.zeros((1, 2), dtype=torch.int32),
+                              positions=torch.zeros((1, 1), dtype=torch.int32),
+                              active=None, scale=1.0) is None
 
 
 @pytest.mark.parametrize("static", [True, False])

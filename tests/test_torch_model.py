@@ -194,12 +194,11 @@ def test_capture_stats_matches(s):
                               s["float_plan"], precision=s["plan"])
     assert set(stats) == set(s["jstats"])
     for layer, sites in stats.items():
-        # the JAX package also records the decode slice's per-head k_cache /
-        # v_cache sites, which this slice does not observe
-        assert set(s["jstats"][layer]) - set(sites) == {"k_cache", "v_cache"}
+        # every site, the per-head k_cache / v_cache vectors (lists) too
+        assert set(sites) == set(s["jstats"][layer])
         for site, amax in sites.items():
-            want = s["jstats"][layer][site]
-            assert abs(amax - want) <= 1e-5 * abs(want), (layer, site)
+            np.testing.assert_allclose(amax, s["jstats"][layer][site],
+                                       rtol=1e-5, err_msg=f"{layer}/{site}")
 
 
 @pytest.mark.parametrize("calibrator", ["minmax", "percentile"])
@@ -241,13 +240,18 @@ def test_apply_plan_leaves_match(s):
 
 
 def test_apply_plan_refuses_unported_schemes(s):
-    """The v2 KV-cache schemes wait for the decode slice; the v3 softmax /
-    norm schemes now apply and attach their kernel operands."""
+    """Quantized v4 block families wait for the MoE slice; the v2 KV-cache
+    schemes (since the decode slice) and the v3 softmax / norm schemes
+    apply and attach their kernel operands."""
     from repro_torch.core.plan import INT8_SPEC, LayerPlan
     n = s["cfg"].num_layers
-    with pytest.raises(NotImplementedError, match="kv_cache"):
+    with pytest.raises(NotImplementedError, match="experts"):
         ptq.apply_plan(s["params"], s["cfg"], PrecisionPlan.uniform(
-            n, LayerPlan(kv_cache="int8_per_head"), "float32"), s["jstats"])
+            n, LayerPlan(experts=INT8_SPEC), "float32"), s["jstats"])
+    q, _ = ptq.apply_plan(s["params"], s["cfg"], PrecisionPlan.uniform(
+        n, LayerPlan(kv_cache="int8_per_head"), "float32"), s["jstats"])
+    assert all(lp["attn"]["kc_scale"].shape == (s["cfg"].num_kv_heads,)
+               for lp in q["layers"])
     q, _ = ptq.apply_plan(s["params"], s["cfg"], PrecisionPlan.uniform(
         n, LayerPlan(qkv=INT8_SPEC, softmax="uint8"), "float32"),
         s["jstats"])
