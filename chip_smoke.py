@@ -51,16 +51,36 @@ line per phase:
   forward or tick, idle share, ms of each ported kernel and the top device
   kernels.
 
+The models of those four paths are then freed, and the MoE slice runs:
+
+* ``setup_moe``: full-width mixtral-8x22b cut to 4 layers (random float32
+  weights from seed 0, 41.7 GB), the golden v4 plan (fingerprint held to
+  the JAX package's), 2 calibration batches of 4 x 128 and 16 requests
+  (prompts uniform in 8-64 tokens over the 32768-token vocab, numpy seed 0;
+  32 greedy tokens each);
+* ``moe_decode_path``: calibrated, quantized (the float tree then dropped),
+  and served by ``ServeEngine(precision=plan)`` (8 slots, max_len 128, pages
+  of 16 for the plan's int8 KV, which every local layer's dense ring leaves
+  unused) on the fused backend, counted, and on the reference backend, with
+  the decode paths' checks: identical tokens, logits within rel-Linf 5e-3,
+  the launches per tick the plan implies (``quant_expert_gemm`` on the
+  routed expert stacks of layers 0, 1 and 3), 0 pages in use, and the
+  phase's peak device memory; then its kernels (``quant_expert_gemm`` at
+  the served capacity C = 3 and at C = 160, a (4, 128) forward's) and a
+  profiled window of its ticks.
+
 Then the kernel summary line (per kernel, its sums over one forward of the
-span path at (8, 128), or over one tick of the decode path, and over one
-forward or tick of each path under ``by_path``) and, last, ``{"ok": true,
-"device": ...}``. A failed check or a missing CUDA device exits non-zero
-before the ok line.
+span path at (8, 128), or over one tick of the decode path, or of the MoE
+path for ``quant_expert_gemm``, and over one forward or tick of each path
+under ``by_path``) and, last, ``{"ok": true, "device": ...}``. A failed
+check or a missing CUDA device exits non-zero before the ok line.
 """
 from __future__ import annotations
 
 import collections
+import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -69,6 +89,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN_PLAN = ROOT / "tests" / "data" / "golden_plan.json"
+GOLDEN_V4 = ROOT / "tests" / "data" / "golden_plan_v4.json"
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12         # dense int8 tensor-core peak
@@ -108,6 +129,17 @@ EXPECTED_DECODE_SUB = {
     "decode_path": {"decode_attention with p_scale": 0},
     "decode_head_path": {"decode_attention with p_scale": 12}}
 
+MOE_LAYERS = 4                   # the golden v4 plan's depth (of 56)
+# the JAX package's fingerprint of tests/data/golden_plan_v4.json
+MOE_FINGERPRINT = ("1975482e7c32269fe19291e8b571accb"
+                   "fec0a6647da894a507e6531f228bc9ac")
+MOE_FORWARD = (4, 128)           # the calibration batches' shape
+# launches per tick the golden v4 plan implies on mixtral, with sub-counts
+EXPECTED_MOE = {"quant_linear": 4, "dynamic_quant": 3,
+                "quant_expert_gemm": 9}
+EXPECTED_MOE_SUB = {"quant_linear with out_scale": 1,
+                    "quant_expert_gemm with per-token scales": 3}
+
 KERNELS = {
     # name: (source, the TPU kernel it replaces)
     "quant_linear": ("src/repro_torch/kernels/csrc/quant_linear.cu",
@@ -123,6 +155,9 @@ KERNELS = {
         "src/repro/kernels/flash_attention.py:131"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:134"),
+    "quant_expert_gemm": (
+        "src/repro_torch/kernels/csrc/quant_expert_gemm.cu",
+        "src/repro/kernels/ops.py:82"),
 }
 
 
@@ -244,14 +279,16 @@ class SubCounts:
     the wrappers the backend module calls, removed on exit. When
     ``capture`` is set, the next ``decode_attention`` call's operands are
     cloned into ``decode_args`` (the decode phases set it at each new
-    longest tick)."""
+    longest tick). The first ``quant_expert_gemm`` call of each shape and
+    scale mode leaves its routed buffer in ``expert_args``."""
 
     NAMES = ("quant_flash_attention", "quant_linear", "addnorm_quant",
-             "paged_decode_attention")
+             "paged_decode_attention", "quant_expert_gemm")
 
     def __init__(self):
         self.capture = False
         self.decode_args = None
+        self.expert_args = {}
 
     def __enter__(self):
         import torch
@@ -281,9 +318,15 @@ class SubCounts:
                                     else v for k, v in kw.items()}
             return orig["paged_decode_attention"](**kw)
 
+        def experts(xe, w_q, w_scale, xs):
+            key = (w_q.shape[1], w_q.shape[2], xs is None)
+            if key not in self.expert_args:
+                self.expert_args[key] = xe.clone()
+            return orig["quant_expert_gemm"](xe, w_q, w_scale, xs)
+
         B.quant_flash_attention, B.quant_linear, B.addnorm_quant = \
             flash, linear, addnorm
-        B.paged_decode_attention = decode
+        B.paged_decode_attention, B.quant_expert_gemm = decode, experts
         return self
 
     def __exit__(self, *exc):
@@ -604,6 +647,201 @@ def phase_decode(name, model, plan, device, kv_cache=None):
             "prompts": prompts}
 
 
+def setup_moe(device):
+    """Full-width mixtral-8x22b cut to the golden v4 plan's 4 layers, with
+    seeded float weights on the card, its calibration batches and the
+    decode requests. Resets the card's peak-memory counter: the phase's peak
+    covers the float model, calibration, PTQ and serving."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.calibration import synthetic_calibration_batches
+    from repro_torch.core.plan import PrecisionPlan
+    from repro_torch.models import transformer as T
+
+    full = get_config("mixtral-8x22b")
+    cfg = full.replace(num_layers=MOE_LAYERS)
+    plan = PrecisionPlan.load(str(GOLDEN_V4))
+    if plan.num_layers != cfg.num_layers:
+        fail(f"golden v4 plan has {plan.num_layers} layers, not {MOE_LAYERS}")
+    if plan.fingerprint() != MOE_FINGERPRINT:
+        fail(f"golden v4 plan fingerprint {plan.fingerprint()} is not the "
+             f"JAX package's {MOE_FINGERPRINT}")
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    float_policy = PrecisionPlan.full_float(cfg.num_layers, "float32")
+    params = T.init_params(cfg, float_policy, seed=0, device=device)
+    B, S = MOE_FORWARD
+    batches = synthetic_calibration_batches(cfg, num_batches=2, batch_size=B,
+                                            seq_len=S, seed=0)
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(8, 65, DECODE_REQUESTS)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in lengths]
+    n_params = sum(t.numel() for t in _tensors(params))
+    emit({"phase": "setup_moe", "model": cfg.name, "layers": cfg.num_layers,
+          "of_layers": full.num_layers, "d_model": cfg.d_model, "heads": cfg.num_heads,
+          "kv_heads": cfg.num_kv_heads, "experts": cfg.moe.num_experts,
+          "top_k": cfg.moe.top_k, "d_ff_expert": cfg.moe.d_ff_expert,
+          "vocab": cfg.vocab_size, "sliding_window": cfg.sliding_window,
+          "float_params": n_params, "float_bytes": 4 * n_params,
+          "plan": plan.describe(), "plan_fingerprint": plan.fingerprint(),
+          "requests": DECODE_REQUESTS, "prompt_tokens": int(lengths.sum()),
+          "init_s": time.perf_counter() - t0})
+    return {"cfg": cfg, "plan": plan, "params": params, "batches": batches,
+            "float_plan": T.build_plan(cfg, float_policy),
+            "prompts": prompts}
+
+
+def _tensors(tree):
+    """Every tensor of a parameter tree (int8 values and scales of the
+    quantized leaves included)."""
+    import torch
+    from repro_torch.core.quantize import QuantizedTensor
+    if isinstance(tree, QuantizedTensor):
+        yield tree.values
+        yield tree.scale
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def phase_moe(model, device):
+    """Calibrate and quantize mixtral under the golden v4 plan, drop the
+    float tree, serve the requests on the fused backend (counters zeroed
+    just before the counted run, read just after) and on the reference
+    backend, and check them as the decode paths are checked."""
+    import statistics as st
+    import torch
+    from repro_torch import kernels
+    from repro_torch.quant import ptq
+    from repro_torch.serve import ServeEngine
+
+    cfg, plan = model["cfg"], model["plan"]
+    t0 = time.perf_counter()
+    stats = ptq.capture_stats(model["params"], model["batches"], cfg,
+                              model["float_plan"], precision=plan)
+    qparams, qplan = ptq.apply_plan(model["params"], cfg, plan, stats,
+                                    float_plan=model["float_plan"])
+    torch.cuda.synchronize()
+    ptq_peak = torch.cuda.max_memory_allocated(device)
+    # the float tree goes: qparams keeps only what the plan left float
+    model["params"] = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+    q_bytes = sum(t.numel() * t.element_size() for t in _tensors(qparams))
+    kw = dict(batch_slots=DECODE_SLOTS, max_len=DECODE_MAX_LEN,
+              page_size=PAGE_SIZE, precision=plan, device=device)
+    prompts = model["prompts"]
+    serve_decode(ServeEngine(cfg, qparams, qplan, backend="fused", **kw),
+                 prompts[:2], max_tokens=4)            # warm-up, not counted
+
+    fused = ServeEngine(cfg, qparams, qplan, backend="fused", **kw)
+    with SubCounts() as sub:
+        ticks = Ticks(fused)
+        kernels.reset_launches()
+        outputs, wall = serve_decode(fused, prompts)
+        launches = kernels.launch_counts()
+        per_token = kernels.expert_gemm.per_token_launches
+    fused._decode = ticks.step          # the profile times the bare engine
+    n_ticks = fused.stats["ticks"]
+    in_use = fused.kv_pages_in_use
+
+    reference = ServeEngine(cfg, qparams, qplan, backend="reference", **kw)
+    ref_ticks = Ticks(reference, against=ticks)
+    ref_outputs, ref_wall = serve_decode(reference, prompts)
+    in_use_ref = reference.kv_pages_in_use
+    peak = torch.cuda.max_memory_allocated(device)
+
+    cases = kernel_cases(cfg, plan, plan.kv_schemes)
+    per_tick, sub_tick = collections.Counter(), collections.Counter()
+    for key, case in cases.items():
+        per_tick[key[0]] += case["count"]
+        if case["sub"]:
+            sub_tick[case["sub"]] += case["count"]
+    want = {k: per_tick[k] * n_ticks for k in launches}
+    subs = dict(sub.counts)
+    subs["quant_expert_gemm with per-token scales"] = per_token
+    generated = sum(len(o) for o in outputs.values())
+    slot_tokens = fused.stats["tokens"]
+    E = cfg.moe.num_experts
+    capacity = max(1, math.ceil(cfg.moe.capacity_factor * DECODE_SLOTS
+                                * cfg.moe.top_k / E))
+    rec = {"phase": "moe_decode_path", "model": cfg.name,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "plan": plan.describe(), "plan_fingerprint": plan.fingerprint(),
+           "kv_schemes": list(plan.kv_schemes), "setup_s": setup_s,
+           "requests": len(prompts), "slots": DECODE_SLOTS,
+           "max_len": DECODE_MAX_LEN, "expert_capacity": capacity,
+           "ticks": n_ticks, "slot_tokens": slot_tokens,
+           "generated_tokens": generated, "wall_s": wall,
+           "tokens_per_s": slot_tokens / wall,
+           "generated_tokens_per_s": generated / wall,
+           "median_tick_ms": st.median(ticks.walls) * 1e3,
+           "reference_wall_s": ref_wall,
+           "reference_median_tick_ms": st.median(ref_ticks.walls) * 1e3,
+           "launches": launches, "expected_launches": want,
+           "launches_per_tick": dict(per_tick),
+           "sub_counts": subs, "sub_counts_per_tick": dict(sub_tick),
+           "ticks_compared": ref_ticks.compared,
+           "fused_vs_reference_rel_linf": ref_ticks.max_rel,
+           "tokens_equal": outputs == ref_outputs,
+           "kv_pages_in_use_after": [in_use, in_use_ref],
+           "kv_cache_bytes": fused.kv_cache_bytes,
+           "page_pool": fused.pool is not None,
+           "quantized_params_bytes": q_bytes,
+           "ptq_peak_memory_bytes": ptq_peak,
+           "peak_memory_bytes": peak,
+           "memory_allocated_after_bytes": torch.cuda.memory_allocated(
+               device)}
+    emit(rec)
+    if outputs != ref_outputs:
+        fail("moe_decode_path: fused and reference tokens differ")
+    if sorted(outputs) != list(range(len(prompts))) or any(
+            len(o) != DECODE_MAX_TOKENS or not all(0 <= t < cfg.vocab_size
+                                                   for t in o)
+            for o in outputs.values()) or not ticks.finite:
+        fail(f"moe_decode_path: outputs are not {DECODE_MAX_TOKENS} "
+             f"in-vocabulary tokens per request from finite logits")
+    if ref_ticks.compared == 0 or ref_ticks.max_rel > REL_LINF_BUDGET:
+        fail(f"moe_decode_path: fused vs reference logits rel-Linf "
+             f"{ref_ticks.max_rel} over {ref_ticks.compared} ticks (budget "
+             f"{REL_LINF_BUDGET})")
+    if dict(per_tick) != EXPECTED_MOE or dict(sub_tick) != EXPECTED_MOE_SUB:
+        fail(f"moe_decode_path: the plan implies {dict(per_tick)} launches "
+             f"per tick with {dict(sub_tick)}, not {EXPECTED_MOE} with "
+             f"{EXPECTED_MOE_SUB}")
+    if launches != want or any(launches[k] == 0 for k in EXPECTED_MOE):
+        fail(f"moe_decode_path: launch counts {launches} != plan-implied "
+             f"{want}")
+    if subs != {k: n * n_ticks for k, n in EXPECTED_MOE_SUB.items()}:
+        fail(f"moe_decode_path: sub-counts {subs} over {n_ticks} ticks; "
+             f"the plan implies {EXPECTED_MOE_SUB} per tick")
+    if in_use or in_use_ref or fused.pool is None:
+        fail(f"moe_decode_path: page pool {fused.pool is not None}, "
+             f"{in_use} / {in_use_ref} pages still in use after the run")
+    if len(sub.expert_args) != 4:
+        fail(f"moe_decode_path: captured {sorted(sub.expert_args)} expert "
+             f"GEMM classes, not the 4 of the plan")
+    B, S = MOE_FORWARD
+    prefill_c = max(1, math.ceil(cfg.moe.capacity_factor * B * S
+                                 * cfg.moe.top_k / E))
+    return {"name": "moe_decode_path", "cfg": cfg, "qparams": qparams,
+            "fused": fused, "launches": launches, "per_fwd": per_tick,
+            "cases": cases, "buckets": [DECODE_BUCKET],
+            "timed_bucket": DECODE_BUCKET, "capacities": [capacity,
+                                                          prefill_c],
+            "timed_capacity": capacity, "unit": "tick",
+            "expert_args": sub.expert_args, "prompts": prompts}
+
+
 def _gemms(cfg):
     """(block, K, N, activation, param path) of each GEMM of a layer."""
     D, F, Q, KV = cfg.d_model, cfg.d_ff, cfg.q_dim, cfg.kv_dim
@@ -627,6 +865,7 @@ def kernel_cases(cfg, plan, kv_schemes=None):
     is (``sub``, or None). GEMMs of one block and shape form one class,
     named by the first one's parameters."""
     D = cfg.d_model
+    kinds = cfg.layer_kinds()
     cases = collections.OrderedDict()
 
     def add(key, layer, n=1, sub=None):
@@ -635,10 +874,12 @@ def kernel_cases(cfg, plan, kv_schemes=None):
         cases[key]["count"] += n
 
     for i, lp in enumerate(plan.layers):
+        moe = kinds[i].moe
         span = lp.norm == "int8"
         ffn_out_static = lp.ffn_out.quantized and lp.ffn_out.static_acts
         first = {}
-        for block, K, N, act, path in _gemms(cfg):
+        for block, K, N, act, path in _gemms(cfg)[:4] if moe else \
+                _gemms(cfg):
             spec = lp.spec(block)
             if not spec.quantized:
                 continue
@@ -651,13 +892,32 @@ def kernel_cases(cfg, plan, kv_schemes=None):
                 "quant_linear with out_scale" if out else None)
             if token:
                 add(("dynamic_quant", K), i)
-        if lp.ffn_in.quantized and lp.ffn_in.static_acts:
+        if moe:
+            # the routed expert stacks under the experts family (else the
+            # ffn blocks' specs): wg, wu (D -> F) and wd (F -> D), one
+            # launch each for every expert; per-token scales come from one
+            # dynamic_quant launch over the whole routed buffer
+            F = cfg.moe.d_ff_expert
+            for (K, N, n, w), block in (((D, F, 2, "wg"), "ffn_in"),
+                                        ((F, D, 1, "wd"), "ffn_out")):
+                spec = lp.experts or lp.spec(block)
+                if not spec.quantized:
+                    continue
+                token = not spec.static_acts
+                add(("quant_expert_gemm", K, N, token, ("ffn", w)), i, n,
+                    "quant_expert_gemm with per-token scales" if token
+                    else None)
+                if token:
+                    add(("dynamic_quant", K, "experts"), i, n)
+        elif lp.ffn_in.quantized and lp.ffn_in.static_acts:
             add(("addnorm_quant", D, span, cfg.norm_kind), i, 1,
                 "addnorm_quant with an int8 delta" if span else None)
         if kv_schemes is not None:
             # the kernel takes the one-token step of float-bmm layers over
-            # int8 pages; int8-bmm layers gather the pages
-            if not lp.qkv.quantized and kv_schemes[i] != "float":
+            # int8 pages; int8-bmm layers gather the pages, and local layers
+            # keep dense rings
+            if (not lp.qkv.quantized and kv_schemes[i] != "float"
+                    and not kinds[i].local):
                 quant_p = lp.softmax == "uint8"
                 mode = ("per_token" if kv_schemes[i] == "int8_per_token"
                         else "per_head")
@@ -738,22 +998,30 @@ def run_case(cfg, key, layer, bucket, qparams, device, timer=None):
                   + (M * N + 4 if out else 4 * M * N))
         t_bytes, t_ops = bound(nbytes, int8_ops=2.0 * M * N * K,
                                f32_ops=(13.0 if act else 3.0) * M * N)
-        if M > 16:
-            bias = b if b is not None else torch.zeros(N, device=device)
+        bias = b if b is not None else torch.zeros(N, device=device)
+        # torch._int_mm takes more than 16 rows: at decode (M = 8) it runs
+        # on x padded with zero rows to 32, and the rows are cut after it
+        x_lib = x_q if M > 16 else torch.cat(
+            [x_q, torch.zeros((32 - M, K), dtype=torch.int8, device=device)])
+        rec["library"] = ("torch._int_mm + epilogue" if M > 16 else
+                          "torch._int_mm at M padded to 32 + epilogue")
 
-            def lib():
-                acc = torch._int_mm(x_q, w.values)
-                y = acc.to(torch.float32) * (xs * ws) + bias
-                if act == "gelu":
-                    y = Fn.gelu(y, approximate="tanh")
-                elif act == "silu":
-                    y = Fn.silu(y)
-                if out:
-                    return torch.clamp(torch.round(y / os_), -128, 127).to(
-                        torch.int8)
-                return y
+        def lib():
+            acc = torch._int_mm(x_lib, w.values)[:M]
+            y = acc.to(torch.float32) * (xs * ws) + bias
+            if act == "gelu":
+                y = Fn.gelu(y, approximate="tanh")
+            elif act == "silu":
+                y = Fn.silu(y)
+            if out:
+                return torch.clamp(torch.round(y / os_), -128, 127).to(
+                    torch.int8)
+            return y
     elif key[0] == "dynamic_quant":
         K = key[1]
+        if len(key) > 2:         # a routed expert buffer: (E, C) -> E C rows
+            rec.update(rows="experts x capacity", bucket=None,
+                       experts=Bb, capacity=Sb)
         x = torch.randn((M, K), generator=gen, device=device)
         kern = lambda: dynamic_quant.dynamic_quant(x)               # noqa
         plain = lambda: dynamic_quant.dynamic_quant_plain(x)         # noqa
@@ -1031,14 +1299,101 @@ def run_decode_case(path, mode, device, timer=None):
     return rec, (t_bytes, t_ops)
 
 
-def phase_kernels(paths, device):
+def run_expert_case(path, key, layer, C, device, timer=None):
+    """Check ``quant_expert_gemm`` of shape class ``key`` at capacity ``C``
+    (G = 1) against its plain version: on the routed buffer the served run
+    gave it at its own capacity, on a seeded one at others; with ``timer``,
+    also time kernel, plain and the library yardstick, a loop of E
+    ``torch._int_mm`` calls (rows padded to 32 at decode) with the same
+    quantization and epilogue, which the port never calls."""
+    import torch
+    from repro_torch.core.quantize import quantize, quantize_per_token
+    from repro_torch.kernels import dynamic_quant
+    from repro_torch.kernels import expert_gemm as EG
+    _, K, N, token, wpath = key
+    cfg = path["cfg"]
+    E = cfg.moe.num_experts
+    p = path["qparams"]["layers"][layer][wpath[0]][wpath[1]]
+    w, xs = p["w"], None if token else p["xs"]
+    xe = path["expert_args"].get((K, N, token))
+    served = xe is not None and xe.shape[-2] == C
+    if not served:
+        gen = torch.Generator(device=device).manual_seed(C * K + N)
+        xe = torch.randn((1, E, C, K), generator=gen, device=device)
+        if xs is not None:            # codes of a few tens of units
+            xe = xe * (xs * 24.0)
+    args = (xe, w.values, w.scale, xs)
+    y = EG.quant_expert_gemm(*args)
+    want = EG.quant_expert_gemm_plain(*args)
+    err = float((y - want).abs().max())
+    rel = rel_linf(want, y)
+    codes_exact = True
+    if token:          # the kernel's codes: one dynamic_quant launch
+        q, sc = dynamic_quant.dynamic_quant(xe.reshape(-1, K))
+        ref = quantize_per_token(xe)
+        codes_exact = bool(q.equal(ref.values.reshape(-1, K))
+                           and sc.equal(ref.scale.reshape(-1, 1)))
+    ok = rel <= 1e-6 and codes_exact
+    rec = {"phase": "kernel", "kernel": "quant_expert_gemm",
+           "path": path["name"], "layer": layer, "weight": wpath[1],
+           "G": 1, "E": E, "C": C, "D": K, "F": N,
+           "per_token_scales": token, "routed_buffer_of_the_run": served,
+           "max_abs_err": err, "rel_linf": rel, "exact": bool(y.equal(want)),
+           "codes_exact": codes_exact,
+           "tolerance": "codes exact; rel-Linf <= 1e-6 (both sum in int32 "
+                        "and dequantize as acc * (xs * ws))"}
+    # each input read once (the float buffer, the int8 stack, the scales),
+    # the float output written once; the operations: the int8 products, the
+    # quantization (3 a value; 2 more for a per-token amax) and a
+    # two-multiply epilogue
+    rows = E * C
+    nbytes = (4.0 * rows * K + E * K * N + 4.0 * E * N
+              + (0.0 if token else 4.0 * E) + 4.0 * rows * N)
+    t_bytes, t_ops = bound(nbytes, int8_ops=2.0 * rows * K * N,
+                           f32_ops=(5.0 if token else 3.0) * rows * K
+                           + 2.0 * rows * N)
+    rec["bound_ms"] = max(t_bytes, t_ops)
+    rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    if timer is not None:
+        Mp = max(32, -(-C // 8) * 8)
+        x_pad = torch.zeros((E, Mp, K), dtype=torch.int8, device=device)
+        ws = w.scale.reshape(E, 1, N)
+        out = torch.empty((1, E, C, N), device=device)
+
+        def lib():
+            if token:
+                qt = quantize_per_token(xe)
+                codes, x_scale = qt.values[0], qt.scale[0]   # (E, C, 1)
+            else:
+                codes = quantize(xe, xs)[0]
+                x_scale = xs.reshape(E, 1, 1)
+            x_pad[:, :C].copy_(codes)
+            for e in range(E):
+                acc = torch._int_mm(x_pad[e], w.values[e])[:C]
+                out[0, e] = acc.to(torch.float32) * (x_scale[e] * ws[e])
+            return out
+        rec["ms"] = timer.ms(lambda: EG.quant_expert_gemm(*args))
+        rec["plain_ms"] = timer.ms(lambda: EG.quant_expert_gemm_plain(*args))
+        rec["library_ms"] = timer.ms(lib)
+        rec["library"] = (f"a loop of {E} torch._int_mm calls (rows padded "
+                          f"to {Mp}) with the same quantization and "
+                          f"epilogue")
+    torch.cuda.synchronize()
+    emit(rec)
+    if not ok:
+        fail(f"quant_expert_gemm at C={C} disagrees with its plain version: "
+             f"{rec}")
+    return rec, (t_bytes, t_ops)
+
+
+def check_kernels(paths, device, timed, max_err):
     """Every kernel against its plain version at every shape a path gave it
-    (each shape class at each of that path's buckets; the decode kernel on
-    the operands of the longest tick, in all three modes), timed at the
-    profile bucket of encoder paths and at the decode paths' 8 slots;
-    returns the per-kernel summary entries: sums over one forward of the
-    span path (one tick of the decode path for ``decode_attention``), and
-    over one forward or tick of each path under ``by_path``."""
+    (each shape class at each of that path's buckets, or capacities for the
+    routed expert GEMM and its buffers; the decode kernel on the operands of
+    the longest tick, in all three modes), timed at the profile bucket of
+    encoder paths, at the decode paths' 8 slots and at the MoE path's served
+    capacity; fills ``timed`` (key -> (record, (bytes bound, ops bound)))
+    and ``max_err`` (kernel -> its largest max abs error)."""
     classes = collections.OrderedDict()
     for path in paths:
         for key, case in path["cases"].items():
@@ -1046,7 +1401,6 @@ def phase_kernels(paths, device):
                                          "path": path, "buckets": set()})
             c["buckets"] |= set(path["buckets"])
     timer = Timer(device)
-    timed, max_err = {}, collections.defaultdict(float)
     for key, c in classes.items():
         path = c["path"]
         if key[0] == "decode_attention":
@@ -1057,14 +1411,30 @@ def phase_kernels(paths, device):
                 rec, _ = run_decode_case(path, "per_head", device)
                 max_err[key[0]] = max(max_err[key[0]], rec["max_abs_err"])
             continue
-        for bucket in sorted(c["buckets"]):
-            at = bucket == path["timed_bucket"]
-            rec, tb = run_case(path["cfg"], key, c["layer"], bucket,
-                               path["qparams"], device,
-                               timer if at else None)
+        routed = key[0] == "quant_expert_gemm" or key[-1] == "experts"
+        # a bucket, or for the routed buffers a capacity per expert
+        for shape in path["capacities"] if routed else sorted(c["buckets"]):
+            at = shape == (path["timed_capacity"] if routed
+                           else path["timed_bucket"])
+            # the expert GEMM is timed at a forward's capacity as well
+            t = timer if at or key[0] == "quant_expert_gemm" else None
+            if key[0] == "quant_expert_gemm":
+                rec, tb = run_expert_case(path, key, c["layer"], shape,
+                                          device, t)
+            else:
+                bucket = ((path["cfg"].moe.num_experts, shape) if routed
+                          else shape)
+                rec, tb = run_case(path["cfg"], key, c["layer"], bucket,
+                                   path["qparams"], device, t)
             max_err[key[0]] = max(max_err[key[0]], rec["max_abs_err"])
             if at:
                 timed[key] = (rec, tb)
+
+
+def summarize(paths, timed, max_err):
+    """The per-kernel summary entries: sums over one forward of the span
+    path, else one tick of the decode path, else one tick of the MoE path,
+    and over one forward or tick of each path under ``by_path``."""
 
     def sums(path, name):
         out = {"launches": path["launches"][name],
@@ -1093,7 +1463,8 @@ def phase_kernels(paths, device):
         by_path = {p["name"]: sums(p, name) for p in paths
                    if p["per_fwd"][name]}
         top = next(by_path[n] for n in ("span_path", "decode_path",
-                                        "main_path") if n in by_path)
+                                        "main_path", "moe_decode_path")
+                   if n in by_path)
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": rep,
                  "launches": sum(b["launches"] for b in by_path.values()),
@@ -1104,7 +1475,8 @@ def phase_kernels(paths, device):
         entry["per"] = (f"one forward of the span path at bucket "
                         f"{PROFILE_BUCKET}, or one tick of the decode path "
                         f"at its longest ({DECODE_SLOTS} slots) where the "
-                        f"span path does not run the kernel: the sum over "
+                        f"span path does not run the kernel, or one tick "
+                        f"of the MoE path where neither does: the sum over "
                         f"its launches (by_path for each path); launches: "
                         f"the counted runs of every path")
         summary.append(entry)
@@ -1263,10 +1635,23 @@ def main() -> int:
                            kv_cache="int8_per_token"),
               phase_decode("decode_head_path", decoder,
                            decode_head_plan(decoder["plan"]), device)]
-    summary = phase_kernels(paths, device)
+    timed, max_err = {}, collections.defaultdict(float)
+    check_kernels(paths, device, timed, max_err)
     phase_profile(model, paths, device)
     phase_profile_decode(paths[2])
-    emit({"kernels": summary})
+    # free the earlier paths' models and engines before the 42 GB MoE model;
+    # their summaries keep only counts and timings
+    del model, decoder
+    for path in paths:
+        for k in ("qparams", "fused", "decode_args", "prompts"):
+            path.pop(k, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = phase_moe(setup_moe(device), device)
+    paths.append(moe)
+    check_kernels([moe], device, timed, max_err)
+    phase_profile_decode(moe)
+    emit({"kernels": summarize(paths, timed, max_err)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -2,8 +2,8 @@
 
 The dataclasses are field-for-field copies of the JAX package's, so a config
 built here compares equal, field by field, to its JAX twin. Only the configs
-the ported slices serve are registered (``bert-base``, ``qwen2-0.5b``); the
-others arrive with the slices that run them.
+the ported slices serve are registered (``bert-base``, ``qwen2-0.5b``,
+``mixtral-8x22b``); the others arrive with the slices that run them.
 """
 from __future__ import annotations
 
@@ -159,7 +159,7 @@ class ArchConfig:
 _REGISTRY: dict[str, ArchConfig] = {}
 
 # config modules of the ported slices (import side-effect registration)
-_MODULES = ("bert_base", "qwen2_0_5b")
+_MODULES = ("bert_base", "qwen2_0_5b", "mixtral_8x22b")
 
 
 def register(cfg: ArchConfig) -> ArchConfig:

@@ -5,10 +5,13 @@ lists and tuples of numpy arrays — each ``QuantizedTensor`` as a dict
 ``{"values", "scale", "zero_point"}`` — and returns the port's params: the
 same leaves as tensors on ``device``, with the scan-stacked
 ``params["groups"][g]["layers"][j]`` unstacked into the per-layer list
-``params["layers"]``. Any leaf carries as it is, so a BERT tree and a qwen2
+``params["layers"]``. Any leaf carries as it is, so a BERT tree, a qwen2
 tree (GLU ``wg``/``wu``/``wd``, QKV biases, the static KV-cache scales
-``kc_scale``/``vc_scale`` and ``p_scale``) both come across whole. Converting jax arrays to numpy is the caller's job;
-this module imports neither JAX nor the JAX package.
+``kc_scale``/``vc_scale`` and ``p_scale``) and a mixtral tree all come
+across whole; unstacking slices only the scan axis, so an expert stack
+``(steps, E, D, F)`` arrives as (E, D, F), its scales as (E, 1, F) and a
+per-expert ``xs`` as (E, 1, 1). Converting jax arrays to numpy is the
+caller's job; this module imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 

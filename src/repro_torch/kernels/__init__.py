@@ -3,15 +3,16 @@
 Each kernel module holds the wrapper (which launches the CUDA kernel for a
 CUDA tensor and runs the plain version for a CPU tensor, and raises for
 anything else), the plain version (``*_plain``) and a ``launches`` counter
-that only the kernel launch increments. :func:`launch_counts` and
-:func:`reset_launches` read and zero the counters, so a run can show that a
-path went through the kernels.
+that only the kernel launch increments (``expert_gemm`` also counts its
+launches with per-token scales, ``per_token_launches``).
+:func:`launch_counts` and :func:`reset_launches` read and zero the counters,
+so a run can show that a path went through the kernels.
 """
 from __future__ import annotations
 
 from repro_torch.kernels import (addnorm_quant, decode_attention,
-                                 dynamic_quant, flash_attention, fused_embed,
-                                 quant_linear)
+                                 dynamic_quant, expert_gemm, flash_attention,
+                                 fused_embed, quant_linear)
 
 KERNEL_MODULES = {
     "quant_linear": quant_linear,
@@ -20,6 +21,7 @@ KERNEL_MODULES = {
     "fused_embed": fused_embed,
     "quant_flash_attention": flash_attention,
     "decode_attention": decode_attention,
+    "quant_expert_gemm": expert_gemm,
 }
 
 
@@ -30,3 +32,4 @@ def launch_counts() -> dict[str, int]:
 def reset_launches() -> None:
     for mod in KERNEL_MODULES.values():
         mod.launches = 0
+    expert_gemm.per_token_launches = 0

@@ -4,11 +4,12 @@ kernels (port of ``repro.kernels.backend``).
 The PrecisionPlan decides *what* is quantized; the compute backend decides
 *how* each quantized op executes:
 
-* ``reference`` — declines every op but ``decode_attention``, so model code
-  runs its inline PyTorch implementation (``backend=None`` and
-  ``"reference"`` are identical). The one-token decode step over int8 KV
-  pages runs the ``decode_attention`` kernel's plain version, so fused and
-  reference decode agree exactly on the card.
+* ``reference`` — declines every op but ``decode_attention`` and
+  ``expert_gemm``, so model code runs its inline PyTorch implementation
+  (``backend=None`` and ``"reference"`` are identical). The one-token decode
+  step over int8 KV pages runs the ``decode_attention`` kernel's plain
+  version, and an int8 expert stack the ``quant_expert_gemm`` plain version,
+  so fused and reference agree exactly on the card.
 * ``fused``     — int8 block GEMMs through ``quant_linear`` (dequant + bias
   + activation in the epilogue; per-token activation scales from
   ``dynamic_quant``; requantized to int8 at ``out_xs`` inside a schema-v3
@@ -16,16 +17,17 @@ The PrecisionPlan decides *what* is quantized; the compute backend decides
   ``addnorm_quant`` (emitting the int8 tensor the FFN input GEMM consumes,
   and taking an int8 delta inside the span), the bidirectional attention
   core of ``softmax='uint8'`` layers through ``quant_flash_attention``, the
-  one-token decode step over int8 KV pages through ``decode_attention``, and
-  the embedding gather through ``fused_embed``. The kernel wrappers run
-  their plain versions on CPU tensors, so ``fused`` also runs on the CPU,
-  where it exercises the same dispatch.
+  one-token decode step over int8 KV pages through ``decode_attention``, the
+  routed int8 expert GEMMs of an MoE layer through ``quant_expert_gemm``
+  (per-token scales for the whole routed buffer from one ``dynamic_quant``
+  launch), and the embedding gather through ``fused_embed``. The kernel
+  wrappers run their plain versions on CPU tensors, so ``fused`` also runs
+  on the CPU, where it exercises the same dispatch.
 * ``auto``      — ``fused`` for CUDA tensors, ``reference`` on the CPU
-  (where ``decode_attention`` is the same plain version in both).
+  (where ``decode_attention`` and ``expert_gemm`` are the same plain
+  versions in both).
 
 Every op returns a result or ``None`` ("decline — use the reference path").
-``expert_gemm`` declines in every backend until the slice that ports its
-kernel.
 """
 from __future__ import annotations
 
@@ -42,6 +44,8 @@ from repro_torch.kernels.decode_attention import (decode_attention as
 from repro_torch.kernels.decode_attention import (decode_attention_plain,
                                                   paged_operands)
 from repro_torch.kernels.dynamic_quant import dynamic_quant
+from repro_torch.kernels.expert_gemm import (quant_expert_gemm,
+                                             quant_expert_gemm_plain)
 from repro_torch.kernels.flash_attention import quant_flash_attention
 from repro_torch.kernels.fused_embed import fused_embed
 from repro_torch.kernels.quant_linear import ACTIVATIONS, quant_linear
@@ -157,9 +161,19 @@ class ComputeBackend:
         return decode_attention_plain(**ops)
 
     def expert_gemm(self, xe, w, xs=None):
-        """Routed MoE expert GEMM (``quant_expert_gemm``, not ported yet):
-        declines."""
-        return None
+        """Routed MoE expert GEMM: xe (G, E, C, D) against an int8 stack
+        ``w`` (E, D, F) with per-expert scales (weights (E, 1, F); static
+        acts ``xs`` (E, 1, 1) or a scalar, else per token). Returns float32
+        (G, E, C, F) from :meth:`quant_experts`, or None for a float stack
+        (the model's batched matmul)."""
+        if not isinstance(w, QuantizedTensor):
+            return None
+        return self.quant_experts(xe, w.values, w.scale, xs)
+
+    def quant_experts(self, xe, w_q, w_scale, xs):
+        """The int8 expert GEMM: the ``quant_expert_gemm`` kernel's plain
+        version here, its wrapper in the fused backends."""
+        return quant_expert_gemm_plain(xe, w_q, w_scale, xs)
 
     def __repr__(self) -> str:
         return f"<{type(self).__name__} {self.name!r}>"
@@ -283,6 +297,12 @@ class FusedBackend(ComputeBackend):
         # kernel's gain is reading the int8 pool with the dequantization
         # fused into both dots; on the CPU the wrapper runs the plain version
         return paged_decode_attention(**ops)
+
+    def quant_experts(self, xe, w_q, w_scale, xs):
+        # one launch for every expert of the stack; the wrapper quantizes
+        # the whole routed buffer first (per-token: one dynamic_quant
+        # launch), and on the CPU runs the plain version
+        return quant_expert_gemm(xe.contiguous(), w_q, w_scale, xs)
 
 
 def _on_cuda(t) -> bool:

@@ -1,6 +1,7 @@
 """Quantization-aware building blocks — the attention-body subset of
-``repro.models.layers``: BERT encoders and the rope / GQA / GLU decoders
-(qwen2), with their dense and paged decode caches.
+``repro.models.layers``: BERT encoders, the rope / GQA / GLU decoders
+(qwen2) with their dense and paged decode caches, and the top-k MoE FFN
+(mixtral) with its sort-based capacity dispatch.
 
 Every GEMM goes through :func:`dense` (projections) or :func:`quant_bmm`
 (the attention score/value batched matmuls), so the precision plan applies
@@ -64,6 +65,17 @@ def observe_per_head(obs: Optional[dict], site: str, x) -> None:
     sites (``k_cache``/``v_cache``), whose static scales are per head."""
     if obs is not None and not isinstance(x, QuantActivation):
         obs[site] = torch.amax(x.abs(), dim=(0, 1, 3)).to(torch.float32)
+
+
+def observe_per_expert(obs: Optional[dict], site: str, x) -> None:
+    """Record per-expert max|x| over a routed (..., E, C, D) capacity buffer:
+    the ``expert_in``/``expert_hidden`` sites of the schema-v4 ``experts``
+    family, whose static scales are per expert (E,). Dropped tokens scatter
+    as zeros, so each expert's amax covers exactly the tokens it kept."""
+    if obs is not None and not isinstance(x, QuantActivation):
+        e_axis = x.ndim - 3
+        axes = tuple(i for i in range(x.ndim) if i != e_axis)
+        obs[site] = torch.amax(x.abs(), dim=axes).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -685,6 +697,134 @@ def ffn_block(x, p: dict, cfg, obs: Optional[dict] = None, prefix: str = "",
     observe(obs, prefix + "ffn_hidden", h)
     observe_values(obs, prefix + "ffn_hidden", h)
     return dense(h, p["wo"], backend=backend)
+
+
+# ---------------------------------------------------------------------------
+# MoE: sort-based capacity-bounded dispatch (mixtral)
+# ---------------------------------------------------------------------------
+
+
+def init_moe(gen: torch.Generator, cfg, *, device=None,
+             dtype=torch.float32) -> dict:
+    """Router (float32, (D, E)) and the GLU expert stacks wg/wu (E, D, F)
+    and wd (E, F, D); a shared GLU FFN of F * num_shared when the config
+    has one. The stacks are scaled in place: at full width one is 3.2 GB."""
+    mo = cfg.moe
+    E, D, F = mo.num_experts, cfg.d_model, mo.d_ff_expert
+    kw = dict(generator=gen, device=device)
+    p = {"router": {"w": torch.randn((D, E), dtype=torch.float32, **kw)
+                    .mul_(1.0 / math.sqrt(D))},
+         "wg": {"w": torch.randn((E, D, F), dtype=dtype, **kw)
+                .mul_(1.0 / math.sqrt(D))},
+         "wu": {"w": torch.randn((E, D, F), dtype=dtype, **kw)
+                .mul_(1.0 / math.sqrt(D))},
+         "wd": {"w": torch.randn((E, F, D), dtype=dtype, **kw)
+                .mul_(1.0 / math.sqrt(F))}}
+    if mo.num_shared:
+        p["shared"] = init_ffn(gen, cfg, d_ff=F * mo.num_shared,
+                               device=device, dtype=dtype)
+    return p
+
+
+def _expert_gemm(xe: torch.Tensor, w, xs: Optional[torch.Tensor],
+                 obs: Optional[dict], site: str, backend=None
+                 ) -> torch.Tensor:
+    """Batched per-expert GEMM: xe (G, E, C, D) @ w (E, D, F) ->
+    (G, E, C, F). An int8 stack (per-expert-per-channel scales (E, 1, F);
+    static activation scales ``xs`` (E, 1, 1) or a scalar, per-token
+    without) goes to the backend, which every backend claims: the fused one
+    launches ``quant_expert_gemm``, the reference one runs its plain
+    version, so the two dequantize in one order and agree exactly. A float
+    stack is a plain batched matmul."""
+    observe(obs, site, xe)
+    y = get_backend(backend).expert_gemm(xe, w, xs)
+    if y is not None:
+        return y.to(xe.dtype)
+    return torch.matmul(xe, w.to(xe.dtype))
+
+
+def _dispatch_one(xt: torch.Tensor, logits: torch.Tensor, E: int, K: int,
+                  C: int):
+    """Sort-based capacity dispatch of one token group. xt (T, D); logits
+    (T, E). Returns (xe (E, C, D), st, sg, keep, slot) for the combine.
+
+    The top K come from a stable descending sort, so tied logits pick the
+    lower expert first as ``lax.top_k`` does (``torch.topk`` promises no
+    order on CUDA), and the expert sort is stable like ``jnp.argsort``. An
+    expert's (C+1)-th token is dropped: it keeps its gate but no slot."""
+    Tl, D = xt.shape
+    dev = xt.device
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    gates = _softmax(vals[:, :K])
+    flat_expert = idx[:, :K].reshape(-1)
+    flat_token = torch.arange(Tl, device=dev).repeat_interleave(K)
+    order = torch.argsort(flat_expert, stable=True)
+    se, st, sg = flat_expert[order], flat_token[order], gates.reshape(-1)[
+        order]
+    seg_start = torch.searchsorted(se, torch.arange(E, device=dev))
+    pos_in_expert = torch.arange(Tl * K, device=dev) - seg_start[se]
+    keep = pos_in_expert < C
+    slot = se * C + torch.where(keep, pos_in_expert, 0)
+    src = torch.where(keep[:, None], xt[st], 0.0)
+    # dropped rows add +0.0 to their expert's slot 0 and every kept slot is
+    # unique, so the sum is exact in any order, atomics included
+    xe = torch.zeros((E * C, D), dtype=xt.dtype, device=dev).index_add_(
+        0, slot, src)
+    return xe.reshape(E, C, D), st, sg, keep, slot
+
+
+def _combine_one(ye: torch.Tensor, st, sg, keep, slot, Tl: int, D: int,
+                 dtype) -> torch.Tensor:
+    """Scatter the expert outputs back to their tokens, weighted by the
+    gates; dropped assignments contribute zero. Each token's K
+    contributions are added to zero one at a time in the sorted
+    (ascending-expert) order, the order of the JAX package's scatter-add,
+    with no atomics, so the sum is deterministic for any K."""
+    contrib = torch.where(keep[:, None],
+                          ye.reshape(-1, D)[slot] * sg[:, None].to(dtype),
+                          0.0)
+    K = st.shape[0] // Tl
+    per_token = contrib[torch.argsort(st, stable=True)].reshape(Tl, K, D)
+    y = torch.zeros((Tl, D), dtype=dtype, device=ye.device)
+    for k in range(K):
+        y = y + per_token[:, k]
+    return y
+
+
+def moe_block(x: torch.Tensor, p: dict, cfg, obs: Optional[dict] = None,
+              backend=None) -> torch.Tensor:
+    """Top-k MoE with capacity-bounded sort-based dispatch: the float32
+    router picks each token's top-k experts, tokens route into per-expert
+    buffers of capacity C = ceil(capacity_factor * T * K / E), three expert
+    GEMMs run the GLU over (G, E, C, D), and the outputs scatter back with
+    the gates. Overflowing tokens are dropped (Switch semantics). The JAX
+    package's token groups follow the data shards; without a mesh there is
+    one group (G = 1). Every row of ``x`` routes, so idle decode slots take
+    capacity as they do in the JAX engine."""
+    mo = cfg.moe
+    B, S, D = x.shape
+    T_ = B * S
+    E, K = mo.num_experts, mo.top_k
+    C = max(1, int(math.ceil(mo.capacity_factor * T_ * K / E)))
+    observe(obs, "ffn_in", x)
+    xt = x.reshape(T_, D)
+    logits = torch.matmul(xt.to(torch.float32), p["router"]["w"])
+    xe, st, sg, keep, slot = _dispatch_one(xt, logits, E, K, C)
+    xe = xe[None]                                    # (G, E, C, D)
+    observe_per_expert(obs, "expert_in", xe)
+    h = (_ACT["silu"](_expert_gemm(xe, p["wg"]["w"], p["wg"].get("xs"),
+                                   obs, "ffn_in_e", backend))
+         * _expert_gemm(xe, p["wu"]["w"], p["wu"].get("xs"), None,
+                        "ffn_in_e", backend))
+    observe(obs, "ffn_hidden", h)
+    observe_per_expert(obs, "expert_hidden", h)
+    ye = _expert_gemm(h, p["wd"]["w"], p["wd"].get("xs"), None, "ffn_hidden",
+                      backend)
+    y = _combine_one(ye[0], st, sg, keep, slot, T_, D, x.dtype)
+    if "shared" in p:
+        y = y + ffn_block(x, p["shared"], cfg, obs=obs, prefix="shared_",
+                          backend=backend).reshape(T_, D)
+    return y.reshape(B, S, D)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Config-driven model driver (port of ``repro.models.transformer``, the
-attention-body subset): BERT encoders, and rope / GQA / GLU decoders with
-their decode caches.
+attention-body subset): BERT encoders, rope / GQA / GLU decoders with their
+decode caches, and MoE decoders (mixtral) with sliding-window rings.
 
 Parameters are ``{"embed", "layers": [one dict per layer], "final_norm",
 ["lm_head"], ["head"]}``: a plain Python list of per-layer dicts where the
@@ -92,14 +92,15 @@ def build_plan(cfg: ArchConfig, policy) -> tuple[Group, ...]:
 
 def init_layer(gen: torch.Generator, cfg: ArchConfig, kind: BlockKind, *,
                device=None, dtype=torch.float32) -> dict:
-    if kind.body != "attn" or kind.moe or cfg.mla is not None:
+    if kind.body != "attn" or cfg.mla is not None:
         raise NotImplementedError(
             f"layer body {kind} is not ported yet (attention bodies only)")
     kw = dict(device=device, dtype=dtype)
     return {"norm1": L.init_norm(cfg.norm_kind, cfg.d_model, **kw),
             "attn": L.init_attention(gen, cfg, **kw),
             "norm2": L.init_norm(cfg.norm_kind, cfg.d_model, **kw),
-            "ffn": L.init_ffn(gen, cfg, **kw)}
+            "ffn": (L.init_moe(gen, cfg, **kw) if kind.moe
+                    else L.init_ffn(gen, cfg, **kw))}
 
 
 def init_params(cfg: ArchConfig, policy=None, *, seed: int = 0,
@@ -181,8 +182,11 @@ def layer_forward(x, lp, cfg: ArchConfig, kind: BlockKind, mode: LayerMode,
     """One pre-LN attention layer: x + attn(norm1(x)), then
     x + ffn(norm2(x)); the fused backend collapses the add + norm2 +
     requantization into ``addnorm_quant`` when the ffn_in GEMM has a static
-    int8 scale to feed. Returns x, or ``(x, new_cache)`` with a ``cache``."""
-    if kind.body != "attn" or kind.moe or cfg.mla is not None:
+    int8 scale to feed. An MoE layer keeps the float residual boundary (a
+    requantized attention output is dequantized) and runs
+    :func:`~repro_torch.models.layers.moe_block` in place of the FFN.
+    Returns x, or ``(x, new_cache)`` with a ``cache``."""
+    if kind.body != "attn" or cfg.mla is not None:
         raise NotImplementedError(f"layer body {kind} is not ported yet")
     quant = L.AttnQuant(enabled=(mode.quant_mha if quant_bmm is None
                                  else quant_bmm),
@@ -197,10 +201,11 @@ def layer_forward(x, lp, cfg: ArchConfig, kind: BlockKind, mode: LayerMode,
     if cache is not None:
         a, new_cache = a
     ns = (ffn_input_scale(lp["ffn"], cfg.ffn_kind)
-          if backend is not None else None)
+          if backend is not None and not kind.moe else None)
     x, h2 = L.residual_norm(a, x, lp["norm2"], cfg.norm_kind, next_scale=ns,
                             backend=backend)
-    x = x + L.ffn_block(h2, lp["ffn"], cfg, obs=obs, backend=backend)
+    ffn = L.moe_block if kind.moe else L.ffn_block
+    x = x + ffn(h2, lp["ffn"], cfg, obs=obs, backend=backend)
     return x if cache is None else (x, new_cache)
 
 
@@ -317,13 +322,17 @@ def apply_head(hidden, params, kind: str) -> torch.Tensor:
 def _layer_cache(cfg: ArchConfig, kind: BlockKind, batch: int, max_len: int,
                  dtype, device, *, page_size: Optional[int] = None,
                  num_pages: int = 0, kv_scheme: str = "float") -> dict:
-    if kind.body != "attn" or kind.moe or kind.local or cfg.mla is not None:
+    if kind.body != "attn" or cfg.mla is not None:
         raise NotImplementedError(
-            f"decode caches of layer body {kind} are not ported yet (full "
-            f"attention only)")
+            f"decode caches of layer body {kind} are not ported yet "
+            f"(attention bodies only)")
     H, hd = cfg.num_kv_heads, cfg.head_dim
     kw = dict(device=device)
-    if page_size is not None:
+    # a local (sliding-window) layer keeps its dense ring of W positions
+    # even when the engine pages: the ring is already W-bounded, and its
+    # KV scheme is inert, as in the JAX package
+    W = min(cfg.sliding_window, max_len) if kind.local else max_len
+    if page_size is not None and not kind.local:
         # pooled token pages + per-slot pos; the (B, pages_per_slot) page
         # table is a separate operand (PagePool), not a cache entry
         ps, NP = page_size, num_pages
@@ -338,10 +347,9 @@ def _layer_cache(cfg: ArchConfig, kind: BlockKind, batch: int, max_len: int,
             d["pages_vs"] = torch.zeros((NP, ps, H), dtype=torch.float32,
                                         **kw)
         return d
-    return {"k": torch.zeros((batch, max_len, H, hd), dtype=dtype, **kw),
-            "v": torch.zeros((batch, max_len, H, hd), dtype=dtype, **kw),
-            "k_pos": torch.full((batch, max_len), -1, dtype=torch.int32,
-                                **kw),
+    return {"k": torch.zeros((batch, W, H, hd), dtype=dtype, **kw),
+            "v": torch.zeros((batch, W, H, hd), dtype=dtype, **kw),
+            "k_pos": torch.full((batch, W), -1, dtype=torch.int32, **kw),
             "pos": torch.zeros((batch,), dtype=torch.int32, **kw)}
 
 
@@ -355,8 +363,10 @@ def init_caches(cfg: ArchConfig, plan: tuple[Group, ...], batch: int,
                 num_pages: Optional[int] = None,
                 kv_schemes: Optional[Sequence[str]] = None,
                 device: Union[str, torch.device] = "cuda") -> list:
-    """Decode caches, one dict per layer. ``page_size`` switches to the
-    paged layout (see :mod:`repro_torch.models.layers`); ``num_pages``
+    """Decode caches, one dict per layer. ``page_size`` switches the
+    full-attention layers to the paged layout (see
+    :mod:`repro_torch.models.layers`; local layers keep their ring of
+    min(sliding_window, max_len) positions); ``num_pages``
     sizes the shared page pool (default ``batch * pages_per_slot``: no
     oversubscription); ``kv_schemes`` gives each layer's KV-cache scheme
     (``PrecisionPlan.kv_schemes``), default all float. A scheme may not

@@ -15,8 +15,11 @@ pre-norm ``attn_delta`` site) and of a GELU FFN's input GEMM (from
 ``ffn_hidden``). The schema-v2 ``kv_cache='int8_per_head'`` attaches the
 static per-head KV-cache scales ``kc_scale``/``vc_scale`` from the per-head
 ``k_cache``/``v_cache`` sites, and a layer that quantizes only its KV cache
-under ``softmax='uint8'`` gets the decode-side ``p_scale``. Plans with
-quantized v4 block families are refused until the slice that ports MoE.
+under ``softmax='uint8'`` gets the decode-side ``p_scale``. On MoE layers
+the schema-v4 ``experts`` family governs the routed expert stacks
+(per-expert-per-channel weight scales (E, 1, F); static activation scales
+per expert, (E, 1, 1), from the (E,) ``expert_in``/``expert_hidden``
+vectors) and ``shared_ffn`` the shared expert's GEMMs.
 """
 from __future__ import annotations
 
@@ -54,6 +57,14 @@ SITE_MAP: dict[str, list[tuple[str, tuple[str, ...], str, str]]] = {
         ("ffn", ("ffn", "wi"), "ffn_in", "ffn_in"),
         ("ffn", ("ffn", "wo"), "ffn_hidden", "ffn_out"),
     ],
+    "moe": [
+        ("ffn", ("ffn", "wg"), "ffn_in_e", "ffn_in"),
+        ("ffn", ("ffn", "wu"), "ffn_in_e", "ffn_in"),
+        ("ffn", ("ffn", "wd"), "ffn_hidden", "ffn_out"),
+        ("ffn", ("ffn", "shared", "wg"), "shared_ffn_in", "ffn_in"),
+        ("ffn", ("ffn", "shared", "wu"), "shared_ffn_in", "ffn_in"),
+        ("ffn", ("ffn", "shared", "wd"), "shared_ffn_hidden", "ffn_out"),
+    ],
 }
 
 BMM_SITES = ("q", "k", "p", "v")    # attention batched-matmul operands
@@ -65,17 +76,40 @@ SITE_BLOCK: dict[str, str] = {
 }
 SITE_BLOCK.update({s: "qkv" for s in BMM_SITES})
 SITE_BLOCK["attn_delta"] = "attn_out"
+# the per-expert vector sites recorded inside the routed expert GEMMs ride
+# the experts family (LayerPlan.spec resolves its pre-v4 fallback)
+SITE_BLOCK["expert_in"] = "experts"
+SITE_BLOCK["expert_hidden"] = "experts"
 
 HIST_SITES = ("attn_in", "attn_out", "attn_delta", "ffn_in", "ffn_hidden",
               "p")
 
 
 def _kind_entries(cfg: ArchConfig, kind: BlockKind):
-    if kind.body != "attn" or kind.moe or cfg.mla is not None:
+    if kind.body != "attn" or cfg.mla is not None:
         raise NotImplementedError(
             f"PTQ of layer body {kind} is not ported yet")
     return SITE_MAP["attn"] + SITE_MAP[
-        "ffn_glu" if cfg.ffn_kind == "glu" else "ffn_gelu"]
+        "moe" if kind.moe else
+        ("ffn_glu" if cfg.ffn_kind == "glu" else "ffn_gelu")]
+
+
+def _entry_spec(layer: LayerPlan, kind: BlockKind, path: tuple[str, ...],
+                block: str):
+    """The QuantSpec governing one SITE_MAP entry, and the per-expert vector
+    amax site ('expert_in' / 'expert_hidden') when the entry is a routed
+    expert stack under the ``experts`` family (its static scales are then
+    per expert), else None. On MoE layers the v4 families override the
+    block's spec: ``experts`` the routed stacks, ``shared_ffn`` the shared
+    expert."""
+    if kind.moe and path[0] == "ffn":
+        if path[1] == "shared":
+            if layer.shared_ffn is not None:
+                return layer.shared_ffn, None
+        elif layer.experts is not None:
+            return layer.experts, ("expert_hidden" if path[1] == "wd"
+                                   else "expert_in")
+    return layer.spec(block), None
 
 
 def quantize_weight(w: torch.Tensor,
@@ -123,17 +157,6 @@ def _copy_dicts(tree):
     return tree
 
 
-def _check_ported(layer: LayerPlan, i: int) -> None:
-    unported = [f for f in ("experts", "shared_ffn")
-                if getattr(layer, f) is not None
-                and getattr(layer, f).quantized]
-    if unported:
-        raise NotImplementedError(
-            f"layer {i} uses {unported}; this port applies the quantized "
-            f"GEMM blocks, the KV-cache schemes and the schema-v3 "
-            f"softmax/norm dataflow only")
-
-
 def _unsigned_scale(amax: float, device) -> torch.Tensor:
     """The uint8 softmax scale: max(amax, 1e-8) / 255, a float32 division
     as the JAX package computes it."""
@@ -146,13 +169,14 @@ def quantize_layer(lp: dict, cfg: ArchConfig, kind: BlockKind,
                    ) -> dict:
     """A quantized copy of one layer's params under ``layer``; ``amax``
     maps site name -> calibrated amax for THIS layer (a list of per-head
-    values at the ``k_cache``/``v_cache`` sites)."""
+    values at the ``k_cache``/``v_cache`` sites, of per-expert values at
+    ``expert_in``/``expert_hidden``)."""
     if not (layer.quant_mha or layer.quant_ffn
             or layer.kv_cache != "float"):
         return lp
     lp = _copy_dicts(lp)                     # containers copied, leaves shared
     for _group, path, site, block in _kind_entries(cfg, kind):
-        spec = layer.spec(block)
+        spec, expert_site = _entry_spec(layer, kind, path, block)
         if not spec.quantized:
             continue
         sub = _get_path(lp, path)
@@ -160,8 +184,20 @@ def quantize_layer(lp: dict, cfg: ArchConfig, kind: BlockKind,
             continue
         new = dict(sub)
         new["w"] = quantize_weight(sub["w"], spec.weight)
-        if spec.static_acts and site in amax:
-            new["xs"] = _scale_of(amax[site], sub["w"].device)
+        dev = sub["w"].device
+        if spec.static_acts and expert_site is not None:
+            # per-expert static scales from the (E,) amax vector recorded
+            # inside the routed GEMMs, shaped to broadcast on (G, E, C, D)
+            if expert_site not in amax:
+                raise ValueError(
+                    f"experts family with act='int8_per_tensor' needs "
+                    f"calibrated {expert_site!r} stats for this layer; "
+                    f"re-run capture_stats (or use act='int8_per_token')")
+            new["xs"] = compute_scale_symmetric(torch.tensor(
+                amax[expert_site], dtype=torch.float32,
+                device=dev)).reshape(-1, 1, 1)
+        elif spec.static_acts and site in amax:
+            new["xs"] = _scale_of(amax[site], dev)
         _set_path(lp, path, new)
     attn = lp["attn"]
     w = attn["wo"]["w"]
@@ -191,7 +227,8 @@ def quantize_layer(lp: dict, cfg: ArchConfig, kind: BlockKind,
                 "layer; re-run capture_stats on this plan")
         attn["wo"] = dict(attn["wo"],
                           out_xs=_scale_of(amax["attn_delta"], dev))
-        if (cfg.ffn_kind != "glu" and layer.ffn_out.quantized
+        if (cfg.ffn_kind != "glu" and not kind.moe
+                and layer.ffn_out.quantized
                 and layer.ffn_out.static_acts and "ffn_hidden" in amax):
             # the span runs on through the FFN: wi requantizes its GELU'd
             # hidden at the scale the FFN's wo consumes it at (its own xs),
@@ -253,7 +290,7 @@ def capture_stats(params: dict, batches: Sequence[dict], cfg: ArchConfig,
         return {k: v for k, v in calib_kw.items() if k in accepted}
 
     cals: dict[str, Calibrator] = {}
-    scalar_amax: dict = {}          # float per scalar site, (H,) per head
+    scalar_amax: dict = {}          # float per scalar site, (H,) / (E,)
     with torch.inference_mode():
         for batch in batches:
             obs: dict = {"__values__": True} if use_hist else {}
@@ -265,7 +302,7 @@ def capture_stats(params: dict, batches: Sequence[dict], cfg: ArchConfig,
             for key, v in obs.items():
                 if not key.startswith("layer"):
                     continue
-                if v.ndim:          # per-head sites (k_cache/v_cache): (H,)
+                if v.ndim:          # per-head (H,) and per-expert (E,) sites
                     v = v.cpu().numpy()
                     prev = scalar_amax.get(key)
                     scalar_amax[key] = v if prev is None \
@@ -286,7 +323,7 @@ def capture_stats(params: dict, batches: Sequence[dict], cfg: ArchConfig,
     out: dict[str, dict[str, float]] = {}
     for key, amax in scalar_amax.items():
         layer, site = key.split("/", 1)
-        # per-head stats as plain lists, as the JAX package emits them
+        # vector stats as plain lists, as the JAX package emits them
         out.setdefault(layer, {})[site] = (
             [float(x) for x in amax] if isinstance(amax, np.ndarray)
             else amax)
@@ -307,8 +344,6 @@ def apply_plan(params: dict, cfg: ArchConfig, precision: PrecisionPlan,
     if precision.num_layers != cfg.num_layers:
         raise ValueError(f"plan has {precision.num_layers} layers, arch "
                          f"{cfg.num_layers}")
-    for i, layer in enumerate(precision.layers):
-        _check_ported(layer, i)
     float_plan = float_plan or T.build_plan(
         cfg, PrecisionPlan.full_float(cfg.num_layers, precision.float_dtype))
     new_plan = T.build_plan(cfg, precision)

@@ -6,7 +6,9 @@ A :class:`Runtime` is bound to one ``(cfg, plan, scheme, head, backend)``
 deployment on one device:
 
 * request shapes are rounded up to power-of-two (batch, length) buckets, so
-  a mixed-length stream runs a bounded set of shapes;
+  a mixed-length stream runs a bounded set of shapes, except for MoE
+  configs, whose expert capacity scales with the token count: padded rows
+  would take capacity and change the routing of real ones;
 * padded positions carry ``-1``, which
   :func:`repro_torch.models.layers.band_mask` drops from attention, and are
   clamped to 0 for the embedding gather, so a padded forward matches the
@@ -82,6 +84,7 @@ class Runtime:
         self.max_len = max_len
         self.chunk = chunk
         self.backend = get_backend(backend)
+        self.bucketed = cfg.moe is None
         # cache key half that names the scheme: the backend (one plan runs
         # different code per backend) and the plan's stable fingerprint, or
         # a structural hash of (execution plan, scheme) without one
@@ -129,8 +132,9 @@ class Runtime:
         if lengths is None:
             lengths = np.full((B,), S, np.int32)
         lengths = np.asarray(lengths, np.int32)
-        Bb = bucket_size(B, self.min_batch)
-        Sb = bucket_size(S, self.min_len, self.max_len)
+        Bb = bucket_size(B, self.min_batch) if self.bucketed else B
+        Sb = (bucket_size(S, self.min_len, self.max_len) if self.bucketed
+              else S)
         padded = {}
         for k, v in arrs.items():
             pad = [(0, Bb - B), (0, Sb - v.shape[1])] + \

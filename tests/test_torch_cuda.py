@@ -15,15 +15,18 @@ that are not a multiple of the 32-row tile, the softcap, and 512 keys
 (which need more than 48 KB of shared memory); for the paged decode kernel
 every built head dim and page size, GQA groups of 1 to 7, per-token and
 per-head scales, the two-pass uint8 softmax, page tables out of order with
-holes, a slot of length 0, and the decode engine end to end.
+holes, a slot of length 0, and the decode engine end to end; for the routed
+expert GEMM capacities of 1 to 160 rows per expert, one and two token
+groups, ragged D and F, static (scalar and per-expert) and per-token
+scales, and the MoE engine end to end.
 """
 import pytest
 import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import (addnorm_quant, decode_attention,
-                                 dynamic_quant, flash_attention, fused_embed,
-                                 quant_linear)
+                                 dynamic_quant, expert_gemm, flash_attention,
+                                 fused_embed, quant_linear)
 
 pytestmark = pytest.mark.cuda
 
@@ -383,5 +386,125 @@ def test_decode_engine_fused_equals_reference(dev):
         assert eng.kv_pages_in_use == 0
     assert kernels.launch_counts()["decode_attention"] == \
         cfg.num_layers * len(logits[1])
+    assert outs[0] == outs[1]
+    assert logits[0].equal(logits[1])
+
+
+# (G, E, C, D, F): decode's 3 rows per expert, ragged D and F, a capacity
+# past one 64-row tile and across token groups, and a (4, 128) forward's
+EXPERT_SHAPES = [(1, 8, 3, 256, 512), (1, 4, 1, 36, 70), (2, 3, 70, 1030, 65),
+                 (2, 8, 5, 64, 128), (1, 8, 160, 512, 256)]
+
+
+def _expert_case(dev, G, E, C, D, F, mode):
+    g = torch.Generator(device=dev).manual_seed(G * C + D + F)
+    xe = torch.randn((G, E, C, D), generator=g, device=dev) * 2.0
+    wq = torch.randint(-127, 128, (E, D, F), generator=g, device=dev,
+                       dtype=torch.int8)
+    ws = torch.rand((E, 1, F), generator=g, device=dev) * 1e-3 + 1e-5
+    amax = xe.abs().amax(dim=(0, 2, 3))
+    xs = {"scalar": amax.max() / 127.0,
+          "per_expert": (amax / 127.0).reshape(E, 1, 1),
+          "per_token": None}[mode]
+    return xe, wq, ws, xs
+
+
+@pytest.mark.parametrize("shape", EXPERT_SHAPES)
+@pytest.mark.parametrize("mode", ["scalar", "per_expert", "per_token"])
+def test_quant_expert_gemm(dev, shape, mode):
+    """One launch for every expert, bit for bit the plain version's output
+    (int32 sums, the same epilogue order); per-token scales come from one
+    dynamic_quant launch over the whole routed buffer."""
+    xe, wq, ws, xs = _expert_case(dev, *shape, mode)
+    kernels.reset_launches()
+    y = expert_gemm.quant_expert_gemm(xe, wq, ws, xs)
+    counts = kernels.launch_counts()
+    assert counts["quant_expert_gemm"] == 1
+    assert kernels.expert_gemm.per_token_launches == (xs is None)
+    assert counts["dynamic_quant"] == (xs is None)
+    want = expert_gemm.quant_expert_gemm_plain(xe, wq, ws, xs)
+    assert y.dtype == torch.float32 and y.shape == want.shape
+    assert y.equal(want)
+
+
+def test_quant_expert_gemm_takes_three_dims_and_shared_scales(dev):
+    """An (E, C, D) buffer without the group axis, and weight scales that
+    broadcast to (E, 1, F) from one per-tensor value."""
+    xe, wq, ws, xs = _expert_case(dev, 1, 4, 3, 64, 32, "per_expert")
+    one = torch.full((1, 1, 1), 1e-3, device=dev)
+    y = expert_gemm.quant_expert_gemm(xe[0], wq, one, xs)
+    assert y.shape == (4, 3, 32)
+    assert y.equal(expert_gemm.quant_expert_gemm_plain(xe[0], wq, one, xs))
+
+
+def test_quant_expert_gemm_refuses(dev):
+    xe, wq, ws, xs = _expert_case(dev, 1, 4, 3, 64, 32, "per_expert")
+    qeg = expert_gemm.quant_expert_gemm
+    with pytest.raises(TypeError):                      # float weights
+        qeg(xe, wq.float(), ws, xs)
+    with pytest.raises(TypeError):                      # float64 buffer
+        qeg(xe.double(), wq, ws, xs)
+    with pytest.raises(ValueError):                     # 3 experts routed
+        qeg(xe[:, :3].contiguous(), wq, ws, xs)
+    with pytest.raises(ValueError):                     # D mismatch
+        qeg(xe[..., :32].contiguous(), wq, ws, xs)
+    with pytest.raises(ValueError):                     # not contiguous
+        qeg(xe.transpose(2, 3).contiguous().transpose(2, 3), wq, ws, xs)
+    with pytest.raises(ValueError):                     # weights on the CPU
+        qeg(xe, wq.cpu(), ws, xs)
+    with pytest.raises(ValueError):                     # scales on the CPU
+        qeg(xe, wq, ws.cpu(), xs)
+    with pytest.raises(ValueError):                     # 3 scales for 4
+        qeg(xe, wq, ws, xs[:3])
+    with pytest.raises(ValueError):                     # no (E, D, F) stack
+        qeg(xe, wq[0], ws, xs)
+
+
+def test_moe_engine_fused_equals_reference(dev):
+    """Reduced mixtral under the golden v4 plan, calibrated and quantized
+    on the card and served greedily: the fused backend (the expert GEMM,
+    quant_linear and dynamic_quant kernels) gives the reference's tokens and
+    logits exactly, with 9 expert GEMM launches a tick (3 per-token)."""
+    from pathlib import Path
+    from repro_torch.configs import get_config
+    from repro_torch.core.calibration import synthetic_calibration_batches
+    from repro_torch.core.plan import PrecisionPlan
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import ptq
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_config("mixtral-8x22b").reduced()
+    fp = PrecisionPlan.full_float(cfg.num_layers, "float32")
+    float_plan = T.build_plan(cfg, fp)
+    params = T.init_params(cfg, fp, seed=0, device=dev)
+    plan = PrecisionPlan.load(str(Path(__file__).resolve().parent / "data"
+                                  / "golden_plan_v4.json"))
+    batches = synthetic_calibration_batches(cfg, num_batches=2, batch_size=4,
+                                            seq_len=16)
+    stats = ptq.capture_stats(params, batches, cfg, float_plan,
+                              precision=plan)
+    q, qplan = ptq.apply_plan(params, cfg, plan, stats,
+                              float_plan=float_plan)
+    outs, logits = [], []
+    for backend in ("reference", "fused"):
+        eng = ServeEngine(cfg, q, qplan, batch_slots=4, max_len=32,
+                          backend=backend, precision=plan, device=dev)
+        seen = []
+        step = eng._decode
+
+        def record(*a, step=step, seen=seen):
+            out, caches = step(*a)
+            seen.append(out.clone())
+            return out, caches
+        eng._decode = record
+        for i, p in enumerate([[2, 17, 9], [5, 40], [11, 3, 7, 1], [9],
+                               [23, 8, 1]]):
+            eng.submit(Request(uid=i, prompt=p, max_tokens=6))
+        kernels.reset_launches()
+        outs.append({r.uid: r.output for r in eng.run()})
+        logits.append(torch.stack(seen))
+        assert eng.kv_pages_in_use == 0
+    ticks = len(logits[1])
+    assert kernels.launch_counts()["quant_expert_gemm"] == 9 * ticks
+    assert kernels.expert_gemm.per_token_launches == 3 * ticks
     assert outs[0] == outs[1]
     assert logits[0].equal(logits[1])

@@ -249,7 +249,8 @@ def test_build_recipe():
     names = sorted(p.name for p in build.sources())
     assert names == ["addnorm_quant.cu", "decode_attention.cu",
                      "dynamic_quant.cu", "fused_embed.cu",
-                     "quant_flash_attention.cu", "quant_linear.cu"]
+                     "quant_expert_gemm.cu", "quant_flash_attention.cu",
+                     "quant_linear.cu"]
     flags = " ".join(build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "-fmad=false" in flags
@@ -290,8 +291,10 @@ def test_registry_names_and_errors():
 
 def test_reference_declines_every_op():
     """Every op but the decode step over int8 pages, which runs the
-    ``decode_attention`` plain version (tests/test_torch_decode.py); over
-    float pages it declines too."""
+    ``decode_attention`` plain version (tests/test_torch_decode.py), and
+    the int8 expert GEMM, which runs the ``quant_expert_gemm`` plain version
+    (tests/test_torch_moe.py); over float pages and float expert stacks they
+    decline too."""
     b = get_backend("reference")
     assert b.linear(torch.zeros(2, 4), {"w": torch.zeros(4, 4)}) is None
     assert b.addnorm(None, None, {}, "layernorm", 0.1) is None
@@ -309,10 +312,11 @@ def test_reference_declines_every_op():
 
 @pytest.mark.parametrize("name", ["fused", "auto"])
 def test_unported_ops_decline(name):
-    """The MoE expert GEMM waits for its slice; ``attention`` and
-    ``decode_attention`` are ported (tests/test_torch_dataflow.py and
-    tests/test_torch_decode.py), and decode attention declines float pages,
-    which keep the gather path."""
+    """``attention``, ``decode_attention`` and ``expert_gemm`` are ported
+    (tests/test_torch_dataflow.py, tests/test_torch_decode.py and
+    tests/test_torch_moe.py); a float expert stack declines to the model's
+    batched matmul, and decode attention declines float pages, which keep
+    the gather path."""
     b = get_backend(name)
     assert b.expert_gemm(None, None) is None
     pages = {"pages_k": torch.zeros((2, 4, 1, 8)),

@@ -240,14 +240,28 @@ def test_apply_plan_leaves_match(s):
 
 
 def test_apply_plan_refuses_unported_schemes(s):
-    """Quantized v4 block families wait for the MoE slice; the v2 KV-cache
-    schemes (since the decode slice) and the v3 softmax / norm schemes
-    apply and attach their kernel operands."""
+    """Every scheme of the ported slices applies. A quantized v4 experts
+    family on dense bert-base applies as the JAX package applies it, inert
+    there, with leaves equal to JAX's (the MoE slice lifted the refusal);
+    the v2 KV-cache schemes and the v3 softmax / norm schemes attach their
+    kernel operands."""
+    from repro.core.plan import INT8_SPEC as JAX_INT8
+    from repro.core.plan import LayerPlan as JaxLayerPlan
+    from repro.core.plan import PrecisionPlan as JaxPlan
+    from repro.quant import ptq as jptq
     from repro_torch.core.plan import INT8_SPEC, LayerPlan
+    from test_torch_support import jax_to_numpy
     n = s["cfg"].num_layers
-    with pytest.raises(NotImplementedError, match="experts"):
-        ptq.apply_plan(s["params"], s["cfg"], PrecisionPlan.uniform(
-            n, LayerPlan(experts=INT8_SPEC), "float32"), s["jstats"])
+    jq, _ = jptq.apply_plan(s["jparams"], s["jcfg"], JaxPlan.uniform(
+        n, JaxLayerPlan(experts=JAX_INT8), "float32"), s["jstats"],
+        float_plan=s["jfloat_plan"])
+    q, qplan = ptq.apply_plan(s["params"], s["cfg"], PrecisionPlan.uniform(
+        n, LayerPlan(experts=INT8_SPEC), "float32"), s["jstats"])
+    want = dict(_leaves(params_from_numpy(jax_to_numpy(jq), qplan, "cpu")))
+    got = dict(_leaves(q))
+    assert set(got) == set(want)
+    for key, leaf in want.items():
+        assert torch.is_tensor(leaf) and got[key].equal(leaf), key
     q, _ = ptq.apply_plan(s["params"], s["cfg"], PrecisionPlan.uniform(
         n, LayerPlan(kv_cache="int8_per_head"), "float32"), s["jstats"])
     assert all(lp["attn"]["kc_scale"].shape == (s["cfg"].num_kv_heads,)
