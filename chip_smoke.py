@@ -11,6 +11,18 @@ line per phase:
 
 * ``build``: compiles ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``
   for ``sm_90a`` (one process per source) and prints the ptxas report;
+* ``flash_path``: the long-context path of ``kernels.ops.flash_attention``,
+  the float online-softmax kernel, at full width on the models the port
+  serves: qwen2-0.5b's 32k causal prefill (14 query / 2 KV heads of 64,
+  the ``prefill_32k`` cell of ``src/repro/launch/shapes.py`` with its
+  global batch cut from 32 to 1) in float32 and in bfloat16, mixtral's 32k
+  prefill under its 4096-token window (48 / 8 heads of 128), and a
+  BERT-base bucket (8 x 512, 12 heads of 64, bidirectional); each called
+  once with the counters zeroed just before and read just after (one launch
+  a call), then held against ``flash_attention_plain`` on the card (rtol =
+  atol = 2e-4; a 16-bit output also one rounding of its type) and timed
+  beside its bound and ``F.scaled_dot_product_attention`` (top-left
+  aligned like the kernel; none for the window);
 * ``main_path``: full-width BERT-base (random weights from a seed, a 15-way
   ``cls`` head) under the golden plan tiled 3x to 12 layers: calibrated with
   ``capture_stats``, quantized with ``apply_plan``, and 32 requests served
@@ -25,6 +37,15 @@ line per phase:
   JAX package's), and the launches per forward with their sub-counts:
   ``quant_flash_attention`` with ``o_scale``, requantizing ``quant_linear``
   and int8-input ``addnorm_quant``;
+* ``pipeline_path``: the paper's main path, ``toolkit.Pipeline``: the
+  same model and tiled golden plan bound through ``Pipeline.build(cfg,
+  "tnews")`` and ``with_policy`` on the fused and the reference backends,
+  a ``WordPieceTokenizer`` trained on a seeded synthetic corpus, and 32 raw
+  texts of 8-128 tokens through ``predict_texts`` in batches of 8: identical
+  predictions on both backends, logits within rel-Linf 5e-3, the fused
+  logits equal to ``EncoderServeEngine``'s on the same token ids at the same
+  bucket, and 42 / 6 / 6 / 1 launches a forward with no float
+  ``flash_attention`` launch;
 * ``setup_decoder``: full-width qwen2-0.5b (random weights from seed 0),
   the golden plan tiled 6x to 24 layers, its calibration batches (2 of
   4 x 128 tokens) and 16 requests (prompt lengths uniform in 8-64, tokens
@@ -67,12 +88,17 @@ The models of those four paths are then freed, and the MoE slice runs:
   routed expert stacks of layers 0, 1 and 3), 0 pages in use, and the
   phase's peak device memory; then its kernels (``quant_expert_gemm`` at
   the served capacity C = 3 and at C = 160, a (4, 128) forward's) and a
-  profiled window of its ticks.
+  profiled window of its ticks. It also counts the (slot, expert) routings
+  of live slots that expert capacity dropped over the run, on both
+  backends (idle slots route too and take capacity, as in the JAX engine),
+  in two further runs outside the timed ones that must serve the same
+  tokens.
 
 Then the kernel summary line (per kernel, its sums over one forward of the
 span path at (8, 128), or over one tick of the decode path, or of the MoE
 path for ``quant_expert_gemm``, and over one forward or tick of each path
-under ``by_path``) and, last, ``{"ok": true, "device": ...}``. A failed
+under ``by_path``; for ``flash_attention`` its qwen2 float32 32k call, the
+other cases under ``by_case``) and, last, ``{"ok": true, "device": ...}``. A failed
 check or a missing CUDA device exits non-zero before the ok line.
 """
 from __future__ import annotations
@@ -140,6 +166,23 @@ EXPECTED_MOE = {"quant_linear": 4, "dynamic_quant": 3,
 EXPECTED_MOE_SUB = {"quant_linear with out_scale": 1,
                     "quant_expert_gemm with per-token scales": 3}
 
+# the long-context cases of the float flash_attention path: (name, (B, Hq,
+# Hkv, S, d), mask, dtype, origin)
+FLASH_CASES = (
+    ("qwen2", (1, 14, 2, 32768, 64), {"causal": True}, "float32",
+     "qwen2-0.5b, prefill_32k (src/repro/launch/shapes.py:39), global "
+     "batch 32 cut to 1"),
+    ("qwen2_bf16", (1, 14, 2, 32768, 64), {"causal": True}, "bfloat16",
+     "the same in bfloat16"),
+    ("mixtral", (1, 48, 8, 32768, 128), {"causal": True, "window": 4096},
+     "float32", "mixtral-8x22b, 32k prefill under its sliding window"),
+    ("bert", (8, 12, 12, 512, 64), {}, "float32",
+     "bert-base, a batch of 8 at 512 tokens, bidirectional"),
+)
+FLASH_TOL = 2e-4                 # the JAX test's budget (tests/test_kernels.py)
+PIPELINE_TEXTS = 32
+PIPELINE_BATCH = 8
+
 KERNELS = {
     # name: (source, the TPU kernel it replaces)
     "quant_linear": ("src/repro_torch/kernels/csrc/quant_linear.cu",
@@ -158,6 +201,8 @@ KERNELS = {
     "quant_expert_gemm": (
         "src/repro_torch/kernels/csrc/quant_expert_gemm.cu",
         "src/repro/kernels/ops.py:82"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:186"),
 }
 
 
@@ -186,14 +231,14 @@ class Timer:
     before each run (a forward streams ~85 MB of int8 weights, so the real
     caller finds them cold)."""
 
-    def __init__(self, device, reps: int = 25):
+    def __init__(self, device, reps: int = 25, warmup: int = 3):
         import torch
-        self.reps = reps
+        self.reps, self.warmup = reps, warmup
         self.flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
 
     def ms(self, fn) -> float:
         import torch
-        for _ in range(3):
+        for _ in range(self.warmup):
             fn()
         times = []
         for _ in range(self.reps):
@@ -228,6 +273,138 @@ def phase_build():
           "nvcc_flags": list(build.NVCC_FLAGS), "ptxas": list(info.ptxas)})
 
 
+
+
+def flash_bound(B, Hq, Hkv, S, d, kw, itemsize):
+    """(bytes bound ms, operations bound ms, valid pairs, run pairs): q, k,
+    v read once and out written once; two d-long float32 dot products (4 d
+    operations) for every (query, key) pair the function needs, the keys
+    each row may attend under its mask (S (S + 1) / 2 causal, the sum of
+    min(i + 1, window) with a causal window), at the float32 rate of the
+    CUDA cores. The masked entries of the logical (512, 512) blocks the
+    kernel runs (``run_pairs``) add exactly 0 and are not counted."""
+    import numpy as np
+    from repro_torch.kernels import flash_attention as FA
+    causal, window = kw.get("causal", False), kw.get("window")
+    i = np.arange(S, dtype=np.int64)
+    hi = i + 1 if causal else np.full(S, S, dtype=np.int64)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros_like(i)
+    pairs = B * Hq * int(np.clip(hi - lo, 0, None).sum())
+    bq = bk = min(512, S)
+    rows = sum(r1 - r0 for r0, r1 in (
+        FA.run_rows(S, bq, k_lo, bk, causal, window)
+        for k_lo in range(0, S, bk)))
+    nbytes = itemsize * d * (2 * B * Hq * S + 2 * B * Hkv * S)
+    t_bytes, t_ops = bound(nbytes, f32_ops=4.0 * d * pairs)
+    return t_bytes, t_ops, pairs, B * Hq * rows * bk
+
+
+def phase_flash(device):
+    """The long-context path of ``ops.flash_attention``: each case called
+    once with the launch counters zeroed just before and read just after,
+    then checked against the plain version and timed (few reps at 32k)
+    beside its bound and the library's SDPA."""
+    import torch
+    import torch.nn.functional as Fn
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    timer = Timer(device, reps=3, warmup=1)
+    records = []
+    for name, (B, Hq, Hkv, S, d), kw, dt, origin in FLASH_CASES:
+        dtype = getattr(torch, dt)
+        gen = torch.Generator(device=device).manual_seed(S + Hq + d)
+        q = torch.randn((B, Hq, S, d), generator=gen, device=device).to(dtype)
+        k = torch.randn((B, Hkv, S, d), generator=gen,
+                        device=device).to(dtype)
+        v = torch.randn((B, Hkv, S, d), generator=gen,
+                        device=device).to(dtype)
+        kernels.reset_launches()
+        out = ops.flash_attention(q, k, v, **kw)         # the path's call
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        # the plain version in float32 on the same inputs (exact for 16-bit
+        # ones): the kernel's result before its cast, within 2e-4 of it
+        want = FA.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+        err = (out.float() - want).abs()
+        ulp = {"float32": 0.0, "bfloat16": 2.0 ** -8}[dt]
+        excess = float((err - FLASH_TOL - (FLASH_TOL + ulp) * want.abs())
+                       .max())
+        max_abs = float(err.max())
+        max_rel = float((err / want.abs().clamp(min=1e-6)).max())
+        rel = float(err.max() / (want.abs().max() + 1e-9))
+        finite = bool(torch.isfinite(out).all())
+        del want, err
+        t_bytes, t_ops, pairs, run_pairs = flash_bound(
+            B, Hq, Hkv, S, d, kw, q.element_size())
+        rec = {"phase": "kernel", "kernel": "flash_attention", "case": name,
+               "origin": origin, "B": B, "Hq": Hq, "Hkv": Hkv, "S": S,
+               "head_dim": d, "dtype": dt, "mask": kw,
+               "launches": launches["flash_attention"],
+               "other_launches": sum(launches.values())
+               - launches["flash_attention"],
+               "max_abs_err": max_abs, "max_rel_err": max_rel,
+               "rel_linf": rel, "finite": finite,
+               "tolerance": (f"|out - plain| <= {FLASH_TOL:g} + "
+                             f"({FLASH_TOL:g} + {ulp:g}) |plain|, plain in "
+                             f"float32 on the same inputs"),
+               "valid_pairs": pairs, "run_pairs": run_pairs,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bound_peak": "67 TFLOP/s float32 without tensor cores, "
+                             "3.35 TB/s (H100 SXM data sheet)"}
+        rec["ms"] = timer.ms(lambda: ops.flash_attention(q, k, v, **kw))
+        rec["plain_ms"] = timer.ms(
+            lambda: FA.flash_attention_plain(q, k, v, **kw))
+        # SDPA on K and V expanded to Hq heads outside the timing; its
+        # causal mask is top-left aligned, like the kernel's. A window
+        # takes an explicit additive (S, S) mask (4.3 GB at 32k), made
+        # outside the timing, and the memory-efficient backend, the one
+        # that takes a float32 mask without a (B, H, S, S) score tensor
+        g = Hq // Hkv
+        ke, ve = (t.repeat_interleave(g, dim=1) for t in (k, v))
+        if "window" in kw:
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+            idx = torch.arange(S, device=device)
+            keep = ((idx[None] <= idx[:, None])
+                    & (idx[None] > idx[:, None] - kw["window"]))
+            mask = torch.zeros((S, S), dtype=dtype, device=device)
+            mask.masked_fill_(~keep, float("-inf"))
+            del keep
+
+            def library():
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    return Fn.scaled_dot_product_attention(
+                        q, ke, ve, attn_mask=mask[None, None],
+                        scale=d ** -0.5)
+            rec["library"] = ("F.scaled_dot_product_attention, K and V "
+                              "expanded to the query heads, an additive "
+                              "causal-window mask, memory-efficient backend")
+        else:
+            mask = None
+
+            def library():
+                return Fn.scaled_dot_product_attention(
+                    q, ke, ve, is_causal=kw.get("causal", False),
+                    scale=d ** -0.5)
+            rec["library"] = ("F.scaled_dot_product_attention, K and V "
+                              "expanded to the query heads")
+        lib_err = float((library().float() - out.float()).abs().max())
+        rec["library_max_abs_diff"] = lib_err
+        rec["library_ms"] = timer.ms(library)
+        del ke, ve, mask
+        torch.cuda.synchronize()
+        emit(rec)
+        records.append(rec)
+        del q, k, v, out
+        torch.cuda.empty_cache()
+        if excess > 0 or not finite:
+            fail(f"flash_attention ({name}) disagrees with its plain "
+                 f"version: {rec}")
+        if rec["launches"] != 1 or rec["other_launches"]:
+            fail(f"flash_attention ({name}): launches {launches}, not one "
+                 f"float flash_attention launch")
+    return records
 
 
 def setup_model(device):
@@ -418,10 +595,114 @@ def phase_serve(name, model, plan, device):
                  f"forwards; the plan implies {dict(sub_fwd)} per forward, "
                  f"expected {EXPECTED_SUB}")
     buckets = set(map(tuple, fused.runtime.stats["buckets"]))
-    return {"name": name, "cfg": cfg, "qparams": qparams, "fused": fused,
+    return {"name": name, "cfg": cfg, "qparams": qparams, "qplan": qplan,
+            "fused": fused,
             "launches": launches, "per_fwd": per_fwd, "cases": cases,
             "buckets": sorted(buckets | {PROFILE_BUCKET}),
             "timed_bucket": PROFILE_BUCKET, "unit": "forward"}
+
+
+def synthetic_texts(seed: int = 0):
+    """A seeded synthetic corpus of 400 lowercase words (2-9 letters) for
+    the tokenizer, and the 32 request texts: 6-126 of those words each, so
+    8-128 tokens with [CLS] and [SEP]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = sorted({"".join(rng.choice(letters, int(n)))
+                    for n in rng.integers(2, 10, 400)})
+    corpus = [" ".join(rng.choice(words, int(n)))
+              for n in rng.integers(4, 40, 2000)]
+    texts = [" ".join(rng.choice(words, int(n)))
+             for n in rng.integers(6, 127, PIPELINE_TEXTS)]
+    return corpus, texts
+
+
+def phase_pipeline(model, main, device):
+    """The paper's main path through ``toolkit.Pipeline``: the tiled golden
+    plan's PTQ output (``main_path``'s) bound by ``with_policy`` into
+    pipelines on the fused and the reference backends, raw texts through
+    ``predict_texts`` in batches of 8 (counters zeroed just before the
+    fused run, read just after), checked against each other and against
+    ``EncoderServeEngine`` on the same token ids."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.data.tokenizer import WordPieceTokenizer
+    from repro_torch.serve import EncoderRequest, EncoderServeEngine
+    from repro_torch.serve.metrics import engine_counters
+    from repro_torch.toolkit import Pipeline
+
+    cfg, plan = model["cfg"], model["plan"]
+    qparams, qplan = main["qparams"], main["qplan"]
+    t0 = time.perf_counter()
+    corpus, texts = synthetic_texts(0)
+    tok = WordPieceTokenizer.train(corpus,
+                                   vocab_size=min(8192, cfg.vocab_size))
+    pipes = {}
+    for name in ("fused", "reference"):
+        base = Pipeline.build(cfg, "tnews", seq_len=128, float_dtype="float32",
+                              tokenizer=tok, backend=name, device=device)
+        pipes[name] = base.with_policy(qparams, qplan, plan)
+    setup_s = time.perf_counter() - t0
+    chunks = [texts[i:i + PIPELINE_BATCH]
+              for i in range(0, len(texts), PIPELINE_BATCH)]
+    fused = pipes["fused"]
+    fused.predict_texts(chunks[0])                    # warm-up, not counted
+    calls_before = fused.runtime.stats["calls"]
+    kernels.reset_launches()
+    t = time.perf_counter()
+    preds = np.concatenate([fused.predict_texts(c) for c in chunks])
+    wall = time.perf_counter() - t
+    launches = kernels.launch_counts()
+    forwards = fused.runtime.stats["calls"] - calls_before
+    batches = [fused.tokenizer(c) for c in chunks]
+    logits = np.concatenate([fused.predict_logits(b) for b in batches])
+    ref_logits = np.concatenate([pipes["reference"].predict_logits(b)
+                                 for b in batches])
+    ref_preds = np.concatenate([pipes["reference"].predict_texts(c)
+                                for c in chunks])
+    ids = np.concatenate([b["tokens"] for b in batches])
+    lengths = [len(tok.encode(x)[:128]) for x in texts]
+    engine = EncoderServeEngine(cfg, qparams, qplan, backend="fused",
+                                max_batch=PIPELINE_BATCH, max_len=128,
+                                device=device)
+    for i, row in enumerate(ids):
+        engine.submit(EncoderRequest(uid=i, tokens=row.tolist()))
+    done = sorted(engine.run(), key=lambda r: r.uid)
+    eng_logits = np.stack([r.logits for r in done])
+    err = rel_linf(torch.from_numpy(ref_logits), torch.from_numpy(logits))
+    want = {k: v * forwards for k, v in EXPECTED["main_path"].items()}
+    rec = {"phase": "pipeline_path", "model": cfg.name,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "plan": plan.describe(), "plan_fingerprint": plan.fingerprint(),
+           "describe": fused.describe(), "setup_s": setup_s,
+           "tokenizer_vocab": tok.vocab_size, "texts": len(texts),
+           "text_tokens_min_max": [min(lengths), max(lengths)],
+           "batch": PIPELINE_BATCH, "forwards": forwards,
+           "buckets": fused.runtime.stats["buckets"], "wall_s": wall,
+           "requests_per_s": len(texts) / wall, "launches": launches,
+           "expected_launches": want,
+           "fused_vs_reference_rel_linf": err,
+           "predictions_equal": bool((preds == ref_preds).all()),
+           "logits_equal_encoder_engine": bool(np.array_equal(logits,
+                                                              eng_logits)),
+           "engine_counters": engine_counters(engine)}
+    emit(rec)
+    if logits.shape != (len(texts), 15) or not np.isfinite(logits).all():
+        fail(f"pipeline_path: logits of shape {logits.shape}, finite "
+             f"{bool(np.isfinite(logits).all())}")
+    if not rec["predictions_equal"] or err > REL_LINF_BUDGET:
+        fail(f"pipeline_path: fused vs reference predictions equal "
+             f"{rec['predictions_equal']}, rel-Linf {err}")
+    if not rec["logits_equal_encoder_engine"]:
+        fail("pipeline_path: the pipeline's logits differ from "
+             "EncoderServeEngine's on the same token ids")
+    if forwards != len(chunks) or {k: v for k, v in launches.items()
+                                   if v} != want:
+        fail(f"pipeline_path: {forwards} forwards, launches {launches} "
+             f"(expected {want})")
+    return rec
 
 
 def setup_decoder(device):
@@ -712,6 +993,45 @@ def _tensors(tree):
         yield tree
 
 
+class MoEDrops:
+    """Counts, over a served run, the (slot, expert) routings that expert
+    capacity dropped, in all and for the slots live at that tick: a spy
+    around ``models.layers._dispatch_one``, removed on exit. ``on_tick``
+    (a ``Ticks`` hook) records each tick's active slots; the counts stay on
+    the device until read."""
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        self.L, self.orig = L, L._dispatch_one
+        self.live = None
+        self.all = self.live_dropped = self.live_routed = 0
+
+        def dispatch(xt, logits, E, K, C):
+            out = self.orig(xt, logits, E, K, C)
+            _, st, _, keep, _ = out
+            rows = xt.shape[0] // self.live.shape[0]     # tokens per slot
+            live = self.live.repeat_interleave(rows)
+            self.all = self.all + L.dropped_routings(keep, st)
+            self.live_dropped = self.live_dropped + L.dropped_routings(
+                keep, st, live.to(xt.device))
+            self.live_routed += K * int(live.sum())
+            return out
+        L._dispatch_one = dispatch
+        return self
+
+    def on_tick(self, pos, active):
+        import torch
+        self.live = torch.from_numpy(active.copy())     # on the host
+
+    def counts(self) -> dict:
+        return {"routings_of_live_slots": int(self.live_routed),
+                "dropped_of_live_slots": int(self.live_dropped),
+                "dropped_all_slots": int(self.all)}
+
+    def __exit__(self, *exc):
+        self.L._dispatch_one = self.orig
+
+
 def phase_moe(model, device):
     """Calibrate and quantize mixtral under the golden v4 plan, drop the
     float tree, serve the requests on the fused backend (counters zeroed
@@ -758,6 +1078,19 @@ def phase_moe(model, device):
     ref_ticks = Ticks(reference, against=ticks)
     ref_outputs, ref_wall = serve_decode(reference, prompts)
     in_use_ref = reference.kv_pages_in_use
+
+    # the capacity drops, counted on fresh engines apart from the timed
+    # runs (the spy copies each tick's live mask to the device); the
+    # counted runs must serve the same tokens
+    dropped, drop_tokens_equal = {}, True
+    for backend in ("fused", "reference"):
+        engine = ServeEngine(cfg, qparams, qplan, backend=backend, **kw)
+        with MoEDrops() as drops:
+            Ticks(engine, on_tick=drops.on_tick)
+            counted, _ = serve_decode(engine, prompts)
+            dropped[backend] = drops.counts()
+        drop_tokens_equal &= counted == outputs
+        del engine
     peak = torch.cuda.max_memory_allocated(device)
 
     cases = kernel_cases(cfg, plan, plan.kv_schemes)
@@ -790,6 +1123,8 @@ def phase_moe(model, device):
            "launches": launches, "expected_launches": want,
            "launches_per_tick": dict(per_tick),
            "sub_counts": subs, "sub_counts_per_tick": dict(sub_tick),
+           "expert_capacity_drops": dropped,
+           "drop_count_runs_tokens_equal": drop_tokens_equal,
            "ticks_compared": ref_ticks.compared,
            "fused_vs_reference_rel_linf": ref_ticks.max_rel,
            "tokens_equal": outputs == ref_outputs,
@@ -802,6 +1137,9 @@ def phase_moe(model, device):
            "memory_allocated_after_bytes": torch.cuda.memory_allocated(
                device)}
     emit(rec)
+    if not drop_tokens_equal:
+        fail("moe_decode_path: the runs that count capacity drops served "
+             "other tokens")
     if outputs != ref_outputs:
         fail("moe_decode_path: fused and reference tokens differ")
     if sorted(outputs) != list(range(len(prompts))) or any(
@@ -1431,10 +1769,12 @@ def check_kernels(paths, device, timed, max_err):
                 timed[key] = (rec, tb)
 
 
-def summarize(paths, timed, max_err):
+def summarize(paths, timed, max_err, flash):
     """The per-kernel summary entries: sums over one forward of the span
     path, else one tick of the decode path, else one tick of the MoE path,
-    and over one forward or tick of each path under ``by_path``."""
+    and over one forward or tick of each path under ``by_path``; for the
+    float ``flash_attention``, which no served path runs, its long-context
+    path's qwen2 float32 call, each case under ``by_case``."""
 
     def sums(path, name):
         out = {"launches": path["launches"][name],
@@ -1460,6 +1800,24 @@ def summarize(paths, timed, max_err):
 
     summary = []
     for name, (src, rep) in KERNELS.items():
+        if name == "flash_attention":
+            top = flash[0]
+            entry = {"name": name, "route": "cuda", "source": src,
+                     "replaces": rep,
+                     "launches": sum(r["launches"] for r in flash),
+                     "max_abs_err": max(r["max_abs_err"] for r in flash)}
+            entry.update({f: top[f] for f in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")})
+            entry["served_path_launches"] = {
+                p["name"]: p["launches"][name] for p in paths}
+            entry["by_case"] = {r["case"]: {f: r[f] for f in (
+                "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")} for r in flash}
+            entry["per"] = ("one call of ops.flash_attention at qwen2's 32k "
+                            "causal prefill in float32 (by_case: each "
+                            "case); launches: one a call of the flash path")
+            summary.append(entry)
+            continue
         by_path = {p["name"]: sums(p, name) for p in paths
                    if p["per_fwd"][name]}
         top = next(by_path[n] for n in ("span_path", "decode_path",
@@ -1481,6 +1839,16 @@ def summarize(paths, timed, max_err):
                         f"the counted runs of every path")
         summary.append(entry)
     return summary
+
+
+def kernel_named(kernel: str, device_name: str) -> bool:
+    """Whether a profiled device kernel is ``kernel``'s CUDA function
+    (``flash_attention_kernel`` is a suffix of
+    ``quant_flash_attention_kernel``, so the name must not follow a letter
+    or an underscore)."""
+    import re
+    return re.search(r"(^|[^A-Za-z_])" + kernel + r"_kernel",
+                     device_name) is not None
 
 
 def phase_profile(model, paths, device):
@@ -1534,7 +1902,7 @@ def phase_profile(model, paths, device):
             fail("the profiler recorded no device time")
         wall_ms = statistics.median(walls[path["name"]])
         ported = {k: sum(v for name, v in by_name.items()
-                         if f"{k}_kernel" in name) / n for k in KERNELS}
+                         if kernel_named(k, name)) / n for k in KERNELS}
         top = [{"kernel": name[:100], "ms_per_forward": v / n,
                 "share_of_busy": v / n / busy}
                for name, v in by_name.most_common(8)]
@@ -1594,7 +1962,7 @@ def phase_profile_decode(path):
         fail("the profiler recorded no device time in the decode window")
     wall_ms = st.median(walls)
     ported = {k: sum(v for name, v in by_name.items()
-                     if f"{k}_kernel" in name) / n for k in KERNELS}
+                     if kernel_named(k, name)) / n for k in KERNELS}
     top = [{"kernel": name[:100], "ms_per_tick": v / n,
             "share_of_busy": v / n / busy}
            for name, v in by_name.most_common(8)]
@@ -1625,11 +1993,13 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0], flush=True)
     device = torch.device("cuda", 0)
     phase_build()
+    flash = phase_flash(device)
     from repro_torch.core.samp import int8_dataflow_variant
     model = setup_model(device)
     paths = [phase_serve("main_path", model, model["plan"], device),
              phase_serve("span_path", model,
                          int8_dataflow_variant(model["plan"]), device)]
+    phase_pipeline(model, paths[0], device)
     decoder = setup_decoder(device)
     paths += [phase_decode("decode_path", decoder, decoder["plan"], device,
                            kv_cache="int8_per_token"),
@@ -1643,7 +2013,7 @@ def main() -> int:
     # their summaries keep only counts and timings
     del model, decoder
     for path in paths:
-        for k in ("qparams", "fused", "decode_args", "prompts"):
+        for k in ("qparams", "qplan", "fused", "decode_args", "prompts"):
             path.pop(k, None)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1651,7 +2021,7 @@ def main() -> int:
     paths.append(moe)
     check_kernels([moe], device, timed, max_err)
     phase_profile_decode(moe)
-    emit({"kernels": summarize(paths, timed, max_err)})
+    emit({"kernels": summarize(paths, timed, max_err, flash)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

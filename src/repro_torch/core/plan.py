@@ -15,10 +15,10 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Union
 
 from repro_torch.core.calibration import CALIBRATORS
-from repro_torch.core.precision import LayerMode
+from repro_torch.core.precision import EncoderPolicy, LayerMode
 
 SCHEMA_VERSION = 4
 
@@ -396,3 +396,27 @@ class PrecisionPlan:
         canon = json.dumps(self.to_dict(), sort_keys=True,
                            separators=(",", ":"))
         return hashlib.sha256(canon.encode("utf-8")).hexdigest()
+
+
+def plan_from_policy(policy: EncoderPolicy, *, dynamic_acts: bool = False,
+                     calibrator: str = "minmax") -> PrecisionPlan:
+    """Lossless EncoderPolicy -> PrecisionPlan conversion: each layer's mode
+    as its block plan (:meth:`LayerPlan.for_mode`)."""
+    return PrecisionPlan(
+        tuple(LayerPlan.for_mode(m, dynamic_acts=dynamic_acts,
+                                 calibrator=calibrator)
+              for m in policy.modes),
+        policy.float_dtype)
+
+
+def as_plan(precision: Union[PrecisionPlan, EncoderPolicy], *,
+            dynamic_acts: bool = False,
+            calibrator: str = "minmax") -> PrecisionPlan:
+    """Coerce either precision description to a PrecisionPlan."""
+    if isinstance(precision, PrecisionPlan):
+        return precision
+    if isinstance(precision, EncoderPolicy):
+        return plan_from_policy(precision, dynamic_acts=dynamic_acts,
+                                calibrator=calibrator)
+    raise TypeError(f"expected PrecisionPlan or EncoderPolicy, got "
+                    f"{type(precision).__name__}")

@@ -22,7 +22,11 @@ The PrecisionPlan decides *what* is quantized; the compute backend decides
   (per-token scales for the whole routed buffer from one ``dynamic_quant``
   launch), and the embedding gather through ``fused_embed``. The kernel
   wrappers run their plain versions on CPU tensors, so ``fused`` also runs
-  on the CPU, where it exercises the same dispatch.
+  on the CPU, where it exercises the same dispatch. A claim depends on the
+  plan and the layer kind, never on a shape: on the card each claimed op
+  launches its kernel (the quantized attention core streams K and V past
+  a block's shared memory; decode attention takes head dims up to 256 and
+  any GQA group) or raises.
 * ``auto``      — ``fused`` for CUDA tensors, ``reference`` on the CPU
   (where ``decode_attention`` and ``expert_gemm`` are the same plain
   versions in both).

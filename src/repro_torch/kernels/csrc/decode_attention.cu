@@ -5,39 +5,48 @@
 // Replaces src/repro/kernels/decode_attention.py:decode_attention (the
 // Pallas _decode_kernel). One query token per slot; for slot b, KV head h
 // and query row i of the GQA group (query head h * g + i), over the slot's
-// live pages j (table entry >= 0 and length > j * PS):
+// live pages j (table entry >= 0 and length > j * ps), ps the page size:
 //   s[t] = (sum_d (q[d] * scale) * k8[t][d]) * k_scale[t]     (+ softcap)
-//   s[t] = NEG_INF where j * PS + t >= length                  (finite mask)
+//   s[t] = NEG_INF where j * ps + t >= length                  (finite mask)
 //   m' = max(m, max_t s); a = exp(m - m'); p[t] = exp(s[t] - m')
 //   l = l * a + sum_t p[t];  acc[d] = acc[d] * a + sum_t (p[t] * v_scale[t]) v8[t][d]
 //   out = acc / max(l, 1e-30)
 // With p_scale, pass 1 takes m and l only, and pass 2 revisits every live
 // page: p = exp(s - m) / max(l, 1e-30), codes clip(rint(p / p_scale), 0,
 // 255), acc[d] += sum_t ((codes * p_scale) * v_scale[t]) v8[t][d], already
-// normalized. k_scale / v_scale are per-token scale pages (NP, PS, Hkv) or
+// normalized. k_scale / v_scale are per-token scale pages (NP, ps, Hkv) or
 // calibrated per-head (Hkv,) vectors. A slot of length 0 writes zeros.
 //
 // Bound on the H100: bytes, and in practice latency. One call reads each
-// live page of K and V once (PS * hd bytes per head each) plus its scales,
+// live page of K and V once (ps * hd bytes per head each) plus its scales,
 // a few hundred KB at the serving shapes, about 0.1 us at 3.35 TB/s; the
 // grid is only B x Hkv = 16 blocks on 132 SMs, so the time is the latency
 // of one block walking its pages in turn. Splitting a slot's pages across
 // blocks with a combine pass (flash-decoding) is later work.
 //
-// Design: one block of 256 threads per (slot, KV head). The block reads its
-// page-table row and length itself (the Pallas kernel's scalar prefetch),
-// skips -1 entries and pages past the length, and keeps the running max,
-// denominator and the (g, hd) accumulator in shared memory. Each live page
-// is staged in shared memory as float (K and V, PS x hd on an odd word
-// stride, so lanes reading one dim of different tokens hit distinct banks)
-// with its per-token scales. Then thread (i, t) forms one score: the hd
-// products are added in halves (d with d + hd/2, then with d + hd/4, ...)
-// in registers; one thread per query row takes the max, the exponentials
-// and their sum over the page's tokens, again in halves; and thread (i, d)
-// forms its output dim's P.V sum over the tokens in halves. Those orders
-// are what the plain version (repro_torch.kernels.decode_attention,
-// tree_sum) repeats, so the two round alike. Division is IEEE, rounding is
-// rintf (half to even), exp is expf: no fast math, -fmad=false.
+// Design: one block of 256 threads per (slot, KV head, chunk of at most
+// 32 query rows of the GQA group; the caller picks the chunk so a block's
+// shared memory fits, and a larger group takes several blocks, each staging
+// the head's pages itself). The block reads its page-table row and length
+// itself (the Pallas kernel's scalar prefetch), skips -1 entries and pages
+// past the length, and keeps the running max, denominator and the
+// (rows, hd) accumulator in shared memory. Each live page is staged in
+// shared memory as float (K and V, PS x HD on an odd word stride, so lanes
+// reading one dim of different tokens hit distinct banks) with its
+// per-token scales. The kernel is instantiated at the power-of-two head
+// dims HD in {16, ..., 256} and page sizes PS in {4, ..., 128}; a head dim
+// hd <= HD and a page size ps <= PS in between run zero-padded to HD and
+// PS (K, V, q and the scales of the padding are 0, and a padded token's
+// probability is 0 and takes no part in the max). Then thread (i, t) forms
+// one score: the HD products are added in halves (d with d + HD/2, then
+// with d + HD/4, ...) in registers; one thread per query row takes the max,
+// the exponentials and their sum over the page's tokens, again in halves;
+// and thread (i, d) forms its output dim's P.V sum over the tokens in
+// halves. Those orders are what the plain version
+// (repro_torch.kernels.decode_attention, tree_sum, which zero-pads to the
+// next power of two) repeats, so the two round alike: the extra halves of a
+// wider instantiation add exact zeros. Division is IEEE, rounding is rintf
+// (half to even), exp is expf: no fast math, -fmad=false.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,27 +56,27 @@ constexpr int kThreads = 256;
 // the Python constant -0.7 * float32 max, rounded once to float
 constexpr float kNegInf = (float)(-0.7 * 3.4028234663852886e38);
 
-// Shared-memory layout of one block, in floats.
+// Shared-memory layout of one block of `rows` query rows, in floats.
 struct Layout {
-  int rs;                        // row stride of q, K and V (hd | 1)
+  int rs;                        // row stride of q, K and V (HD | 1)
   size_t q_off, k_off, v_off, ks_off, vs_off, s_off, acc_off, m_off, l_off,
       a_off, floats;
 };
 
-__host__ __device__ inline Layout layout(int g, int hd, int ps) {
+__host__ __device__ inline Layout layout(int rows, int HD, int PS) {
   Layout L;
-  L.rs = hd | 1;
+  L.rs = HD | 1;
   size_t off = 0;
-  L.q_off = off;   off += (size_t)g * L.rs;
-  L.k_off = off;   off += (size_t)ps * L.rs;
-  L.v_off = off;   off += (size_t)ps * L.rs;
-  L.ks_off = off;  off += ps;
-  L.vs_off = off;  off += ps;
-  L.s_off = off;   off += (size_t)g * ps;     // scores, then P.V weights
-  L.acc_off = off; off += (size_t)g * hd;
-  L.m_off = off;   off += g;
-  L.l_off = off;   off += g;
-  L.a_off = off;   off += g;
+  L.q_off = off;   off += (size_t)rows * L.rs;
+  L.k_off = off;   off += (size_t)PS * L.rs;
+  L.v_off = off;   off += (size_t)PS * L.rs;
+  L.ks_off = off;  off += PS;
+  L.vs_off = off;  off += PS;
+  L.s_off = off;   off += (size_t)rows * PS;  // scores, then P.V weights
+  L.acc_off = off; off += (size_t)rows * HD;
+  L.m_off = off;   off += rows;
+  L.l_off = off;   off += rows;
+  L.a_off = off;   off += rows;
   L.floats = off;
   return L;
 }
@@ -82,11 +91,11 @@ decode_attention_kernel(const float* __restrict__ q,
                         const int* __restrict__ page_table,
                         const int* __restrict__ lengths,
                         const float* __restrict__ p_scale,
-                        float* __restrict__ out, int Hkv, int g, int pps,
-                        int num_pages, int per_head, float scale,
-                        int use_cap, float cap) {
+                        float* __restrict__ out, int Hkv, int g, int rows,
+                        int hd, int ps, int pps, int num_pages, int per_head,
+                        float scale, int use_cap, float cap) {
   extern __shared__ float smem[];
-  const Layout L = layout(g, HD, PS);
+  const Layout L = layout(rows, HD, PS);
   float* qs = smem + L.q_off;
   float* ks = smem + L.k_off;
   float* vs = smem + L.v_off;
@@ -98,23 +107,42 @@ decode_attention_kernel(const float* __restrict__ q,
   float* l = smem + L.l_off;
   float* alpha = smem + L.a_off;
   const int tid = threadIdx.x;
-  const int b = blockIdx.x / Hkv;
-  const int h = blockIdx.x - b * Hkv;
+  const int chunks = (g + rows - 1) / rows;
+  const int bh = blockIdx.x / chunks;
+  const int i0 = (blockIdx.x - bh * chunks) * rows;   // first query row
+  const int gn = min(rows, g - i0);                   // rows of this block
+  const int b = bh / Hkv;
+  const int h = bh - b * Hkv;
   const int length = lengths[b];
   const int* table = page_table + (size_t)b * pps;
   const bool quant_p = p_scale != nullptr;
   const float pscale = quant_p ? *p_scale : 1.0f;
-  const float* qg = q + ((size_t)b * Hkv + h) * g * HD;
+  const float* qg = q + (((size_t)b * Hkv + h) * g + i0) * hd;
+  // four codes a word when every row of a page starts on a word
+  const bool words = hd % 4 == 0 &&
+                     ((uintptr_t)k_pages & 3) == 0 &&
+                     ((uintptr_t)v_pages & 3) == 0;
 
-  for (int idx = tid; idx < g * HD; idx += kThreads) {
+  for (int idx = tid; idx < gn * HD; idx += kThreads) {
     const int i = idx / HD;
     const int d = idx - i * HD;
-    qs[i * L.rs + d] = qg[idx] * scale;
+    qs[i * L.rs + d] = d < hd ? qg[(size_t)i * hd + d] * scale : 0.0f;
     acc[idx] = 0.0f;
   }
-  for (int i = tid; i < g; i += kThreads) {
+  for (int i = tid; i < gn; i += kThreads) {
     m[i] = kNegInf;
     l[i] = 0.0f;
+  }
+  // the padding of K and V (dims hd..HD, tokens ps..PS) stays zero
+  for (int idx = tid; idx < PS * HD; idx += kThreads) {
+    const int t = idx / HD;
+    const int d = idx - t * HD;
+    ks[t * L.rs + d] = 0.0f;
+    vs[t * L.rs + d] = 0.0f;
+  }
+  for (int t = tid; t < PS; t += kThreads) {
+    ksc[t] = 0.0f;
+    vsc[t] = 0.0f;
   }
 
   const int passes = quant_p ? 2 : 1;
@@ -122,32 +150,43 @@ decode_attention_kernel(const float* __restrict__ q,
     const bool pv_pass = pass == passes - 1;   // accumulates P.V
     for (int j = 0; j < pps; ++j) {
       const int pg = table[j];
-      if (pg < 0 || pg >= num_pages || length <= j * PS) continue;
+      if (pg < 0 || pg >= num_pages || length <= j * ps) continue;
       __syncthreads();                         // previous page fully used
       // stage the page's K and V rows of head h, widened to float
-      const size_t page_base = (size_t)pg * PS * Hkv * HD;
-      for (int w = tid; w < PS * (HD / 4); w += kThreads) {
-        const int t = w / (HD / 4);
-        const int d = (w - t * (HD / 4)) * 4;
-        const size_t src = page_base + ((size_t)t * Hkv + h) * HD + d;
-        const char4 kk = *reinterpret_cast<const char4*>(k_pages + src);
-        const char4 vv = *reinterpret_cast<const char4*>(v_pages + src);
-        float* kr = ks + t * L.rs + d;
-        float* vr = vs + t * L.rs + d;
-        kr[0] = (float)kk.x; kr[1] = (float)kk.y;
-        kr[2] = (float)kk.z; kr[3] = (float)kk.w;
-        vr[0] = (float)vv.x; vr[1] = (float)vv.y;
-        vr[2] = (float)vv.z; vr[3] = (float)vv.w;
+      const size_t page_base = (size_t)pg * ps * Hkv * hd;
+      if (words) {
+        const int hw = hd / 4;
+        for (int w = tid; w < ps * hw; w += kThreads) {
+          const int t = w / hw;
+          const int d = (w - t * hw) * 4;
+          const size_t src = page_base + ((size_t)t * Hkv + h) * hd + d;
+          const char4 kk = *reinterpret_cast<const char4*>(k_pages + src);
+          const char4 vv = *reinterpret_cast<const char4*>(v_pages + src);
+          float* kr = ks + t * L.rs + d;
+          float* vr = vs + t * L.rs + d;
+          kr[0] = (float)kk.x; kr[1] = (float)kk.y;
+          kr[2] = (float)kk.z; kr[3] = (float)kk.w;
+          vr[0] = (float)vv.x; vr[1] = (float)vv.y;
+          vr[2] = (float)vv.z; vr[3] = (float)vv.w;
+        }
+      } else {
+        for (int e = tid; e < ps * hd; e += kThreads) {
+          const int t = e / hd;
+          const int d = e - t * hd;
+          const size_t src = page_base + ((size_t)t * Hkv + h) * hd + d;
+          ks[t * L.rs + d] = (float)k_pages[src];
+          vs[t * L.rs + d] = (float)v_pages[src];
+        }
       }
-      for (int t = tid; t < PS; t += kThreads) {
-        const size_t si = ((size_t)pg * PS + t) * Hkv + h;
+      for (int t = tid; t < ps; t += kThreads) {
+        const size_t si = ((size_t)pg * ps + t) * Hkv + h;
         ksc[t] = per_head ? k_scale[h] : k_scale[si];
         vsc[t] = per_head ? v_scale[h] : v_scale[si];
       }
       __syncthreads();
 
-      // scores: thread (i, t), the hd products added in halves
-      for (int idx = tid; idx < g * PS; idx += kThreads) {
+      // scores: thread (i, t), the HD products added in halves
+      for (int idx = tid; idx < gn * PS; idx += kThreads) {
         const int i = idx / PS;
         const int t = idx - i * PS;
         const float* qr = qs + i * L.rs;
@@ -163,27 +202,29 @@ decode_attention_kernel(const float* __restrict__ q,
         }
         float s = v[0] * ksc[t];
         if (use_cap) s = tanhf(s / cap) * cap;
-        if (j * PS + t >= length) s = kNegInf;
+        if (j * ps + t >= length) s = kNegInf;
         sw[idx] = s;
       }
       __syncthreads();
 
       // one thread per query row: the softmax statistics of this page, and
-      // the weights P.V takes (p * v_scale, or the dequantized codes)
-      for (int i = tid; i < g; i += kThreads) {
+      // the weights P.V takes (p * v_scale, or the dequantized codes); a
+      // padded token (t >= ps) has weight 0
+      for (int i = tid; i < gn; i += kThreads) {
         float* row = sw + i * PS;
-        float p[PS];
         if (!quant_p || pass == 0) {
           float mx = row[0];
-#pragma unroll
-          for (int t = 1; t < PS; ++t) mx = fmaxf(mx, row[t]);
+          for (int t = 1; t < ps; ++t) mx = fmaxf(mx, row[t]);
           const float m_new = fmaxf(m[i], mx);
           const float a = expf(m[i] - m_new);
-#pragma unroll
-          for (int t = 0; t < PS; ++t) p[t] = expf(row[t] - m_new);
           float sum[PS];
 #pragma unroll
-          for (int t = 0; t < PS; ++t) sum[t] = p[t];
+          for (int t = 0; t < PS; ++t)
+            sum[t] = t < ps ? expf(row[t] - m_new) : 0.0f;
+          if (!quant_p) {
+#pragma unroll
+            for (int t = 0; t < PS; ++t) row[t] = sum[t] * vsc[t];
+          }
 #pragma unroll
           for (int w = PS / 2; w >= 1; w >>= 1) {
 #pragma unroll
@@ -192,17 +233,16 @@ decode_attention_kernel(const float* __restrict__ q,
           l[i] = l[i] * a + sum[0];
           m[i] = m_new;
           alpha[i] = a;
-          if (!quant_p) {
-#pragma unroll
-            for (int t = 0; t < PS; ++t) row[t] = p[t] * vsc[t];
-          }
         } else {
           const float denom = fmaxf(l[i], 1e-30f);
-#pragma unroll
           for (int t = 0; t < PS; ++t) {
-            const float pt = expf(row[t] - m[i]) / denom;
-            const float c = fminf(fmaxf(rintf(pt / pscale), 0.0f), 255.0f);
-            row[t] = (c * pscale) * vsc[t];
+            float w = 0.0f;
+            if (t < ps) {
+              const float pt = expf(row[t] - m[i]) / denom;
+              const float c = fminf(fmaxf(rintf(pt / pscale), 0.0f), 255.0f);
+              w = (c * pscale) * vsc[t];
+            }
+            row[t] = w;
           }
         }
       }
@@ -210,7 +250,7 @@ decode_attention_kernel(const float* __restrict__ q,
 
       // P.V: thread (i, d), the tokens added in halves
       if (pv_pass) {
-        for (int idx = tid; idx < g * HD; idx += kThreads) {
+        for (int idx = tid; idx < gn * HD; idx += kThreads) {
           const int i = idx / HD;
           const int d = idx - i * HD;
           const float* row = sw + i * PS;
@@ -232,93 +272,120 @@ decode_attention_kernel(const float* __restrict__ q,
   }
   __syncthreads();
 
-  float* og = out + ((size_t)b * Hkv + h) * g * HD;
-  for (int idx = tid; idx < g * HD; idx += kThreads) {
+  float* og = out + (((size_t)b * Hkv + h) * g + i0) * hd;
+  for (int idx = tid; idx < gn * HD; idx += kThreads) {
     const int i = idx / HD;
-    og[idx] = quant_p ? acc[idx] : acc[idx] / fmaxf(l[i], 1e-30f);
+    const int d = idx - i * HD;
+    if (d < hd)
+      og[(size_t)i * hd + d] =
+          quant_p ? acc[idx] : acc[idx] / fmaxf(l[i], 1e-30f);
   }
 }
 
+struct Args {
+  const float* q;
+  const int8_t* k;
+  const int8_t* v;
+  const float* ks;
+  const float* vs;
+  const int* table;
+  const int* lengths;
+  const float* p_scale;
+  float* out;
+  int Hkv, g, rows, hd, ps, pps, num_pages, per_head;
+  float scale;
+  int use_cap;
+  float cap;
+};
+
 template <int HD, int PS>
-cudaError_t launch(dim3 grid, size_t bytes, cudaStream_t stream,
-                   const float* q, const int8_t* k, const int8_t* v,
-                   const float* ks, const float* vs, const int* table,
-                   const int* lengths, const float* p_scale, float* out,
-                   int Hkv, int g, int pps, int num_pages, int per_head,
-                   float scale, int use_cap, float cap) {
+cudaError_t launch(int blocks, cudaStream_t stream, const Args& a) {
+  const size_t bytes = layout(a.rows, HD, PS).floats * sizeof(float);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         decode_attention_kernel<HD, PS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return err;
+    if (err != cudaSuccess) {
+      cudaGetLastError();                      // leave no sticky error
+      return err;
+    }
   }
-  decode_attention_kernel<HD, PS><<<grid, kThreads, bytes, stream>>>(
-      q, k, v, ks, vs, table, lengths, p_scale, out, Hkv, g, pps, num_pages,
-      per_head, scale, use_cap, cap);
+  decode_attention_kernel<HD, PS><<<blocks, kThreads, bytes, stream>>>(
+      a.q, a.k, a.v, a.ks, a.vs, a.table, a.lengths, a.p_scale, a.out,
+      a.Hkv, a.g, a.rows, a.hd, a.ps, a.pps, a.num_pages, a.per_head,
+      a.scale, a.use_cap, a.cap);
   return cudaSuccess;
 }
 
+// the smallest instantiated width >= n, or 0 past the widest
+inline int width(int n, int lo, int hi) {
+  int w = lo;
+  while (w < n && w < hi) w *= 2;
+  return n <= w ? w : 0;
+}
+
 template <int HD>
-cudaError_t launch_ps(int ps, dim3 grid, size_t bytes, cudaStream_t stream,
-                      const float* q, const int8_t* k, const int8_t* v,
-                      const float* ks, const float* vs, const int* table,
-                      const int* lengths, const float* p_scale, float* out,
-                      int Hkv, int g, int pps, int num_pages, int per_head,
-                      float scale, int use_cap, float cap) {
-#define SAMP_DECODE_PS(PSV)                                                 \
-  case PSV:                                                                 \
-    return launch<HD, PSV>(grid, bytes, stream, q, k, v, ks, vs, table,     \
-                           lengths, p_scale, out, Hkv, g, pps, num_pages,   \
-                           per_head, scale, use_cap, cap);
-  switch (ps) {
-    SAMP_DECODE_PS(4)
-    SAMP_DECODE_PS(8)
-    SAMP_DECODE_PS(16)
-    SAMP_DECODE_PS(32)
-    default:
-      return cudaErrorInvalidValue;
+cudaError_t launch_ps(int PS, int blocks, cudaStream_t stream,
+                      const Args& a) {
+  switch (PS) {
+    case 4: return launch<HD, 4>(blocks, stream, a);
+    case 8: return launch<HD, 8>(blocks, stream, a);
+    case 16: return launch<HD, 16>(blocks, stream, a);
+    case 32: return launch<HD, 32>(blocks, stream, a);
+    case 64: return launch<HD, 64>(blocks, stream, a);
+    case 128: return launch<HD, 128>(blocks, stream, a);
+    default: return cudaErrorInvalidValue;
   }
-#undef SAMP_DECODE_PS
 }
 
 }  // namespace
+
+// Bytes of dynamic shared memory a block of `rows` query rows takes at head
+// dim hd and page size ps (0 for a shape no instantiation takes).
+extern "C" long long samp_decode_attention_smem(int rows, int hd, int ps) {
+  const int HD = width(hd, 16, 256);
+  const int PS = width(ps, 4, 128);
+  if (rows <= 0 || hd <= 0 || ps <= 0 || HD == 0 || PS == 0) return 0;
+  return (long long)(layout(rows, HD, PS).floats * sizeof(float));
+}
 
 // q (B, Hkv, g, hd) float32; k_pages, v_pages (num_pages, ps, Hkv, hd) int8;
 // k_scale, v_scale float32 (num_pages, ps, Hkv), or (Hkv,) when per_head;
 // page_table (B, pps) int32, -1 = unallocated; lengths (B,) int32; p_scale a
 // device scalar, or null for the one-pass softmax; out (B, Hkv, g, hd)
-// float32. hd in {16, 32, 64, 128}, ps in {4, 8, 16, 32}, all contiguous.
-// use_cap selects the softcap cap. Returns the launch's CUDA error code.
+// float32, all contiguous. hd <= 256, ps <= 128; `rows` (<= 32) query rows
+// of the group per block, with samp_decode_attention_smem(rows, hd, ps)
+// within the card's opt-in limit. use_cap selects the softcap cap. Returns
+// the launch's CUDA error code.
 extern "C" int samp_decode_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, const void* page_table,
     const void* lengths, const void* p_scale, void* out, int B, int Hkv,
-    int g, int hd, int ps, int pps, int num_pages, int per_head,
+    int g, int rows, int hd, int ps, int pps, int num_pages, int per_head,
     int quant_p, float scale, int use_cap, float cap, void* stream) {
   if (B <= 0 || Hkv <= 0 || g <= 0) return (int)cudaGetLastError();
-  const size_t bytes = layout(g, hd, ps).floats * sizeof(float);
-  const dim3 grid(B * Hkv);
+  const int HD = width(hd, 16, 256);
+  const int PS = width(ps, 4, 128);
+  if (HD == 0 || PS == 0 || rows <= 0 || rows > 32 || hd <= 0 || ps <= 0)
+    return (int)cudaErrorInvalidValue;
+  const Args a{(const float*)q, (const int8_t*)k_pages,
+               (const int8_t*)v_pages, (const float*)k_scale,
+               (const float*)v_scale, (const int*)page_table,
+               (const int*)lengths,
+               quant_p ? (const float*)p_scale : nullptr, (float*)out, Hkv,
+               g, rows, hd, ps, pps, num_pages, per_head, scale, use_cap,
+               cap};
+  const int blocks = B * Hkv * ((g + rows - 1) / rows);
   const cudaStream_t st = (cudaStream_t)stream;
-  const float* ps_ptr = quant_p ? (const float*)p_scale : nullptr;
   cudaError_t err;
-#define SAMP_DECODE_HD(HDV)                                                 \
-  case HDV:                                                                 \
-    err = launch_ps<HDV>(ps, grid, bytes, st, (const float*)q,              \
-                         (const int8_t*)k_pages, (const int8_t*)v_pages,    \
-                         (const float*)k_scale, (const float*)v_scale,      \
-                         (const int*)page_table, (const int*)lengths,       \
-                         ps_ptr, (float*)out, Hkv, g, pps, num_pages,       \
-                         per_head, scale, use_cap, cap);                    \
-    break;
-  switch (hd) {
-    SAMP_DECODE_HD(16)
-    SAMP_DECODE_HD(32)
-    SAMP_DECODE_HD(64)
-    SAMP_DECODE_HD(128)
-    default:
-      err = cudaErrorInvalidValue;
+  switch (HD) {
+    case 16: err = launch_ps<16>(PS, blocks, st, a); break;
+    case 32: err = launch_ps<32>(PS, blocks, st, a); break;
+    case 64: err = launch_ps<64>(PS, blocks, st, a); break;
+    case 128: err = launch_ps<128>(PS, blocks, st, a); break;
+    case 256: err = launch_ps<256>(PS, blocks, st, a); break;
+    default: err = cudaErrorInvalidValue;
   }
-#undef SAMP_DECODE_HD
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

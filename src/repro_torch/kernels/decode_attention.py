@@ -40,17 +40,50 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import NEG_INF
+from repro_torch.kernels.flash_attention import _MAX_SMEM, NEG_INF
 
 #: kernel launches since the last :func:`repro_torch.kernels.reset_launches`
 launches = 0
 
-# the shapes csrc/decode_attention.cu instantiates, and its block limits
-HEAD_DIMS = (16, 32, 64, 128)
-PAGE_SIZES = (4, 8, 16, 32)
-MAX_GROUP = 32
+# the power-of-two head dims and page sizes csrc/decode_attention.cu
+# instantiates (a shape in between runs zero-padded at the next), and the
+# query rows of the GQA group one block takes at most
+HEAD_DIMS = (16, 32, 64, 128, 256)
+PAGE_SIZES = (4, 8, 16, 32, 64, 128)
+MAX_BLOCK_ROWS = 32
 
 Scale = Union[float, torch.Tensor]
+
+
+def _width(n: int, widths: tuple) -> Optional[int]:
+    return next((w for w in widths if n <= w), None)
+
+
+def decode_attention_smem(rows: int, head_dim: int, page_size: int) -> int:
+    """Bytes of shared memory a block of ``rows`` query rows takes:
+    ``samp_decode_attention_smem`` of ``csrc/decode_attention.cu`` (0 for a
+    head dim over 256 or a page size over 128)."""
+    HD, PS = _width(head_dim, HEAD_DIMS), _width(page_size, PAGE_SIZES)
+    if rows <= 0 or head_dim <= 0 or page_size <= 0 or not HD or not PS:
+        return 0
+    rs = HD | 1
+    return 4 * (rows * rs + 2 * PS * rs + 2 * PS + rows * PS + rows * HD
+                + 3 * rows)
+
+
+def block_rows(head_dim: int, page_size: int, group: int) -> int:
+    """The query rows of a GQA group one block of the kernel takes: the
+    group split into the fewest equal chunks of at most
+    :data:`MAX_BLOCK_ROWS` rows whose block fits the shared memory; 0 when
+    not even one row fits."""
+    if group <= 0:
+        return 0
+    for n in range(-(-group // MAX_BLOCK_ROWS), group + 1):
+        rows = -(-group // n)
+        smem = decode_attention_smem(rows, head_dim, page_size)
+        if 0 < smem <= _MAX_SMEM:
+            return rows
+    return 0
 
 
 def tree_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -212,10 +245,12 @@ def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if k_pages.shape[2:] != (Hkv, hd):
         raise ValueError(f"{name}: pages {tuple(k_pages.shape)} do not hold "
                          f"{Hkv} heads of {hd}")
-    if hd not in HEAD_DIMS or ps not in PAGE_SIZES or not 1 <= g <= MAX_GROUP:
-        raise ValueError(f"{name}: head dim {hd} (have {HEAD_DIMS}), page "
-                         f"size {ps} (have {PAGE_SIZES}) or group {g} (at "
-                         f"most {MAX_GROUP}) not built")
+    rows = block_rows(hd, ps, g)
+    if not rows:
+        raise ValueError(f"{name}: head dim {hd} with page size {ps} is "
+                         f"not built (head dims up to {HEAD_DIMS[-1]}, "
+                         f"pages up to {PAGE_SIZES[-1]} tokens that fit a "
+                         f"block's shared memory)")
     if page_table.ndim != 2 or page_table.shape[0] != B:
         raise ValueError(f"{name}: page_table {tuple(page_table.shape)} is "
                          f"not (B={B}, pages_per_slot)")
@@ -224,9 +259,6 @@ def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     build.operand(name, "q", q, torch.float32, dev)
     build.operand(name, "k_pages", k_pages, torch.int8, dev)
     build.operand(name, "v_pages", v_pages, torch.int8, dev)
-    if k_pages.data_ptr() % 4 or v_pages.data_ptr() % 4:
-        raise ValueError(f"{name}: the pages must start on a 4-byte "
-                         f"boundary (the kernel loads 4 codes a word)")
     build.operand(name, "page_table", page_table, torch.int32, dev)
     build.operand(name, "lengths", lengths, torch.int32, dev)
     if lengths.shape != (B,):
@@ -245,13 +277,14 @@ def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty((B, Hkv, g, hd), dtype=torch.float32, device=dev)
     P, I, F = build.P, build.I, build.F
     fn = build.function("samp_decode_attention",
-                        (P,) * 9 + (I,) * 9 + (F, I, F, P))
+                        (P,) * 9 + (I,) * 10 + (F, I, F, P))
     with torch.cuda.device(dev):
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 k_scale.data_ptr(), v_scale.data_ptr(),
                 page_table.data_ptr(), lengths.data_ptr(),
                 ps_t.data_ptr() if quant_p else None, out.data_ptr(),
-                B, Hkv, g, hd, ps, pps, NP, int(per_head), int(quant_p),
+                B, Hkv, g, rows, hd, ps, pps, NP, int(per_head),
+                int(quant_p),
                 float(scale), int(softcap is not None),
                 float(softcap) if softcap is not None else 0.0,
                 build.stream(dev))

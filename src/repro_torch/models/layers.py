@@ -773,6 +773,19 @@ def _dispatch_one(xt: torch.Tensor, logits: torch.Tensor, E: int, K: int,
     return xe.reshape(E, C, D), st, sg, keep, slot
 
 
+def dropped_routings(keep: torch.Tensor, st: torch.Tensor,
+                     live: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """How many (token, expert) routings a capacity dispatch dropped: the
+    ``keep`` and ``st`` of :func:`_dispatch_one`, counted over the tokens
+    ``live`` (T,) marks (every token without it), as a 0-d tensor on the
+    device (no host sync). In decode the tokens are the slots, and idle
+    slots route too, so they can push a live slot's token out."""
+    dropped = ~keep
+    if live is not None:
+        dropped = dropped & live.to(torch.bool)[st]
+    return dropped.sum()
+
+
 def _combine_one(ye: torch.Tensor, st, sg, keep, slot, Tl: int, D: int,
                  dtype) -> torch.Tensor:
     """Scatter the expert outputs back to their tokens, weighted by the

@@ -1,5 +1,5 @@
 """Serving (port of ``repro.serve``): the runtime, the schedulers, the
-encoder engine and the token-level decode engine."""
+encoder engine, the token-level decode engine and the metrics surface."""
 from repro_torch.serve.encoder import EncoderServeEngine
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.runtime import Runtime, bucket_size

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as T
+from repro_torch.serve.metrics import engine_counters
 from repro_torch.serve.runtime import Runtime
 from repro_torch.serve.scheduler import EncoderRequest, MicroBatcher
 from repro_torch.toolkit.targets import TargetSpec, get_target
@@ -103,8 +104,10 @@ class EncoderServeEngine:
 
     @property
     def stats(self) -> dict:
+        # the unified counters surface (queue depth, occupancy, completed,
+        # evicted, retraces) comes from serve.metrics.engine_counters
         s = dict(self._stats)
         s.update({f"runtime_{k}": v for k, v in self.runtime.stats.items()
                   if k != "buckets"})
-        s["queue_depth"] = len(self.batcher)
+        s.update(engine_counters(self))
         return s

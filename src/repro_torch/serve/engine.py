@@ -28,6 +28,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import transformer as T
+from repro_torch.serve.metrics import engine_counters
 from repro_torch.serve.runtime import Runtime
 from repro_torch.serve.scheduler import PagePool, SlotScheduler
 
@@ -264,7 +265,11 @@ class ServeEngine:
 
     @property
     def stats(self) -> dict:
+        # the unified counters surface (queue depth, occupancy, completed,
+        # evicted, KV bytes and pages, retraces) comes from
+        # serve.metrics.engine_counters
         s = dict(self._stats)
         s.update({f"runtime_{k}": v for k, v in self.runtime.stats.items()
                   if k != "buckets"})
+        s.update(engine_counters(self))
         return s

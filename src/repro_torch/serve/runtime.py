@@ -19,7 +19,11 @@ deployment on one device:
 * the decode step (:meth:`Runtime.decode_fn`) is cached per (backend name,
   plan fingerprint, slot count, ``kv_geometry``), so float and int8 caches
   never share an entry;
-* ``stats`` counts calls, real and padded tokens, and cached callables.
+* ``stats`` counts calls, real and padded tokens, cached callables and
+  ``traces``, the callables built (the JAX package counts its traces
+  there; here each build is one);
+* :meth:`Runtime.share` binds a sibling to another plan that shares the
+  cache and counters, as ``Pipeline.with_policy`` does.
 
 PyTorch runs eagerly: there is no trace, and the cache holds the callable
 each bucket runs (the place a CUDA graph per bucket would go).
@@ -92,7 +96,8 @@ class Runtime:
                           precision.fingerprint() if precision is not None
                           else hash((plan, scheme)))
         self._exe: dict[tuple, Callable] = {}
-        self._stats = {"calls": 0, "real_tokens": 0, "padded_tokens": 0}
+        self._stats = {"calls": 0, "traces": 0, "real_tokens": 0,
+                       "padded_tokens": 0}
 
     @property
     def stats(self) -> dict:
@@ -100,7 +105,25 @@ class Runtime:
                     buckets=sorted(k[2:4] for k in self._exe
                                    if k[0] == "encode"))
 
+    def share(self, plan, *, scheme: Optional[T.QuantScheme] = None,
+              precision=None, backend=None) -> "Runtime":
+        """A sibling Runtime bound to a different (plan, scheme, precision,
+        backend) that SHARES this runtime's callable cache and counters.
+        Cache keys lead with (backend name, precision fingerprint), so two
+        pipelines under different plans, or one plan on two backends, share
+        one runtime without key collisions."""
+        rt = Runtime(self.cfg, plan, scheme=scheme or self.scheme,
+                     precision=precision, head=self.head,
+                     token_level=self.token_level, min_batch=self.min_batch,
+                     min_len=self.min_len, max_len=self.max_len,
+                     chunk=self.chunk, backend=backend or self.backend,
+                     device=self.device)
+        rt._exe = self._exe
+        rt._stats = self._stats
+        return rt
+
     def _build_encode(self) -> Callable:
+        self._stats["traces"] += 1
         cfg, plan, scheme = self.cfg, self.plan, self.scheme
         head, chunk, backend = self.head, self.chunk, self.backend
 
@@ -161,6 +184,7 @@ class Runtime:
 
     # -- decode / token-level path -------------------------------------------
     def _build_decode(self) -> Callable:
+        self._stats["traces"] += 1
         cfg, plan, scheme, backend = (self.cfg, self.plan, self.scheme,
                                       self.backend)
 

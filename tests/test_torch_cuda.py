@@ -11,22 +11,33 @@ tile (M, N not multiples of 64; K not a multiple of 8, which turns off the
 8-byte loads), rows wider than the block, int8 inputs to addnorm, RMSNorm,
 absent biases, embedding rows that do not split into float4s, and for the
 attention kernel GQA, padded keys, an all-padding batch row, query counts
-that are not a multiple of the 32-row tile, the softcap, and 512 keys
-(which need more than 48 KB of shared memory); for the paged decode kernel
-every built head dim and page size, GQA groups of 1 to 7, per-token and
-per-head scales, the two-pass uint8 softmax, page tables out of order with
-holes, a slot of length 0, and the decode engine end to end; for the routed
+that are not a multiple of the 32-row tile, the softcap, 512 keys (which
+need more than 48 KB of shared memory), key axes past a block's shared
+memory (the tiled kernel, which must equal the resident one bit for bit)
+and head dims that are not a multiple of 4; for the paged decode kernel
+head dims 16 to 256 and ones in between (80, 18), page sizes 3 to 128,
+GQA groups of 1 to 48 (split over blocks past 32), per-token and per-head
+scales, the two-pass uint8 softmax, page tables out of order with holes, a
+slot of length 0, and the decode engine end to end; for the routed
 expert GEMM capacities of 1 to 160 rows per expert, one and two token
 groups, ragged D and F, static (scalar and per-expert) and per-token
-scales, and the MoE engine end to end.
+scales, and the MoE engine end to end; for the float flash-attention kernel
+every instantiated head dim and one padded up to the next, float32,
+bfloat16 and float16, causal, window, softcap and no mask, logical blocks
+(bq, bk) that differ from the kernel's tiles, rows with no valid key, and
+GQA; and the fused backend at the shapes the decode and quantized
+attention kernels once refused, which must launch them.
 """
+import ctypes
+
 import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.kernels import (addnorm_quant, decode_attention,
-                                 dynamic_quant, expert_gemm, flash_attention,
-                                 fused_embed, quant_linear)
+from repro_torch.kernels import (addnorm_quant, backend, build,
+                                 decode_attention, dynamic_quant, expert_gemm,
+                                 flash_attention, fused_embed, ops,
+                                 quant_linear)
 
 pytestmark = pytest.mark.cuda
 
@@ -166,7 +177,7 @@ def test_counters_reset(dev):
     dynamic_quant.dynamic_quant(torch.randn((4, 8), device=dev))
     assert kernels.launch_counts()["dynamic_quant"] >= 1
     kernels.reset_launches()
-    assert kernels.launch_counts() == {k: 0 for k in kernels.KERNEL_MODULES}
+    assert kernels.launch_counts() == {k: 0 for k in kernels.KERNEL_COUNTERS}
 
 
 # (B, Hq, Hkv, Sq, Sk, d, key lengths per batch row)
@@ -178,6 +189,9 @@ ATTN_SHAPES = [
     (8, 12, 12, 128, 128, 64, (128, 100, 77, 64, 31, 8, 0, 0)),
     (2, 12, 12, 512, 512, 64, (512, 300)),
     (1, 4, 2, 40, 72, 64, (70,)),
+    (2, 4, 2, 16, 24, 18, (24, 10)),                 # d % 4, padded to 20
+    (1, 4, 2, 40, 2048, 64, (2048,)),                # tiled: past smem
+    (2, 2, 1, 33, 1500, 64, (1500, 700)),            # tiled, ragged tile
 ]
 
 
@@ -244,17 +258,45 @@ def test_quant_flash_attention_refuses(dev):
         fa(q.float(), k, v, k_pos, **kw)
     with pytest.raises(ValueError):                     # Hq % Hkv
         fa(q[:, :3].contiguous(), k, v, k_pos, **kw)
-    with pytest.raises(ValueError):                     # d % 4
-        fa(q[..., :6].contiguous(), k[..., :6].contiguous(),
-           v[..., :6].contiguous(), k_pos, **kw)
     with pytest.raises(ValueError):                     # k_pos size
         fa(q, k, v, k_pos[:, :5], **kw)
     with pytest.raises(ValueError):                     # k_pos on the CPU
         fa(q, k, v, k_pos.cpu(), **kw)
-    with pytest.raises(ValueError):                     # keys over smem
-        big = torch.zeros((1, 1, 4096, 64), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):     # keys over smem at d over 256
+        big = torch.zeros((1, 1, 4096, 320), dtype=torch.int8, device=dev)
         fa(big[:, :, :8].contiguous(), big, big,
            torch.zeros(4096, dtype=torch.int32, device=dev), **kw)
+
+
+@pytest.mark.parametrize("Sk,d,lens", [(512, 64, (512, 300)),
+                                       (100, 16, (100, 3)),
+                                       (600, 128, (600, 450))])
+@pytest.mark.parametrize("requant", [False, True])
+def test_quant_flash_attention_tiled_equals_resident(dev, Sk, d, lens,
+                                                     requant):
+    """The kernel that streams K and V returns what the resident kernel
+    returns, bit for bit, at shapes both take."""
+    q, k, v, k_pos, kw = _attn_case(dev, 2, 4, 2, 40, Sk, d, lens)
+    o_scale = torch.tensor(0.01, device=dev) if requant else None
+    scales = [build.scalar("t", n, kw[n], dev)
+              for n in ("q_scale", "k_scale", "p_scale", "v_scale")]
+    fn = build.function("samp_quant_flash_attention",
+                        (build.P,) * 11 + (build.I,) * 7
+                        + (build.F, build.I, build.P))
+    outs = []
+    for tiled in (0, 1):
+        out = torch.empty(q.shape, device=dev,
+                          dtype=torch.int8 if requant else torch.float32)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), k_pos.data_ptr(),
+                *(t.data_ptr() for t in scales),
+                o_scale.data_ptr() if requant else None,
+                None if requant else out.data_ptr(),
+                out.data_ptr() if requant else None,
+                2, 4, 2, 40, Sk, d, 1, 5.0, tiled, build.stream(dev))
+        build.check(rc, "samp_quant_flash_attention")
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert outs[0].equal(outs[1])
 
 
 # ---------------------------------------------------------------------------
@@ -299,7 +341,14 @@ def _decode_case(dev, B, Hkv, g, hd, ps, pps, mode, seed=0):
 
 DECODE_SHAPES = [(8, 2, 7, 64, 16, 8), (3, 2, 2, 16, 8, 3),
                  (4, 1, 4, 128, 32, 2), (5, 4, 1, 32, 4, 5),
-                 (2, 2, 3, 64, 16, 1)]
+                 (2, 2, 3, 64, 16, 1),
+                 (2, 4, 2, 256, 16, 3),       # gemma2's head dim
+                 (3, 1, 8, 256, 64, 2),       # paligemma's, pages of 64
+                 (2, 2, 2, 64, 64, 3), (2, 1, 3, 32, 128, 2),
+                 (2, 1, 48, 128, 16, 2),      # granite's group: 2 blocks
+                 (3, 2, 40, 64, 16, 2),
+                 (2, 2, 3, 80, 16, 3),        # padded to 128
+                 (3, 1, 2, 18, 3, 4)]         # bytewise, pages of 3
 
 
 @pytest.mark.parametrize("shape", DECODE_SHAPES)
@@ -340,9 +389,10 @@ def test_decode_attention_refuses(dev):
     args, kw = _decode_case(dev, 2, 2, 2, 64, 16, 2, "per_token")
     q, k, v, table, lengths = args
     da = decode_attention.decode_attention
-    with pytest.raises(ValueError):                     # head dim not built
-        da(q[..., :48].contiguous(), k[..., :48].contiguous(),
-           v[..., :48].contiguous(), table, lengths, **kw)
+    with pytest.raises(ValueError):      # a 256-dim page of 128 tokens
+        (bq, bk, bv, btable, blen), bkw = _decode_case(dev, 1, 1, 1, 256,
+                                                       128, 1, "per_token")
+        da(bq, bk, bv, btable, blen, **bkw)
     with pytest.raises(TypeError):                      # float pages
         da(q, k.float(), v.float(), table, lengths, **kw)
     with pytest.raises(TypeError):                      # int64 table
@@ -506,5 +556,204 @@ def test_moe_engine_fused_equals_reference(dev):
     ticks = len(logits[1])
     assert kernels.launch_counts()["quant_expert_gemm"] == 9 * ticks
     assert kernels.expert_gemm.per_token_launches == 3 * ticks
+    assert outs[0] == outs[1]
+    assert logits[0].equal(logits[1])
+
+
+# ---------------------------------------------------------------------------
+# float flash attention
+# ---------------------------------------------------------------------------
+
+# (B, Hq, Hkv, Sq, Sk, d, bq, bk): every instantiated head dim, one padded
+# (48 -> 64), logical blocks unlike the kernel's tiles, Sq != Sk, GQA
+FLOAT_ATTN_SHAPES = [
+    (2, 4, 2, 128, 256, 16, 64, 64),
+    (1, 4, 1, 96, 96, 32, 32, 32),
+    (2, 4, 4, 256, 256, 64, 64, 64),
+    (1, 2, 1, 80, 80, 48, 80, 80),
+    (1, 3, 1, 200, 200, 128, 40, 100),
+    (1, 2, 2, 64, 128, 256, 64, 64),
+]
+FLOAT_MASKS = {"none": {}, "causal": dict(causal=True),
+               "window": dict(causal=True, window=40),
+               "softcap": dict(causal=True, softcap=30.0),
+               "window_only": dict(window=16)}
+# float32 output within 2e-4 of the plain version (the JAX test's budget);
+# a 16-bit output is each side's float32 result rounded once, so two
+# results within 2e-4 may round one unit of the last place apart
+ULP = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -8,
+       torch.float16: 2.0 ** -11}
+
+
+def _float_attn_case(dev, B, Hq, Hkv, Sq, Sk, d, dtype):
+    g = torch.Generator(device=dev).manual_seed(B * Sq + Sk + d)
+    return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
+                 for shape in ((B, Hq, Sq, d), (B, Hkv, Sk, d),
+                               (B, Hkv, Sk, d)))
+
+
+def assert_float_attention_close(out, q, k, v, **kw):
+    """The kernel's output against the plain version run on the same
+    inputs in float32 (exact for 16-bit inputs, and the plain version's
+    float32 result before its cast)."""
+    want = flash_attention.flash_attention_plain(q.float(), k.float(),
+                                                 v.float(), **kw)
+    err = (out.float() - want).abs()
+    bound = 2e-4 + (2e-4 + ULP[q.dtype]) * want.abs()
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert torch.isfinite(out).all()
+    assert bool((err <= bound).all()), float((err - bound).max())
+
+
+@pytest.mark.parametrize("shape", FLOAT_ATTN_SHAPES)
+@pytest.mark.parametrize("mask", sorted(FLOAT_MASKS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_attention_matches_plain(dev, shape, mask, dtype):
+    B, Hq, Hkv, Sq, Sk, d, bq, bk = shape
+    q, k, v = _float_attn_case(dev, B, Hq, Hkv, Sq, Sk, d, dtype)
+    kw = dict(FLOAT_MASKS[mask], bq=bq, bk=bk)
+    before = flash_attention.float_launches
+    out = ops.flash_attention(q, k, v, **kw)
+    assert flash_attention.float_launches == before + 1
+    torch.cuda.synchronize()
+    assert_float_attention_close(out, q, k, v, **kw)
+
+
+def test_flash_attention_rows_without_a_valid_key(dev):
+    """A window without causal and more queries than keys: rows whose
+    blocks do not run return 0, rows whose run blocks hold no valid key the
+    mean of those keys' values, as the JAX kernel does (never NaN)."""
+    q, k, v = _float_attn_case(dev, 1, 2, 2, 256, 64, 64, torch.float32)
+    kw = dict(window=16, bq=32, bk=32)
+    out = flash_attention.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert_float_attention_close(out, q, k, v, **kw)
+    assert bool((out[:, :, 96:] == 0).all())
+    assert torch.allclose(out[:, :, 80:96],
+                          v[:, :, 32:64].mean(dim=2, keepdim=True)
+                          .expand(-1, -1, 16, -1), atol=1e-5)
+
+
+def test_flash_attention_smem_mirrors_the_library(dev):
+    fn = build.function("samp_flash_attention_smem", (build.I,),
+                        ctypes.c_longlong)
+    for d in (1, 16, 17, 48, 64, 100, 128, 200, 256):
+        assert fn(d) == flash_attention.flash_attention_smem(d)
+    qfn = build.function("samp_quant_flash_attention_smem",
+                         (build.I, build.I), ctypes.c_longlong)
+    for Sk, d in ((16, 16), (128, 64), (512, 64), (1336, 64), (1337, 64),
+                  (2048, 64), (300, 128)):
+        assert qfn(Sk, d) == flash_attention.quant_flash_attention_smem(Sk, d)
+    dfn = build.function("samp_decode_attention_smem",
+                         (build.I, build.I, build.I), ctypes.c_longlong)
+    for rows, hd, ps in ((7, 64, 16), (1, 18, 3), (24, 128, 128),
+                         (32, 256, 64), (1, 256, 128), (4, 320, 16)):
+        assert dfn(rows, hd, ps) == decode_attention.decode_attention_smem(
+            rows, hd, ps)
+
+
+def test_flash_attention_refuses(dev):
+    q, k, v = _float_attn_case(dev, 1, 4, 2, 64, 64, 64, torch.float32)
+    fa = flash_attention.flash_attention
+    with pytest.raises(ValueError):                     # over 256
+        big = torch.zeros((1, 1, 64, 320), device=dev)
+        fa(big, big, big)
+    with pytest.raises(ValueError):                     # dtype
+        fa(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError):                      # mixed dtypes
+        fa(q, k.half(), v.half())
+    with pytest.raises(ValueError):                     # blocks
+        fa(q, k, v, bq=48)
+    with pytest.raises(ValueError):                     # Hq % Hkv
+        fa(q[:, :3].contiguous(), k, v)
+    with pytest.raises(ValueError):                     # not contiguous
+        fa(q.transpose(2, 3), k, v)
+
+
+# ---------------------------------------------------------------------------
+# the fused backend at the shapes the kernels once refused
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 2, 256, 16, 2),
+                                   (2, 2, 2, 64, 64, 2),
+                                   (1, 1, 40, 64, 16, 1)])
+def test_fused_paged_decode_launches_every_shape(dev, shape):
+    """Head dim 256, page size 64, a GQA group of 40: the fused backend
+    launches the kernel, which equals the plain version the reference
+    backend runs."""
+    args, kw = _decode_case(dev, *shape, "per_token")
+    q, k, v, table, lengths = args
+    ops_ = dict(q=q, k_pages=k, v_pages=v, page_table=table,
+                lengths=lengths, **kw)
+    kernels.reset_launches()
+    out = backend.FusedBackend().paged_decode(**ops_)
+    want = backend.ComputeBackend().paged_decode(**ops_)
+    assert out.equal(want)
+    assert kernels.launch_counts()["decode_attention"] == 1
+
+
+def test_fused_attention_launches_past_shared_memory(dev):
+    """Sk = 2048 at d = 64 is past the resident kernel's shared memory: the
+    fused backend claims the core all the same and launches the tiled
+    kernel, as it launches the resident one at Sk = 512."""
+    from repro_torch.models import layers as L
+    g = torch.Generator(device=dev).manual_seed(0)
+    p = {"q_scale": torch.tensor(0.01, device=dev),
+         "k_scale": torch.tensor(0.03, device=dev),
+         "p_scale": torch.tensor(0.4 / 255, device=dev),
+         "v_scale": torch.tensor(0.03, device=dev)}
+    for Sk in (2048, 512):
+        q, k, v = (torch.randn((1, Sk, 2, 64), generator=g, device=dev)
+                   for _ in range(3))
+        pos = torch.arange(Sk, device=dev, dtype=torch.int32)
+        kernels.reset_launches()
+        out = backend.FusedBackend().attention(
+            q, k, v, p, k_pos=pos, spec=L.MaskSpec(causal=False),
+            scale=0.125)
+        assert backend.ComputeBackend().attention(
+            q, k, v, p, k_pos=pos, spec=L.MaskSpec(causal=False),
+            scale=0.125) is None
+        assert out.shape == (1, Sk, 2, 64) and torch.isfinite(out).all()
+        assert kernels.launch_counts()["quant_flash_attention"] == 1
+
+
+@pytest.mark.parametrize("page_size,head_dim", [(64, None), (16, 256)])
+def test_decode_engine_unbuilt_shapes_equal_reference(dev, page_size,
+                                                      head_dim):
+    """Reduced qwen2 over int8 pages of 64 tokens, or at gemma2's head dim
+    256: fused serves through the kernel, one launch a layer and tick,
+    with the reference's tokens and logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import PrecisionPlan
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_config("qwen2-0.5b").reduced()
+    if head_dim:
+        cfg = cfg.replace(head_dim=head_dim)
+    fp = PrecisionPlan.full_float(cfg.num_layers, "float32")
+    plan = T.build_plan(cfg, fp)
+    params = T.init_params(cfg, fp, seed=0, device=dev)
+    outs, logits = [], []
+    for name in ("reference", "fused"):
+        eng = ServeEngine(cfg, params, plan, batch_slots=2, max_len=128,
+                          page_size=page_size, kv_cache="int8_per_token",
+                          backend=name, device=dev)
+        seen = []
+        step = eng._decode
+
+        def record(*a, step=step, seen=seen):
+            out, caches = step(*a)
+            seen.append(out.clone())
+            return out, caches
+        eng._decode = record
+        for i, pr in enumerate([[2, 17, 9], [5, 40], [11, 3, 7, 1]]):
+            eng.submit(Request(uid=i, prompt=pr, max_tokens=6))
+        kernels.reset_launches()
+        outs.append({r.uid: r.output for r in eng.run()})
+        logits.append(torch.stack(seen))
+    assert kernels.launch_counts()["decode_attention"] == \
+        cfg.num_layers * len(logits[1])
     assert outs[0] == outs[1]
     assert logits[0].equal(logits[1])

@@ -227,7 +227,7 @@ def test_wrappers_run_plain_on_cpu_and_count_nothing():
     ids = torch.tensor([1, 2, 3])
     assert fused_embed.fused_embed(ids, tab, tab, None, None).equal(
         fused_embed.fused_embed_plain(ids, tab, tab, None, None))
-    assert kernels.launch_counts() == {k: 0 for k in kernels.KERNEL_MODULES}
+    assert kernels.launch_counts() == {k: 0 for k in kernels.KERNEL_COUNTERS}
 
 
 def test_wrappers_raise_on_other_devices():
@@ -248,9 +248,9 @@ def test_wrappers_raise_on_other_devices():
 def test_build_recipe():
     names = sorted(p.name for p in build.sources())
     assert names == ["addnorm_quant.cu", "decode_attention.cu",
-                     "dynamic_quant.cu", "fused_embed.cu",
-                     "quant_expert_gemm.cu", "quant_flash_attention.cu",
-                     "quant_linear.cu"]
+                     "dynamic_quant.cu", "flash_attention.cu",
+                     "fused_embed.cu", "quant_expert_gemm.cu",
+                     "quant_flash_attention.cu", "quant_linear.cu"]
     flags = " ".join(build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "-fmad=false" in flags

@@ -214,6 +214,26 @@ def test_dispatch_and_combine_match_jax(name):
         assert set((got[4] // C)[got[3]].tolist()) <= {0, 1}
 
 
+def test_dropped_routings_count_live_drops():
+    """No drop when each expert can hold every token; with every token on
+    experts 0 and 1 and C = 2, the six later tokens lose both routings,
+    and over the live tokens {0, 5, 6} only 5's and 6's count."""
+    T_, D, E, K = 8, 4, 4, 2
+    xt = _t(np.ones((T_, D), np.float32))
+    logits = _t(np.random.default_rng(5).standard_normal((T_, E))
+                .astype(np.float32))
+    _, st, _, keep, _ = L._dispatch_one(xt, logits, E, K, T_)
+    assert int(L.dropped_routings(keep, st)) == 0
+    skew = torch.tensor([[3.0, 2.0, 0.0, -1.0]]).repeat(T_, 1)
+    _, st, _, keep, _ = L._dispatch_one(xt, skew, E, K, 2)
+    assert int(L.dropped_routings(keep, st)) == 12
+    live = torch.zeros(T_, dtype=torch.bool)
+    live[[0, 5, 6]] = True
+    assert int(L.dropped_routings(keep, st, live)) == 4
+    assert int(L.dropped_routings(keep, st, torch.zeros(T_, dtype=torch.bool))
+               ) == 0
+
+
 def test_combine_sums_each_token_in_expert_order():
     """Three contributions per token (K = 3) whose float sum depends on the
     order: the combine adds them in ascending expert order, as JAX's
