@@ -21,8 +21,10 @@ line per phase:
   once with the counters zeroed just before and read just after (one launch
   a call), then held against ``flash_attention_plain`` on the card (rtol =
   atol = 2e-4; a 16-bit output also one rounding of its type) and timed
-  beside its bound and ``F.scaled_dot_product_attention`` (top-left
-  aligned like the kernel; none for the window);
+  beside its bound (its operations at the rate the card could do them at
+  float32 accuracy: 989 TFLOP/s for 16-bit inputs, 3xTF32's 165 for
+  float32) and ``F.scaled_dot_product_attention`` (top-left aligned like
+  the kernel; for the window an explicit mask);
 * ``main_path``: full-width BERT-base (random weights from a seed, a 15-way
   ``cls`` head) under the golden plan tiled 3x to 12 layers: calibrated with
   ``capture_stats``, quantized with ``apply_plan``, and 32 requests served
@@ -120,6 +122,8 @@ GOLDEN_V4 = ROOT / "tests" / "data" / "golden_plan_v4.json"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12         # dense int8 tensor-core peak
 F32_OPS_PER_S = 67e12            # float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12          # dense bf16 / fp16 tensor-core peak
+TF32_OPS_PER_S = 495e12          # dense TF32 tensor-core peak
 TILE = 3                         # golden plan (4 layers) x 3 = 12 layers
 N_REQUESTS = 32
 PROFILE_BUCKET = (8, 128)
@@ -143,7 +147,7 @@ DECODE_REQUESTS = 16
 DECODE_MAX_TOKENS = 32
 DECODE_SLOTS = 8
 PAGE_SIZE = 16
-DECODE_MAX_LEN = 128             # <= EXACT_FLOAT_K, for the int8 P.V
+DECODE_MAX_LEN = 128
 DECODE_BUCKET = (DECODE_SLOTS, 1)
 # the JAX package's fingerprint of the decode_head_path plan
 HEAD_FINGERPRINT = ("2c48bdf24412c6c9ca841741bb5088ad"
@@ -275,15 +279,20 @@ def phase_build():
 
 
 
-def flash_bound(B, Hq, Hkv, S, d, kw, itemsize):
-    """(bytes bound ms, operations bound ms, valid pairs, run pairs): q, k,
-    v read once and out written once; two d-long float32 dot products (4 d
+def flash_bound(B, Hq, Hkv, S, d, kw, dtype):
+    """(bytes bound ms, operations bound ms, valid pairs, run pairs, peak):
+    q, k, v read once and out written once; two d-long dot products (4 d
     operations) for every (query, key) pair the function needs, the keys
     each row may attend under its mask (S (S + 1) / 2 causal, the sum of
-    min(i + 1, window) with a causal window), at the float32 rate of the
-    CUDA cores. The masked entries of the logical (512, 512) blocks the
-    kernel runs (``run_pairs``) add exactly 0 and are not counted."""
+    min(i + 1, window) with a causal window), at the least time the card
+    could take for them at float32 accuracy: bfloat16 / float16 inputs at
+    the 16-bit tensor cores' 989 TFLOP/s (their products are exact in
+    float32), float32 at the better of the CUDA cores' 67 TFLOP/s and
+    3xTF32 on the tensor cores (495 / 3 TFLOP/s). The masked entries of
+    the logical (512, 512) blocks the kernel runs (``run_pairs``) add
+    exactly 0 and are not counted."""
     import numpy as np
+    import torch
     from repro_torch.kernels import flash_attention as FA
     causal, window = kw.get("causal", False), kw.get("window")
     i = np.arange(S, dtype=np.int64)
@@ -294,9 +303,21 @@ def flash_bound(B, Hq, Hkv, S, d, kw, itemsize):
     rows = sum(r1 - r0 for r0, r1 in (
         FA.run_rows(S, bq, k_lo, bk, causal, window)
         for k_lo in range(0, S, bk)))
+    itemsize = torch.empty((), dtype=dtype).element_size()
     nbytes = itemsize * d * (2 * B * Hq * S + 2 * B * Hkv * S)
-    t_bytes, t_ops = bound(nbytes, f32_ops=4.0 * d * pairs)
-    return t_bytes, t_ops, pairs, B * Hq * rows * bk
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if dtype == torch.float32:
+        rate = max(F32_OPS_PER_S, TF32_OPS_PER_S / 3)
+        peak = (f"{rate / 1e12:g} TFLOP/s: the better of float32 on the "
+                f"CUDA cores ({F32_OPS_PER_S / 1e12:g}) and 3xTF32 on the "
+                f"tensor cores ({TF32_OPS_PER_S / 1e12:g} / 3)")
+    else:
+        rate = BF16_OPS_PER_S
+        peak = (f"{rate / 1e12:g} TFLOP/s: {dtype} on the tensor cores, "
+                f"float32 sums")
+    t_ops = 4.0 * d * pairs / rate * 1e3
+    return (t_bytes, t_ops, pairs, B * Hq * rows * bk,
+            peak + f"; {HBM_BYTES_PER_S / 1e12:g} TB/s (H100 SXM data sheet)")
 
 
 def phase_flash(device):
@@ -335,8 +356,8 @@ def phase_flash(device):
         rel = float(err.max() / (want.abs().max() + 1e-9))
         finite = bool(torch.isfinite(out).all())
         del want, err
-        t_bytes, t_ops, pairs, run_pairs = flash_bound(
-            B, Hq, Hkv, S, d, kw, q.element_size())
+        t_bytes, t_ops, pairs, run_pairs, peak = flash_bound(
+            B, Hq, Hkv, S, d, kw, dtype)
         rec = {"phase": "kernel", "kernel": "flash_attention", "case": name,
                "origin": origin, "B": B, "Hq": Hq, "Hkv": Hkv, "S": S,
                "head_dim": d, "dtype": dt, "mask": kw,
@@ -351,8 +372,7 @@ def phase_flash(device):
                "valid_pairs": pairs, "run_pairs": run_pairs,
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "bound_peak": "67 TFLOP/s float32 without tensor cores, "
-                             "3.35 TB/s (H100 SXM data sheet)"}
+               "bound_peak": peak}
         rec["ms"] = timer.ms(lambda: ops.flash_attention(q, k, v, **kw))
         rec["plain_ms"] = timer.ms(
             lambda: FA.flash_attention_plain(q, k, v, **kw))

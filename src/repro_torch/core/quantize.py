@@ -19,9 +19,8 @@ INT8_MAX = 127
 UINT8_MAX = 255
 # Smallest representable scale; guards div-by-zero on all-zero tensors.
 EPS = 1e-8
-# |code| <= 128, so one product is at most 2**14 and a sum of 1024 of them at
-# most 2**24: every partial sum is an integer float32 holds exactly.
-EXACT_FLOAT_K = 1024
+# the largest |code| of each integer dtype int_matmul takes
+_CODE_MAX = {torch.int8: 128, torch.uint8: UINT8_MAX}
 
 
 @dataclasses.dataclass
@@ -126,25 +125,41 @@ def quantize_unsigned(x: torch.Tensor,
                                                   device=x.device))
 
 
-def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Exact int32 product of int8 codes: (..., M, K) @ (..., K, N).
+def exact_float_k(a_dtype: torch.dtype, b_dtype: torch.dtype) -> int:
+    """Terms of a dot product of integer codes that a float32 sum holds
+    exactly in any order: floor(2**24 / (max|a| * max|b|)), so every
+    partial sum is an integer of at most 2**24 (1024 for int8 x int8, 514
+    for uint8 x int8)."""
+    for dt in (a_dtype, b_dtype):
+        if dt not in _CODE_MAX:
+            raise TypeError(f"int_matmul takes int8 or uint8 codes, got {dt}")
+    return 2 ** 24 // (_CODE_MAX[a_dtype] * _CODE_MAX[b_dtype])
 
-    PyTorch has no integer matmul on CUDA, so there the codes go through
-    float32 matmuls over K-chunks of at most ``EXACT_FLOAT_K``: each chunk's
-    partial sums are integers below 2**24, exact in float32 in any summation
-    order (TF32 is off on the serving path), and the chunks are summed as
-    int32. On the CPU the product is an int32 matmul.
-    """
-    if a.device.type == "cpu":
-        return torch.matmul(a.to(torch.int32), b.to(torch.int32))
+
+def float_chunk_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int32 product of integer codes through float32 matmuls over
+    K-chunks of :func:`exact_float_k` terms, each chunk's integer result
+    summed in int32: the route :func:`int_matmul` takes on CUDA, where
+    PyTorch has no integer matmul (TF32 is off on the serving path). Runs
+    on any device."""
+    step = exact_float_k(a.dtype, b.dtype)
     K = a.shape[-1]
     acc = None
-    for k0 in range(0, K, EXACT_FLOAT_K):
-        part = torch.matmul(a[..., k0:k0 + EXACT_FLOAT_K].to(torch.float32),
-                            b[..., k0:k0 + EXACT_FLOAT_K, :].to(torch.float32))
+    for k0 in range(0, K, step):
+        part = torch.matmul(a[..., k0:k0 + step].to(torch.float32),
+                            b[..., k0:k0 + step, :].to(torch.float32))
         part = part.to(torch.int32)
         acc = part if acc is None else acc + part
     return acc
+
+
+def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int32 product of int8 (or uint8) codes: (..., M, K) @
+    (..., K, N), an int32 matmul on the CPU and
+    :func:`float_chunk_matmul` on CUDA."""
+    if a.device.type == "cpu":
+        return torch.matmul(a.to(torch.int32), b.to(torch.int32))
+    return float_chunk_matmul(a, b)
 
 
 def int8_matmul(x_q: QuantizedTensor, w_q: QuantizedTensor,

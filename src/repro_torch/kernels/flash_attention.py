@@ -48,10 +48,8 @@ launches = 0
 float_launches = 0
 
 # head dims csrc/flash_attention.cu instantiates (a dim in between runs
-# zero-padded at the next), and its (query rows, keys) tile at each
+# zero-padded at the next)
 FLOAT_HEAD_DIMS = (16, 32, 64, 128, 256)
-_FLOAT_TILES = {16: (64, 64), 32: (64, 64), 64: (64, 64), 128: (64, 32),
-                256: (32, 32)}
 FLOAT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # csrc/quant_flash_attention.cu's block: 8 warps of 4 query rows each
@@ -91,15 +89,21 @@ def float_head_dim(d: int) -> Optional[int]:
     return next((w for w in FLOAT_HEAD_DIMS if d <= w), None)
 
 
-def flash_attention_smem(d: int) -> int:
+def flash_attention_smem(d: int, dtype: torch.dtype = torch.float32) -> int:
     """Bytes of shared memory a block of the float kernel takes at head dim
-    d: ``samp_flash_attention_smem`` of ``csrc/flash_attention.cu``."""
+    d: ``samp_flash_attention_smem_of`` of ``csrc/flash_attention.cu``
+    (float32, the default, takes the most: ``samp_flash_attention_smem``).
+    A block holds 64 query rows and a ring of K and V tiles: 64 keys, 32
+    where the accumulator is 256 wide or a float32 row 128; 3 stages for
+    16-bit inputs up to d = 64, else 2; rows padded by 16 bytes."""
     w = float_head_dim(d)
     if w is None:
         raise ValueError(f"flash_attention: head dim {d} is over "
                          f"{FLOAT_HEAD_DIMS[-1]}")
-    bq, bk = _FLOAT_TILES[w]
-    return 4 * (bq * (w + 4) + 2 * bk * (w + 4) + bq * (bk + 4))
+    size = torch.empty((), dtype=dtype).element_size()
+    bk = 32 if w >= 256 or (size == 4 and w >= 128) else 64
+    stages = 3 if size == 2 and w <= 64 else 2
+    return size * (w + 16 // size) * (64 + 2 * stages * bk)
 
 
 def _fit_blocks(Sq: int, Sk: int, bq: int, bk: int) -> tuple[int, int]:

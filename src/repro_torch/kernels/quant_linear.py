@@ -51,6 +51,33 @@ _ACT_CODE = {None: 0, "silu": 1, "gelu": 2, "relu": 3}
 #: kernel launches since the last :func:`repro_torch.kernels.reset_launches`
 launches = 0
 
+# csrc/quant_linear.cu: rows up to which the split-K kernel streams w, its
+# K stage and the SMs it fills
+SMALL_M, _STAGE_K, _SMS = 32, 64, 132
+
+
+def quant_linear_splits(M: int, N: int, K: int) -> int:
+    """Blocks over K the kernel takes for an (M, K) @ (K, N) product:
+    ``samp_quant_linear_splits`` of ``csrc/quant_linear.cu``. Only for
+    M <= 32, where about two blocks an SM stream w; 1 above."""
+    ktiles = -(-K // _STAGE_K)
+    if M > SMALL_M or M <= 0 or N <= 0 or ktiles <= 1:
+        return 1
+    want = -(-2 * _SMS // -(-N // 64))
+    if want <= 1:
+        return 1
+    per = max(1, ktiles // want)
+    return -(-ktiles // per)
+
+
+def quant_linear_workspace(M: int, N: int, K: int) -> int:
+    """int32 values of the zeroed workspace a split product needs: the
+    M x N partial sums, then one counter a 64-column tile (0 when the
+    kernel does not split)."""
+    if quant_linear_splits(M, N, K) == 1:
+        return 0
+    return M * N + -(-N // 64)
+
 
 def _row_scales(x_scale, M: int, device) -> torch.Tensor:
     xs = torch.as_tensor(x_scale, dtype=torch.float32, device=device)
@@ -127,10 +154,12 @@ def quant_linear(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     os_ = build.scalar(name, "out_scale", out_scale, dev) if requant else None
     out = torch.empty((M, N), dtype=torch.int8 if requant else torch.float32,
                       device=dev)
-    vec_x = int(K % 8 == 0 and x_q.data_ptr() % 8 == 0)
+    splits = quant_linear_splits(M, N, K)
+    work = (torch.zeros(quant_linear_workspace(M, N, K), dtype=torch.int32,
+                        device=dev) if splits > 1 else None)
     P, I = build.P, build.I
     fn = build.function("samp_quant_linear",
-                        (P, P, P, P, I, P, P, P, P, I, I, I, I, I, P))
+                        (P, P, P, P, I, P, P, P, P, P, I, I, I, I, I, P))
     with torch.cuda.device(dev):
         rc = fn(x_q.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
                 xs.data_ptr(), xs_stride,
@@ -138,7 +167,8 @@ def quant_linear(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                 os_.data_ptr() if requant else None,
                 None if requant else out.data_ptr(),
                 out.data_ptr() if requant else None,
-                M, N, K, _ACT_CODE[act], vec_x, build.stream(dev))
+                work.data_ptr() if work is not None else None,
+                M, N, K, _ACT_CODE[act], splits, build.stream(dev))
     build.check(rc, name)
     launches += 1
     return out

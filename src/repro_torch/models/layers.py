@@ -31,8 +31,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.quantize import (EXACT_FLOAT_K, UINT8_MAX,
-                                       QuantizedTensor,
+from repro_torch.core.quantize import (UINT8_MAX, QuantizedTensor,
                                        compute_scale_symmetric, divide,
                                        int8_matmul,
                                        int_matmul, quantize,
@@ -144,12 +143,6 @@ def quant_bmm(a: torch.Tensor, b: torch.Tensor,
         b_scale = compute_scale_symmetric(b.abs().max())
     bq_vals = quantize(b, b_scale)
     bdim = b.ndim - 1 if transpose_b else b.ndim - 2
-    # on the card the int8 product runs as float32 matmuls of the codes,
-    # exact only while each contraction stays within EXACT_FLOAT_K terms
-    # (hd = 64, Sk <= max_position = 512 here)
-    if a.shape[-1] > EXACT_FLOAT_K:
-        raise ValueError(f"quant_bmm contraction {a.shape[-1]} exceeds "
-                         f"{EXACT_FLOAT_K}, where float32 stops being exact")
     rhs = bq_vals.transpose(-1, -2) if transpose_b else bq_vals
     acc = int_matmul(aq.values, rhs)
     if unsigned_a:

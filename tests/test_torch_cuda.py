@@ -26,9 +26,17 @@ every instantiated head dim and one padded up to the next, float32,
 bfloat16 and float16, causal, window, softcap and no mask, logical blocks
 (bq, bk) that differ from the kernel's tiles, rows with no valid key, and
 GQA; and the fused backend at the shapes the decode and quantized
-attention kernels once refused, which must launch them.
+attention kernels once refused, which must launch them. The tensor-core
+GEMM is also held at every shape ``tools/torch_gemm_ab.py`` times, at M
+from 1 to 1024 across its split-K cut (M <= 32), with K off its 64-byte
+stage and N = 128, to the plain version bit for bit where the epilogue is
+one multiply (exact int32 sums); the float attention at 4096 keys under a
+window in bfloat16, at head dim 256 in every dtype, and on rows whose
+output cancels near 0 (where one 16-bit rounding of P would break 2e-4).
 """
 import ctypes
+import importlib.util
+from pathlib import Path
 
 import pytest
 import torch
@@ -102,6 +110,81 @@ def test_quant_linear_requant_ties(dev):
     acc = xq.cpu().int() @ wq.cpu().int()
     assert q.cpu().equal(torch.round(acc + 0.5).clamp(-128, 127).to(
         torch.int8))
+
+
+def _gemm_ab_shapes():
+    """(M, K, N, act, per-token) of every shape tools/torch_gemm_ab.py
+    times, read from the tool without running it."""
+    path = Path(__file__).resolve().parents[1] / "tools" / "torch_gemm_ab.py"
+    spec = importlib.util.spec_from_file_location("torch_gemm_ab", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return sorted({shape[1:6] for shape in mod.SHAPES}, key=repr)
+
+
+def _ql_operands(dev, M, K, N, per_token, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xq = torch.randint(-128, 128, (M, K), generator=g, device=dev,
+                       dtype=torch.int8)
+    wq = torch.randint(-128, 128, (K, N), generator=g, device=dev,
+                       dtype=torch.int8)
+    ws = torch.rand(N, generator=g, device=dev) * 1e-3 + 1e-5
+    xs = (torch.rand((M, 1), generator=g, device=dev) * 0.02 + 1e-3
+          if per_token else torch.tensor(0.013, device=dev))
+    return xq, wq, ws, xs
+
+
+@pytest.mark.parametrize("M,K,N,act,per_token", _gemm_ab_shapes())
+def test_quant_linear_at_the_timed_shapes(dev, M, K, N, act, per_token):
+    xq, wq, ws, xs = _ql_operands(dev, M, K, N, per_token, M + K + N)
+    before = quant_linear.launches
+    y = quant_linear.quant_linear(xq, wq, ws, xs, act=act)
+    assert quant_linear.launches == before + 1
+    y_ref = quant_linear.quant_linear_plain(xq, wq, ws, xs, act=act)
+    assert _rel(y_ref, y) <= 1e-6
+    os_ = torch.tensor(float(y_ref.abs().max()) / 100.0, device=dev)
+    q = quant_linear.quant_linear(xq, wq, ws, xs, act=act, out_scale=os_)
+    q_ref = quant_linear.quant_linear_plain(xq, wq, ws, xs, act=act,
+                                            out_scale=os_)
+    assert int((q.int() - q_ref.int()).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("M", [1, 7, 8, 16, 17, 33, 1024])
+@pytest.mark.parametrize("K,N", [(896, 128), (1040, 4864), (200, 72),
+                                 (6144, 1024)])
+@pytest.mark.parametrize("per_token", [False, True])
+def test_quant_linear_sums_are_exact(dev, M, K, N, per_token):
+    """No bias, no activation: y = float(acc) * (x_scale * w_scale), one
+    rounding of the int32 sum, so the kernel (split over K or not, K off
+    the 64-byte stage, N = 128) equals the plain version bit for bit."""
+    xq, wq, ws, xs = _ql_operands(dev, M, K, N, per_token, 7 * M + K)
+    y = quant_linear.quant_linear(xq, wq, ws, xs)
+    assert y.equal(quant_linear.quant_linear_plain(xq, wq, ws, xs))
+
+
+def test_quant_linear_requant_ties_split_over_k(dev):
+    """Exact ties at M = 8 and a K split over blocks: the last block's
+    epilogue rounds half to even, as the plain version does."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    M, K, N = 8, 896, 256
+    assert quant_linear.quant_linear_splits(M, N, K) > 1
+    xq = torch.randint(-3, 4, (M, K), generator=g, device=dev,
+                       dtype=torch.int8)
+    wq = torch.randint(-3, 4, (K, N), generator=g, device=dev,
+                       dtype=torch.int8)
+    args = (xq, wq, torch.ones(N, device=dev), torch.tensor(1.0, device=dev))
+    kw = dict(bias=torch.full((N,), 0.5, device=dev),
+              out_scale=torch.tensor(1.0, device=dev))
+    q = quant_linear.quant_linear(*args, **kw)
+    assert q.equal(quant_linear.quant_linear_plain(*args, **kw))
+
+
+def test_quant_linear_splits_mirror_the_library(dev):
+    fn = build.function("samp_quant_linear_splits", (build.I,) * 3)
+    for M in (1, 8, 16, 32, 33, 1024):
+        for K, N in ((896, 896), (896, 128), (4864, 896), (6144, 6144),
+                     (6144, 1024), (36, 70), (0, 64)):
+            assert fn(M, N, K) == quant_linear.quant_linear_splits(M, N, K)
 
 
 @pytest.mark.parametrize("M,D", [(1, 768), (33, 3072), (7, 100), (5, 5000)])
@@ -633,6 +716,60 @@ def test_flash_attention_rows_without_a_valid_key(dev):
     assert torch.allclose(out[:, :, 80:96],
                           v[:, :, 32:64].mean(dim=2, keepdim=True)
                           .expand(-1, -1, 16, -1), atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("mask", ["causal", "window"])
+def test_flash_attention_head_dim_256(dev, dtype, mask):
+    q, k, v = _float_attn_case(dev, 1, 4, 2, 320, 320, 256, dtype)
+    kw = dict(FLOAT_MASKS[mask], bq=64, bk=64)
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert_float_attention_close(out, q, k, v, **kw)
+
+
+def test_flash_attention_long_window_bfloat16(dev):
+    """4096 keys under a 1024-key causal window, 512-key logical blocks."""
+    q, k, v = _float_attn_case(dev, 1, 4, 1, 4096, 4096, 64, torch.bfloat16)
+    kw = dict(causal=True, window=1024, bq=512, bk=512)
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert_float_attention_close(out, q, k, v, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_rows_that_cancel(dev, dtype, causal):
+    """Keys in pairs with nearly equal scores and opposite values: every
+    output cancels near 0, so the budget is the absolute 2e-4, which one
+    16-bit rounding of P (2^-9 of sum p |v| / l) would break."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    B, H, S, d = 1, 2, 256, 64
+    q = torch.randn((B, H, S, d), generator=g, device=dev)
+    k = torch.randn((B, H, S, d), generator=g, device=dev)
+    k[:, :, 1::2] = k[:, :, 0::2] + 0.01 * torch.randn(
+        (B, H, S // 2, d), generator=g, device=dev)
+    v = 4.0 * torch.randn((B, H, S, d), generator=g, device=dev)
+    v[:, :, 1::2] = -v[:, :, 0::2]
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    kw = dict(causal=causal, bq=64, bk=64)
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    rows = slice(1, None, 2) if causal else slice(None)
+    assert float(out.float()[:, :, rows].abs().mean()) < 0.05
+    assert_float_attention_close(out, q, k, v, **kw)
+
+
+def test_flash_attention_smem_of_each_dtype_mirrors_the_library(dev):
+    fn = build.function("samp_flash_attention_smem_of", (build.I, build.I),
+                        ctypes.c_longlong)
+    for code, dtype in ((0, torch.float32), (1, torch.bfloat16),
+                        (2, torch.float16)):
+        for d in (1, 16, 17, 48, 64, 100, 128, 200, 256):
+            assert fn(d, code) == flash_attention.flash_attention_smem(
+                d, dtype)
 
 
 def test_flash_attention_smem_mirrors_the_library(dev):

@@ -141,6 +141,33 @@ def test_quant_linear_requant_rounds_half_to_even():
     np.testing.assert_array_equal(ours.numpy(), np.round(acc + 0.5))
 
 
+@pytest.mark.parametrize("M,K,N", [(8, 896, 896), (8, 896, 128),
+                                   (8, 896, 4864), (8, 4864, 896),
+                                   (8, 6144, 6144), (8, 6144, 1024),
+                                   (32, 1000, 72), (1024, 768, 768),
+                                   (1024, 3072, 768), (1024, 768, 3072),
+                                   (4096, 3072, 3072), (64, 64, 64)])
+def test_quant_linear_split_plan(M, K, N):
+    """The kernel's split of K (csrc/quant_linear.cu, mirrored here for the
+    workspace): only for M <= 32; every split holds at least one 64-byte
+    stage and the splits cover K; the workspace holds the partial sums and
+    one counter a 64-column tile; and the decode shapes put as many blocks
+    on the card as K's stages allow, up to 264 (two an SM)."""
+    splits = quant_linear.quant_linear_splits(M, N, K)
+    ktiles = -(-K // 64)
+    assert 1 <= splits <= max(ktiles, 1)
+    per = -(-ktiles // splits)
+    assert -(-ktiles // per) == splits
+    work = quant_linear.quant_linear_workspace(M, N, K)
+    if M > quant_linear.SMALL_M:
+        assert splits == 1
+    if splits == 1:
+        assert work == 0
+        return
+    assert work == M * N + -(-N // 64)
+    assert -(-N // 64) * splits >= min(264, -(-N // 64) * ktiles)
+
+
 @pytest.mark.parametrize("kind", ["layernorm", "rmsnorm"])
 @pytest.mark.parametrize("beta", [False, True])
 @pytest.mark.parametrize("int8_in", [False, True])

@@ -126,10 +126,18 @@ def test_quant_bmm_matches(unsigned, static):
 
 
 def test_quant_bmm_refuses_inexact_contraction():
-    a = torch.zeros(1, 2, 1025)
-    with pytest.raises(ValueError):
-        L.quant_bmm(a, torch.zeros(1, 1025, 2), torch.tensor(0.1),
-                    torch.tensor(0.1))
+    """Past 1024 terms, where it once refused, the contraction is exact:
+    int_matmul's float32 chunks follow the codes' ranges (514 terms for
+    uint8 x int8), so a 1025-key P.V equals the JAX package's."""
+    rng = np.random.default_rng(5)
+    a = np.abs(rng.standard_normal((1, 2, 1025))).astype(np.float32)
+    b = rng.standard_normal((1, 1025, 2)).astype(np.float32)
+    for unsigned in (False, True):
+        ours = L.quant_bmm(_t(a), _t(b), torch.tensor(0.1),
+                           torch.tensor(0.1), unsigned_a=unsigned)
+        ref = JL.quant_bmm(jnp.asarray(a), jnp.asarray(b), jnp.float32(0.1),
+                           jnp.float32(0.1), unsigned_a=unsigned)
+        np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
 
 
 # ---------------------------------------------------------------------------

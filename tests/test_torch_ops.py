@@ -374,7 +374,8 @@ def test_float_flash_attention_smem_and_head_dims():
     assert [FA.float_head_dim(d) for d in (1, 16, 17, 48, 64, 65, 200,
                                             256, 257)] == \
         [16, 16, 32, 64, 64, 128, 256, 256, None]
-    assert FA.flash_attention_smem(64) == 69632
+    assert FA.flash_attention_smem(64) == 87040
+    assert FA.flash_attention_smem(64, torch.bfloat16) == 64512
     assert max(FA.flash_attention_smem(d) for d in FA.FLOAT_HEAD_DIMS) \
         <= FA._MAX_SMEM
     with pytest.raises(ValueError):
@@ -455,11 +456,10 @@ def test_fused_attention_claims_every_shape(monkeypatch, Sk, d):
 @pytest.mark.parametrize("Sk,head_dim", [(2048, 64), (64, 18)])
 def test_attention_block_at_unresident_shapes(Sk, head_dim):
     """A whole uint8-softmax attention layer on the fused backend (CPU
-    tensors) at 2048 keys, or at a head dim that is not a multiple of 4:
-    at 64 keys it equals the reference backend; at 2048 keys the reference
-    code refuses the int8 P.V (a float32 product of more than 1024 terms is
-    no longer exact), while the fused backend's attention core, whose plain
-    version sums in int32, serves it with finite outputs."""
+    tensors) at 2048 keys, or at a head dim that is not a multiple of 4,
+    equals the reference backend. At 2048 keys the reference core's int8
+    P.V once refused (a float32 product of more than 1024 terms); its
+    float32 chunks now follow the codes' ranges, so it serves them too."""
     from repro_torch.configs import get_config
     from repro_torch.core.plan import LayerPlan, PrecisionPlan
     from repro_torch.core.precision import LayerMode
@@ -482,14 +482,8 @@ def test_attention_block_at_unresident_shapes(Sk, head_dim):
     outs = []
     for name in ("fused", "reference"):
         with torch.inference_mode():
-            try:
-                outs.append(T.forward(q, tokens, cfg, qplan,
-                                      backend=B.get_backend(name)))
-            except ValueError as err:
-                outs.append(str(err))
-    if Sk > 1024:
-        assert "exceeds 1024" in outs[1]
-        assert outs[0].shape == (2, Sk, cfg.d_model)
-        assert torch.isfinite(outs[0]).all()
-    else:
-        assert outs[0].equal(outs[1])
+            outs.append(T.forward(q, tokens, cfg, qplan,
+                                  backend=B.get_backend(name)))
+    assert outs[0].shape == (2, Sk, cfg.d_model)
+    assert torch.isfinite(outs[0]).all()
+    assert outs[0].equal(outs[1])

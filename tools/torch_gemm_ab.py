@@ -1,21 +1,30 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's GEMM kernels, ``quant_linear`` or
-``quant_expert_gemm`` (``--kernel``), at the shapes of ``chip_smoke.py``'s
-served paths, for the port found under ``--src``, so that two checkouts are
-compared on one card within one call:
+"""Time the PyTorch port's kernels, ``quant_linear``, ``quant_expert_gemm``
+or the float ``flash_attention`` (``--kernel``), at the shapes of
+``chip_smoke.py``'s paths, for the port found under ``--src``, so that two
+checkouts are compared on one card within one call:
 
     python3 tools/torch_gemm_ab.py --src <checkout>/src --label parent
     python3 tools/torch_gemm_ab.py --src src --label change
 
 Run it for each checkout in turns (parent, change, change, parent): two
 calls may land on cards that differ. Each shape is timed as in
-``chip_smoke.py`` (CUDA events, median of 25, L2 flushed) on seeded int8
-operands; one JSON line per shape, then the sums over one decode tick of
+``chip_smoke.py`` (CUDA events, median of 25, L2 flushed: ``ms``, which
+holds the wrapper's host time where the kernel is shorter) and by
+``torch.profiler`` (``device_ms``: the device time of the kernel itself, a
+mean over 10 calls, L2 flushed) on seeded operands; for ``quant_linear``
+also ``library_ms`` and ``library_device_ms``, ``torch._int_mm`` plus the
+epilogue as ``chip_smoke.py`` times it (its device time: every kernel it
+runs), and ``int_mm_column_major_device_ms``, ``torch._int_mm`` alone on a
+column-major copy of w. One JSON line per shape, then the sums over
+one decode tick of
 qwen2-0.5b (the decode paths), of the MoE path's attention GEMMs, and over
 one forward of the main path's BERT at (8, 128), weighted by the launches
 each plan makes; for the expert GEMM, over one tick of the MoE path
 (capacity 3) and over the same nine GEMMs of a (4, 128) forward (capacity
-160), with static per-expert scales.
+160), with static per-expert scales; for ``flash_attention``, each case of
+``chip_smoke.FLASH_CASES`` (the qwen2 and mixtral 32k prefills and a BERT
+bucket) on seeded inputs, 5 runs each.
 Needs one NVIDIA GPU; builds the checkout's kernels on first use.
 """
 from __future__ import annotations
@@ -55,6 +64,56 @@ EXPERT_SHAPES = [
 ]
 
 
+def device_ms(timer, fn, kernel=None, reps: int = 10) -> float:
+    """Mean device time over ``reps`` calls of ``fn``, the L2 flushed
+    before each (the flush is not counted): of ``kernel``'s CUDA function,
+    or with ``kernel`` None of every kernel the call runs."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import kernel_named
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):      # a profiler run now and then records no event
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                timer.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+    else:
+        return float("nan")
+    flush = events[0].name                 # the first kernel is the flush
+    return sum(e.time_range.elapsed_us() for e in events
+               if (kernel_named(kernel, e.name) if kernel
+                   else e.name != flush)) / reps / 1e3
+
+
+def int_mm_ms(timer, x, w, ws, xs, act) -> tuple[float, float, float]:
+    """(events ms, device ms) of ``torch._int_mm`` (x padded to 32 rows at
+    M <= 16, as it needs) plus the epilogue in PyTorch ops: the library
+    call ``chip_smoke.py`` sets beside the kernel; and the device ms of
+    ``torch._int_mm`` alone on a column-major copy of w (made outside the
+    timing), the layout its int8 GEMM wants and the port does not keep."""
+    import torch
+    import torch.nn.functional as Fn
+    M, K = x.shape
+    x_lib = x if M > 16 else torch.cat(
+        [x, torch.zeros((32 - M, K), dtype=torch.int8, device=x.device)])
+
+    def lib():
+        y = torch._int_mm(x_lib, w)[:M].to(torch.float32) * (xs * ws)
+        if act == "gelu":
+            return Fn.gelu(y, approximate="tanh")
+        return Fn.silu(y) if act == "silu" else y
+    w_cols = w.t().contiguous().t()
+    return (timer.ms(lib), device_ms(timer, lib),
+            device_ms(timer, lambda: torch._int_mm(x_lib, w_cols)))
+
+
 def time_expert_gemm(timer, dev, label, sums):
     import torch
     from repro_torch.kernels import expert_gemm as EG
@@ -65,10 +124,38 @@ def time_expert_gemm(timer, dev, label, sums):
                           dtype=torch.int8)
         ws = torch.rand((E, 1, F), generator=g, device=dev) * 1e-3 + 1e-5
         xs = xe.abs().amax(dim=(0, 2, 3)).reshape(E, 1, 1) / 127.0
-        ms = timer.ms(lambda: EG.quant_expert_gemm(xe, w, ws, xs))
+        call = lambda: EG.quant_expert_gemm(xe, w, ws, xs)  # noqa: E731
+        ms = timer.ms(call)
+        dev_ms = device_ms(timer, call, "quant_expert_gemm")
         sums[path] = sums.get(path, 0.0) + n * ms
+        sums[path + ":device"] = sums.get(path + ":device", 0.0) + n * dev_ms
         print(json.dumps({"label": label, "path": path, "G": G, "E": E,
-                          "C": C, "D": D, "F": F, "ms": ms}), flush=True)
+                          "C": C, "D": D, "F": F, "ms": ms,
+                          "device_ms": dev_ms}), flush=True)
+
+
+def time_flash(dev, label, sums):
+    import torch
+    from chip_smoke import FLASH_CASES, Timer
+    from repro_torch.kernels import ops
+    timer = Timer(dev, reps=5, warmup=1)
+    for name, (B, Hq, Hkv, S, d), kw, dt, _ in FLASH_CASES:
+        dtype = getattr(torch, dt)
+        g = torch.Generator(device=dev).manual_seed(S + Hq + d)
+        q = torch.randn((B, Hq, S, d), generator=g, device=dev).to(dtype)
+        k, v = (torch.randn((B, Hkv, S, d), generator=g, device=dev)
+                .to(dtype) for _ in range(2))
+        ms = timer.ms(lambda: ops.flash_attention(q, k, v, **kw))
+        sums[name] = ms
+        print(json.dumps({"label": label, "case": name, "B": B, "Hq": Hq,
+                          "Hkv": Hkv, "S": S, "head_dim": d, "dtype": dt,
+                          "mask": kw, "ms": ms,
+                          "device_ms": device_ms(
+                              timer, lambda: ops.flash_attention(q, k, v,
+                                                                 **kw),
+                              "flash_attention", reps=3)}), flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -77,7 +164,8 @@ def main() -> int:
                     help="the src directory of the checkout to time")
     ap.add_argument("--label", required=True)
     ap.add_argument("--kernel", default="quant_linear",
-                    choices=("quant_linear", "quant_expert_gemm"))
+                    choices=("quant_linear", "quant_expert_gemm",
+                             "flash_attention"))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -101,13 +189,26 @@ def main() -> int:
         ws = torch.rand(N, generator=g, device=dev) * 1e-3 + 1e-5
         xs = (torch.rand((M, 1), generator=g, device=dev) * 0.02 + 1e-3
               if token else torch.tensor(0.013, device=dev))
-        ms = timer.ms(lambda: QL.quant_linear(x, w, ws, xs, act=act))
-        sums[path] = sums.get(path, 0.0) + n * ms
+        call = lambda: QL.quant_linear(x, w, ws, xs, act=act)  # noqa: E731
+        ms = timer.ms(call)
+        dev_ms = device_ms(timer, call, "quant_linear")
+        lib_ms, lib_dev, packed_dev = int_mm_ms(timer, x, w, ws, xs, act)
+        for key, v in ((path, ms), (path + ":device", dev_ms),
+                       (path + ":library", lib_ms),
+                       (path + ":library_device", lib_dev),
+                       (path + ":int_mm_column_major_device", packed_dev)):
+            sums[key] = sums.get(key, 0.0) + n * v
         print(json.dumps({"label": args.label, "path": path, "M": M, "K": K,
                           "N": N, "act": act, "per_token": token,
-                          "ms": ms}), flush=True)
+                          "ms": ms, "device_ms": dev_ms,
+                          "library_ms": lib_ms,
+                          "library_device_ms": lib_dev,
+                          "int_mm_column_major_device_ms": packed_dev}),
+              flush=True)
     if args.kernel == "quant_expert_gemm":
         time_expert_gemm(timer, dev, args.label, sums)
+    if args.kernel == "flash_attention":
+        time_flash(dev, args.label, sums)
     print(json.dumps({"label": args.label, "sums_ms": sums,
                       "device": torch.cuda.get_device_name(0)}), flush=True)
     return 0
