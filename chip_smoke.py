@@ -67,8 +67,13 @@ line per phase:
   gave it, and at the (8, 128) bucket (the decode paths: 8 slots, the
   longest tick) its time, its plain version's and a PyTorch library call's
   where one computes the same function (CUDA events, median of 25, L2
-  flushed), beside its bound: the larger of its bytes over 3.35 TB/s and its
-  operations over 1979 TOP/s (int8) or 67 TFLOP/s (float32);
+  flushed: ``ms``, which holds the wrapper's host time), the kernel's and
+  the library call's device time (``torch.profiler``, L2 flushed:
+  ``device_ms``, ``library_device_ms``), beside its bound: the larger of
+  its bytes over 3.35 TB/s and its operations over 1979 TOP/s (int8) or 67
+  TFLOP/s (float32); and ``decode_attention`` at 4096 cached tokens in
+  each of the 8 slots (seeded operands, pages of 16), the context its
+  split over pages is for;
 * ``profile``: ``torch.profiler`` over forwards of each encoder path at the
   (8, 128) bucket and over a window of full decode ticks: device-busy ms per
   forward or tick, idle share, ms of each ported kernel and the top device
@@ -149,6 +154,7 @@ DECODE_SLOTS = 8
 PAGE_SIZE = 16
 DECODE_MAX_LEN = 128
 DECODE_BUCKET = (DECODE_SLOTS, 1)
+LONG_DECODE_TOKENS = 4096        # a slot's cached tokens, kernel phase
 # the JAX package's fingerprint of the decode_head_path plan
 HEAD_FINGERPRINT = ("2c48bdf24412c6c9ca841741bb5088ad"
                     "b664eb99e9791e86a62cf21e257e3b11")
@@ -186,6 +192,9 @@ FLASH_CASES = (
 FLASH_TOL = 2e-4                 # the JAX test's budget (tests/test_kernels.py)
 PIPELINE_TEXTS = 32
 PIPELINE_BATCH = 8
+# the times of each kernel's summary entry
+TIMES = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+         "library_device_ms")
 
 KERNELS = {
     # name: (source, the TPU kernel it replaces)
@@ -239,6 +248,7 @@ class Timer:
         import torch
         self.reps, self.warmup = reps, warmup
         self.flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
+        self.flush_kernel = None     # the flush's kernel name in a profile
 
     def ms(self, fn) -> float:
         import torch
@@ -255,6 +265,63 @@ class Timer:
             end.synchronize()
             times.append(start.elapsed_time(end))
         return statistics.median(times)
+
+    def device_ms(self, fn, kernel=None, reps: int = 10) -> float:
+        """Mean device time of one call of ``fn`` from ``torch.profiler``
+        over ``reps`` calls, the L2 flushed before each (the flush is not
+        counted): of ``kernel``'s CUDA functions (:func:`kernel_named`), or
+        with ``kernel`` None of every kernel the call runs. The host's time
+        in the wrapper, which CUDA events hold, is not in it. A call is the
+        run of kernels, in time order, after its flush. In a long process
+        the profiler hands some device events to a later window (a call's
+        last kernels go missing, an earlier window's appear first, or a
+        window records nothing), so each window ends in three more flushes,
+        events before the first flush are dropped, and only the calls with
+        the most common number of kernels count."""
+        import torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        def window(step, n):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    step()
+                for _ in range(3):
+                    self.flush.zero_()
+                torch.cuda.synchronize()
+            return sorted((e for e in prof.events()
+                           if e.device_type == DeviceType.CUDA),
+                          key=lambda e: e.time_range.start)
+
+        for _ in range(3):    # a window now and then records no event
+            if self.flush_kernel is None:
+                names = collections.Counter(
+                    e.name for e in window(self.flush.zero_, 3))
+                self.flush_kernel = (names.most_common(1)[0][0] if names
+                                     else None)
+        if self.flush_kernel is None:
+            return float("nan")
+        fn()
+        torch.cuda.synchronize()
+
+        def step():
+            self.flush.zero_()
+            fn()
+        for _ in range(3):
+            calls = []
+            for e in window(step, reps):
+                if e.name == self.flush_kernel:
+                    calls.append([])
+                elif calls and (kernel_named(kernel, e.name) if kernel
+                                else True):
+                    calls[-1].append(e.time_range.elapsed_us())
+            counts = collections.Counter(len(c) for c in calls if c)
+            if counts:
+                break
+        else:
+            return float("nan")
+        n = max(counts, key=lambda k: (counts[k], k))
+        return statistics.mean(sum(c) for c in calls if len(c) == n) / 1e3
 
 
 def bound(nbytes: float, int8_ops: float = 0.0, f32_ops: float = 0.0):
@@ -374,6 +441,9 @@ def phase_flash(device):
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bound_peak": peak}
         rec["ms"] = timer.ms(lambda: ops.flash_attention(q, k, v, **kw))
+        rec["device_ms"] = timer.device_ms(
+            lambda: ops.flash_attention(q, k, v, **kw), "flash_attention",
+            reps=3)
         rec["plain_ms"] = timer.ms(
             lambda: FA.flash_attention_plain(q, k, v, **kw))
         # SDPA on K and V expanded to Hq heads outside the timing; its
@@ -412,6 +482,7 @@ def phase_flash(device):
         lib_err = float((library().float() - out.float()).abs().max())
         rec["library_max_abs_diff"] = lib_err
         rec["library_ms"] = timer.ms(library)
+        rec["library_device_ms"] = timer.device_ms(library, reps=3)
         del ke, ve, mask
         torch.cuda.synchronize()
         emit(rec)
@@ -1522,8 +1593,11 @@ def run_case(cfg, key, layer, bucket, qparams, device, timer=None):
     rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     if timer is not None:
         rec["ms"] = timer.ms(kern)
+        rec["device_ms"] = timer.device_ms(kern, key[0])
         rec["plain_ms"] = timer.ms(plain)
         rec["library_ms"] = timer.ms(lib) if lib is not None else None
+        rec["library_device_ms"] = (timer.device_ms(lib) if lib is not None
+                                    else None)
         if aside is not None:
             rec["sdpa_float_aside_ms"] = timer.ms(aside)
     emit(rec)
@@ -1582,20 +1656,49 @@ def decode_witness(args):
     return torch.einsum("bhgt,bhtd->bhgd", p, vf)
 
 
-def run_decode_case(path, mode, device, timer=None):
-    """Check ``decode_attention`` against its plain version on the operands
-    one layer gave it at the decode path's longest tick (``mode``
-    "per_head" drops the head path's ``p_scale``), and against
-    :func:`decode_witness`, the gathered float attention; with ``timer``,
-    also time kernel and plain. No one PyTorch call computes paged int8
-    decode: SDPA on the gathered, dequantized K/V is timed as a labelled
-    aside."""
+def decode_operands(device, lengths, pages_per_slot, mode="per_token",
+                    seed=0):
+    """Seeded operands of one ``decode_attention`` call at the decode
+    paths' geometry (qwen2-0.5b: 8 slots, 2 KV heads, a GQA group of 7,
+    head dim 64; pages of 16): each slot's pages scattered over the pool
+    in a seeded order, its table filled as far as ``lengths`` reach; mode
+    "per_token" (``decode_path``'s scale pages) or "p_scale"
+    (``decode_head_path``'s per-head scales and uint8 softmax)."""
+    import torch
+    B, Hkv, g, hd, ps = DECODE_SLOTS, 2, 7, 64, PAGE_SIZE
+    gen = torch.Generator(device=device).manual_seed(seed)
+    NP = B * pages_per_slot
+    q = torch.randn((B, Hkv, g, hd), generator=gen, device=device)
+    k, v = (torch.randint(-127, 128, (NP, ps, Hkv, hd), generator=gen,
+                          device=device, dtype=torch.int8)
+            for _ in range(2))
+    order = torch.randperm(NP, generator=gen, device=device)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=device)
+    first = torch.arange(pages_per_slot, device=device)[None] * ps
+    table = torch.where(first < lengths[:, None],
+                        order.reshape(B, pages_per_slot), -1)
+    shape = (NP, ps, Hkv) if mode == "per_token" else (Hkv,)
+    ks, vs = (torch.rand(shape, generator=gen, device=device) * 0.04 + 0.01
+              for _ in range(2))
+    return {"q": q, "k_pages": k, "v_pages": v,
+            "page_table": table.to(torch.int32).contiguous(),
+            "lengths": lengths, "k_scale": ks, "v_scale": vs,
+            "per_head": mode != "per_token",
+            "p_scale": (torch.tensor(0.9 / 255, device=device)
+                        if mode == "p_scale" else None)}
+
+
+def check_decode(args, device, timer=None):
+    """``decode_attention`` on ``args`` against its plain version (max abs
+    <= 2e-5; with ``p_scale`` rel-Linf <= 5e-3) and :func:`decode_witness`,
+    the gathered float attention (rel-Linf 1e-4; 5e-3 with ``p_scale``), and
+    its bound; with ``timer``, also the kernel's and the plain version's
+    times. No one PyTorch call computes paged int8 decode: SDPA on the
+    gathered, dequantized K/V is timed as a labelled aside. Returns the
+    record, (bytes bound, operations bound) and whether it held."""
     import torch
     import torch.nn.functional as Fn
     from repro_torch.kernels import decode_attention as DA
-    args = dict(path["decode_args"])
-    if mode == "per_head":
-        args["p_scale"] = None
     q, table, lengths = args["q"], args["page_table"], args["lengths"]
     B, Hkv, g, hd = q.shape
     NP, ps = args["k_pages"].shape[:2]
@@ -1626,11 +1729,13 @@ def run_decode_case(path, mode, device, timer=None):
     f32_ops = tokens * Hkv * g * (4.0 * hd + 10.0
                                   + (2.0 * hd + 8.0 if quant_p else 0.0))
     t_bytes, t_ops = bound(nbytes, f32_ops=f32_ops)
-    rec = {"phase": "kernel", "kernel": "decode_attention", "path":
-           path["name"], "mode": mode, "slots": B, "kv_heads": Hkv,
-           "group": g, "head_dim": hd, "page_size": ps, "pages": NP,
-           "pages_per_slot": pps, "live_pages": live, "valid_tokens": tokens,
-           "max_abs_err": err, "rel_linf": rel, "exact": bool(out.equal(want)),
+    split = DA.decode_split_pages(pps)
+    rec = {"slots": B, "kv_heads": Hkv, "group": g, "head_dim": hd,
+           "page_size": ps, "pages": NP, "pages_per_slot": pps,
+           "split_pages": split, "splits": DA.decode_splits(pps, split),
+           "live_pages": live,
+           "valid_tokens": tokens, "max_abs_err": err, "rel_linf": rel,
+           "exact": bool(out.equal(want)),
            "tolerance": ("float out rel-Linf <= 5e-3 (uint8 codes at ties)"
                          if quant_p else "max abs <= 2e-5"),
            "witness_rel_linf": witness_rel,
@@ -1639,8 +1744,10 @@ def run_decode_case(path, mode, device, timer=None):
            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     if timer is not None:
         rec["ms"] = timer.ms(lambda: DA.decode_attention(**args))
+        rec["device_ms"] = timer.device_ms(
+            lambda: DA.decode_attention(**args), "decode_attention")
         rec["plain_ms"] = timer.ms(lambda: DA.decode_attention_plain(**args))
-        rec["library_ms"] = None
+        rec["library_ms"] = rec["library_device_ms"] = None
         # the aside: float SDPA over the gathered, dequantized pages
         kf, vf, mask = gathered_kv(args)
         kf, vf = (t.repeat_interleave(g, dim=1) for t in (kf, vf))
@@ -1650,11 +1757,41 @@ def run_decode_case(path, mode, device, timer=None):
             lambda: Fn.scaled_dot_product_attention(qf, kf, vf,
                                                     attn_mask=mask))
     torch.cuda.synchronize()
+    return rec, (t_bytes, t_ops), ok
+
+
+def run_decode_case(path, mode, device, timer=None):
+    """:func:`check_decode` on the operands one layer gave the kernel at
+    the decode path's longest tick (``mode`` "per_head" drops the head
+    path's ``p_scale``)."""
+    args = dict(path["decode_args"])
+    if mode == "per_head":
+        args["p_scale"] = None
+    rec, tb, ok = check_decode(args, device, timer)
+    rec = {"phase": "kernel", "kernel": "decode_attention",
+           "path": path["name"], "mode": mode, **rec}
     emit(rec)
     if not ok:
         fail(f"decode_attention ({mode}) disagrees with its plain version "
              f"or the gathered witness: {rec}")
-    return rec, (t_bytes, t_ops)
+    return rec, tb
+
+
+def run_long_decode_case(device, timer):
+    """:func:`check_decode` at :data:`LONG_DECODE_TOKENS` cached tokens in
+    every slot (pages of 16), seeded operands with per-token scales: the
+    context the split over pages is for."""
+    pps = LONG_DECODE_TOKENS // PAGE_SIZE
+    args = decode_operands(device, [LONG_DECODE_TOKENS] * DECODE_SLOTS, pps)
+    rec, _, ok = check_decode(args, device, timer)
+    rec = {"phase": "kernel", "kernel": "decode_attention",
+           "path": "long_context", "mode": "per_token", **rec}
+    emit(rec)
+    if not ok:
+        fail(f"decode_attention at {LONG_DECODE_TOKENS} cached tokens "
+             f"disagrees with its plain version or the gathered witness: "
+             f"{rec}")
+    return rec
 
 
 def run_expert_case(path, key, layer, C, device, timer=None):
@@ -1731,8 +1868,11 @@ def run_expert_case(path, key, layer, C, device, timer=None):
                 out[0, e] = acc.to(torch.float32) * (x_scale[e] * ws[e])
             return out
         rec["ms"] = timer.ms(lambda: EG.quant_expert_gemm(*args))
+        rec["device_ms"] = timer.device_ms(
+            lambda: EG.quant_expert_gemm(*args), "quant_expert_gemm")
         rec["plain_ms"] = timer.ms(lambda: EG.quant_expert_gemm_plain(*args))
         rec["library_ms"] = timer.ms(lib)
+        rec["library_device_ms"] = timer.device_ms(lib)
         rec["library"] = (f"a loop of {E} torch._int_mm calls (rows padded "
                           f"to {Mp}) with the same quantization and "
                           f"epilogue")
@@ -1789,32 +1929,33 @@ def check_kernels(paths, device, timed, max_err):
                 timed[key] = (rec, tb)
 
 
-def summarize(paths, timed, max_err, flash):
+def summarize(paths, timed, max_err, flash, long_decode):
     """The per-kernel summary entries: sums over one forward of the span
     path, else one tick of the decode path, else one tick of the MoE path,
     and over one forward or tick of each path under ``by_path``; for the
     float ``flash_attention``, which no served path runs, its long-context
-    path's qwen2 float32 call, each case under ``by_case``."""
+    path's qwen2 float32 call, each case under ``by_case``; for
+    ``decode_attention`` also its call at 4096 cached tokens a slot
+    (``long_context``)."""
 
     def sums(path, name):
         out = {"launches": path["launches"][name],
                "launches_per_" + path["unit"]: path["per_fwd"][name],
-               "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-               "library_ms": 0.0}
+               "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+               "bound_ms": 0.0, "library_ms": 0.0, "library_device_ms": 0.0}
         t_bytes = t_ops = 0.0
         for key, case in path["cases"].items():
             if key[0] != name:
                 continue
             rec, (tb, to) = timed[key]
             n = case["count"]
-            for f in ("ms", "plain_ms", "bound_ms"):
+            for f in ("ms", "device_ms", "plain_ms", "bound_ms"):
                 out[f] += n * rec[f]
             t_bytes += n * tb
             t_ops += n * to
-            out["library_ms"] = (None if rec["library_ms"] is None
-                                 or out["library_ms"] is None
-                                 else out["library_ms"]
-                                 + n * rec["library_ms"])
+            for f in ("library_ms", "library_device_ms"):
+                out[f] = (None if rec[f] is None or out[f] is None
+                          else out[f] + n * rec[f])
         out["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         return out
 
@@ -1826,13 +1967,11 @@ def summarize(paths, timed, max_err, flash):
                      "replaces": rep,
                      "launches": sum(r["launches"] for r in flash),
                      "max_abs_err": max(r["max_abs_err"] for r in flash)}
-            entry.update({f: top[f] for f in ("ms", "plain_ms", "bound_ms",
-                                              "bound_by", "library_ms")})
+            entry.update({f: top[f] for f in TIMES})
             entry["served_path_launches"] = {
                 p["name"]: p["launches"][name] for p in paths}
             entry["by_case"] = {r["case"]: {f: r[f] for f in (
-                "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms")} for r in flash}
+                "launches", "max_abs_err") + TIMES} for r in flash}
             entry["per"] = ("one call of ops.flash_attention at qwen2's 32k "
                             "causal prefill in float32 (by_case: each "
                             "case); launches: one a call of the flash path")
@@ -1847,9 +1986,12 @@ def summarize(paths, timed, max_err, flash):
                  "replaces": rep,
                  "launches": sum(b["launches"] for b in by_path.values()),
                  "max_abs_err": max_err[name]}
-        entry.update({f: top[f] for f in ("ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms")})
+        entry.update({f: top[f] for f in TIMES})
         entry["by_path"] = by_path
+        if name == "decode_attention":
+            entry["long_context"] = {f: long_decode[f] for f in (
+                "slots", "valid_tokens", "page_size", "pages_per_slot",
+                "splits", "max_abs_err", "exact") + TIMES}
         entry["per"] = (f"one forward of the span path at bucket "
                         f"{PROFILE_BUCKET}, or one tick of the decode path "
                         f"at its longest ({DECODE_SLOTS} slots) where the "
@@ -2027,6 +2169,7 @@ def main() -> int:
                            decode_head_plan(decoder["plan"]), device)]
     timed, max_err = {}, collections.defaultdict(float)
     check_kernels(paths, device, timed, max_err)
+    long_decode = run_long_decode_case(device, Timer(device))
     phase_profile(model, paths, device)
     phase_profile_decode(paths[2])
     # free the earlier paths' models and engines before the 42 GB MoE model;
@@ -2041,7 +2184,7 @@ def main() -> int:
     paths.append(moe)
     check_kernels([moe], device, timed, max_err)
     phase_profile_decode(moe)
-    emit({"kernels": summarize(paths, timed, max_err, flash)})
+    emit({"kernels": summarize(paths, timed, max_err, flash, long_decode)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,6 +1,6 @@
 // Paged decode attention over an int8 KV pool, with dequantization fused
-// into both dots, an online softmax across pages, and the optional
-// two-pass uint8 softmax.
+// into both dots, an online softmax across pages split over blocks
+// (flash-decoding), and the optional two-pass uint8 softmax.
 //
 // Replaces src/repro/kernels/decode_attention.py:decode_attention (the
 // Pallas _decode_kernel). One query token per slot; for slot b, KV head h
@@ -9,27 +9,41 @@
 //   s[t] = (sum_d (q[d] * scale) * k8[t][d]) * k_scale[t]     (+ softcap)
 //   s[t] = NEG_INF where j * ps + t >= length                  (finite mask)
 //   m' = max(m, max_t s); a = exp(m - m'); p[t] = exp(s[t] - m')
-//   l = l * a + sum_t p[t];  acc[d] = acc[d] * a + sum_t (p[t] * v_scale[t]) v8[t][d]
+//   l = l * a + sum_t p[t]
+//   acc[d] = acc[d] * a + sum_t (p[t] * v_scale[t]) v8[t][d]
 //   out = acc / max(l, 1e-30)
-// With p_scale, pass 1 takes m and l only, and pass 2 revisits every live
-// page: p = exp(s - m) / max(l, 1e-30), codes clip(rint(p / p_scale), 0,
-// 255), acc[d] += sum_t ((codes * p_scale) * v_scale[t]) v8[t][d], already
-// normalized. k_scale / v_scale are per-token scale pages (NP, ps, Hkv) or
-// calibrated per-head (Hkv,) vectors. A slot of length 0 writes zeros.
+// That recurrence runs over each split of P consecutive table entries
+// (pages j in [s P, s P + P)) from m = NEG_INF, l = 0, acc = 0, giving
+// (m_s, l_s, acc_s); an empty split keeps those. With S = ceil(pps / P)
+// splits, the combine is
+//   m = max_s m_s;  w_s = exp(m_s - m);
+//   l = l_0 w_0 + l_1 w_1 + ...;  acc = acc_0 w_0 + acc_1 w_1 + ...
+// added in split order from the first term (S = 1: out = acc_0 / l_0, the
+// page-sequential recurrence). With p_scale, the splits' (m_s, l_s) combine
+// into the exact m and l, and pass 2 revisits each split's live pages:
+// p = exp(s - m) / max(l, 1e-30), codes clip(rint(p / p_scale), 0, 255),
+// acc_s[d] += sum_t ((codes * p_scale) * v_scale[t]) v8[t][d], already
+// normalized; out = acc_0 + acc_1 + ... in split order. k_scale / v_scale
+// are per-token scale pages (NP, ps, Hkv) or calibrated per-head (Hkv,)
+// vectors. A slot of length 0 writes zeros.
 //
 // Bound on the H100: bytes, and in practice latency. One call reads each
 // live page of K and V once (ps * hd bytes per head each) plus its scales,
-// a few hundred KB at the serving shapes, about 0.1 us at 3.35 TB/s; the
-// grid is only B x Hkv = 16 blocks on 132 SMs, so the time is the latency
-// of one block walking its pages in turn. Splitting a slot's pages across
-// blocks with a combine pass (flash-decoding) is later work.
+// a few hundred KB at the serving shapes, about 0.1 us at 3.35 TB/s. One
+// block per (slot, KV head) would make B x Hkv = 16 blocks on 132 SMs, each
+// walking its slot's pages in turn, a time that grows with the context; so
+// the pages are split over blocks: P = ceil(pps / 32) table entries a
+// split, from the table's width alone (never the SM count or the lengths,
+// so the plain version repeats the order on the CPU): at most 32 splits,
+// 128 blocks at the qwen2 decode tick (pps 8, one page a block), 512 at
+// 4096 cached tokens on pages of 16 (pps 256, 8 pages a block).
 //
 // Design: one block of 256 threads per (slot, KV head, chunk of at most
 // 32 query rows of the GQA group; the caller picks the chunk so a block's
 // shared memory fits, and a larger group takes several blocks, each staging
-// the head's pages itself). The block reads its page-table row and length
-// itself (the Pallas kernel's scalar prefetch), skips -1 entries and pages
-// past the length, and keeps the running max, denominator and the
+// the head's pages itself) and split s. The block reads its page-table row
+// and length itself (the Pallas kernel's scalar prefetch), skips -1 entries
+// and pages past the length, and keeps the running max, denominator and the
 // (rows, hd) accumulator in shared memory. Each live page is staged in
 // shared memory as float (K and V, PS x HD on an odd word stride, so lanes
 // reading one dim of different tokens hit distinct banks) with its
@@ -39,28 +53,43 @@
 // PS (K, V, q and the scales of the padding are 0, and a padded token's
 // probability is 0 and takes no part in the max). Then thread (i, t) forms
 // one score: the HD products are added in halves (d with d + HD/2, then
-// with d + HD/4, ...) in registers; one thread per query row takes the max,
-// the exponentials and their sum over the page's tokens, again in halves;
-// and thread (i, d) forms its output dim's P.V sum over the tokens in
-// halves. Those orders are what the plain version
-// (repro_torch.kernels.decode_attention, tree_sum, which zero-pads to the
-// next power of two) repeats, so the two round alike: the extra halves of a
-// wider instantiation add exact zeros. Division is IEEE, rounding is rintf
-// (half to even), exp is expf: no fast math, -fmad=false.
+// with d + HD/4, ...) in registers; one warp per query row takes the max,
+// the exponentials and their sum over the page's tokens, again in halves
+// (lanes add the halves by shuffles in the same order); and thread (i, d)
+// forms its output dim's P.V sum over the tokens in halves. Those orders
+// are what the plain version (repro_torch.kernels.decode_attention,
+// tree_sum, which zero-pads to the next power of two) repeats, so the two
+// round alike: the extra halves of a wider instantiation add exact zeros.
+// With S > 1 each block writes (m_s, l_s, acc_s) to a float workspace and
+// bumps its group's counter (int32, zeroed by the wrapper); the group's last
+// block applies the combine and writes out, so a call is one launch. With
+// p_scale and S > 1 a call is two launches: the first writes each split's
+// (m_s, l_s); in the second every block combines them into m and l (the
+// same order in each), runs pass 2 over its split, and the last block of the
+// group adds the accs. Division is IEEE, rounding is rintf (half to even),
+// exp is expf: no fast math, -fmad=false.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxSplits = 32;
 // the Python constant -0.7 * float32 max, rounded once to float
 constexpr float kNegInf = (float)(-0.7 * 3.4028234663852886e38);
+
+// what one walk over a split's pages does
+enum Walk {
+  kOnline,   // one-pass softmax: m, l and acc
+  kStats,    // p_scale pass 1: m and l only
+  kCodes,    // p_scale pass 2: acc of the coded final probabilities
+};
 
 // Shared-memory layout of one block of `rows` query rows, in floats.
 struct Layout {
   int rs;                        // row stride of q, K and V (HD | 1)
   size_t q_off, k_off, v_off, ks_off, vs_off, s_off, acc_off, m_off, l_off,
-      a_off, floats;
+      a_off, w_off, f_off, floats;
 };
 
 __host__ __device__ inline Layout layout(int rows, int HD, int PS) {
@@ -77,6 +106,8 @@ __host__ __device__ inline Layout layout(int rows, int HD, int PS) {
   L.m_off = off;   off += rows;
   L.l_off = off;   off += rows;
   L.a_off = off;   off += rows;
+  L.w_off = off;   off += (size_t)rows * kMaxSplits;  // combine weights
+  L.f_off = off;   off += 1;                 // the last-block flag
   L.floats = off;
   return L;
 }
@@ -93,7 +124,9 @@ decode_attention_kernel(const float* __restrict__ q,
                         const float* __restrict__ p_scale,
                         float* __restrict__ out, int Hkv, int g, int rows,
                         int hd, int ps, int pps, int num_pages, int per_head,
-                        float scale, int use_cap, float cap) {
+                        float scale, int use_cap, float cap, int split_pages,
+                        int splits, int phase, float* __restrict__ work,
+                        int* __restrict__ counters) {
   extern __shared__ float smem[];
   const Layout L = layout(rows, HD, PS);
   float* qs = smem + L.q_off;
@@ -106,18 +139,34 @@ decode_attention_kernel(const float* __restrict__ q,
   float* m = smem + L.m_off;
   float* l = smem + L.l_off;
   float* alpha = smem + L.a_off;
+  float* wts = smem + L.w_off;
+  int* last = reinterpret_cast<int*>(smem + L.f_off);
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  constexpr int TK = PS > 32 ? PS / 32 : 1;           // tokens a lane
+  const int split = blockIdx.x % splits;
+  const int grp = blockIdx.x / splits;                // (slot, head, chunk)
   const int chunks = (g + rows - 1) / rows;
-  const int bh = blockIdx.x / chunks;
-  const int i0 = (blockIdx.x - bh * chunks) * rows;   // first query row
+  const int bh = grp / chunks;
+  const int i0 = (grp - bh * chunks) * rows;          // first query row
   const int gn = min(rows, g - i0);                   // rows of this block
   const int b = bh / Hkv;
   const int h = bh - b * Hkv;
   const int length = lengths[b];
   const int* table = page_table + (size_t)b * pps;
+  const int j0 = split * split_pages;
+  const int j1 = min(pps, j0 + split_pages);
+  // the split's first table entry, read before q so the two loads overlap
+  const int pg0 = j0 < j1 ? table[j0] : -1;
   const bool quant_p = p_scale != nullptr;
   const float pscale = quant_p ? *p_scale : 1.0f;
   const float* qg = q + (((size_t)b * Hkv + h) * g + i0) * hd;
+  float* og = out + (((size_t)b * Hkv + h) * g + i0) * hd;
+  // this group's partials: (m_s, l_s) of each split and row, then acc_s
+  const size_t groups = gridDim.x / splits;
+  float* stats = work + (size_t)grp * splits * rows * 2;
+  float* accs = work + groups * splits * rows * 2
+                + (size_t)grp * splits * rows * hd;
   // four codes a word when every row of a page starts on a word
   const bool words = hd % 4 == 0 &&
                      ((uintptr_t)k_pages & 3) == 0 &&
@@ -145,14 +194,23 @@ decode_attention_kernel(const float* __restrict__ q,
     vsc[t] = 0.0f;
   }
 
-  const int passes = quant_p ? 2 : 1;
-  for (int pass = 0; pass < passes; ++pass) {
-    const bool pv_pass = pass == passes - 1;   // accumulates P.V
-    for (int j = 0; j < pps; ++j) {
-      const int pg = table[j];
+  // the page recurrence over this split's live pages
+  auto walk = [&](Walk mode) {
+    for (int j = j0; j < j1; ++j) {
+      const int pg = j == j0 ? pg0 : table[j];
       if (pg < 0 || pg >= num_pages || length <= j * ps) continue;
       __syncthreads();                         // previous page fully used
-      // stage the page's K and V rows of head h, widened to float
+      // the page's per-token scales (thread t, ps <= kThreads), loaded
+      // before its codes so that the loads overlap
+      float kst = 0.0f, vst = 0.0f;
+      if (tid < ps) {
+        const size_t si = ((size_t)pg * ps + tid) * Hkv + h;
+        kst = per_head ? k_scale[h] : k_scale[si];
+        vst = per_head ? v_scale[h] : v_scale[si];
+      }
+      // stage the page's K and V rows of head h, widened to float (pass 1
+      // of p_scale needs no V)
+      const bool need_v = mode != kStats;
       const size_t page_base = (size_t)pg * ps * Hkv * hd;
       if (words) {
         const int hw = hd / 4;
@@ -161,13 +219,15 @@ decode_attention_kernel(const float* __restrict__ q,
           const int d = (w - t * hw) * 4;
           const size_t src = page_base + ((size_t)t * Hkv + h) * hd + d;
           const char4 kk = *reinterpret_cast<const char4*>(k_pages + src);
-          const char4 vv = *reinterpret_cast<const char4*>(v_pages + src);
           float* kr = ks + t * L.rs + d;
-          float* vr = vs + t * L.rs + d;
           kr[0] = (float)kk.x; kr[1] = (float)kk.y;
           kr[2] = (float)kk.z; kr[3] = (float)kk.w;
-          vr[0] = (float)vv.x; vr[1] = (float)vv.y;
-          vr[2] = (float)vv.z; vr[3] = (float)vv.w;
+          if (need_v) {
+            const char4 vv = *reinterpret_cast<const char4*>(v_pages + src);
+            float* vr = vs + t * L.rs + d;
+            vr[0] = (float)vv.x; vr[1] = (float)vv.y;
+            vr[2] = (float)vv.z; vr[3] = (float)vv.w;
+          }
         }
       } else {
         for (int e = tid; e < ps * hd; e += kThreads) {
@@ -175,13 +235,12 @@ decode_attention_kernel(const float* __restrict__ q,
           const int d = e - t * hd;
           const size_t src = page_base + ((size_t)t * Hkv + h) * hd + d;
           ks[t * L.rs + d] = (float)k_pages[src];
-          vs[t * L.rs + d] = (float)v_pages[src];
+          if (need_v) vs[t * L.rs + d] = (float)v_pages[src];
         }
       }
-      for (int t = tid; t < ps; t += kThreads) {
-        const size_t si = ((size_t)pg * ps + t) * Hkv + h;
-        ksc[t] = per_head ? k_scale[h] : k_scale[si];
-        vsc[t] = per_head ? v_scale[h] : v_scale[si];
+      if (tid < ps) {
+        ksc[tid] = kst;
+        vsc[tid] = vst;
       }
       __syncthreads();
 
@@ -207,35 +266,52 @@ decode_attention_kernel(const float* __restrict__ q,
       }
       __syncthreads();
 
-      // one thread per query row: the softmax statistics of this page, and
-      // the weights P.V takes (p * v_scale, or the dequantized codes); a
-      // padded token (t >= ps) has weight 0
-      for (int i = tid; i < gn; i += kThreads) {
+      // one warp per query row, lane l holding tokens l + 32 k: the softmax
+      // statistics of this page (the max by shuffles; the exponentials'
+      // sum in halves, within a lane while the halves are 32 tokens or
+      // more apart, then by shuffles), and the weights P.V takes (p *
+      // v_scale, or the dequantized codes); a padded token (t >= ps) has
+      // weight 0
+      for (int i = tid >> 5; i < gn; i += kThreads / 32) {
         float* row = sw + i * PS;
-        if (!quant_p || pass == 0) {
-          float mx = row[0];
-          for (int t = 1; t < ps; ++t) mx = fmaxf(mx, row[t]);
-          const float m_new = fmaxf(m[i], mx);
-          const float a = expf(m[i] - m_new);
-          float sum[PS];
+        if (mode != kCodes) {
+          float mx = kNegInf;
 #pragma unroll
-          for (int t = 0; t < PS; ++t)
-            sum[t] = t < ps ? expf(row[t] - m_new) : 0.0f;
-          if (!quant_p) {
+          for (int k = 0; k < TK; ++k)
+            if (lane + 32 * k < ps) mx = fmaxf(mx, row[lane + 32 * k]);
 #pragma unroll
-            for (int t = 0; t < PS; ++t) row[t] = sum[t] * vsc[t];
+          for (int o = 16; o >= 1; o >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+          const float m_old = m[i];
+          const float m_new = fmaxf(m_old, mx);
+          const float a = expf(m_old - m_new);
+          float x[TK];
+#pragma unroll
+          for (int k = 0; k < TK; ++k) {
+            const int t = lane + 32 * k;
+            x[k] = t < ps ? expf(row[t] - m_new) : 0.0f;
+            if (mode == kOnline && t < PS) row[t] = x[k] * vsc[t];
           }
 #pragma unroll
-          for (int w = PS / 2; w >= 1; w >>= 1) {
+          for (int w = PS / 2; w >= 32; w >>= 1) {
 #pragma unroll
-            for (int t = 0; t < w; ++t) sum[t] = sum[t] + sum[t + w];
+            for (int k = 0; k < w / 32; ++k) x[k] = x[k] + x[k + w / 32];
           }
-          l[i] = l[i] * a + sum[0];
-          m[i] = m_new;
-          alpha[i] = a;
+#pragma unroll
+          for (int w = (PS < 32 ? PS : 32) / 2; w >= 1; w >>= 1)
+            x[0] = x[0] + __shfl_down_sync(0xffffffffu, x[0], w);
+          __syncwarp();                 // every lane has read m[i]
+          if (lane == 0) {
+            l[i] = l[i] * a + x[0];
+            m[i] = m_new;
+            alpha[i] = a;
+          }
         } else {
           const float denom = fmaxf(l[i], 1e-30f);
-          for (int t = 0; t < PS; ++t) {
+#pragma unroll
+          for (int k = 0; k < TK; ++k) {
+            const int t = lane + 32 * k;
+            if (t >= PS) continue;
             float w = 0.0f;
             if (t < ps) {
               const float pt = expf(row[t] - m[i]) / denom;
@@ -249,7 +325,7 @@ decode_attention_kernel(const float* __restrict__ q,
       __syncthreads();
 
       // P.V: thread (i, d), the tokens added in halves
-      if (pv_pass) {
+      if (mode != kStats) {
         for (int idx = tid; idx < gn * HD; idx += kThreads) {
           const int i = idx / HD;
           const int d = idx - i * HD;
@@ -264,21 +340,94 @@ decode_attention_kernel(const float* __restrict__ q,
 #pragma unroll
             for (int t = 0; t < w; ++t) v[t] = v[t] + v[t + w];
           }
-          acc[idx] = quant_p ? acc[idx] + v[0]
-                             : acc[idx] * alpha[i] + v[0];
+          acc[idx] = mode == kCodes ? acc[idx] + v[0]
+                                    : acc[idx] * alpha[i] + v[0];
         }
       }
     }
-  }
-  __syncthreads();
+    __syncthreads();
+  };
 
-  float* og = out + (((size_t)b * Hkv + h) * g + i0) * hd;
+  auto save_stats = [&]() {
+    for (int i = tid; i < gn; i += kThreads) {
+      stats[((size_t)split * rows + i) * 2] = m[i];
+      stats[((size_t)split * rows + i) * 2 + 1] = l[i];
+    }
+  };
+  auto save_acc = [&]() {
+    for (int idx = tid; idx < gn * HD; idx += kThreads) {
+      const int i = idx / HD;
+      const int d = idx - i * HD;
+      if (d < hd) accs[((size_t)split * rows + i) * hd + d] = acc[idx];
+    }
+  };
+  // whether this block is the group's last to finish; its partials are
+  // then all visible
+  auto arrive = [&]() {
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) *last = atomicAdd(counters + grp, 1) == splits - 1;
+    __syncthreads();
+    if (!*last) return false;
+    __threadfence();
+    return true;
+  };
+  // m = max_s m_s, w_s = exp(m_s - m) (into wts), l = sum_s l_s w_s in
+  // split order from the first term
+  auto combine_stats = [&]() {
+    for (int i = tid; i < gn; i += kThreads) {
+      float mx = kNegInf;
+      for (int s = 0; s < splits; ++s)
+        mx = fmaxf(mx, __ldcg(stats + ((size_t)s * rows + i) * 2));
+      float sum = 0.0f;
+      for (int s = 0; s < splits; ++s) {
+        const float* st = stats + ((size_t)s * rows + i) * 2;
+        const float w = expf(__ldcg(st) - mx);
+        const float t = __ldcg(st + 1) * w;
+        sum = s == 0 ? t : sum + t;
+        wts[i * kMaxSplits + s] = w;
+      }
+      m[i] = mx;
+      l[i] = sum;
+    }
+    __syncthreads();
+  };
+
+  // this launch's walks: the one-pass softmax, or p_scale's pass 1 (a
+  // launch of its own when S > 1) and pass 2, which with S > 1 starts from
+  // the splits' combined m and l (one copy of the page loop in the code)
+  const int w0 = !quant_p ? kOnline
+                          : phase == 0 || splits == 1 ? kStats : kCodes;
+  const int w1 = !quant_p ? kOnline : phase == 0 ? kStats : kCodes;
+  if (w0 == kCodes) combine_stats();
+  for (int w = w0; w <= w1; ++w) walk((Walk)w);
+  if (quant_p && phase == 0) {
+    save_stats();
+    return;
+  }
+  if (splits > 1) {
+    if (!quant_p) save_stats();
+    save_acc();
+    if (!arrive()) return;
+    if (!quant_p) combine_stats();
+  }
+  // out: acc_s weighted by w_s and divided by l, or with p_scale the
+  // already normalized accs added
   for (int idx = tid; idx < gn * HD; idx += kThreads) {
     const int i = idx / HD;
     const int d = idx - i * HD;
-    if (d < hd)
-      og[(size_t)i * hd + d] =
-          quant_p ? acc[idx] : acc[idx] / fmaxf(l[i], 1e-30f);
+    if (d >= hd) continue;
+    float a = acc[idx];
+    if (splits > 1) {
+      const float* col = accs + (size_t)i * hd + d;
+      const float* wi = wts + i * kMaxSplits;
+      a = quant_p ? __ldcg(col) : __ldcg(col) * wi[0];
+      for (int s = 1; s < splits; ++s) {
+        const float x = __ldcg(col + (size_t)s * rows * hd);
+        a = a + (quant_p ? x : x * wi[s]);
+      }
+    }
+    og[(size_t)i * hd + d] = quant_p ? a : a / fmaxf(l[i], 1e-30f);
   }
 }
 
@@ -296,6 +445,9 @@ struct Args {
   float scale;
   int use_cap;
   float cap;
+  int split_pages, splits;
+  float* work;
+  int* counters;
 };
 
 template <int HD, int PS>
@@ -310,10 +462,17 @@ cudaError_t launch(int blocks, cudaStream_t stream, const Args& a) {
       return err;
     }
   }
-  decode_attention_kernel<HD, PS><<<blocks, kThreads, bytes, stream>>>(
-      a.q, a.k, a.v, a.ks, a.vs, a.table, a.lengths, a.p_scale, a.out,
-      a.Hkv, a.g, a.rows, a.hd, a.ps, a.pps, a.num_pages, a.per_head,
-      a.scale, a.use_cap, a.cap);
+  // p_scale over several splits: the splits' statistics first
+  const bool two = a.p_scale != nullptr && a.splits > 1;
+  for (int phase = two ? 0 : 1; phase < 2; ++phase) {
+    decode_attention_kernel<HD, PS><<<blocks, kThreads, bytes, stream>>>(
+        a.q, a.k, a.v, a.ks, a.vs, a.table, a.lengths, a.p_scale, a.out,
+        a.Hkv, a.g, a.rows, a.hd, a.ps, a.pps, a.num_pages, a.per_head,
+        a.scale, a.use_cap, a.cap, a.split_pages, a.splits, phase, a.work,
+        a.counters);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   return cudaSuccess;
 }
 
@@ -355,18 +514,27 @@ extern "C" long long samp_decode_attention_smem(int rows, int hd, int ps) {
 // device scalar, or null for the one-pass softmax; out (B, Hkv, g, hd)
 // float32, all contiguous. hd <= 256, ps <= 128; `rows` (<= 32) query rows
 // of the group per block, with samp_decode_attention_smem(rows, hd, ps)
-// within the card's opt-in limit. use_cap selects the softcap cap. Returns
-// the launch's CUDA error code.
+// within the card's opt-in limit. use_cap selects the softcap cap.
+// split_pages: table entries a split (>= 1); with S = max(1, ceil(pps /
+// split_pages)) <= 32 splits over 1, work holds groups S rows (2 + hd)
+// floats and counters `groups` int32 zeros, groups = B Hkv ceil(g / rows).
+// Returns the launch's CUDA error code.
 extern "C" int samp_decode_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, const void* page_table,
     const void* lengths, const void* p_scale, void* out, int B, int Hkv,
     int g, int rows, int hd, int ps, int pps, int num_pages, int per_head,
-    int quant_p, float scale, int use_cap, float cap, void* stream) {
+    int quant_p, float scale, int use_cap, float cap, int split_pages,
+    void* work, void* counters, void* stream) {
   if (B <= 0 || Hkv <= 0 || g <= 0) return (int)cudaGetLastError();
   const int HD = width(hd, 16, 256);
   const int PS = width(ps, 4, 128);
-  if (HD == 0 || PS == 0 || rows <= 0 || rows > 32 || hd <= 0 || ps <= 0)
+  if (HD == 0 || PS == 0 || rows <= 0 || rows > 32 || hd <= 0 || ps <= 0 ||
+      split_pages <= 0 || pps < 0)
+    return (int)cudaErrorInvalidValue;
+  const int splits = pps > split_pages ? (pps + split_pages - 1) / split_pages
+                                       : 1;
+  if (splits > kMaxSplits || (splits > 1 && (!work || !counters)))
     return (int)cudaErrorInvalidValue;
   const Args a{(const float*)q, (const int8_t*)k_pages,
                (const int8_t*)v_pages, (const float*)k_scale,
@@ -374,8 +542,8 @@ extern "C" int samp_decode_attention(
                (const int*)lengths,
                quant_p ? (const float*)p_scale : nullptr, (float*)out, Hkv,
                g, rows, hd, ps, pps, num_pages, per_head, scale, use_cap,
-               cap};
-  const int blocks = B * Hkv * ((g + rows - 1) / rows);
+               cap, split_pages, splits, (float*)work, (int*)counters};
+  const int blocks = B * Hkv * ((g + rows - 1) / rows) * splits;
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   switch (HD) {

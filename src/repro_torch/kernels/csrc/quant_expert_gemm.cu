@@ -1,4 +1,5 @@
-// Routed MoE expert GEMM: one launch for all experts of a W8A8 stack.
+// Routed MoE expert GEMM: one launch for all experts of a W8A8 stack, on
+// the H100's int8 tensor cores.
 //
 // Replaces src/repro/kernels/ops.py:quant_expert_gemm, a Python loop over
 // the E experts of the Pallas quant_linear kernel
@@ -18,166 +19,56 @@
 // E int8) are 100x below that. At a (4, 128) forward (C = 160) the bytes
 // still bound it.
 //
-// Design: experts on blockIdx.z, so one launch covers the stack; per expert
-// the 64 x 64 dp4a tile of quant_linear.cu over rows (G C) and columns F
-// (blockIdx.y, blockIdx.x), masking the ragged edges of C, D and F: 256
-// threads, each with a 4 x 4 register tile of int32 sums, walking D in
-// 32-byte stages through shared memory, w[e] transposed on the way in so
-// that four consecutive k of one column pack into the word __dp4a takes.
-// Each weight byte is read once per 64 rows (once at decode), in 32-byte
-// warp loads. At C = 3 a 64-row tile is 95% empty, so the row groups past
-// the tile's live rows skip their products (quant_linear's tile computes
-// all 64). Each block still walks D in turn with no loads in flight ahead
-// of the products, so latency, not the bytes, bounds it: wgmma, a small-M
-// tile and split-K are later work.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Design: the stack is int8_mma.cuh's GEMM with the expert on blockIdx.z
+// and the routed row map, so one launch covers it. At G C <= 32 (decode)
+// the weight stream: the product runs transposed, y^T = w[e]^T x^T, with
+// mma.sync.m16n8k32 s8, w read once in 16-byte cp.async copies into a ring
+// of 4 stages of 64 x 64 bytes, 3 in flight a block, transposed in
+// registers with __byte_perm on XOR-swizzled stages; a block takes one
+// expert's 64 columns and a range of D. At the served stacks the experts'
+// column tiles alone make 768 (16384 x 6144) and 2048 (6144 x 16384)
+// blocks, 6-16 a SM, so D is not split there; a narrow stack splits D into
+// int32 atomics in a workspace, and the last block of a tile applies the
+// epilogue once. Past 32 rows (a forward's capacity) each expert runs the
+// tiled kernel, w read once per 128 (or 64) rows.
+#include "int8_mma.cuh"
 
-namespace {
+// names this file's kernels in a profile
+// (int8_gemm_small<quant_expert_gemm_kernel, ...>, int8_gemm_large<...>)
+// and says whether they run a routed stack
+struct quant_expert_gemm_kernel {
+  static constexpr bool routed = true;
+};
 
-constexpr int kBM = 64;
-constexpr int kBN = 64;
-constexpr int kBK = 32;            // bytes of D per stage
-constexpr int kKW = kBK / 4;       // packed 32-bit words per tile row
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ unsigned pack4(const int8_t* p) {
-  return (unsigned)(uint8_t)p[0] | ((unsigned)(uint8_t)p[1] << 8) |
-         ((unsigned)(uint8_t)p[2] << 16) | ((unsigned)(uint8_t)p[3] << 24);
+// Blocks over D the kernel takes for E stacked (G C, D) @ (D, F) products.
+// The wrapper passes this count, with an int32 workspace of
+// E (G C F + ceil(F / 64)) zeros when it is over 1.
+extern "C" int samp_quant_expert_gemm_splits(int rows, int F, int D, int E) {
+  int per;
+  return split_plan(rows, F, D, E, per);
 }
-
-// row r = (g, c) of expert e sits at flat row (g E + e) C + c
-__device__ __forceinline__ long long flat_row(int r, int e, int E, int C) {
-  return ((long long)(r / C) * E + e) * C + r % C;
-}
-
-// acc[i][j] += sum_k x[row ty + 16 i][k] * w[k][n0 + tx + 16 j], thread
-// (tx, ty) = (tid % 16, tid / 16). x_row: the first byte of this thread's
-// loader row (tile row tid / 4), or nullptr past the tile's edge (zeros are
-// staged). rows: the tile's live rows (1..64); empty row groups skip their
-// products. vec_x: x rows may be read 8 bytes at a time.
-__device__ __forceinline__ void mainloop(int (&acc)[4][4],
-                                         const int8_t* x_row,
-                                         const int8_t* __restrict__ wq,
-                                         int N, int K, int n0, int rows,
-                                         int vec_x) {
-  __shared__ int As[kBM][kKW + 1];   // +1 word: no bank conflicts by row
-  __shared__ int Bs[kBN][kKW + 1];
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int a_row = tid >> 2;
-  const int a_k = (tid & 3) * 8;
-  const int b_col = tid & 63;
-  const int b_k = (tid >> 6) * 8;
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    {
-      const int k = k0 + a_k;
-      unsigned w0 = 0u, w1 = 0u;
-      if (x_row != nullptr) {
-        const int8_t* src = x_row + k;
-        if (vec_x && k < K) {
-          const int2 v = *reinterpret_cast<const int2*>(src);
-          w0 = (unsigned)v.x;
-          w1 = (unsigned)v.y;
-        } else if (!vec_x) {
-          int8_t b[8];
-#pragma unroll
-          for (int e = 0; e < 8; ++e) b[e] = (k + e < K) ? src[e] : (int8_t)0;
-          w0 = pack4(b);
-          w1 = pack4(b + 4);
-        }
-      }
-      As[a_row][a_k / 4] = (int)w0;
-      As[a_row][a_k / 4 + 1] = (int)w1;
-    }
-    {
-      const int n = n0 + b_col;
-      const int k = k0 + b_k;
-      int8_t b[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        b[e] = (n < N && k + e < K) ? wq[(long long)(k + e) * N + n] : (int8_t)0;
-      Bs[b_col][b_k / 4] = (int)pack4(b);
-      Bs[b_col][b_k / 4 + 1] = (int)pack4(b + 4);
-    }
-    __syncthreads();
-    if (ty < rows) {                   // else all four rows are empty
-#pragma unroll
-      for (int kk = 0; kk < kKW; ++kk) {
-        int b[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = Bs[tx + 16 * j][kk];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if (ty + 16 * i >= rows) continue;   // an empty row: no products
-          const int a = As[ty + 16 * i][kk];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a, b[j], acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-quant_expert_gemm_kernel(const int8_t* __restrict__ xq,
-                         const int8_t* __restrict__ wq,
-                         const float* __restrict__ w_scale,
-                         const float* __restrict__ x_scale, int xs_per_row,
-                         float* __restrict__ out, int G, int E, int C, int D,
-                         int F, int vec_x) {
-  const int e = blockIdx.z;
-  const int rows = G * C;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  const int lr = m0 + (threadIdx.x >> 2);      // this thread's loader row
-  int acc[4][4];
-  mainloop(acc, lr < rows ? xq + flat_row(lr, e, E, C) * D : nullptr,
-           wq + (long long)e * D * F, F, D, n0, min(kBM, rows - m0), vec_x);
-
-  const float* ws = w_scale + (long long)e * F;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = m0 + ty + 16 * i;
-    if (r >= rows) continue;
-    const long long flat = flat_row(r, e, E, C);
-    const float xs = xs_per_row ? x_scale[flat] : x_scale[e];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= F) continue;
-      out[flat * F + n] = (float)acc[i][j] * (xs * ws[n]);
-    }
-  }
-}
-
-}  // namespace
 
 // x_q (G, E, C, D) int8; w_q (E, D, F) int8; w_scale (E, F) float32;
 // x_scale (E,) float32 (xs_per_row 0) or (G E C,) (xs_per_row 1); out
-// (G, E, C, F) float32. vec_x: code rows may be read 8 bytes at a time
-// (D % 8 == 0 and x_q 8-byte aligned).
+// (G, E, C, F) float32; splits: samp_quant_expert_gemm_splits(G C, F, D,
+// E), work its workspace (or null at 1 split).
 extern "C" int samp_quant_expert_gemm(const void* x_q, const void* w_q,
                                       const void* w_scale,
                                       const void* x_scale, int xs_per_row,
-                                      void* out, int G, int E, int C, int D,
-                                      int F, int vec_x, void* stream) {
-  if (G > 0 && E > 0 && C > 0 && F > 0) {
-    const dim3 grid((F + kBN - 1) / kBN, (G * C + kBM - 1) / kBM, E);
-    quant_expert_gemm_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int8_t*)x_q, (const int8_t*)w_q, (const float*)w_scale,
-        (const float*)x_scale, xs_per_row, (float*)out, G, E, C, D, F,
-        vec_x);
-  }
-  return (int)cudaGetLastError();
+                                      void* out, void* work, int G, int E,
+                                      int C, int D, int F, int splits,
+                                      void* stream) {
+  if (G <= 0 || E <= 0 || C <= 0 || F <= 0) return (int)cudaGetLastError();
+  const Epilogue<true> ep{
+      (const float*)w_scale, (const float*)x_scale, xs_per_row,
+      nullptr,               nullptr,
+      (float*)out,           nullptr,
+      G * C,                 F,
+      0,                     Routing{C, E},
+      !xs_per_row,           0};
+  const int vec = D % 16 == 0 && F % 16 == 0 &&
+                  ((uintptr_t)x_q | (uintptr_t)w_q) % 16 == 0;
+  return int8_gemm<quant_expert_gemm_kernel>(
+      (const int8_t*)x_q, (const int8_t*)w_q, ep, D, E, splits, (int*)work,
+      vec, (cudaStream_t)stream);
 }

@@ -26,12 +26,19 @@ second pass quantizes the final probabilities to uint8 codes
 ``((codes * p_scale) * v_scale[t]) v8[t]``, already normalized. A slot with
 length 0 gets a zero row.
 
-The sums over the head dim and over a page's tokens are taken in one fixed
-order, halves added pairwise (:func:`tree_sum`), which the kernel repeats,
-so the kernel and the plain version round alike. The reference backend
-runs this plain version for the decode step the fused backend gives the
-kernel (``repro_torch.kernels.backend``), so the two backends agree on the
-card, as the norms (``row_sum``) and the uint8 softmax (``softmax_sum``) do.
+The recurrence runs over splits of :func:`decode_split_pages` consecutive
+table entries, each from m = NEG_INF, l = 0, acc = 0, and the splits'
+(m_s, l_s, acc_s) combine as m = max_s m_s, w_s = exp(m_s - m),
+l = l_0 w_0 + l_1 w_1 + ..., acc = acc_0 w_0 + acc_1 w_1 + ... in split
+order (with ``p_scale`` the combined m and l feed pass 2, and the splits'
+accs are added in split order); one split is the page-sequential
+recurrence. The sums over the head dim and over a page's tokens are taken
+in one fixed order, halves added pairwise (:func:`tree_sum`). The kernel
+repeats both orders, so the kernel and the plain version round alike. The
+reference backend runs this plain version for the decode step the fused
+backend gives the kernel (``repro_torch.kernels.backend``), so the two
+backends agree on the card, as the norms (``row_sum``) and the uint8
+softmax (``softmax_sum``) do.
 """
 from __future__ import annotations
 
@@ -51,6 +58,8 @@ launches = 0
 HEAD_DIMS = (16, 32, 64, 128, 256)
 PAGE_SIZES = (4, 8, 16, 32, 64, 128)
 MAX_BLOCK_ROWS = 32
+# the most splits a slot's pages are dealt into (one block each)
+MAX_SPLITS = 32
 
 Scale = Union[float, torch.Tensor]
 
@@ -68,7 +77,22 @@ def decode_attention_smem(rows: int, head_dim: int, page_size: int) -> int:
         return 0
     rs = HD | 1
     return 4 * (rows * rs + 2 * PS * rs + 2 * PS + rows * PS + rows * HD
-                + 3 * rows)
+                + 3 * rows + rows * MAX_SPLITS + 1)
+
+
+def decode_split_pages(pages_per_slot: int) -> int:
+    """Table entries one split of a slot's pages covers, P: the fewest that
+    deal ``pages_per_slot`` into at most :data:`MAX_SPLITS` splits. It
+    depends on the table's width alone (not on the card, the page size or
+    the lengths), so the plain version repeats the kernel's order
+    anywhere."""
+    return max(1, -(-pages_per_slot // MAX_SPLITS))
+
+
+def decode_splits(pages_per_slot: int, split_pages: int) -> int:
+    """Splits of ``split_pages`` table entries over a table row (at least
+    one, which an empty row leaves empty)."""
+    return max(1, -(-pages_per_slot // split_pages))
 
 
 def block_rows(head_dim: int, page_size: int, group: int) -> int:
@@ -107,54 +131,68 @@ def decode_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
                            v_scale: torch.Tensor, per_head: bool,
                            scale: Optional[float] = None,
                            softcap: Optional[float] = None,
-                           p_scale: Optional[Scale] = None) -> torch.Tensor:
+                           p_scale: Optional[Scale] = None,
+                           split_pages: Optional[int] = None) -> torch.Tensor:
     """The plain-PyTorch contract of :func:`decode_attention`: the same
-    per-page online recurrence, one page of every slot at a time."""
+    per-page online recurrence within each split of ``split_pages`` table
+    entries (default :func:`decode_split_pages`; ``pages_per_slot`` gives
+    one split, the page-sequential order), one page of every split of
+    every slot at a time, and the kernel's combine of the splits."""
     B, Hkv, g, hd = q.shape
     NP, ps = k_pages.shape[:2]
     pps = page_table.shape[1]
     if scale is None:
         scale = float(hd) ** -0.5
+    P = split_pages or decode_split_pages(pps)
+    S = decode_splits(pps, P)
     dev = q.device
     f32 = torch.float32
-    qs = (q.to(f32) * scale)[:, :, :, None, :]       # (B, Hkv, g, 1, hd)
+    qs = (q.to(f32) * scale)[:, None, :, :, None, :]  # (B, 1, Hkv, g, 1, hd)
     lengths = lengths.to(torch.int32)
-    table = page_table.to(torch.int64)
+    # table entry j = s P + jj of split s at [:, s, jj]; -1 past the row
+    table = torch.nn.functional.pad(page_table.to(torch.int64),
+                                    (0, S * P - pps), value=-1).reshape(
+                                        B, S, P)
+    first = torch.arange(S, device=dev) * P            # each split's first j
     tok0 = torch.arange(ps, device=dev)
     if per_head:
-        ks_head = k_scale.to(f32).reshape(1, Hkv, 1, 1)
-        vs_head = v_scale.to(f32).reshape(1, Hkv, 1, 1)
+        ks_head = k_scale.to(f32).reshape(1, 1, Hkv, 1, 1)
+        vs_head = v_scale.to(f32).reshape(1, 1, Hkv, 1, 1)
     if p_scale is not None:
         p_scale = torch.as_tensor(p_scale, dtype=f32, device=dev)
 
-    def page(j: int):
-        pg = table[:, j]
+    def page(jj: int):
+        """Entry jj of every split: (live, scores, v scales, values), with
+        (B, S, Hkv, g, ...) leading dims."""
+        pg = table[:, :, jj]
+        j = first + jj                                       # (S,)
         live = ((pg >= 0) & (pg < NP)
-                & (lengths > j * ps))[:, None, None, None]
+                & (lengths[:, None] > j * ps))[:, :, None, None, None]
         safe = torch.clamp(pg, 0, NP - 1)
-        kf = k_pages[safe].to(f32).permute(0, 2, 1, 3)   # (B, Hkv, ps, hd)
-        vf = v_pages[safe].to(f32).permute(0, 2, 1, 3)
-        s = tree_sum(qs * kf[:, :, None], -1)            # (B, Hkv, g, ps)
+        kf = k_pages[safe].to(f32).permute(0, 1, 3, 2, 4)   # (B,S,Hkv,ps,hd)
+        vf = v_pages[safe].to(f32).permute(0, 1, 3, 2, 4)
+        s = tree_sum(qs * kf[:, :, :, None], -1)          # (B,S,Hkv,g,ps)
         if per_head:
             s, vs = s * ks_head, vs_head
         else:
-            s = s * k_scale[safe].to(f32).permute(0, 2, 1)[:, :, None]
-            vs = v_scale[safe].to(f32).permute(0, 2, 1)[:, :, None]
+            s = s * k_scale[safe].to(f32).permute(0, 1, 3, 2)[:, :, :, None]
+            vs = v_scale[safe].to(f32).permute(0, 1, 3, 2)[:, :, :, None]
         if softcap is not None:
             s = torch.tanh(s / torch.full((), softcap, dtype=f32,
                                           device=dev)) * softcap
-        valid = (j * ps + tok0) < lengths[:, None, None, None]
+        valid = ((j[:, None] * ps + tok0)[None, :, None, None, :]
+                 < lengths[:, None, None, None, None])
         return live, torch.where(valid, s, NEG_INF), vs, vf
 
     def pv(w: torch.Tensor, vf: torch.Tensor) -> torch.Tensor:
-        # (B, Hkv, g, ps) weights against (B, Hkv, ps, hd) values
-        return tree_sum(w[..., None] * vf[:, :, None], -2)
+        # (B, S, Hkv, g, ps) weights against (B, S, Hkv, ps, hd) values
+        return tree_sum(w[..., None] * vf[:, :, :, None], -2)
 
-    m = torch.full((B, Hkv, g, 1), NEG_INF, dtype=f32, device=dev)
-    l = torch.zeros((B, Hkv, g, 1), dtype=f32, device=dev)
-    acc = torch.zeros((B, Hkv, g, hd), dtype=f32, device=dev)
-    for j in range(pps):
-        live, s, vs, vf = page(j)
+    m = torch.full((B, S, Hkv, g, 1), NEG_INF, dtype=f32, device=dev)
+    l = torch.zeros((B, S, Hkv, g, 1), dtype=f32, device=dev)
+    acc = torch.zeros((B, S, Hkv, g, hd), dtype=f32, device=dev)
+    for jj in range(P):
+        live, s, vs, vf = page(jj)
         m_new = torch.maximum(m, torch.amax(s, dim=-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
@@ -162,16 +200,31 @@ def decode_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
         if p_scale is None:
             acc = torch.where(live, acc * alpha + pv(p * vs, vf), acc)
         m = torch.where(live, m_new, m)
-    denom = torch.clamp(l, min=1e-30)
+    # the combine, in split order from the first term
+    if S > 1:
+        m_all = torch.amax(m, dim=1)
+        w = torch.exp(m - m_all[:, None])
+        l_all = l[:, 0] * w[:, 0]
+        for i in range(1, S):
+            l_all = l_all + l[:, i] * w[:, i]
+    else:
+        m_all, l_all = m[:, 0], l[:, 0]
+    denom = torch.clamp(l_all, min=1e-30)
     if p_scale is None:
-        return acc / denom
+        out = acc[:, 0] * w[:, 0] if S > 1 else acc[:, 0]
+        for i in range(1, S):
+            out = out + acc[:, i] * w[:, i]
+        return out / denom
     # pass 2: the codes are defined on the final probabilities
-    for j in range(pps):
-        live, s, vs, vf = page(j)
-        p = torch.exp(s - m) / denom
+    for jj in range(P):
+        live, s, vs, vf = page(jj)
+        p = torch.exp(s - m_all[:, None]) / denom[:, None]
         codes = torch.clamp(torch.round(p / p_scale), 0, 255)
         acc = torch.where(live, acc + pv((codes * p_scale) * vs, vf), acc)
-    return acc
+    out = acc[:, 0]
+    for i in range(1, S):
+        out = out + acc[:, i]
+    return out
 
 
 def paged_operands(q: torch.Tensor, kv_cache: dict, pages: torch.Tensor, *,
@@ -226,7 +279,8 @@ def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     valid tokens of each slot (0 disables it); k_scale, v_scale: float32
     (num_pages, page_size, Hkv) scale pages, or (Hkv,) when ``per_head``;
     ``scale`` defaults to hd ** -0.5; ``p_scale`` (a scalar) selects the
-    two-pass uint8 softmax. Returns (B, Hkv, g, hd) float32."""
+    two-pass uint8 softmax. A block takes :func:`decode_split_pages`
+    table entries of a slot. Returns (B, Hkv, g, hd) float32."""
     global launches
     kw = dict(k_scale=k_scale, v_scale=v_scale, per_head=per_head,
               scale=scale, softcap=softcap, p_scale=p_scale)
@@ -274,10 +328,18 @@ def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         scale = float(hd) ** -0.5
     quant_p = p_scale is not None
     ps_t = build.scalar(name, "p_scale", p_scale, dev) if quant_p else None
+    split = decode_split_pages(pps)
+    splits = decode_splits(pps, split)
     out = torch.empty((B, Hkv, g, hd), dtype=torch.float32, device=dev)
+    work = counters = None
+    if splits > 1:              # the splits' partials and a counter a group
+        groups = B * Hkv * -(-g // rows)
+        work = torch.empty(groups * splits * rows * (2 + hd),
+                           dtype=torch.float32, device=dev)
+        counters = torch.zeros(groups, dtype=torch.int32, device=dev)
     P, I, F = build.P, build.I, build.F
     fn = build.function("samp_decode_attention",
-                        (P,) * 9 + (I,) * 10 + (F, I, F, P))
+                        (P,) * 9 + (I,) * 10 + (F, I, F, I, P, P, P))
     with torch.cuda.device(dev):
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 k_scale.data_ptr(), v_scale.data_ptr(),
@@ -286,7 +348,9 @@ def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                 B, Hkv, g, rows, hd, ps, pps, NP, int(per_head),
                 int(quant_p),
                 float(scale), int(softcap is not None),
-                float(softcap) if softcap is not None else 0.0,
+                float(softcap) if softcap is not None else 0.0, split,
+                work.data_ptr() if work is not None else None,
+                counters.data_ptr() if counters is not None else None,
                 build.stream(dev))
     build.check(rc, name)
     launches += 1

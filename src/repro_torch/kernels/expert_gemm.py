@@ -26,6 +26,8 @@ import torch
 from repro_torch.core.quantize import int_matmul, quantize, quantize_per_token
 from repro_torch.kernels import build
 from repro_torch.kernels.dynamic_quant import dynamic_quant
+from repro_torch.kernels.quant_linear import (quant_linear_splits,
+                                              quant_linear_workspace)
 
 #: kernel launches since the last :func:`repro_torch.kernels.reset_launches`
 launches = 0
@@ -111,14 +113,17 @@ def quant_expert_gemm(xe: torch.Tensor, w_q: torch.Tensor,
     else:
         codes, x_scale = dynamic_quant(xe.reshape(-1, D))
     out = torch.empty(lead + (E, C, F), dtype=torch.float32, device=dev)
-    vec_x = int(D % 8 == 0 and codes.data_ptr() % 8 == 0)
+    splits = quant_linear_splits(G * C, F, D, E)
+    work = (torch.zeros(quant_linear_workspace(G * C, F, D, E),
+                        dtype=torch.int32, device=dev) if splits > 1 else None)
     P, I = build.P, build.I
     fn = build.function("samp_quant_expert_gemm",
-                        (P, P, P, P, I, P, I, I, I, I, I, I, P))
+                        (P, P, P, P, I, P, P, I, I, I, I, I, I, P))
     with torch.cuda.device(dev):
         rc = fn(codes.data_ptr(), w_q.data_ptr(), ws.data_ptr(),
                 x_scale.data_ptr(), int(xs is None), out.data_ptr(),
-                G, E, C, D, F, vec_x, build.stream(dev))
+                work.data_ptr() if work is not None else None,
+                G, E, C, D, F, splits, build.stream(dev))
     build.check(rc, name)
     launches += 1
     per_token_launches += xs is None

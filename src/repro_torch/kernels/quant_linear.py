@@ -51,32 +51,33 @@ _ACT_CODE = {None: 0, "silu": 1, "gelu": 2, "relu": 3}
 #: kernel launches since the last :func:`repro_torch.kernels.reset_launches`
 launches = 0
 
-# csrc/quant_linear.cu: rows up to which the split-K kernel streams w, its
+# csrc/int8_mma.cuh: rows up to which the split-K kernel streams w, its
 # K stage and the SMs it fills
 SMALL_M, _STAGE_K, _SMS = 32, 64, 132
 
 
-def quant_linear_splits(M: int, N: int, K: int) -> int:
-    """Blocks over K the kernel takes for an (M, K) @ (K, N) product:
-    ``samp_quant_linear_splits`` of ``csrc/quant_linear.cu``. Only for
-    M <= 32, where about two blocks an SM stream w; 1 above."""
+def quant_linear_splits(M: int, N: int, K: int, E: int = 1) -> int:
+    """Blocks over K the kernel takes for E stacked (M, K) @ (K, N)
+    products (E experts of ``quant_expert_gemm``, 1 for ``quant_linear``):
+    ``split_plan`` of ``csrc/int8_mma.cuh``. Only for M <= 32, where about
+    two blocks an SM stream w; 1 above."""
     ktiles = -(-K // _STAGE_K)
-    if M > SMALL_M or M <= 0 or N <= 0 or ktiles <= 1:
+    if M > SMALL_M or M <= 0 or N <= 0 or E <= 0 or ktiles <= 1:
         return 1
-    want = -(-2 * _SMS // -(-N // 64))
+    want = -(-2 * _SMS // (-(-N // 64) * E))
     if want <= 1:
         return 1
     per = max(1, ktiles // want)
     return -(-ktiles // per)
 
 
-def quant_linear_workspace(M: int, N: int, K: int) -> int:
-    """int32 values of the zeroed workspace a split product needs: the
-    M x N partial sums, then one counter a 64-column tile (0 when the
-    kernel does not split)."""
-    if quant_linear_splits(M, N, K) == 1:
+def quant_linear_workspace(M: int, N: int, K: int, E: int = 1) -> int:
+    """int32 values of the zeroed workspace a split product needs: for
+    each of the E products its M x N partial sums, then one counter a
+    64-column tile (0 when the kernel does not split)."""
+    if quant_linear_splits(M, N, K, E) == 1:
         return 0
-    return M * N + -(-N // 64)
+    return E * (M * N + -(-N // 64))
 
 
 def _row_scales(x_scale, M: int, device) -> torch.Tensor:

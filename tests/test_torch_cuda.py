@@ -33,6 +33,10 @@ stage and N = 128, to the plain version bit for bit where the epilogue is
 one multiply (exact int32 sums); the float attention at 4096 keys under a
 window in bfloat16, at head dim 256 in every dtype, and on rows whose
 output cancels near 0 (where one 16-bit rounding of P would break 2e-4).
+The paged decode kernel, split over a slot's pages, equals its plain
+version bit for bit at every built head dim and page size at 1, 2, 8 and
+20 splits and at 4096 cached tokens; the expert GEMM's tensor-core stream
+at capacities 1 to 160 over 8 experts.
 """
 import ctypes
 import importlib.util
@@ -468,6 +472,51 @@ def test_decode_attention_skips_out_of_range_pages(dev, mode):
     assert out.equal(want), float((out - want).abs().max())
 
 
+# every built head dim and page size, with the group each head dim's
+# models use; pages_per_slot 1, 2, 8 and 40 make 1, 2, 8 and 20 splits
+# (one page a split up to 32 pages, then 2)
+SPLIT_GROUPS = {16: 3, 32: 2, 64: 7, 128: 6, 256: 2}
+SPLITS = {1: 1, 2: 2, 8: 8, 40: 20}
+
+
+@pytest.mark.parametrize("hd", decode_attention.HEAD_DIMS)
+@pytest.mark.parametrize("ps", decode_attention.PAGE_SIZES)
+@pytest.mark.parametrize("pps", sorted(SPLITS))
+@pytest.mark.parametrize("mode", ["per_token", "p_scale"])
+def test_decode_attention_splits_equal_plain(dev, hd, ps, pps, mode):
+    """Split over pages (flash-decoding), the kernel still sums in the
+    plain version's order: equal bit for bit at 1, 2 and many splits, with
+    empty splits past short slots, -1 holes and a slot of length 0."""
+    if not decode_attention.block_rows(hd, ps, SPLIT_GROUPS[hd]):
+        pytest.skip(f"head dim {hd} with pages of {ps} is not built")
+    args, kw = _decode_case(dev, 3, 2, SPLIT_GROUPS[hd], hd, ps, pps, mode,
+                            seed=hd + ps + pps)
+    assert decode_attention.decode_splits(
+        pps, decode_attention.decode_split_pages(pps)) == SPLITS[pps]
+    before = decode_attention.launches
+    out = decode_attention.decode_attention(*args, **kw)
+    assert decode_attention.launches == before + 1
+    want = decode_attention.decode_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert out.equal(want), float((out - want).abs().max())
+    assert bool((out[-1] == 0).all())       # the slot of length 0
+
+
+def test_decode_attention_at_4096_tokens(dev):
+    """The long context the split is for: 256 pages a slot, 32 splits of 8
+    pages, equal to the plain version bit for bit in both modes."""
+    for mode in ("per_token", "p_scale"):
+        args, kw = _decode_case(dev, 8, 2, 7, 64, 16, 256, mode)
+        args[4].fill_(4096)
+        q, k, v, table, lengths = args
+        table.copy_(torch.randperm(k.shape[0], device=dev)[:8 * 256]
+                    .reshape(8, 256).to(torch.int32))
+        out = decode_attention.decode_attention(*args, **kw)
+        want = decode_attention.decode_attention_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert out.equal(want), (mode, float((out - want).abs().max()))
+
+
 def test_decode_attention_refuses(dev):
     args, kw = _decode_case(dev, 2, 2, 2, 64, 16, 2, "per_token")
     q, k, v, table, lengths = args
@@ -558,6 +607,37 @@ def test_quant_expert_gemm(dev, shape, mode):
     want = expert_gemm.quant_expert_gemm_plain(xe, wq, ws, xs)
     assert y.dtype == torch.float32 and y.shape == want.shape
     assert y.equal(want)
+
+
+@pytest.mark.parametrize("C", [1, 3, 8, 33, 160])
+@pytest.mark.parametrize("D,F", [(256, 512), (100, 72), (1030, 65)])
+@pytest.mark.parametrize("mode", ["per_expert", "per_token"])
+def test_quant_expert_gemm_weight_stream(dev, C, D, F, mode):
+    """E = 8 experts through the tensor-core stream (C <= 32, split over D
+    where the column tiles are few) and the tiled kernel (C = 33, 160),
+    ragged D and F: codes exact, output equal to the plain version."""
+    xe, wq, ws, xs = _expert_case(dev, 1, 8, C, D, F, mode)
+    y = expert_gemm.quant_expert_gemm(xe, wq, ws, xs)
+    want = expert_gemm.quant_expert_gemm_plain(xe, wq, ws, xs)
+    torch.cuda.synchronize()
+    assert _rel(want, y) <= 1e-6
+    assert y.equal(want)
+    if mode == "per_token":            # the kernel's codes and scales
+        from repro_torch.core.quantize import quantize_per_token
+        q, sc = dynamic_quant.dynamic_quant(xe.reshape(-1, D))
+        ref = quantize_per_token(xe)
+        assert q.equal(ref.values.reshape(-1, D))
+        assert sc.equal(ref.scale.reshape(-1, 1))
+
+
+def test_quant_expert_gemm_splits_mirror_the_library(dev):
+    fn = build.function("samp_quant_expert_gemm_splits", (build.I,) * 4)
+    for rows in (1, 3, 8, 32, 33, 160):
+        for D, F in ((6144, 16384), (16384, 6144), (1030, 65), (100, 72),
+                     (256, 512)):
+            for E in (1, 8):
+                assert fn(rows, F, D, E) == \
+                    quant_linear.quant_linear_splits(rows, F, D, E)
 
 
 def test_quant_expert_gemm_takes_three_dims_and_shared_scales(dev):
@@ -894,3 +974,21 @@ def test_decode_engine_unbuilt_shapes_equal_reference(dev, page_size,
         cfg.num_layers * len(logits[1])
     assert outs[0] == outs[1]
     assert logits[0].equal(logits[1])
+
+
+def test_the_port_imports_no_jax(dev):
+    """The card's machine has no JAX: the port's modules and this file's
+    imports load neither ``jax`` nor the JAX package ``repro``."""
+    import os
+    import subprocess
+    import sys
+    code = ("import sys, torch, repro_torch.kernels, repro_torch.serve, "
+            "repro_torch.toolkit, repro_torch.models.transformer; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    src = Path(__file__).resolve().parents[1] / "src"
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=dict(os.environ,
+                                             PYTHONPATH=str(src)))
+    assert run.returncode == 0, run.stdout + run.stderr

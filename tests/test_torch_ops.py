@@ -342,9 +342,12 @@ def test_decode_block_rows_cover_the_kernel_tables():
     assert [DA.block_rows(64, 16, g) for g in (1, 7, 32, 33, 40, 48)] == \
         [1, 7, 32, 17, 20, 24]
     assert DA.block_rows(256, 64, 48) == 24
-    # the layout of csrc/decode_attention.cu in floats, at qwen2's shape
+    # the layout of csrc/decode_attention.cu in floats, at qwen2's shape:
+    # q, K, V, their scales, scores, acc, m / l / alpha, the weights of up
+    # to 32 splits a row, the last-block flag
     assert DA.decode_attention_smem(7, 64, 16) == 4 * (
-        7 * 65 + 2 * 16 * 65 + 2 * 16 + 7 * 16 + 7 * 64 + 3 * 7)
+        7 * 65 + 2 * 16 * 65 + 2 * 16 + 7 * 16 + 7 * 64 + 3 * 7 + 7 * 32
+        + 1)
     assert DA.decode_attention_smem(7, 48, 16) == \
         DA.decode_attention_smem(7, 64, 16)
     for hd in DA.HEAD_DIMS:

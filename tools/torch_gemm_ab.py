@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's kernels, ``quant_linear``, ``quant_expert_gemm``
-or the float ``flash_attention`` (``--kernel``), at the shapes of
-``chip_smoke.py``'s paths, for the port found under ``--src``, so that two
-checkouts are compared on one card within one call:
+"""Time the PyTorch port's kernels, ``quant_linear``, ``quant_expert_gemm``,
+``decode_attention`` or the float ``flash_attention`` (``--kernel``), at
+the shapes of ``chip_smoke.py``'s paths, for the port found under
+``--src``, so that two checkouts are compared on one card within one call:
 
     python3 tools/torch_gemm_ab.py --src <checkout>/src --label parent
     python3 tools/torch_gemm_ab.py --src src --label change
@@ -22,7 +22,12 @@ qwen2-0.5b (the decode paths), of the MoE path's attention GEMMs, and over
 one forward of the main path's BERT at (8, 128), weighted by the launches
 each plan makes; for the expert GEMM, over one tick of the MoE path
 (capacity 3) and over the same nine GEMMs of a (4, 128) forward (capacity
-160), with static per-expert scales; for ``flash_attention``, each case of
+160), with static per-expert scales; for ``decode_attention``, the decode
+paths' call (8 slots, 2 KV heads, a group of 7, head dim 64, pages of 16,
+lengths 8-96: per-token scale pages, and per-head scales with the uint8
+softmax, 12 calls a tick) and one call at 4096 cached tokens a slot, with
+``call_device_ms`` also counting the wrapper's other kernels (the zeroed
+counters); for ``flash_attention``, each case of
 ``chip_smoke.FLASH_CASES`` (the qwen2 and mixtral 32k prefills and a BERT
 bucket) on seeded inputs, 5 runs each.
 Needs one NVIDIA GPU; builds the checkout's kernels on first use.
@@ -64,34 +69,6 @@ EXPERT_SHAPES = [
 ]
 
 
-def device_ms(timer, fn, kernel=None, reps: int = 10) -> float:
-    """Mean device time over ``reps`` calls of ``fn``, the L2 flushed
-    before each (the flush is not counted): of ``kernel``'s CUDA function,
-    or with ``kernel`` None of every kernel the call runs."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from chip_smoke import kernel_named
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):      # a profiler run now and then records no event
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                timer.flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
-        if events:
-            break
-    else:
-        return float("nan")
-    flush = events[0].name                 # the first kernel is the flush
-    return sum(e.time_range.elapsed_us() for e in events
-               if (kernel_named(kernel, e.name) if kernel
-                   else e.name != flush)) / reps / 1e3
-
-
 def int_mm_ms(timer, x, w, ws, xs, act) -> tuple[float, float, float]:
     """(events ms, device ms) of ``torch._int_mm`` (x padded to 32 rows at
     M <= 16, as it needs) plus the epilogue in PyTorch ops: the library
@@ -110,8 +87,8 @@ def int_mm_ms(timer, x, w, ws, xs, act) -> tuple[float, float, float]:
             return Fn.gelu(y, approximate="tanh")
         return Fn.silu(y) if act == "silu" else y
     w_cols = w.t().contiguous().t()
-    return (timer.ms(lib), device_ms(timer, lib),
-            device_ms(timer, lambda: torch._int_mm(x_lib, w_cols)))
+    return (timer.ms(lib), timer.device_ms(lib),
+            timer.device_ms(lambda: torch._int_mm(x_lib, w_cols)))
 
 
 def time_expert_gemm(timer, dev, label, sums):
@@ -126,12 +103,38 @@ def time_expert_gemm(timer, dev, label, sums):
         xs = xe.abs().amax(dim=(0, 2, 3)).reshape(E, 1, 1) / 127.0
         call = lambda: EG.quant_expert_gemm(xe, w, ws, xs)  # noqa: E731
         ms = timer.ms(call)
-        dev_ms = device_ms(timer, call, "quant_expert_gemm")
+        dev_ms = timer.device_ms(call, "quant_expert_gemm")
         sums[path] = sums.get(path, 0.0) + n * ms
         sums[path + ":device"] = sums.get(path + ":device", 0.0) + n * dev_ms
         print(json.dumps({"label": label, "path": path, "G": G, "E": E,
                           "C": C, "D": D, "F": F, "ms": ms,
                           "device_ms": dev_ms}), flush=True)
+
+
+# (path, mode, lengths, pages per slot, calls per tick)
+DECODE_SHAPES = [
+    ("decode_path", "per_token", [8, 21, 33, 46, 58, 71, 83, 96], 8, 12),
+    ("decode_head_path", "p_scale", [8, 21, 33, 46, 58, 71, 83, 96], 8, 12),
+    ("long_context", "per_token", [4096] * 8, 256, 1),
+]
+
+
+def time_decode(timer, dev, label, sums):
+    from chip_smoke import decode_operands
+    from repro_torch.kernels import decode_attention as DA
+    for path, mode, lengths, pps, n in DECODE_SHAPES:
+        args = decode_operands(dev, lengths, pps, mode)
+        call = lambda: DA.decode_attention(**args)  # noqa: E731
+        ms = timer.ms(call)
+        dev_ms = timer.device_ms(call, "decode_attention")
+        call_dev = timer.device_ms(call)
+        for key, v in ((path, ms), (path + ":device", dev_ms),
+                       (path + ":call_device", call_dev)):
+            sums[key] = sums.get(key, 0.0) + n * v
+        print(json.dumps({"label": label, "path": path, "mode": mode,
+                          "lengths": lengths, "pages_per_slot": pps,
+                          "ms": ms, "device_ms": dev_ms,
+                          "call_device_ms": call_dev}), flush=True)
 
 
 def time_flash(dev, label, sums):
@@ -150,9 +153,8 @@ def time_flash(dev, label, sums):
         print(json.dumps({"label": label, "case": name, "B": B, "Hq": Hq,
                           "Hkv": Hkv, "S": S, "head_dim": d, "dtype": dt,
                           "mask": kw, "ms": ms,
-                          "device_ms": device_ms(
-                              timer, lambda: ops.flash_attention(q, k, v,
-                                                                 **kw),
+                          "device_ms": timer.device_ms(
+                              lambda: ops.flash_attention(q, k, v, **kw),
                               "flash_attention", reps=3)}), flush=True)
         del q, k, v
         torch.cuda.empty_cache()
@@ -165,7 +167,7 @@ def main() -> int:
     ap.add_argument("--label", required=True)
     ap.add_argument("--kernel", default="quant_linear",
                     choices=("quant_linear", "quant_expert_gemm",
-                             "flash_attention"))
+                             "decode_attention", "flash_attention"))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -191,7 +193,7 @@ def main() -> int:
               if token else torch.tensor(0.013, device=dev))
         call = lambda: QL.quant_linear(x, w, ws, xs, act=act)  # noqa: E731
         ms = timer.ms(call)
-        dev_ms = device_ms(timer, call, "quant_linear")
+        dev_ms = timer.device_ms(call, "quant_linear")
         lib_ms, lib_dev, packed_dev = int_mm_ms(timer, x, w, ws, xs, act)
         for key, v in ((path, ms), (path + ":device", dev_ms),
                        (path + ":library", lib_ms),
@@ -207,6 +209,8 @@ def main() -> int:
               flush=True)
     if args.kernel == "quant_expert_gemm":
         time_expert_gemm(timer, dev, args.label, sums)
+    if args.kernel == "decode_attention":
+        time_decode(timer, dev, args.label, sums)
     if args.kernel == "flash_attention":
         time_flash(dev, args.label, sums)
     print(json.dumps({"label": args.label, "sums_ms": sums,
