@@ -7,60 +7,180 @@
 //
 // Bound on the H100: bytes. The kernel reads 4 bytes and writes 1 byte per
 // element (plus 4 per row) and does a handful of operations per element,
-// far below the card's ~300 operations-per-byte balance point.
+// far below the card's ~300 operations-per-byte balance point. At decode
+// (M = 8) a call moves tens of KB, so one round trip to memory and the
+// launch set its time, not the bytes.
 //
-// Design: one block of 256 threads per row. A block-wide max reduction
-// (warp shuffles, then one word per warp in shared memory) gives the row
-// amax; the second pass re-reads the row, which a 768- or 3072-wide f32 row
-// leaves in L1, so device memory sees one read and one write per element.
-// The divide is IEEE (no fast math) and rintf rounds half to even, so the
-// codes equal the plain version's bit for bit.
+// Design: each row is read from device memory once, into registers, by
+// 16-byte float4 loads, consecutive threads on consecutive 16 bytes (4-byte
+// loads where a row does not start 16-byte aligned: D % 4 != 0, or a view
+// that starts off alignment); its amax is an exact fmaxf reduction (warp
+// shuffles, then one word a warp in shared memory where a row spans
+// warps), so its order does not matter; the codes are taken from the
+// registers and stored 4 to a 32-bit word. The block is shaped to the row
+// (plan()): below 264 rows (two for each of the 132 SMs: decode, the MoE
+// routed buffers) one row a block, with as many threads as it takes to hold
+// the row one float4 each (D / 4: 192 threads at D = 768, 224 at 896),
+// two, four or eight each past 1024 threads (608 threads of two at 4864,
+// 1024 of four at 16384), so that one round trip loads the row; from 264
+// rows (an encoder forward's M = 1024) one warp or more a row, each thread
+// up to eight float4s, several rows a block (8 rows of 32 threads at
+// D = 768, 2 rows of 96 at 3072). Rows of more than 32768 values are
+// refused. The divide is IEEE (no fast math) and rintf rounds half to
+// even, so the codes equal the plain version's bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxVec = 8;           // float4s a thread
+constexpr int kManyRows = 2 * 132;   // from here several rows a block
 
-__device__ float block_max(float v, float* red) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float m = red[0];
-  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) m = fmaxf(m, red[w]);
-  return m;
+struct Plan {
+  int vpt;   // float4s a thread (1, 2, 4 or 8)
+  int tpr;   // threads a row, a multiple of 32
+  int rpb;   // rows a block
+};
+
+__host__ __device__ inline int warps_for(int nvec, int vpt) {
+  return (nvec + 32 * vpt - 1) / (32 * vpt);
 }
 
-__global__ void __launch_bounds__(kThreads)
-dynamic_quant_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
-                     float* __restrict__ scale, int D) {
-  __shared__ float red[kThreads / 32];
-  const long long row = blockIdx.x;
-  const float* xr = x + row * D;
-  int8_t* qr = q + row * D;
-  float amax = 0.0f;
-  for (int i = threadIdx.x; i < D; i += blockDim.x)
-    amax = fmaxf(amax, fabsf(xr[i]));
-  amax = block_max(amax, red);
-  const float s = fmaxf(amax, 1e-8f) / 127.0f;
-  for (int i = threadIdx.x; i < D; i += blockDim.x) {
-    const float c = fminf(fmaxf(rintf(xr[i] / s), -128.0f), 127.0f);
-    qr[i] = (int8_t)(int)c;
+__host__ __device__ inline Plan plan(int M, int D) {
+  const int nvec = (D + 3) / 4;
+  Plan p;
+  p.vpt = 1;
+  if (M >= kManyRows) {
+    p.tpr = 32 * warps_for(nvec, kMaxVec);
+    while (p.vpt < kMaxVec && p.vpt * p.tpr < nvec) p.vpt *= 2;
+    p.rpb = p.tpr < 256 ? 256 / p.tpr : 1;
+  } else {
+    while (p.vpt < kMaxVec && 32 * warps_for(nvec, p.vpt) > kMaxThreads)
+      p.vpt *= 2;
+    p.tpr = 32 * warps_for(nvec, p.vpt);
+    p.rpb = 1;
   }
-  if (threadIdx.x == 0) scale[row] = s;
+  return p;
+}
+
+__device__ __forceinline__ uint32_t code(float x, float s) {
+  const float c = fminf(fmaxf(rintf(x / s), -128.0f), 127.0f);
+  return (uint32_t)(uint8_t)(int8_t)(int)c;
+}
+
+__device__ __forceinline__ float amax4(float a, float4 v) {
+  return fmaxf(fmaxf(a, fmaxf(fabsf(v.x), fabsf(v.y))),
+               fmaxf(fabsf(v.z), fabsf(v.w)));
+}
+
+template <int VPT, bool VEC>
+__global__ void __launch_bounds__(kMaxThreads)
+dynamic_quant_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
+                     float* __restrict__ scale, int M, int D, int tpr) {
+  __shared__ float red[kMaxThreads / 32];
+  const int lr = threadIdx.x / tpr;          // row within the block
+  const int tr = threadIdx.x - lr * tpr;     // thread within the row
+  const long long row = (long long)blockIdx.x * (blockDim.x / tpr) + lr;
+  const bool live = row < M;
+  const float* xr = x + row * D;
+  const int nvec = (D + 3) / 4;
+
+  float4 val[VPT];
+  float amax = 0.0f;
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int i = tr + k * tpr;              // float4 of the row
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (live && i < nvec) {
+      if (VEC) {
+        v = __ldg(reinterpret_cast<const float4*>(xr) + i);
+      } else {
+        const int e = 4 * i;
+        v.x = __ldg(xr + e);
+        if (e + 1 < D) v.y = __ldg(xr + e + 1);
+        if (e + 2 < D) v.z = __ldg(xr + e + 2);
+        if (e + 3 < D) v.w = __ldg(xr + e + 3);
+      }
+    }
+    val[k] = v;
+    amax = amax4(amax, v);                   // zeros leave the max as it is
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  if (tpr > 32) {                            // block-uniform
+    const int wpr = tpr / 32;
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = amax;
+    __syncthreads();
+    amax = red[lr * wpr];
+    for (int w = 1; w < wpr; ++w) amax = fmaxf(amax, red[lr * wpr + w]);
+  }
+  if (!live) return;
+  const float s = fmaxf(amax, 1e-8f) / 127.0f;
+  int8_t* qr = q + row * D;
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int i = tr + k * tpr;
+    if (i >= nvec) break;
+    const float4 v = val[k];
+    if (VEC) {
+      reinterpret_cast<uint32_t*>(qr)[i] = code(v.x, s) | code(v.y, s) << 8
+                                           | code(v.z, s) << 16
+                                           | code(v.w, s) << 24;
+    } else {
+      const int e = 4 * i;
+      qr[e] = (int8_t)code(v.x, s);
+      if (e + 1 < D) qr[e + 1] = (int8_t)code(v.y, s);
+      if (e + 2 < D) qr[e + 2] = (int8_t)code(v.z, s);
+      if (e + 3 < D) qr[e + 3] = (int8_t)code(v.w, s);
+    }
+  }
+  if (tr == 0) scale[row] = s;
+}
+
+template <int VPT>
+void launch(const float* x, int8_t* q, float* scale, int M, int D,
+            const Plan& p, bool vec, cudaStream_t st) {
+  const int blocks = (M + p.rpb - 1) / p.rpb;
+  if (vec)
+    dynamic_quant_kernel<VPT, true><<<blocks, p.tpr * p.rpb, 0, st>>>(
+        x, q, scale, M, D, p.tpr);
+  else
+    dynamic_quant_kernel<VPT, false><<<blocks, p.tpr * p.rpb, 0, st>>>(
+        x, q, scale, M, D, p.tpr);
 }
 
 }  // namespace
 
-// x: (M, D) float32, q: (M, D) int8, scale: (M,) float32; all contiguous.
+// The block plan for M rows of D values: float4s a thread, threads a row,
+// rows a block (out[0..2]); threads a row over 1024 means refused.
+extern "C" void samp_dynamic_quant_plan(int M, int D, int* out) {
+  const Plan p = plan(M, D);
+  out[0] = p.vpt;
+  out[1] = p.tpr;
+  out[2] = p.rpb;
+}
+
+// x: (M, D) float32, q: (M, D) int8, scale: (M,) float32; all contiguous,
+// D <= 32768.
 extern "C" int samp_dynamic_quant(const void* x, void* q, void* scale, int M,
                                   int D, void* stream) {
   if (M > 0 && D > 0) {
-    dynamic_quant_kernel<<<M, kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)x, (int8_t*)q, (float*)scale, D);
+    const Plan p = plan(M, D);
+    if (p.tpr > kMaxThreads) return (int)cudaErrorInvalidValue;
+    const bool vec = D % 4 == 0 && (uintptr_t)x % 16 == 0 &&
+                     (uintptr_t)q % 4 == 0;
+    const auto* xf = (const float*)x;
+    auto* qq = (int8_t*)q;
+    auto* sc = (float*)scale;
+    auto* st = (cudaStream_t)stream;
+    switch (p.vpt) {
+      case 1: launch<1>(xf, qq, sc, M, D, p, vec, st); break;
+      case 2: launch<2>(xf, qq, sc, M, D, p, vec, st); break;
+      case 4: launch<4>(xf, qq, sc, M, D, p, vec, st); break;
+      default: launch<8>(xf, qq, sc, M, D, p, vec, st); break;
+    }
   }
   return (int)cudaGetLastError();
 }

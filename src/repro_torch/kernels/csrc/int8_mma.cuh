@@ -257,6 +257,19 @@ __device__ __forceinline__ int w_off(int r, int c) {
   return (lin & ~127) | (pos << 4);
 }
 
+// The 4 x 4 byte transpose: byte i of o[c] is byte c of r[i].
+__device__ __forceinline__ void transpose_4x4(const uint32_t (&r)[4],
+                                              uint32_t (&o)[4]) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
+  const uint32_t t1 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
+  o[0] = __byte_perm(t0, t1, 0x5410);
+  o[1] = __byte_perm(t0, t1, 0x7632);
+  o[2] = __byte_perm(t2, t3, 0x5410);
+  o[3] = __byte_perm(t2, t3, 0x7632);
+}
+
 // The K-major words of columns 4 cw + c (c = 0..3) over rows kr..kr+3: four
 // 32-bit reads of 4 columns each, transposed 4 x 4 bytes.
 template <int RB>
@@ -267,14 +280,7 @@ __device__ __forceinline__ void w_quad(const unsigned char* st, int kr,
   for (int i = 0; i < 4; ++i)
     r[i] = *reinterpret_cast<const uint32_t*>(
         st + w_off<RB>(kr + i, cw >> 2) + 4 * (cw & 3));
-  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
-  const uint32_t t1 = __byte_perm(r[2], r[3], 0x5140);
-  const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362);
-  const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
-  o[0] = __byte_perm(t0, t1, 0x5410);
-  o[1] = __byte_perm(t0, t1, 0x7632);
-  o[2] = __byte_perm(t2, t3, 0x5410);
-  o[3] = __byte_perm(t2, t3, 0x7632);
+  transpose_4x4(r, o);
 }
 
 // x stage of the large-M kernel: 64-byte rows, chunks swizzled by

@@ -52,8 +52,11 @@ float_launches = 0
 FLOAT_HEAD_DIMS = (16, 32, 64, 128, 256)
 FLOAT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-# csrc/quant_flash_attention.cu's block: 8 warps of 4 query rows each
-_QUANT_WARPS, _QUANT_ROWS = 8, 32
+# csrc/quant_flash_attention.cu: the row-block kernel's blocks of 32 query
+# rows (2 groups of 16, each group's keys over 4 warps) and key tiles of
+# 128; both of the file's kernels take head dims up to 256
+_QUANT_ROWS, _QUANT_KEYS, _QUANT_KEY_WARPS = 32, 128, 4
+_QUANT_MAX_DIM = 256
 
 Scale = Union[float, torch.Tensor]
 
@@ -65,21 +68,29 @@ def softmax_sum(e: torch.Tensor) -> torch.Tensor:
 
 
 def quant_flash_attention_smem(Sk: int, d: int) -> int:
-    """Bytes of shared memory a block of the quantized kernel takes for Sk
-    keys of head dim d: ``samp_quant_flash_attention_smem`` of
+    """Bytes of shared memory a block of the quantized row-block kernel
+    takes for Sk keys of head dim d: ``samp_quant_flash_attention_smem`` of
     ``csrc/quant_flash_attention.cu``, computed here so the wrapper can
-    pick the resident or the tiled kernel before a launch."""
-    kw = d // 4
-    sw = (Sk + 3) // 4
-    words = (Sk * (kw | 1) + d * (sw | 1) + d + _QUANT_ROWS * kw
-             + _QUANT_WARPS * sw * 4 + _QUANT_WARPS * sw)
-    return 4 * words
+    choose a kernel before a launch. The head dim runs at the next of 32,
+    64, 128, 256, in rows 16 bytes wider: q rows, a ring of three K / V
+    tiles, a float score row per query row over the key axis (padded to
+    128, plus 8), k_pos, the key warps' row maxima, the row sums, V's
+    column sums, and an int32 accumulator (rows dp + 1 words)."""
+    dp = 32
+    while dp < d:
+        dp *= 2
+    rb = dp + 16
+    skp = -(-Sk // _QUANT_KEYS) * _QUANT_KEYS
+    return ((_QUANT_ROWS + 3 * _QUANT_KEYS) * rb
+            + 4 * _QUANT_ROWS * (skp + 8) + 4 * skp
+            + 4 * _QUANT_KEY_WARPS * _QUANT_ROWS + 4 * _QUANT_ROWS + 4 * dp
+            + 4 * _QUANT_ROWS * (dp + 1))
 
 
 def quant_flash_attention_tiled(Sk: int, d: int) -> bool:
-    """Whether the wrapper runs the kernel that streams K and V in tiles:
-    when the head's whole key axis (head dim padded to a multiple of 4)
-    would overflow a block's shared memory."""
+    """Whether the wrapper runs the long-key kernel: when the row-block
+    kernel's scores of the head's whole key axis (head dim padded to a
+    multiple of 4) would overflow a block's shared memory."""
     return quant_flash_attention_smem(Sk, -(-d // 4) * 4) > _MAX_SMEM
 
 
@@ -310,16 +321,16 @@ def quant_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"runs on {dev}")
     kp = torch.broadcast_to(k_pos.reshape(-1, Sk).to(torch.int32),
                             (B, Sk)).contiguous()
-    # the kernels read four codes a word: a head dim in between runs with
-    # zero dims appended, which leave every integer dot unchanged
+    if D > _QUANT_MAX_DIM:
+        raise ValueError(f"{name}: head dim {D} is over {_QUANT_MAX_DIM}, "
+                         f"the widest the kernel instantiates")
+    # the kernels copy rows 4 bytes at a time at least: a head dim in
+    # between runs with zero dims appended, which leave every integer dot
+    # unchanged
     D4 = -(-D // 4) * 4
     if D4 != D:
         q, k, v = (torch.nn.functional.pad(t, (0, D4 - D)) for t in (q, k, v))
     tiled = quant_flash_attention_tiled(Sk, D4)
-    if tiled and D4 > 256:
-        raise ValueError(f"{name}: Sk={Sk} keys of head dim {D} overflow a "
-                         f"block's shared memory, and the tiled kernel takes "
-                         f"head dims up to 256")
     scales = [build.scalar(name, n, x, dev) for n, x in (
         ("q_scale", q_scale), ("k_scale", k_scale), ("p_scale", p_scale),
         ("v_scale", v_scale))]

@@ -13,8 +13,13 @@ absent biases, embedding rows that do not split into float4s, and for the
 attention kernel GQA, padded keys, an all-padding batch row, query counts
 that are not a multiple of the 32-row tile, the softcap, 512 keys (which
 need more than 48 KB of shared memory), key axes past a block's shared
-memory (the tiled kernel, which must equal the resident one bit for bit)
-and head dims that are not a multiple of 4; for the paged decode kernel
+memory (the long-key kernel, which must equal the row-block one bit for
+bit) and head dims that are not a multiple of 4, and without the softcap
+bit-for-bit equality with the plain version at every BERT bucket and at
+512 keys (GQA, head dims 16 / 64 / 100 / 128, ragged and all-padding
+rows, float and int8 output); for dynamic_quant exact codes and scales at
+every served width, rounding ties, all-zero rows, rows that start off
+16-byte alignment, and its block plan; for the paged decode kernel
 head dims 16 to 256 and ones in between (80, 18), page sizes 3 to 128,
 GQA groups of 1 to 48 (split over blocks past 32), per-token and per-head
 scales, the two-pass uint8 softmax, page tables out of order with holes, a
@@ -200,6 +205,87 @@ def test_dynamic_quant(dev, M, D):
     assert q.equal(q_ref) and s.equal(s_ref) and s.shape == (M, 1)
 
 
+# the widths a served path quantizes: BERT's M = 1024 rows of 768 / 3072,
+# qwen2 decode's 8 of 896 / 4864, the MoE routed buffers' 24 of 6144 / 16384
+DQ_SERVED = [(1024, 768), (1024, 3072), (8, 896), (8, 4864), (24, 6144),
+             (24, 16384)]
+
+
+@pytest.mark.parametrize("M,D", DQ_SERVED)
+def test_dynamic_quant_at_the_served_widths(dev, M, D):
+    """Codes and scales equal the plain version's bit for bit, with a few
+    all-zero rows (scale 1e-8 / 127) and a row whose values span codes."""
+    g = torch.Generator(device=dev).manual_seed(M + D)
+    x = torch.randn((M, D), generator=g, device=dev) * 3
+    x[M // 2] = 0.0
+    x[-1] = 0.0
+    (q, s), (q_ref, s_ref) = (dynamic_quant.dynamic_quant(x),
+                              dynamic_quant.dynamic_quant_plain(x))
+    assert q.equal(q_ref) and s.equal(s_ref)
+    assert float(s[-1]) == float(torch.tensor(1e-8) / torch.tensor(127.0))
+
+
+@pytest.mark.parametrize("M,D", [(8, 896), (1024, 768), (3, 100)])
+def test_dynamic_quant_rounds_ties_to_even(dev, M, D):
+    """x = (k + 0.5) s with s = 2^-4 exactly (amax 127 s): every code is a
+    tie, rounded half to even as the plain version rounds it."""
+    s = 0.0625
+    k = torch.arange(D, device=dev) % 255 - 127          # -127 .. 127
+    x = ((k.float() + 0.5).clamp(-127, 126.5) * s).repeat(M, 1)
+    x[:, 0] = 127 * s
+    (q, sc), (q_ref, sc_ref) = (dynamic_quant.dynamic_quant(x),
+                                dynamic_quant.dynamic_quant_plain(x))
+    assert float(sc[0]) == s
+    assert q.equal(q_ref) and sc.equal(sc_ref)
+    assert int((q[0, 1:].int() % 2).abs().sum()) == 0     # all even
+
+
+@pytest.mark.parametrize("M,D", [(8, 896), (1024, 768), (5, 5000)])
+def test_dynamic_quant_takes_rows_off_alignment(dev, M, D):
+    """A contiguous view that starts 4 bytes past 16-byte alignment: the
+    kernel reads it 4 bytes at a time, exactly."""
+    g = torch.Generator(device=dev).manual_seed(D)
+    base = torch.randn(M * D + 1, generator=g, device=dev)
+    x = base[1:].view(M, D)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    (q, s), (q_ref, s_ref) = (dynamic_quant.dynamic_quant(x),
+                              dynamic_quant.dynamic_quant_plain(x))
+    assert q.equal(q_ref) and s.equal(s_ref)
+
+
+def test_dynamic_quant_plan_holds_each_row_once(dev):
+    """The kernel's block plan (float4s a thread, threads a row, rows a
+    block): every element has one slot, a row's threads are whole warps
+    of one block of at most 1024 threads (256 where rows share one), one
+    float4 a thread below 264 rows where 1024 threads hold the row; the
+    served widths' shapes; rows over MAX_D refused."""
+    fn = build.function("samp_dynamic_quant_plan",
+                        (build.I, build.I, build.P), None)
+    out = (ctypes.c_int * 3)()
+
+    def plan(M, D):
+        fn(M, D, ctypes.addressof(out))
+        return tuple(out)
+    for M in (1, 8, 24, 263, 264, 1024, 4096):
+        for D in (1, 3, 100, 768, 896, 3072, 4864, 5000, 6144, 16384,
+                  32768):
+            vpt, tpr, rpb = plan(M, D)
+            nvec = -(-D // 4)
+            assert vpt in (1, 2, 4, 8) and tpr % 32 == 0 and tpr <= 1024
+            assert tpr - 32 < -(-nvec // vpt) <= tpr
+            if M < 264:
+                assert rpb == 1 and (vpt == 1 or -(-nvec // (vpt // 2)) >
+                                     1024)
+            else:
+                assert tpr * rpb <= 256 or rpb == 1
+    assert [plan(M, D) for M, D in DQ_SERVED] == [
+        (8, 32, 8), (8, 96, 2), (1, 224, 1), (2, 608, 1), (2, 768, 1),
+        (4, 1024, 1)]
+    with pytest.raises(ValueError):
+        dynamic_quant.dynamic_quant(torch.zeros((2, dynamic_quant.MAX_D + 4),
+                                                device=dev))
+
+
 @pytest.mark.parametrize("M,D", [(1, 768), (50, 768), (9, 100), (4, 2000)])
 @pytest.mark.parametrize("kind", ["layernorm", "rmsnorm"])
 @pytest.mark.parametrize("int8_in", [False, True])
@@ -353,16 +439,63 @@ def test_quant_flash_attention_refuses(dev):
         big = torch.zeros((1, 1, 4096, 320), dtype=torch.int8, device=dev)
         fa(big[:, :, :8].contiguous(), big, big,
            torch.zeros(4096, dtype=torch.int32, device=dev), **kw)
+    with pytest.raises(ValueError):     # d over 256 at any key count
+        big = torch.zeros((1, 1, 8, 260), dtype=torch.int8, device=dev)
+        fa(big, big, big, torch.zeros(8, dtype=torch.int32, device=dev),
+           **kw)
+
+
+# bit-exact cases, no softcap: (B, Hq, Hkv, Sq, Sk, d, key lengths) at every
+# BERT bucket (1, 8) .. (8, 128) and at 512 keys, with GQA, head dims 16 /
+# 64 / 100 / 128, ragged lengths and an all-padding batch row; head dims 192
+# and 256 (both run at 256) in the row-block kernel and, past its shared
+# memory (512 keys at 256), in the long-key kernel
+EXACT_SHAPES = [
+    (1, 12, 12, 8, 8, 64, (8,)),
+    (4, 12, 12, 16, 16, 64, (16, 11, 3, 0)),
+    (4, 12, 12, 32, 32, 64, (32, 17, 32, 1)),
+    (4, 12, 12, 64, 64, 64, (64, 40, 0, 63)),
+    (8, 12, 12, 128, 128, 64, (128, 100, 77, 64, 31, 8, 0, 128)),
+    (8, 12, 12, 512, 512, 64, (512, 300, 129, 64, 511, 1, 0, 257)),
+    (2, 8, 4, 96, 96, 64, (96, 50)),                 # GQA g = 2
+    (2, 4, 2, 40, 72, 16, (70, 0)),
+    (2, 4, 2, 33, 130, 100, (130, 65)),
+    (2, 4, 2, 70, 200, 128, (200, 199)),
+    (2, 4, 2, 40, 96, 192, (96, 50)),
+    (2, 4, 2, 40, 160, 256, (160, 0)),
+    (1, 4, 2, 70, 700, 192, (700,)),                 # long-key kernel
+    (2, 2, 1, 33, 800, 256, (800, 333)),             # long-key kernel
+]
+
+
+@pytest.mark.parametrize("shape", EXACT_SHAPES)
+@pytest.mark.parametrize("requant", [False, True])
+def test_quant_flash_attention_equals_plain(dev, shape, requant):
+    """Without softcap the kernel returns the plain version's bits: the
+    same int32 products, the same float32 softmax summed in the same
+    order, the same codes and epilogue."""
+    q, k, v, k_pos, kw = _attn_case(dev, *shape)
+    # the two cases of 700 and 800 keys are the long-key kernel's
+    assert flash_attention.quant_flash_attention_tiled(shape[4], shape[5]) \
+        == (shape[4] >= 700)
+    if requant:
+        kw["o_scale"] = torch.tensor(0.01, device=dev)
+    out = flash_attention.quant_flash_attention(q, k, v, k_pos, **kw)
+    want = flash_attention.quant_flash_attention_plain(q, k, v, k_pos, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == want.dtype and out.equal(want)
 
 
 @pytest.mark.parametrize("Sk,d,lens", [(512, 64, (512, 300)),
                                        (100, 16, (100, 3)),
-                                       (600, 128, (600, 450))])
+                                       (600, 128, (600, 450)),
+                                       (200, 192, (200, 77)),
+                                       (300, 256, (300, 0))])
 @pytest.mark.parametrize("requant", [False, True])
 def test_quant_flash_attention_tiled_equals_resident(dev, Sk, d, lens,
                                                      requant):
-    """The kernel that streams K and V returns what the resident kernel
-    returns, bit for bit, at shapes both take."""
+    """The long-key kernel (three sweeps over streamed key tiles) returns
+    what the row-block kernel returns, bit for bit, at shapes both take."""
     q, k, v, k_pos, kw = _attn_case(dev, 2, 4, 2, 40, Sk, d, lens)
     o_scale = torch.tensor(0.01, device=dev) if requant else None
     scales = [build.scalar("t", n, kw[n], dev)
@@ -859,8 +992,8 @@ def test_flash_attention_smem_mirrors_the_library(dev):
         assert fn(d) == flash_attention.flash_attention_smem(d)
     qfn = build.function("samp_quant_flash_attention_smem",
                          (build.I, build.I), ctypes.c_longlong)
-    for Sk, d in ((16, 16), (128, 64), (512, 64), (1336, 64), (1337, 64),
-                  (2048, 64), (300, 128)):
+    for Sk, d in ((16, 16), (128, 64), (512, 64), (1344, 64), (1345, 64),
+                  (2048, 64), (300, 128), (130, 100), (64, 256), (8, 320)):
         assert qfn(Sk, d) == flash_attention.quant_flash_attention_smem(Sk, d)
     dfn = build.function("samp_decode_attention_smem",
                          (build.I, build.I, build.I), ctypes.c_longlong)

@@ -359,18 +359,28 @@ def test_decode_block_rows_cover_the_kernel_tables():
 
 
 def test_quant_flash_attention_smem_mirrors_the_kernel_layout():
-    """The resident kernel's layout, in words: K rows, V^T rows (odd
-    strides), V's column sums, the q tile, and per warp a float score row
-    and a code row. At Sk 512 it is the 90 KB the encoder buckets use; d =
-    64 stays resident up to Sk 1336, and past it the tiled kernel streams
-    K and V in tiles of 256 keys."""
-    assert FA.quant_flash_attention_smem(512, 64) == 90624
-    assert FA.quant_flash_attention_smem(1336, 64) == 232352
-    assert FA.quant_flash_attention_smem(1337, 64) > FA._MAX_SMEM
-    assert not FA.quant_flash_attention_tiled(1336, 64)
-    assert FA.quant_flash_attention_tiled(1337, 64)
+    """The row-block kernel's layout, in bytes, with DP the head dim rounded
+    up to 32, 64, 128, 256 and rows DP + 16 bytes apart: 32 q rows, a ring
+    of three K / V tiles of 128 keys, a float score row per query row over
+    the key axis (padded to 128, plus 8), k_pos, 4 key warps' row maxima,
+    the row sums, V's column sums, an int32 accumulator (rows DP + 1
+    words). At Sk 512 it is the 109 KB the 512-key case uses; d = 64 takes
+    it up to Sk 1408, and past it the long-key kernel streams K and V."""
+    assert FA.quant_flash_attention_smem(128, 64) == \
+        (32 + 3 * 128) * 80 + 4 * 32 * 136 + 4 * 128 + 4 * 4 * 32 \
+        + 4 * 32 + 4 * 64 + 4 * 32 * 65 == 60416
+    assert FA.quant_flash_attention_smem(8, 64) == \
+        FA.quant_flash_attention_smem(128, 64)
+    assert FA.quant_flash_attention_smem(512, 64) == 111104
+    assert FA.quant_flash_attention_smem(1408, 64) == 229376
+    assert FA.quant_flash_attention_smem(1409, 64) > FA._MAX_SMEM
+    assert FA.quant_flash_attention_smem(16, 20) == \
+        FA.quant_flash_attention_smem(16, 32)
+    assert not FA.quant_flash_attention_tiled(1408, 64)
+    assert FA.quant_flash_attention_tiled(1409, 64)
     assert FA.quant_flash_attention_tiled(32768, 64)
     assert not FA.quant_flash_attention_tiled(128, 18)   # padded to 20
+    assert not FA.quant_flash_attention_tiled(600, 128)
 
 
 def test_float_flash_attention_smem_and_head_dims():

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time the PyTorch port's kernels, ``quant_linear``, ``quant_expert_gemm``,
-``decode_attention`` or the float ``flash_attention`` (``--kernel``), at
+``decode_attention``, the float ``flash_attention``,
+``quant_flash_attention`` or ``dynamic_quant`` (``--kernel``), at
 the shapes of ``chip_smoke.py``'s paths, for the port found under
 ``--src``, so that two checkouts are compared on one card within one call:
 
@@ -29,7 +30,16 @@ softmax, 12 calls a tick) and one call at 4096 cached tokens a slot, with
 ``call_device_ms`` also counting the wrapper's other kernels (the zeroed
 counters); for ``flash_attention``, each case of
 ``chip_smoke.FLASH_CASES`` (the qwen2 and mixtral 32k prefills and a BERT
-bucket) on seeded inputs, 5 runs each.
+bucket) on seeded inputs, 5 runs each; for ``quant_flash_attention``, the
+span path's BERT buckets (1, 8) to (8, 128) with and without ``o_scale``, 8 x
+12 x 512 x 64, and 2048 keys (past a resident block's shared memory), with
+``tiled_device_ms`` at every shape but 2048 keys also from the long-key
+kernel forced (it streams the key tiles three times), summed over a span
+forward at (8, 128) (6 calls, all with ``o_scale``); for
+``dynamic_quant``, the encoder's 1024 rows of 768 and 3072, qwen2
+decode's 8 rows of 896 and 4864, and the MoE routed buffers' 24 rows of
+6144 and 16384, summed over a main-path forward (3 + 3), a
+decode tick (12 + 6) and a MoE tick (2 + 1).
 Needs one NVIDIA GPU; builds the checkout's kernels on first use.
 """
 from __future__ import annotations
@@ -160,6 +170,97 @@ def time_flash(dev, label, sums):
         torch.cuda.empty_cache()
 
 
+# (case, B, H, S, o_scale, launches per span forward at (8, 128))
+QFA_SHAPES = [
+    ("bucket_1x8", 1, 12, 8, False, 0), ("bucket_1x8", 1, 12, 8, True, 0),
+    ("bucket_4x16", 4, 12, 16, False, 0), ("bucket_4x16", 4, 12, 16, True, 0),
+    ("bucket_4x32", 4, 12, 32, False, 0), ("bucket_4x32", 4, 12, 32, True, 0),
+    ("bucket_4x64", 4, 12, 64, False, 0), ("bucket_4x64", 4, 12, 64, True, 0),
+    ("span_path", 8, 12, 128, False, 0), ("span_path", 8, 12, 128, True, 6),
+    ("bert_512", 8, 12, 512, False, 0), ("bert_512", 8, 12, 512, True, 0),
+    ("keys_2048", 1, 12, 2048, True, 0),
+]
+
+
+def time_quant_attention(timer, dev, label, sums):
+    """The quantized attention at BERT-base's shapes (12 heads of 64),
+    seeded codes and key lengths as ``chip_smoke.py`` makes them."""
+    import torch
+    from chip_smoke import _codes
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    for case, B, H, S, requant, n in QFA_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(B * S)
+        q, k, v = (_codes((B, H, S, 64), gen, dev) for _ in range(3))
+        lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
+        idx = torch.arange(S, device=dev, dtype=torch.int32)
+        k_pos = torch.where(idx[None] < lens[:, None], idx[None],
+                            -1).to(torch.int32)
+        kw = dict(q_scale=torch.tensor(0.35 / 64, device=dev),
+                  k_scale=torch.tensor(0.013, device=dev),
+                  p_scale=torch.tensor(0.6 / 255, device=dev),
+                  v_scale=torch.tensor(0.02, device=dev))
+        if requant:
+            kw["o_scale"] = torch.tensor(0.01, device=dev)
+        call = lambda: FA.quant_flash_attention(q, k, v, k_pos, **kw)  # noqa
+        ms, dev_ms = timer.ms(call), timer.device_ms(call)
+        rec = {"label": label, "case": case, "B": B, "H": H, "Sq": S,
+               "Sk": S, "head_dim": 64, "o_scale": requant,
+               "tiled": FA.quant_flash_attention_tiled(S, 64), "ms": ms,
+               "device_ms": dev_ms}
+        if not rec["tiled"]:
+            # the same call with the key tiles streamed (the C entry point
+            # of both checkouts takes the flag)
+            fn = build.function("samp_quant_flash_attention",
+                                (build.P,) * 11 + (build.I,) * 7
+                                + (build.F, build.I, build.P))
+            out = torch.empty(q.shape, device=dev, dtype=torch.int8
+                              if requant else torch.float32)
+            sc = [kw[f"{x}_scale"] for x in "qkpv"]
+            os_ = kw.get("o_scale")
+
+            def tiled():
+                build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               k_pos.data_ptr(), *(t.data_ptr() for t in sc),
+                               os_.data_ptr() if requant else None,
+                               None if requant else out.data_ptr(),
+                               out.data_ptr() if requant else None, B, H, H,
+                               S, S, 64, 0, 0.0, 1, build.stream(dev)),
+                            "samp_quant_flash_attention")
+            rec["tiled_device_ms"] = timer.device_ms(tiled)
+        for key, val in ((case, ms), (case + ":device", dev_ms),
+                         (case + ":tiled_device",
+                          rec.get("tiled_device_ms", dev_ms))):
+            sums[key] = sums.get(key, 0.0) + val
+        if n:
+            for key, val in (("span_forward", ms),
+                             ("span_forward:device", dev_ms),
+                             ("span_forward:tiled_device",
+                              rec["tiled_device_ms"])):
+                sums[key] = sums.get(key, 0.0) + n * val
+        print(json.dumps(rec), flush=True)
+
+
+# (path, M, D, launches per forward / tick)
+DQ_SHAPES = [("main_forward", 1024, 768, 3), ("main_forward", 1024, 3072, 3),
+             ("decode_tick", 8, 896, 12), ("decode_tick", 8, 4864, 6),
+             ("moe_tick", 24, 6144, 2), ("moe_tick", 24, 16384, 1)]
+
+
+def time_dynamic_quant(timer, dev, label, sums):
+    import torch
+    from repro_torch.kernels import dynamic_quant as DQ
+    for path, M, D, n in DQ_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(M * D)
+        x = torch.randn((M, D), generator=g, device=dev) * 3
+        call = lambda: DQ.dynamic_quant(x)  # noqa: E731
+        ms, dev_ms = timer.ms(call), timer.device_ms(call, "dynamic_quant")
+        for key, val in ((path, ms), (path + ":device", dev_ms)):
+            sums[key] = sums.get(key, 0.0) + n * val
+        print(json.dumps({"label": label, "path": path, "M": M, "D": D,
+                          "ms": ms, "device_ms": dev_ms}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", required=True,
@@ -167,7 +268,8 @@ def main() -> int:
     ap.add_argument("--label", required=True)
     ap.add_argument("--kernel", default="quant_linear",
                     choices=("quant_linear", "quant_expert_gemm",
-                             "decode_attention", "flash_attention"))
+                             "decode_attention", "flash_attention",
+                             "quant_flash_attention", "dynamic_quant"))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -213,6 +315,10 @@ def main() -> int:
         time_decode(timer, dev, args.label, sums)
     if args.kernel == "flash_attention":
         time_flash(dev, args.label, sums)
+    if args.kernel == "quant_flash_attention":
+        time_quant_attention(timer, dev, args.label, sums)
+    if args.kernel == "dynamic_quant":
+        time_dynamic_quant(timer, dev, args.label, sums)
     print(json.dumps({"label": args.label, "sums_ms": sums,
                       "device": torch.cuda.get_device_name(0)}), flush=True)
     return 0
