@@ -73,9 +73,12 @@ line per phase:
   its bytes over 3.35 TB/s and its operations over 1979 TOP/s (int8) or 67
   TFLOP/s (float32); ``decode_attention`` at 4096 cached tokens in
   each of the 8 slots (seeded operands, pages of 16), the context its
-  split over pages is for; and ``quant_flash_attention`` at BERT-base's
+  split over pages is for; ``quant_flash_attention`` at BERT-base's
   full 512 positions (8 x 12 heads x 512 x 64, seeded, with and without
-  ``o_scale``), equal to its plain version bit for bit;
+  ``o_scale``), equal to its plain version bit for bit; and the streamed
+  variants of ``addnorm_quant`` (8 rows of 16384) and ``dynamic_quant`` (8
+  rows of 40000), rows past their register plans (``wide_rows``), h and the
+  dynamic codes equal to the plain versions bit for bit;
 * ``profile``: ``torch.profiler`` over forwards of each encoder path at the
   (8, 128) bucket and over a window of full decode ticks: device-busy ms per
   forward or tick, idle share, ms of each ported kernel and the top device
@@ -160,6 +163,10 @@ LONG_DECODE_TOKENS = 4096        # a slot's cached tokens, kernel phase
 # quant_flash_attention off the served paths at BERT-base's full 512
 # positions: (batch, heads, length, head dim), kernel phase
 LONG_ATTENTION = (8, 12, 512, 64)
+# rows past the register plans, kernel phase: addnorm_quant's (over 8192
+# values) and dynamic_quant's (over 32768) streamed variants
+WIDE_ADDNORM = (8, 16384)
+WIDE_DYNAMIC_QUANT = (8, 40000)
 # the JAX package's fingerprint of the decode_head_path plan
 HEAD_FINGERPRINT = ("2c48bdf24412c6c9ca841741bb5088ad"
                     "b664eb99e9791e86a62cf21e257e3b11")
@@ -1490,13 +1497,13 @@ def run_case(cfg, key, layer, bucket, qparams, device, timer=None):
         diff = (q.to(torch.int32) - q_ref.to(torch.int32)).abs()
         flipped = float((diff > 0).to(torch.float32).mean())
         err = float((h - h_ref).abs().max())
-        ok = (rel_linf(h_ref, h) <= 1e-6 and flipped < 0.005
+        ok = (bool(h.equal(h_ref)) and flipped < 0.005
               and int(diff.max()) <= 1)
         rec.update(D=D, norm=kind, int8_delta=int8_in, max_abs_err=err,
-                   h_rel_linf=rel_linf(h_ref, h),
+                   h_exact=bool(h.equal(h_ref)),
                    q_flipped_share=flipped, q_max_code_diff=int(diff.max()),
-                   tolerance="h rel-Linf <= 1e-6; < 0.5% of codes flipped, "
-                             "each by <= 1")
+                   tolerance="h bit for bit; < 0.5% of codes flipped, each "
+                             "by <= 1")
         t_bytes, t_ops = bound((1.0 if int8_in else 4.0) * M * D
                                + 9.0 * M * D + (8 if rms else 12) * D + 8,
                                f32_ops=16.0 * M * D)
@@ -1860,6 +1867,74 @@ def run_long_attention_case(device, timer):
     return recs
 
 
+def run_wide_row_cases(device, timer):
+    """``addnorm_quant`` and ``dynamic_quant`` at rows past their register
+    plans, which no served path reaches and which both kernels stream:
+    :data:`WIDE_ADDNORM` (LayerNorm with beta, float x) and
+    :data:`WIDE_DYNAMIC_QUANT`, seeded; h and the dynamic codes and scales
+    equal to the plain versions bit for bit, addnorm's codes within its
+    budget; timed beside their bounds."""
+    import torch
+    from repro_torch.kernels import addnorm_quant, dynamic_quant
+    recs = {}
+    M, D = WIDE_ADDNORM
+    gen = torch.Generator(device=device).manual_seed(M * D)
+    x, res = (torch.randn((M, D), generator=gen, device=device)
+              for _ in range(2))
+    gamma = 1.0 + 0.1 * torch.randn(D, generator=gen, device=device)
+    bias, beta = (0.1 * torch.randn(D, generator=gen, device=device)
+                  for _ in range(2))
+    args = (x, res, bias, gamma, beta, torch.tensor(0.025, device=device))
+    kern = lambda: addnorm_quant.addnorm_quant(*args)           # noqa
+    plain = lambda: addnorm_quant.addnorm_quant_plain(*args)    # noqa
+    (h, q), (h_ref, q_ref) = kern(), plain()
+    diff = (q.to(torch.int32) - q_ref.to(torch.int32)).abs()
+    flipped = float((diff > 0).to(torch.float32).mean())
+    ok = bool(h.equal(h_ref)) and flipped < 0.005 and int(diff.max()) <= 1
+    t_bytes, t_ops = bound(13.0 * M * D + 12 * D + 4, f32_ops=16.0 * M * D)
+    recs["addnorm_quant"] = rec = {
+        "phase": "kernel", "kernel": "addnorm_quant", "path": "wide_rows",
+        "M": M, "D": D, "norm": "layernorm",
+        "streamed": addnorm_quant.plan(M, D)[0] == 0,
+        "max_abs_err": float((h - h_ref).abs().max()),
+        "h_exact": bool(h.equal(h_ref)), "q_flipped_share": flipped,
+        "q_max_code_diff": int(diff.max()),
+        "tolerance": "h bit for bit; < 0.5% of codes flipped, each by <= 1",
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "ms": timer.ms(kern),
+        "device_ms": timer.device_ms(kern, "addnorm_quant"),
+        "plain_ms": timer.ms(plain), "library_ms": None,
+        "library_device_ms": None}
+    emit(rec)
+    if not ok:
+        fail(f"addnorm_quant at {WIDE_ADDNORM} differs from its plain "
+             f"version: {rec}")
+    M, D = WIDE_DYNAMIC_QUANT
+    x = torch.randn((M, D), generator=gen, device=device) * 3
+    kern = lambda: dynamic_quant.dynamic_quant(x)               # noqa
+    plain = lambda: dynamic_quant.dynamic_quant_plain(x)         # noqa
+    (q, sc), (q_ref, sc_ref) = kern(), plain()
+    err = max(float((q.to(torch.int32) - q_ref.to(torch.int32)).abs()
+                    .max()), float((sc - sc_ref).abs().max()))
+    t_bytes, t_ops = bound(5.0 * M * D + 4 * M, f32_ops=6.0 * M * D)
+    recs["dynamic_quant"] = rec = {
+        "phase": "kernel", "kernel": "dynamic_quant", "path": "wide_rows",
+        "M": M, "D": D, "max_abs_err": err, "exact": err == 0.0,
+        "tolerance": "codes and scales exact",
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "ms": timer.ms(kern),
+        "device_ms": timer.device_ms(kern, "dynamic_quant"),
+        "plain_ms": timer.ms(plain), "library_ms": None,
+        "library_device_ms": None}
+    emit(rec)
+    if err != 0.0:
+        fail(f"dynamic_quant at {WIDE_DYNAMIC_QUANT} differs from its plain "
+             f"version: {rec}")
+    return recs
+
+
 def run_expert_case(path, key, layer, C, device, timer=None):
     """Check ``quant_expert_gemm`` of shape class ``key`` at capacity ``C``
     (G = 1) against its plain version: on the routed buffer the served run
@@ -1995,7 +2070,8 @@ def check_kernels(paths, device, timed, max_err):
                 timed[key] = (rec, tb)
 
 
-def summarize(paths, timed, max_err, flash, long_decode, long_attention):
+def summarize(paths, timed, max_err, flash, long_decode, long_attention,
+              wide):
     """The per-kernel summary entries: sums over one forward of the span
     path, else one tick of the decode path, else one tick of the MoE path,
     and over one forward or tick of each path under ``by_path``; for the
@@ -2065,6 +2141,12 @@ def summarize(paths, timed, max_err, flash, long_decode, long_attention):
                 for k, r in long_attention.items()}
             entry["max_abs_err"] = max([entry["max_abs_err"]] + [
                 r["max_abs_err"] for r in long_attention.values()])
+        if name in wide:
+            r = wide[name]
+            entry["wide_rows"] = {f: r[f] for f in (
+                "M", "D", "max_abs_err") + TIMES}
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       r["max_abs_err"])
         entry["per"] = (f"one forward of the span path at bucket "
                         f"{PROFILE_BUCKET}, or one tick of the decode path "
                         f"at its longest ({DECODE_SLOTS} slots) where the "
@@ -2244,6 +2326,7 @@ def main() -> int:
     check_kernels(paths, device, timed, max_err)
     long_decode = run_long_decode_case(device, Timer(device))
     long_attention = run_long_attention_case(device, Timer(device))
+    wide = run_wide_row_cases(device, Timer(device))
     phase_profile(model, paths, device)
     phase_profile_decode(paths[2])
     # free the earlier paths' models and engines before the 42 GB MoE model;
@@ -2259,7 +2342,7 @@ def main() -> int:
     check_kernels([moe], device, timed, max_err)
     phase_profile_decode(moe)
     emit({"kernels": summarize(paths, timed, max_err, flash, long_decode,
-                               long_attention)})
+                               long_attention, wide)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

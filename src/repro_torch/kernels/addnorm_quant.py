@@ -24,11 +24,25 @@ from repro_torch.kernels import build
 #: kernel launches since the last :func:`repro_torch.kernels.reset_launches`
 launches = 0
 
-# the kernel keeps one row of h in shared memory (plus 8 reduction words);
-# 48 KB is what a block may use without opting in to more
-_MAX_D = (48 * 1024) // 4 - 8
-# threads per row in csrc/addnorm_quant.cu (kThreads), 8 warps of 32
+# the threads of row_sum's order, 8 warps of 32
 _THREADS, _WARP = 256, 32
+# csrc/addnorm_quant.cu's block plan: 64 threads a row, each holding up to
+# 32 float4s of h (wider rows stream); from 264 rows, 2 rows a block
+ROW_THREADS, MAX_VEC, MANY_ROWS, ROWS_PER_BLOCK = 64, 32, 2 * 132, 2
+
+
+def plan(M: int, D: int) -> tuple[int, int, int]:
+    """The CUDA kernel's block plan for M rows of D values, as its
+    ``samp_addnorm_quant_plan`` gives it: (float4s of h a thread holds in
+    registers, a power of two, or 0 where the row streams; threads a row;
+    rows a block). Row lane l holds the float4s at elements 256 k + 4 l."""
+    nvec = -(-D // 4)
+    need = -(-nvec // ROW_THREADS)
+    vpt = 1
+    while vpt < need:
+        vpt *= 2
+    return (vpt if vpt <= MAX_VEC else 0, ROW_THREADS,
+            ROWS_PER_BLOCK if M >= MANY_ROWS else 1)
 
 
 def row_sum(x: torch.Tensor, threads: int = _THREADS) -> torch.Tensor:
@@ -38,8 +52,9 @@ def row_sum(x: torch.Tensor, threads: int = _THREADS) -> torch.Tensor:
     the warp sums are added in turn. Float32 addition is not associative,
     so the norm statistics of the fused and the reference paths round alike
     only when both sum in one order; every norm of the port sums this way
-    (256 threads, the addnorm kernel's block), and so does the softmax of
-    the uint8 attention path (``threads=32``, one warp per query row)."""
+    (256 threads, which the addnorm kernel's 64 threads a row model, 4
+    each), and so does the softmax of the uint8 attention path
+    (``threads=32``, one warp per query row)."""
     lead, D = x.shape[:-1], x.shape[-1]
     J = -(-D // threads)
     if J * threads != D:
@@ -116,9 +131,6 @@ def addnorm_quant(x: torch.Tensor, residual: torch.Tensor, bias: torch.Tensor,
                          f"{tuple(residual.shape)} must both be (M, D)")
     dev = residual.device
     M, D = residual.shape
-    if D > _MAX_D:
-        raise ValueError(f"{name}: D={D} exceeds the kernel's row limit "
-                         f"{_MAX_D}")
     x_int8 = x.dtype == torch.int8
     if x_int8 and x_in_scale is None:
         raise ValueError("int8 delta input needs x_in_scale (its dequant "

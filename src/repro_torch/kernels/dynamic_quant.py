@@ -13,9 +13,6 @@ from repro_torch.core.quantize import divide
 from repro_torch.kernels import build
 
 EPS = 1e-8
-# csrc/dynamic_quant.cu holds a row in registers: up to 8 float4s in each
-# of up to 1024 threads
-MAX_D = 32768
 
 #: kernel launches since the last :func:`repro_torch.kernels.reset_launches`
 launches = 0
@@ -43,9 +40,6 @@ def dynamic_quant(x: torch.Tensor):
     dev = x.device
     build.operand("dynamic_quant", "x", x, torch.float32, dev)
     M, D = x.shape
-    if D > MAX_D:
-        raise ValueError(f"dynamic_quant: rows of {D} values; the kernel "
-                         f"holds a row of at most {MAX_D} in registers")
     q = torch.empty((M, D), dtype=torch.int8, device=dev)
     scale = torch.empty((M, 1), dtype=torch.float32, device=dev)
     fn = build.function("samp_dynamic_quant",

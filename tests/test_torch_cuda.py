@@ -9,7 +9,9 @@ without the suite's conftest:
 The shapes cover what ``chip_smoke.py`` does not: ragged edges of the GEMM
 tile (M, N not multiples of 64; K not a multiple of 8, which turns off the
 8-byte loads), rows wider than the block, int8 inputs to addnorm, RMSNorm,
-absent biases, embedding rows that do not split into float4s, and for the
+absent biases, addnorm and dynamic_quant rows past their register plans
+(streamed, up to 40000 values) and addnorm's block plan, embedding rows
+that do not split into float4s or tables off 16-byte alignment, and for the
 attention kernel GQA, padded keys, an all-padding batch row, query counts
 that are not a multiple of the 32-row tile, the softcap, 512 keys (which
 need more than 48 KB of shared memory), key axes past a block's shared
@@ -258,7 +260,9 @@ def test_dynamic_quant_plan_holds_each_row_once(dev):
     block): every element has one slot, a row's threads are whole warps
     of one block of at most 1024 threads (256 where rows share one), one
     float4 a thread below 264 rows where 1024 threads hold the row; the
-    served widths' shapes; rows over MAX_D refused."""
+    served widths' shapes; rows past the register plan (over 32768 values)
+    streamed by 1024 threads, with codes and scales equal to the plain
+    version's at 20000 (held) and 40000 (streamed) values."""
     fn = build.function("samp_dynamic_quant_plan",
                         (build.I, build.I, build.P), None)
     out = (ctypes.c_int * 3)()
@@ -281,16 +285,29 @@ def test_dynamic_quant_plan_holds_each_row_once(dev):
     assert [plan(M, D) for M, D in DQ_SERVED] == [
         (8, 32, 8), (8, 96, 2), (1, 224, 1), (2, 608, 1), (2, 768, 1),
         (4, 1024, 1)]
-    with pytest.raises(ValueError):
-        dynamic_quant.dynamic_quant(torch.zeros((2, dynamic_quant.MAX_D + 4),
-                                                device=dev))
+    assert plan(8, 32772) == plan(1024, 40000) == (0, 1024, 1)
+    g = torch.Generator(device=dev).manual_seed(40000)
+    for D in (20000, 40000):
+        x = torch.randn((3, D), generator=g, device=dev) * 3
+        x[1] = 0.0
+        (q, s), (q_ref, s_ref) = (dynamic_quant.dynamic_quant(x),
+                                  dynamic_quant.dynamic_quant_plain(x))
+        assert q.equal(q_ref) and s.equal(s_ref)
 
 
-@pytest.mark.parametrize("M,D", [(1, 768), (50, 768), (9, 100), (4, 2000)])
+# the served shapes (a BERT forward's 1024 rows of 768; a qwen2 decode
+# tick's 8 of 896), rows past the register plan (12288, streamed), and a
+# width off float4s (1003)
+@pytest.mark.parametrize("M,D", [(1, 768), (50, 768), (9, 100), (4, 2000),
+                                 (1024, 768), (8, 896), (3, 12288),
+                                 (5, 1003)])
 @pytest.mark.parametrize("kind", ["layernorm", "rmsnorm"])
 @pytest.mark.parametrize("int8_in", [False, True])
 @pytest.mark.parametrize("beta", [False, True])
-def test_addnorm_quant(dev, M, D, kind, int8_in, beta):
+def test_addnorm_quant(dev, record_property, M, D, kind, int8_in, beta):
+    """h equal to the plain version's bit for bit, the codes within the
+    stated budget; the flipped codes are recorded (the kernel sums in
+    row_sum's order, so 0 is expected)."""
     g = torch.Generator(device=dev).manual_seed(M + D)
     if int8_in:
         x = torch.randint(-128, 128, (M, D), generator=g, device=dev,
@@ -308,10 +325,26 @@ def test_addnorm_quant(dev, M, D, kind, int8_in, beta):
                                                      kind=kind)
     assert h.equal(h_ref)
     diff = (q.int() - q_ref.int()).abs()
+    record_property("flipped_codes", int((diff > 0).sum()))
     assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 5e-3
 
 
-@pytest.mark.parametrize("N,D", [(1, 768), (300, 768), (17, 30)])
+def test_addnorm_quant_plan_mirrors_the_library(dev):
+    """samp_addnorm_quant_plan equals its Python mirror
+    (``addnorm_quant.plan``) at the served shapes and across the widths
+    around the register plan's edge and past it."""
+    fn = build.function("samp_addnorm_quant_plan",
+                        (build.I, build.I, build.P), None)
+    out = (ctypes.c_int * 3)()
+    for M in (1, 8, 263, 264, 1024):
+        for D in (1, 3, 100, 256, 257, 768, 896, 1003, 3072, 4864, 7168,
+                  8192, 8196, 12288, 16384, 20000, 40000):
+            fn(M, D, ctypes.addressof(out))
+            assert tuple(out) == addnorm_quant.plan(M, D), (M, D)
+
+
+@pytest.mark.parametrize("N,D", [(1, 768), (300, 768), (17, 30),
+                                 (1024, 768)])
 @pytest.mark.parametrize("segments", [False, True])
 def test_fused_embed(dev, N, D, segments):
     g = torch.Generator(device=dev).manual_seed(N + D)
@@ -319,6 +352,26 @@ def test_fused_embed(dev, N, D, segments):
     pos = torch.randn((512, D), generator=g, device=dev)
     seg = torch.randn((2, D), generator=g, device=dev) if segments else None
     ids = torch.randint(0, 1000, (N,), generator=g, device=dev)
+    segs = (torch.randint(0, 2, (N,), generator=g, device=dev)
+            if segments else None)
+    positions = torch.arange(N, device=dev) % 128
+    out = fused_embed.fused_embed(ids, tok, pos, seg, segs,
+                                  positions=positions)
+    assert out.equal(fused_embed.fused_embed_plain(ids, tok, pos, seg, segs,
+                                                   positions=positions))
+
+
+@pytest.mark.parametrize("segments", [False, True])
+def test_fused_embed_takes_an_unaligned_table(dev, segments):
+    """A token table that starts 4 bytes past 16-byte alignment: the kernel
+    reads the rows 4 bytes at a time, exactly; ids out of range clamped."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    N, D = 1024, 768
+    tok = torch.randn(1000 * D + 1, generator=g, device=dev)[1:].view(1000, D)
+    assert tok.is_contiguous() and tok.data_ptr() % 16 != 0
+    pos = torch.randn((512, D), generator=g, device=dev)
+    seg = torch.randn((2, D), generator=g, device=dev) if segments else None
+    ids = torch.randint(-5, 1005, (N,), generator=g, device=dev)
     segs = (torch.randint(0, 2, (N,), generator=g, device=dev)
             if segments else None)
     positions = torch.arange(N, device=dev) % 128
@@ -341,9 +394,21 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         quant_linear.quant_linear(xq, wq.cpu(), torch.ones(4, device=dev),
                                   0.1)
-    big = torch.zeros((2, 20000), device=dev)
-    with pytest.raises(ValueError):
-        addnorm_quant.addnorm_quant(big, big, big[0], big[0], None, 0.1)
+    # rows of any width: past the register plan the kernel streams, equal
+    # to the plain version
+    g = torch.Generator(device=dev).manual_seed(20000)
+    for D in (20000, 40000):
+        x, res = (torch.randn((2, D), generator=g, device=dev)
+                  for _ in range(2))
+        vec = torch.randn(D, generator=g, device=dev)
+        for kind in ("layernorm", "rmsnorm"):
+            args = (x, res, vec * 0.1, 1 + 0.1 * vec, vec * 0.05, 0.03)
+            h, q = addnorm_quant.addnorm_quant(*args, kind=kind)
+            h_ref, q_ref = addnorm_quant.addnorm_quant_plain(*args,
+                                                             kind=kind)
+            diff = (q.int() - q_ref.int()).abs()
+            assert h.equal(h_ref) and int(diff.max()) <= 1
+            assert float((diff > 0).float().mean()) < 5e-3
 
 
 def test_counters_reset(dev):

@@ -248,6 +248,46 @@ def test_dynamic_quant_op_matches_jax():
         <= 1
 
 
+@pytest.mark.parametrize("kind", ["layernorm", "rmsnorm"])
+def test_addnorm_quant_op_matches_jax_past_the_old_row_limit(kind):
+    """Rows of 16384 values, past the 12,280 the first CUDA kernel held in
+    shared memory (its streamed variant takes them now), under the
+    budgets of ``test_addnorm_quant_op_matches_jax``."""
+    rng = np.random.default_rng(6)
+    D = 16384
+    x, res = (rng.standard_normal((4, D)).astype(np.float32)
+              for _ in range(2))
+    bias = (0.1 * rng.standard_normal(D)).astype(np.float32)
+    gamma = (1 + 0.1 * rng.standard_normal(D)).astype(np.float32)
+    beta = ((0.1 * rng.standard_normal(D)).astype(np.float32)
+            if kind == "layernorm" else None)
+    h, q = ops.addnorm_quant(_t(x), _t(res), _t(bias), _t(gamma),
+                             None if beta is None else _t(beta),
+                             torch.tensor(0.03), kind=kind)
+    jh, jq = jops.addnorm_quant(
+        *(jnp.asarray(a) for a in (x, res, bias, gamma)),
+        None if beta is None else jnp.asarray(beta), jnp.float32(0.03),
+        kind=kind)
+    assert h.shape == q.shape == (4, D)
+    assert rel_linf(np.asarray(jh), h.numpy()) <= 1e-6
+    diff = np.abs(q.numpy().astype(int) - np.asarray(jq).astype(int))
+    assert diff.max() <= 1 and (diff > 0).mean() < 0.005
+
+
+def test_dynamic_quant_op_matches_jax_past_32768():
+    """Rows of 40000 values, past the register plan of the CUDA kernel (its
+    streamed variant takes them), under the budgets of
+    ``test_dynamic_quant_op_matches_jax``."""
+    x = (np.random.default_rng(7).standard_normal((2, 40000)) * 3).astype(
+        np.float32)
+    q, s = ops.dynamic_quant(_t(x))
+    jq, js = jops.dynamic_quant(jnp.asarray(x))
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1.2e-7,
+                               atol=0)
+    assert np.abs(q.numpy().astype(int) - np.asarray(jq).astype(int)).max() \
+        <= 1
+
+
 def test_quant_expert_gemm_op_matches_jax():
     """Static per-expert scales: codes and outputs bit for bit (both
     dequantize as acc * (xs * ws))."""

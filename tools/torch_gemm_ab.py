@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the PyTorch port's kernels, ``quant_linear``, ``quant_expert_gemm``,
 ``decode_attention``, the float ``flash_attention``,
-``quant_flash_attention`` or ``dynamic_quant`` (``--kernel``), at
+``quant_flash_attention``, ``dynamic_quant``, ``addnorm_quant`` or
+``fused_embed`` (``--kernel``), at
 the shapes of ``chip_smoke.py``'s paths, for the port found under
 ``--src``, so that two checkouts are compared on one card within one call:
 
@@ -39,7 +40,12 @@ forward at (8, 128) (6 calls, all with ``o_scale``); for
 ``dynamic_quant``, the encoder's 1024 rows of 768 and 3072, qwen2
 decode's 8 rows of 896 and 4864, and the MoE routed buffers' 24 rows of
 6144 and 16384, summed over a main-path forward (3 + 3), a
-decode tick (12 + 6) and a MoE tick (2 + 1).
+decode tick (12 + 6) and a MoE tick (2 + 1); for ``addnorm_quant``, the
+span path's 1024 rows of 768 with an int8 delta (6 a forward), the main
+path's with float x (6 a forward), both LayerNorm, and a qwen2 decode
+tick's 8 rows of 896 under RMSNorm (12 a tick); for ``fused_embed``,
+BERT-base's 1024 rows of 768 at the (8, 128) bucket with segments (1 a
+forward).
 Needs one NVIDIA GPU; builds the checkout's kernels on first use.
 """
 from __future__ import annotations
@@ -261,6 +267,63 @@ def time_dynamic_quant(timer, dev, label, sums):
                           "ms": ms, "device_ms": dev_ms}), flush=True)
 
 
+# (path, M, D, int8 delta, norm, launches per forward / tick)
+AQ_SHAPES = [("span_forward", 1024, 768, True, "layernorm", 6),
+             ("main_forward", 1024, 768, False, "layernorm", 6),
+             ("decode_tick", 8, 896, False, "rmsnorm", 12)]
+
+
+def time_addnorm(timer, dev, label, sums):
+    import torch
+    from repro_torch.kernels import addnorm_quant as AQ
+    for path, M, D, int8_in, kind, n in AQ_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(M * D)
+        if int8_in:
+            x = torch.randint(-128, 128, (M, D), generator=g, device=dev,
+                              dtype=torch.int8)
+            x_in = torch.tensor(0.02, device=dev)
+        else:
+            x, x_in = torch.randn((M, D), generator=g, device=dev), None
+        res = torch.randn((M, D), generator=g, device=dev) * 2.0
+        bias = torch.zeros(D, device=dev)
+        gamma = 1.0 + 0.1 * torch.randn(D, generator=g, device=dev)
+        beta = (None if kind == "rmsnorm"
+                else 0.1 * torch.randn(D, generator=g, device=dev))
+        s = torch.tensor(0.025, device=dev)
+        call = lambda: AQ.addnorm_quant(x, res, bias, gamma, beta, s,  # noqa
+                                        x_in_scale=x_in, kind=kind)
+        ms, dev_ms = timer.ms(call), timer.device_ms(call, "addnorm_quant")
+        for key, val in ((path, ms), (path + ":device", dev_ms)):
+            sums[key] = sums.get(key, 0.0) + n * val
+        print(json.dumps({"label": label, "path": path, "M": M, "D": D,
+                          "int8_delta": int8_in, "norm": kind, "ms": ms,
+                          "device_ms": dev_ms}), flush=True)
+
+
+def time_embed(timer, dev, label, sums):
+    """BERT-base's tables (21128, 512 and 2 rows of 768) at the (8, 128)
+    bucket: seeded token and segment ids, positions 0..127 a sequence."""
+    import torch
+    from repro_torch.kernels import fused_embed as FE
+    B, S, D = 8, 128, 768
+    g = torch.Generator(device=dev).manual_seed(B * S)
+    tok, pos, seg = (torch.randn((n, D), generator=g, device=dev)
+                     for n in (21128, 512, 2))
+    ids = torch.randint(0, 21128, (B * S,), generator=g, device=dev,
+                        dtype=torch.int32)
+    segs = torch.randint(0, 2, (B * S,), generator=g, device=dev,
+                         dtype=torch.int32)
+    positions = torch.arange(B * S, device=dev, dtype=torch.int32) % S
+    call = lambda: FE.fused_embed(ids, tok, pos, seg, segs,  # noqa: E731
+                                  positions=positions)
+    ms, dev_ms = timer.ms(call), timer.device_ms(call, "fused_embed")
+    sums["main_forward"] = ms
+    sums["main_forward:device"] = dev_ms
+    print(json.dumps({"label": label, "path": "main_forward", "N": B * S,
+                      "D": D, "segments": True, "ms": ms,
+                      "device_ms": dev_ms}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", required=True,
@@ -269,7 +332,8 @@ def main() -> int:
     ap.add_argument("--kernel", default="quant_linear",
                     choices=("quant_linear", "quant_expert_gemm",
                              "decode_attention", "flash_attention",
-                             "quant_flash_attention", "dynamic_quant"))
+                             "quant_flash_attention", "dynamic_quant",
+                             "addnorm_quant", "fused_embed"))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -319,6 +383,10 @@ def main() -> int:
         time_quant_attention(timer, dev, args.label, sums)
     if args.kernel == "dynamic_quant":
         time_dynamic_quant(timer, dev, args.label, sums)
+    if args.kernel == "addnorm_quant":
+        time_addnorm(timer, dev, args.label, sums)
+    if args.kernel == "fused_embed":
+        time_embed(timer, dev, args.label, sums)
     print(json.dumps({"label": args.label, "sums_ms": sums,
                       "device": torch.cuda.get_device_name(0)}), flush=True)
     return 0
