@@ -48,6 +48,23 @@ line per phase:
   logits equal to ``EncoderServeEngine``'s on the same token ids at the same
   bucket, and 42 / 6 / 6 / 1 launches a forward with no float
   ``flash_attention`` launch;
+* ``autotune_path``: the paper's workflow through the ``SAMP`` facade on
+  the same model and weights (float32, ``tnews``, 128 positions, the fused
+  backend): ``autotune`` over the prefix grid at stride 4 with the
+  int8-dataflow variants, each candidate's accuracy from 2 dev batches of
+  64 and its latency from ``WallclockBackend`` (warmup 2, median of 5
+  forwards at the facade's (32, 128), on the fused kernels); the report's
+  10 candidates must be the grid's, in order. The chosen plan's bundle and
+  the tiled golden plan's (``apply`` + ``save``) must each carry the plan's
+  fingerprint, pass ``plan_lint`` against bert-base, reload through
+  ``SAMP.load`` with logits bit-identical to the pipeline saved, agree with
+  the reference backend (rel-Linf 5e-3, identical predictions) and serve
+  ``main_path``'s 32 requests with ``predict``'s predictions; the chosen
+  plan's forwards, counted, must launch every kernel its layers name, and
+  the golden bundle's ``dynamic_quant``. It prints the sweep (accuracy,
+  wallclock median and min-max, roofline ms and both speedups over float),
+  the chosen candidate, the seconds of ``autotune``, and each bundle's
+  bytes and load seconds;
 * ``setup_decoder``: full-width qwen2-0.5b (random weights from seed 0),
   the golden plan tiled 6x to 24 layers, its calibration batches (2 of
   4 x 128 tokens) and 16 requests (prompt lengths uniform in 8-64, tokens
@@ -204,6 +221,9 @@ FLASH_CASES = (
 FLASH_TOL = 2e-4                 # the JAX test's budget (tests/test_kernels.py)
 PIPELINE_TEXTS = 32
 PIPELINE_BATCH = 8
+AUTOTUNE_STRIDE = 4              # the prefix grid at k = 4, 8, 12
+AUTOTUNE_EVAL = (2, 64)          # dev batches x batch size a candidate
+AUTOTUNE_LATENCY = (32, 128)     # the facade's latency batch x positions
 # the times of each kernel's summary entry
 TIMES = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
          "library_device_ms")
@@ -806,6 +826,252 @@ def phase_pipeline(model, main, device):
         fail(f"pipeline_path: {forwards} forwards, launches {launches} "
              f"(expected {want})")
     return rec
+
+
+def _device_busy(call, n: int = 5):
+    """``torch.profiler`` over ``n`` calls after one untimed: device-busy ms
+    and device kernels a call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return (sum(e.time_range.elapsed_us() for e in events) / 1e3 / n,
+            len(events) / n)
+
+
+def _bundle_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def phase_autotune(model, device):
+    """The paper's workflow through the ``SAMP`` facade: ``from_config`` on
+    full-width BERT-base (float32, ``tnews``, 128 positions, the fused
+    backend), ``main_path``'s seed-0 weights bound to its pipeline, then
+    ``autotune`` over the prefix grid at stride 4 with the int8-dataflow
+    variants (10 candidates), each candidate's accuracy from 2 dev batches
+    of 64 and its latency from ``WallclockBackend`` (warmup 2, median of 5
+    forwards at the facade's (32, 128)), saved as a bundle; then the tiled
+    golden plan through ``apply`` and ``save``. Each bundle is linted,
+    reloaded with ``SAMP.load`` on both backends and served; the chosen
+    plan's forward is counted (counters zeroed just before, read just
+    after)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.precision import LayerMode
+    from repro_torch.core.samp import _grid_candidates
+    from repro_torch.data.pipeline import get_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.toolkit import SAMP, plan_lint
+    from repro_torch.toolkit.latency import RooflineBackend, WallclockBackend
+
+    phase_t0 = time.perf_counter()
+    cfg = model["cfg"]
+    B, S = AUTOTUNE_LATENCY
+    n_eval, eval_bs = AUTOTUNE_EVAL
+    wall = WallclockBackend(reps=5, warmup=2)
+    samp = SAMP.from_config(cfg, task="tnews", seq_len=S,
+                            float_dtype="float32", latency=wall,
+                            latency_batch=B, backend="fused", device=device)
+    samp.pipeline.params = model["params"]
+    modes = (LayerMode.FULLY_QUANT, LayerMode.QUANT_FFN_ONLY)
+    grid = [(n, k, p.fingerprint()) for n, k, p in _grid_candidates(
+        samp.engine, AUTOTUNE_STRIDE, modes, "minmax", dataflow=True)]
+    eval_batches = [get_batch(samp.task, i, eval_bs, "dev")
+                    for i in range(n_eval)]
+    tmp = Path(tempfile.mkdtemp(prefix="samp_autotune_"))
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        report = samp.autotune(strategy="prefix_grid", stride=AUTOTUNE_STRIDE,
+                               dataflow=True, eval_batches=n_eval,
+                               eval_batch_size=eval_bs,
+                               save_to=str(tmp / "autotuned"))
+        torch.cuda.synchronize()
+        autotune_s = time.perf_counter() - t0
+        autotune_launches = kernels.launch_counts()
+        points = [(p.mode_name, p.k, p.plan.fingerprint())
+                  for p in report.points]
+        # the chosen plan's forwards on the eval batches, counted
+        chosen = report.plan
+        per_fwd = collections.Counter()
+        cases = kernel_cases(cfg, chosen)
+        for key, case in cases.items():
+            per_fwd[key[0]] += case["count"]
+        kernels.reset_launches()
+        tuned_logits = [samp.current.predict_logits(b) for b in eval_batches]
+        launches = kernels.launch_counts()
+        counted = {k: v for k, v in launches.items() if v}
+        want = {k: v * n_eval for k, v in per_fwd.items()}
+        qparams, qplan = samp.current.params, samp.current.plan
+
+        roof = RooflineBackend().bind(cfg, batch=B, seq=S)
+        base, r0 = report.points[0], roof(None, None, report.points[0].plan)
+        sweep = []
+        for p in report.points:
+            times = wall.samples[p.plan.fingerprint()]
+            rf = roof(None, None, p.plan)
+            sweep.append({
+                "mode": p.mode_name, "k": p.k,
+                "plan": p.plan.fingerprint()[:12], "accuracy": p.accuracy,
+                "wallclock_ms": p.latency * 1e3,
+                "wallclock_ms_min_max": [times[0] * 1e3, times[-1] * 1e3],
+                "roofline_ms": rf * 1e3,
+                "wallclock_speedup": base.latency / p.latency,
+                "roofline_speedup": r0 / rf})
+
+        # where the latency batch's time goes: the device-busy ms of the
+        # float forward and of the fastest candidate's, on the inputs the
+        # wallclock backend timed (seed-0 tokens, zero segments)
+        gen = torch.Generator(device=device).manual_seed(0)
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                               device=device, dtype=torch.int32)
+        inputs = {"tokens": tokens, "segments": torch.zeros_like(tokens)}
+        fastest = min(report.points[1:], key=lambda p: p.latency)
+        latency_profile = {}
+        for p in (base, fastest):
+            p_params, p_plan = ((model["params"], samp.engine.float_plan)
+                                if p is base else samp.engine.apply(
+                                    model["params"], samp.stats, p.plan))
+
+            def forward(p_params=p_params, p_plan=p_plan):
+                with torch.inference_mode():
+                    T.forward(p_params, inputs, cfg, p_plan,
+                              return_hidden=True,
+                              backend=samp.pipeline.backend)
+            busy, launched = _device_busy(forward)
+            latency_profile[f"{p.mode_name} {p.k}"] = {
+                "wallclock_ms": p.latency * 1e3, "device_busy_ms": busy,
+                "device_kernels": launched,
+                "device_idle_share": max(0.0, 1.0 - busy / (p.latency * 1e3))}
+
+        bundles = {}
+        for name in ("autotuned", "golden"):
+            path = tmp / name
+            if name == "golden":
+                samp.apply(model["plan"])
+                samp.save(str(path))
+            plan = samp.current.precision
+            mine = (tuned_logits if name == "autotuned" else
+                    [samp.current.predict_logits(b) for b in eval_batches])
+            with open(path / "artifact.json") as f:
+                saved_fp = json.load(f)["plan_fingerprint"]
+            plan.save(str(tmp / f"{name}_plan.json"))
+            lint_rc = plan_lint.main([str(tmp / f"{name}_plan.json"),
+                                      "--arch", "bert-base"])
+            t0 = time.perf_counter()
+            loaded = SAMP.load(str(path), backend="fused", device=device)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            kernels.reset_launches()
+            fused = [loaded.current.predict_logits(b) for b in eval_batches]
+            bundle_launches = {k: v for k, v in
+                               kernels.launch_counts().items() if v}
+            ref = SAMP.load(str(path), backend="reference", device=device)
+            refl = [ref.current.predict_logits(b) for b in eval_batches]
+            # predict one request a batch, with the engine's all-zero
+            # segments; served the same way, the buckets are the same. In
+            # batches of 8 the buckets differ, and so may the float32
+            # GEMMs' rounding and a near-tied argmax (ROADMAP §3,
+            # test_encoder_micro_batch_invariance): counted, not gated
+            predicted = [int(loaded.predict(
+                {"tokens": np.asarray([toks], np.int32),
+                 "segments": np.zeros((1, len(toks)), np.int32)})[0])
+                for toks in model["requests"]]
+            served = [int(r.prediction) for r in serve(
+                loaded.serve(batch_slots=1, max_len=S),
+                model["requests"])[0]]
+            engine = loaded.serve(batch_slots=8, max_len=S)
+            batched = [int(r.prediction)
+                       for r in serve(engine, model["requests"])[0]]
+            got, ref_all = np.concatenate(fused), np.concatenate(refl)
+            bundles[name] = {
+                "plan": plan.describe(), "plan_fingerprint":
+                plan.fingerprint(), "saved_fingerprint": saved_fp,
+                "lint_rc": lint_rc, "bytes": _bundle_bytes(path),
+                "load_s": load_s,
+                "loaded_vs_saved_rel_linf": rel_linf(
+                    torch.from_numpy(np.concatenate(mine)),
+                    torch.from_numpy(got)),
+                "reference_vs_fused_rel_linf": rel_linf(
+                    torch.from_numpy(ref_all), torch.from_numpy(got)),
+                "reference_predictions_equal": bool(
+                    (ref_all.argmax(-1) == got.argmax(-1)).all()),
+                "served_equal_predict": served == predicted,
+                "batched_predictions_differing": sum(
+                    a != b for a, b in zip(batched, predicted)),
+                "launches": bundle_launches}
+            if name == "autotuned":
+                served_engine = engine
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {"phase": "autotune_path", "model": cfg.name,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "strategy": report.strategy, "stride": AUTOTUNE_STRIDE,
+           "eval": [n_eval, eval_bs], "latency_batch": [B, S],
+           "wallclock": {"reps": wall.reps, "warmup": wall.warmup},
+           "candidates": [[n, k, fp[:12]] for n, k, fp in points],
+           "sweep": sweep, "chosen": {
+               "mode": report.chosen.mode_name, "k": report.chosen.point.k,
+               "plan": chosen.describe(),
+               "plan_fingerprint": chosen.fingerprint(),
+               "accuracy": report.accuracy},
+           "recommendations": [[r.mode_name, r.point.k]
+                               for r in report.recommendations],
+           "latency_profile": latency_profile,
+           "autotune_s": autotune_s, "autotune_launches": autotune_launches,
+           "chosen_forward_launches": counted,
+           "chosen_expected_launches": want,
+           "bundles": bundles, "phase_s": time.perf_counter() - phase_t0}
+    emit(rec)
+    if len(points) != 10 or points != grid:
+        fail(f"autotune_path: the report's candidates {points} are not the "
+             f"full-width grid {grid}")
+    if any(v["device_busy_ms"] <= 0.0 for v in latency_profile.values()):
+        fail("autotune_path: the profiler recorded no device time at the "
+             "latency batch")
+    if counted != want or not per_fwd.get("fused_embed"):
+        fail(f"autotune_path: the chosen plan's forwards launched "
+             f"{counted}, its layers name {want}")
+    for name, b in bundles.items():
+        if b["saved_fingerprint"] != b["plan_fingerprint"]:
+            fail(f"autotune_path: {name} bundle's artifact.json says "
+                 f"{b['saved_fingerprint']}, the plan is "
+                 f"{b['plan_fingerprint']}")
+        if b["lint_rc"] != 0:
+            fail(f"autotune_path: plan_lint refused the {name} plan")
+        if b["loaded_vs_saved_rel_linf"] != 0.0:
+            fail(f"autotune_path: the loaded {name} bundle's logits differ "
+                 f"from the saved pipeline's by "
+                 f"{b['loaded_vs_saved_rel_linf']}")
+        if b["reference_vs_fused_rel_linf"] > REL_LINF_BUDGET \
+                or not b["reference_predictions_equal"]:
+            fail(f"autotune_path: the {name} bundle on the reference "
+                 f"backend: rel-Linf {b['reference_vs_fused_rel_linf']}, "
+                 f"predictions equal {b['reference_predictions_equal']}")
+        if not b["served_equal_predict"]:
+            fail(f"autotune_path: serving the {name} bundle disagrees with "
+                 f"its predict")
+    if chosen.fingerprint() != bundles["autotuned"]["plan_fingerprint"]:
+        fail("autotune_path: the autotuned bundle is not the chosen plan")
+    if not bundles["golden"]["launches"].get("dynamic_quant"):
+        fail(f"autotune_path: the golden bundle's forwards launched "
+             f"{bundles['golden']['launches']}, no dynamic_quant")
+    return {"name": "autotune_path", "cfg": cfg, "qparams": qparams,
+            "qplan": qplan, "fused": served_engine,
+            "launches": launches, "per_fwd": per_fwd, "cases": cases,
+            "buckets": sorted(set(map(tuple, served_engine.runtime.stats[
+                "buckets"])) | {PROFILE_BUCKET, AUTOTUNE_LATENCY}),
+            "timed_bucket": PROFILE_BUCKET, "unit": "forward"}
 
 
 def setup_decoder(device):
@@ -2317,11 +2583,13 @@ def main() -> int:
              phase_serve("span_path", model,
                          int8_dataflow_variant(model["plan"]), device)]
     phase_pipeline(model, paths[0], device)
+    autotune = phase_autotune(model, device)
     decoder = setup_decoder(device)
     paths += [phase_decode("decode_path", decoder, decoder["plan"], device,
                            kv_cache="int8_per_token"),
               phase_decode("decode_head_path", decoder,
-                           decode_head_plan(decoder["plan"]), device)]
+                           decode_head_plan(decoder["plan"]), device),
+              autotune]
     timed, max_err = {}, collections.defaultdict(float)
     check_kernels(paths, device, timed, max_err)
     long_decode = run_long_decode_case(device, Timer(device))

@@ -7,15 +7,17 @@ per layer, per GEMM block (``qkv`` / ``attn_out`` / ``ffn_in`` /
 scheme and the calibrator. Schemas v1-v4 load; ``fingerprint()`` is the
 sha256 of the canonical JSON form and is byte-identical to the JAX
 package's for the same plan, so both packages key caches and artifacts on
-one identity. ``PlanSet`` (input-adaptive plans) arrives with the adaptive
-slice.
+one identity. :class:`PlanSet` holds K plans keyed by traffic cluster: its
+schema, fingerprint and JSON are here (``plan_lint`` checks planset files);
+routing over one is not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import json
-from typing import Mapping, Optional, Union
+import warnings
+from typing import Mapping, Optional, Sequence, Union
 
 from repro_torch.core.calibration import CALIBRATORS
 from repro_torch.core.precision import EncoderPolicy, LayerMode
@@ -258,6 +260,20 @@ class LayerPlan:
             kw["norm"] = norm
         return dataclasses.replace(self, **kw) if kw else self
 
+    def with_families(self, *, experts: Optional[QuantSpec] = None,
+                      router: Optional[QuantSpec] = None,
+                      shared_ffn: Optional[QuantSpec] = None) -> "LayerPlan":
+        """Same GEMM blocks, with schema-v4 block families set (only the
+        families passed are changed; pass ``FLOAT_SPEC`` to pin one float)."""
+        kw = {}
+        if experts is not None:
+            kw["experts"] = experts
+        if router is not None:
+            kw["router"] = router
+        if shared_ffn is not None:
+            kw["shared_ffn"] = shared_ffn
+        return dataclasses.replace(self, **kw) if kw else self
+
 
 FLOAT_LAYER = LayerPlan()
 
@@ -278,6 +294,18 @@ class PrecisionPlan:
     @property
     def num_layers(self) -> int:
         return len(self.layers)
+
+    @property
+    def modes(self) -> tuple[LayerMode, ...]:
+        return tuple(lp.mode for lp in self.layers)
+
+    @property
+    def num_quant_ffn(self) -> int:
+        return sum(lp.quant_ffn for lp in self.layers)
+
+    @property
+    def num_quant_mha(self) -> int:
+        return sum(lp.quant_mha for lp in self.layers)
 
     def bmm_quantized(self, layer_idx: int) -> bool:
         """Whether the attention score/value batched matmuls of layer
@@ -307,12 +335,42 @@ class PrecisionPlan:
                 start = i
         return runs
 
+    @property
+    def softmax_schemes(self) -> tuple:
+        """Per-layer softmax dataflow schemes (schema v3)."""
+        return tuple(lp.softmax for lp in self.layers)
+
+    @property
+    def norm_schemes(self) -> tuple:
+        """Per-layer norm dataflow schemes (schema v3)."""
+        return tuple(lp.norm for lp in self.layers)
+
+    @property
+    def num_int8_dataflow(self) -> int:
+        """Layers carrying at least one schema-v3 int8 boundary."""
+        return sum(lp.softmax != "float" or lp.norm != "float"
+                   for lp in self.layers)
+
+    @property
+    def num_expert_layers(self) -> int:
+        """Layers with a quantized ``experts`` block family (schema v4)."""
+        return sum(lp.experts is not None and lp.experts.quantized
+                   for lp in self.layers)
+
     def describe(self) -> str:
         n = self.num_layers
-        mha = sum(lp.quant_mha for lp in self.layers)
-        ffn = sum(lp.quant_ffn for lp in self.layers)
-        return (f"plan MHA {mha}/{n} FFN {ffn}/{n} [{self.float_dtype}] "
-                f"#{self.fingerprint()[:12]}")
+        cals = sorted({s.calibrator for lp in self.layers for s in
+                       (lp.qkv, lp.attn_out, lp.ffn_in, lp.ffn_out,
+                        lp.experts, lp.shared_ffn)
+                       if s is not None and s.quantized}) or ["-"]
+        flow = (f" FLOW {self.num_int8_dataflow}/{n}"
+                if self.num_int8_dataflow else "")
+        moe = (f" MOE {self.num_expert_layers}/{n}"
+               if self.num_expert_layers else "")
+        return (f"plan MHA {self.num_quant_mha}/{n} FFN "
+                f"{self.num_quant_ffn}/{n} KV {self.num_quant_kv}/{n}"
+                f"{flow}{moe} [{self.float_dtype}] "
+                f"cal={','.join(cals)} #{self.fingerprint()[:12]}")
 
     @staticmethod
     def full_float(num_layers: int,
@@ -323,6 +381,50 @@ class PrecisionPlan:
     def uniform(num_layers: int, layer: LayerPlan,
                 float_dtype: str = "bfloat16") -> "PrecisionPlan":
         return PrecisionPlan((layer,) * num_layers, float_dtype)
+
+    @staticmethod
+    def prefix(num_layers: int, k: int, layer: Union[LayerPlan, LayerMode],
+               float_dtype: str = "bfloat16", **mode_kw) -> "PrecisionPlan":
+        """Quantize the first ``k`` layers under ``layer`` (a LayerPlan, or
+        a LayerMode expanded via :meth:`LayerPlan.for_mode`)."""
+        if not 0 <= k <= num_layers:
+            raise ValueError(f"k={k} out of range for {num_layers} layers")
+        if isinstance(layer, LayerMode):
+            layer = LayerPlan.for_mode(layer, **mode_kw)
+        return PrecisionPlan((layer,) * k + (FLOAT_LAYER,) * (num_layers - k),
+                             float_dtype)
+
+    @staticmethod
+    def subset(num_layers: int, layers: Sequence[int],
+               layer: Union[LayerPlan, LayerMode],
+               float_dtype: str = "bfloat16", **mode_kw) -> "PrecisionPlan":
+        """Quantize an arbitrary layer subset (the greedy strategies)."""
+        layer_set = set(layers)
+        bad = layer_set - set(range(num_layers))
+        if bad:
+            raise ValueError(f"layer indices {sorted(bad)} out of range")
+        if isinstance(layer, LayerMode):
+            layer = LayerPlan.for_mode(layer, **mode_kw)
+        return PrecisionPlan(
+            tuple(layer if i in layer_set else FLOAT_LAYER
+                  for i in range(num_layers)), float_dtype)
+
+    @staticmethod
+    def from_policy(policy: EncoderPolicy, *, dynamic_acts: bool = False,
+                    calibrator: str = "minmax") -> "PrecisionPlan":
+        """EncoderPolicy -> PrecisionPlan shim (deprecated entry point: the
+        mode lattice is a strict subset of what plans express)."""
+        warnings.warn(
+            "EncoderPolicy is deprecated as a precision description; "
+            "use PrecisionPlan (this shim converts losslessly)",
+            DeprecationWarning, stacklevel=2)
+        return plan_from_policy(policy, dynamic_acts=dynamic_acts,
+                                calibrator=calibrator)
+
+    def to_policy(self) -> EncoderPolicy:
+        """Project onto the paper's mode lattice (lossy for per-block or
+        per-tensor-weight plans; exact for plans built from policies)."""
+        return EncoderPolicy(self.modes, self.float_dtype)
 
     # -- serialization ------------------------------------------------------
     def to_dict(self) -> dict:
@@ -396,6 +498,166 @@ class PrecisionPlan:
         canon = json.dumps(self.to_dict(), sort_keys=True,
                            separators=(",", ":"))
         return hashlib.sha256(canon.encode("utf-8")).hexdigest()
+
+
+PLANSET_VERSION = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanSet:
+    """K fingerprinted :class:`PrecisionPlan` members keyed by cluster id.
+
+    The input-adaptive precision identity: one deployment carries one weight
+    tree and K precision plans, one per traffic cluster. Each member keeps
+    its own ``fingerprint()``, so two clusters that landed the same plan
+    content still get distinct cache entries and per-cluster activation
+    scales. The port holds the schema and the identity; the router that
+    serves a set is not ported yet.
+
+    ``members`` maps cluster id -> plan; ``default`` names the cluster that
+    serves requests the router cannot classify. All members must describe
+    the same layer count (they share one model), and cluster ids must be
+    unique non-negative ints — both enforced at construction, so
+    ``plan_lint`` surfaces them as load-time errors.
+    """
+
+    members: tuple         # ((cluster_id, PrecisionPlan), ...) sorted by id
+    default: int = 0
+
+    def __post_init__(self):
+        pairs = tuple(sorted((int(c), p) for c, p in self.members))
+        if not pairs:
+            raise ValueError("PlanSet needs at least one member plan")
+        seen: set = set()
+        for cid, plan in pairs:
+            if cid < 0:
+                raise ValueError(f"cluster id {cid} is negative")
+            if cid in seen:
+                raise ValueError(f"duplicate cluster id {cid} in PlanSet")
+            seen.add(cid)
+            if not isinstance(plan, PrecisionPlan):
+                raise TypeError(f"member for cluster {cid} is "
+                                f"{type(plan).__name__}, not PrecisionPlan")
+        counts = {cid: p.num_layers for cid, p in pairs}
+        if len(set(counts.values())) > 1:
+            raise ValueError(f"member plans disagree on layer count: "
+                             f"{counts} — a PlanSet spans one model")
+        if int(self.default) not in seen:
+            raise ValueError(f"default cluster {self.default} has no "
+                             f"member plan (have {sorted(seen)})")
+        object.__setattr__(self, "members", pairs)
+        object.__setattr__(self, "default", int(self.default))
+
+    # -- mapping surface ----------------------------------------------------
+    @property
+    def plans(self) -> dict:
+        return dict(self.members)
+
+    @property
+    def cluster_ids(self) -> tuple:
+        return tuple(c for c, _ in self.members)
+
+    def __len__(self) -> int:
+        return len(self.members)
+
+    def __iter__(self):
+        return iter(self.members)
+
+    def plan_for(self, cluster: int) -> PrecisionPlan:
+        """Member plan for ``cluster``, falling back to ``default`` for ids
+        the set does not cover (the router's unknown-traffic contract)."""
+        d = self.plans
+        return d.get(int(cluster), d[self.default])
+
+    @property
+    def num_layers(self) -> int:
+        return self.members[0][1].num_layers
+
+    def describe(self) -> str:
+        body = "; ".join(f"c{cid}:{p.describe()}" for cid, p in self.members)
+        return (f"planset K={len(self)} default=c{self.default} "
+                f"#{self.fingerprint()[:12]} [{body}]")
+
+    # -- constructors -------------------------------------------------------
+    @staticmethod
+    def single(plan: PrecisionPlan, cluster: int = 0) -> "PlanSet":
+        """K=1 set — the routed form of an unrouted deployment."""
+        return PlanSet(((cluster, plan),), default=cluster)
+
+    @staticmethod
+    def uniform(plan: PrecisionPlan, clusters: Sequence[int]) -> "PlanSet":
+        """Same plan for every cluster (per-cluster *scales* still differ —
+        calibration is cluster-conditional even when the plan is not)."""
+        cids = tuple(clusters)
+        return PlanSet(tuple((c, plan) for c in cids), default=cids[0])
+
+    # -- serialization ------------------------------------------------------
+    def to_dict(self) -> dict:
+        return {"planset_version": PLANSET_VERSION,
+                "default": self.default,
+                "members": [{"cluster": cid, "plan": p.to_dict()}
+                            for cid, p in self.members]}
+
+    @classmethod
+    def from_dict(cls, d: Mapping, *,
+                  arch_family: Optional[str] = None) -> "PlanSet":
+        version = d.get("planset_version")
+        if version != PLANSET_VERSION:
+            raise ValueError(f"planset_version {version!r} != "
+                             f"{PLANSET_VERSION}")
+        extra = set(d) - {"planset_version", "default", "members"}
+        if extra:
+            raise ValueError(f"unknown planset fields {sorted(extra)}")
+        members = d.get("members")
+        if not isinstance(members, (list, tuple)) or not members:
+            raise ValueError("planset needs a non-empty 'members' list")
+        pairs = []
+        for m in members:
+            if not isinstance(m, Mapping) or set(m) != {"cluster", "plan"}:
+                raise ValueError(f"planset member must be "
+                                 f"{{'cluster', 'plan'}}, got {m!r}")
+            # PrecisionPlan.from_dict enforces the per-member schema rules
+            # (kv_cache is v2-only, unknown fields rejected)
+            pairs.append((int(m["cluster"]),
+                          PrecisionPlan.from_dict(m["plan"],
+                                                  arch_family=arch_family)))
+        return cls(tuple(pairs), d.get("default", pairs[0][0]))
+
+    def to_json(self, indent: Optional[int] = 1) -> str:
+        return json.dumps(self.to_dict(), indent=indent, sort_keys=True)
+
+    @classmethod
+    def from_json(cls, text: str) -> "PlanSet":
+        return cls.from_dict(json.loads(text))
+
+    def save(self, path: str) -> str:
+        with open(path, "w") as f:
+            f.write(self.to_json() + "\n")
+        return path
+
+    @classmethod
+    def load(cls, path: str) -> "PlanSet":
+        with open(path) as f:
+            return cls.from_json(f.read())
+
+    def fingerprint(self) -> str:
+        """Content hash of the whole set (member order is canonical: sorted
+        by cluster id). Artifact bundles v3 persist this alongside each
+        member's own fingerprint."""
+        canon = json.dumps(self.to_dict(), sort_keys=True,
+                           separators=(",", ":"))
+        return hashlib.sha256(canon.encode("utf-8")).hexdigest()
+
+
+def load_plan_or_planset(path: str) -> Union[PrecisionPlan, "PlanSet"]:
+    """Load either a single-plan JSON or a PlanSet JSON, sniffing the
+    ``planset_version`` key. Single-plan files load exactly as before —
+    the PlanSet format is additive."""
+    with open(path) as f:
+        d = json.load(f)
+    if isinstance(d, Mapping) and "planset_version" in d:
+        return PlanSet.from_dict(d)
+    return PrecisionPlan.from_dict(d)
 
 
 def plan_from_policy(policy: EncoderPolicy, *, dynamic_acts: bool = False,

@@ -11,8 +11,8 @@ Built-in registrations (import side effects of the toolkit package):
 
 * targets — ``cls``, ``pair_matching``, ``seq_labeling``, ``lm``
   (:mod:`repro_torch.toolkit.targets`)
-* latency backends — none yet: ``toolkit/latency.py`` arrives with the
-  autotune slice
+* latency backends — ``roofline``, ``wallclock``
+  (:mod:`repro_torch.toolkit.latency`)
 """
 from __future__ import annotations
 

@@ -1174,6 +1174,36 @@ def test_decode_engine_unbuilt_shapes_equal_reference(dev, page_size,
     assert logits[0].equal(logits[1])
 
 
+def test_wallclock_times_the_fused_kernels(dev):
+    """The wallclock latency backend, bound to the fused backend, times a
+    quantized forward on the card: a positive median, and the forwards it
+    ran launched the kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.calibration import synthetic_calibration_batches
+    from repro_torch.core.plan import PrecisionPlan
+    from repro_torch.core.precision import LayerMode
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import ptq
+    from repro_torch.toolkit.latency import WallclockBackend
+    cfg = get_config("bert-base").reduced()
+    fp = PrecisionPlan.full_float(cfg.num_layers, "float32")
+    params = T.init_params(cfg, fp, seed=0, device=dev)
+    plan = PrecisionPlan.prefix(cfg.num_layers, cfg.num_layers,
+                                LayerMode.QUANT_FFN_ONLY, "float32")
+    stats = ptq.capture_stats(params, synthetic_calibration_batches(
+        cfg, num_batches=1, seq_len=16), cfg, T.build_plan(cfg, fp))
+    qparams, qplan = ptq.apply_plan(params, cfg, plan, stats)
+    wall = WallclockBackend(reps=3, warmup=1)
+    fn = wall.bind(cfg, batch=4, seq=16, backend="fused", device=dev)
+    kernels.reset_launches()
+    t = fn(qparams, qplan, plan)
+    assert t > 0 and t == wall.samples[plan.fingerprint()][1]
+    counts = kernels.launch_counts()
+    assert counts["quant_linear"] == 4 * 2 * cfg.num_layers
+    assert counts["fused_embed"] == 4
+    assert counts["addnorm_quant"] == 4 * cfg.num_layers
+
+
 def test_the_port_imports_no_jax(dev):
     """The card's machine has no JAX: the port's modules and this file's
     imports load neither ``jax`` nor the JAX package ``repro``."""

@@ -153,3 +153,66 @@ def test_describe_names_fingerprint():
     plan = plan_mod.PrecisionPlan.load(GOLDEN)
     assert plan.fingerprint()[:12] in plan.describe()
     assert json.loads(plan.to_json())["schema_version"] == 1
+
+
+def _span(plan_mod_, path):
+    """The golden plan, and its whole-layer int8 span variant."""
+    from repro.core.samp import int8_dataflow_variant as jflow
+    from repro_torch.core.samp import int8_dataflow_variant as flow
+    plan = plan_mod_.PrecisionPlan.load(path)
+    return plan, (flow if plan_mod_ is plan_mod else jflow)(plan) or plan
+
+
+@pytest.mark.parametrize("path", PLAN_FILES)
+@pytest.mark.parametrize("span", [False, True])
+def test_plan_counts_and_describe_match(path, span):
+    ours = _span(plan_mod, path)[span]
+    ref = _span(jplan_mod, path)[span]
+    assert [m.value for m in ours.modes] == [m.value for m in ref.modes]
+    for attr in ("num_quant_ffn", "num_quant_mha", "num_quant_kv",
+                 "softmax_schemes", "norm_schemes", "num_int8_dataflow",
+                 "num_expert_layers"):
+        assert getattr(ours, attr) == getattr(ref, attr), attr
+    assert ours.describe() == ref.describe()
+    assert [m.value for m in ours.to_policy().modes] == \
+        [m.value for m in ref.to_policy().modes]
+
+
+@pytest.mark.parametrize("mode", ["fully_quant", "quant_ffn_only"])
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_prefix_subset_and_policy_shims_match(mode, dynamic):
+    kw = dict(dynamic_acts=dynamic, calibrator="percentile")
+    for k in (0, 2, 5):
+        assert plan_mod.PrecisionPlan.prefix(
+            5, k, LayerMode(mode), "float32", **kw).fingerprint() == \
+            jplan_mod.PrecisionPlan.prefix(
+                5, k, JaxMode(mode), "float32", **kw).fingerprint()
+    assert plan_mod.PrecisionPlan.subset(
+        5, [4, 1], LayerMode(mode), **kw).fingerprint() == \
+        jplan_mod.PrecisionPlan.subset(5, [4, 1], JaxMode(mode),
+                                       **kw).fingerprint()
+    with pytest.raises(ValueError):
+        plan_mod.PrecisionPlan.prefix(5, 6, LayerMode(mode))
+    with pytest.raises(ValueError):
+        plan_mod.PrecisionPlan.subset(5, [5], LayerMode(mode))
+    pol = EncoderPolicy.prefix(4, 3, LayerMode(mode), "float32")
+    jpol = JaxPolicy.prefix(4, 3, JaxMode(mode), "float32")
+    with pytest.warns(DeprecationWarning):
+        ours = plan_mod.PrecisionPlan.from_policy(pol, dynamic_acts=dynamic)
+    with pytest.warns(DeprecationWarning):
+        ref = jplan_mod.PrecisionPlan.from_policy(jpol,
+                                                  dynamic_acts=dynamic)
+    assert ours.fingerprint() == ref.fingerprint()
+
+
+def test_with_families_matches():
+    spec = plan_mod.QuantSpec("int8_per_channel", "int8_per_token")
+    jspec = jplan_mod.QuantSpec("int8_per_channel", "int8_per_token")
+    lp = plan_mod.LayerPlan(ffn_in=plan_mod.INT8_SPEC)
+    jlp = jplan_mod.LayerPlan(ffn_in=jplan_mod.INT8_SPEC)
+    ours = lp.with_families(experts=spec, router=plan_mod.FLOAT_SPEC)
+    ref = jlp.with_families(experts=jspec, router=jplan_mod.FLOAT_SPEC)
+    assert ours.to_dict() == ref.to_dict()
+    assert lp.with_families() is lp
+    assert plan_mod.PrecisionPlan.uniform(2, ours).fingerprint() == \
+        jplan_mod.PrecisionPlan.uniform(2, ref).fingerprint()
