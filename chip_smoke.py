@@ -80,6 +80,30 @@ line per phase:
   ``int8_per_head`` and ``softmax='uint8'`` on the float-qkv layers (schema
   v3, fingerprint held to the JAX package's): the kernel's per-head scales
   and its two-pass ``p_scale`` mode;
+* ``adaptive_path``: input-adaptive precision on the fused backend. The
+  routed encoder: ``main_path``'s model and weights, ``LengthBuckets((16,
+  64))`` (three clusters, at lengths 16, 64 and 128), calibrated per
+  cluster on ``clustered_synthetic_batches`` under a plan set of three
+  members (the span plan, the tiled golden plan, ``quant_ffn_only`` at k =
+  8), ``main_path``'s 32 requests through ``EncoderServeEngine(router=)``:
+  logits equal (0.0) to an unrouted engine running each cluster's entry
+  alone, one cached callable per (cluster, bucket) reached, each member
+  forward launching exactly what its plan names, ``requests_by_cluster``
+  the length split. Then ``EmbeddingKMeans(k=2)`` fitted on the pooled
+  calibration embeddings (through ``fused_embed``) routes 8 requests, each
+  assignment equal to the card's argmin and to a numpy one on embeddings
+  recomputed on the CPU; ``SAMP.autotune(clusters=LengthBuckets((16,
+  64)))`` (stride 4, ``autotune_path``'s evaluation and wallclock), saved
+  as a v3 bundle and reloaded on both backends (member trees and fused
+  predictions bit-identical, routed serving too, the reference within
+  5e-3 with identical predictions); and routed decode, full-width
+  qwen2-0.5b under ``LengthBuckets((32,))`` and the tiled golden plan with
+  per-cluster scales over shared int8 per-token pages, the 16 prompts at 8
+  tokens each: tokens equal to each member served alone, 0 pages in use,
+  the plan's launches on every routed tick. It records requests/s routed
+  and unrouted, admission ms a request, ``autotune`` s, v3 bundle bytes and
+  load s, and is a path of the kernel summary (``by_path``, per one forward
+  of each member);
 * ``kernel``: each kernel against its plain version at every shape a path
   gave it, and at the (8, 128) bucket (the decode paths: 8 slots, the
   longest tick) its time, its plain version's and a PyTorch library call's
@@ -90,9 +114,12 @@ line per phase:
   its bytes over 3.35 TB/s and its operations over 1979 TOP/s (int8) or 67
   TFLOP/s (float32); ``decode_attention`` at 4096 cached tokens in
   each of the 8 slots (seeded operands, pages of 16), the context its
-  split over pages is for; ``quant_flash_attention`` at BERT-base's
-  full 512 positions (8 x 12 heads x 512 x 64, seeded, with and without
-  ``o_scale``), equal to its plain version bit for bit; and the streamed
+  split over pages is for, and at head dim 256 with pages of 128 tokens
+  (gemma2-2b's 4 KV heads, a group of 2, softcap 50, 1024 tokens a slot),
+  where K and V share one page buffer, bit for bit;
+  ``quant_flash_attention`` at BERT-base's full 512 positions (8 x 12
+  heads x 512 x 64, seeded, with and without ``o_scale``), equal to its
+  plain version bit for bit; and the streamed
   variants of ``addnorm_quant`` (8 rows of 16384) and ``dynamic_quant`` (8
   rows of 40000), rows past their register plans (``wide_rows``), h and the
   dynamic codes equal to the plain versions bit for bit;
@@ -224,6 +251,24 @@ PIPELINE_BATCH = 8
 AUTOTUNE_STRIDE = 4              # the prefix grid at k = 4, 8, 12
 AUTOTUNE_EVAL = (2, 64)          # dev batches x batch size a candidate
 AUTOTUNE_LATENCY = (32, 128)     # the facade's latency batch x positions
+# adaptive_path: BERT-base routed over three length clusters (<= 16, <= 64,
+# <= 128 tokens: the buckets 16, 64 and 128), the quant_ffn_only member's
+# prefix, the requests the k-means router admits, and qwen2-0.5b routed
+# over two (<= 32, > 32) with generation cut from 32 tokens to 8 (the
+# routed and the solo runs serve the requests twice more)
+ADAPTIVE_EDGES = (16, 64)
+ADAPTIVE_FFN_K = 8
+ADAPTIVE_KMEANS_REQUESTS = 8
+ADAPTIVE_DECODE_EDGES = (32,)
+ADAPTIVE_DECODE_MAX_TOKENS = 8
+# the JAX package's fingerprint of the golden plan tiled 3x
+GOLDEN_FINGERPRINT = ("15b938404e76359d6c4ef8dc3ac5eae8"
+                      "9eb7b67e01c0f6125744d146dc46c0f1")
+# decode_attention at head dim 256 with pages of 128 tokens, kernel phase:
+# gemma2-2b's attention (4 KV heads, a group of 2, softcap 50), 8 slots of
+# 1024 cached tokens
+WIDE_PAGE_DECODE = {"kv_heads": 4, "group": 2, "head_dim": 256,
+                    "page_size": 128, "softcap": 50.0, "tokens": 1024}
 # the times of each kernel's summary entry
 TIMES = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
          "library_device_ms")
@@ -1297,6 +1342,496 @@ def phase_decode(name, model, plan, device, kv_cache=None):
             "prompts": prompts}
 
 
+def _counted_encodes(router, calls):
+    """Spy on each member runtime's ``encode``: appends (cluster, (B, S),
+    the kernel launches of that forward) to ``calls``. Returns a function
+    that removes the spies."""
+    import numpy as np
+    from repro_torch import kernels
+
+    def spy(entry):
+        orig = entry.runtime.encode
+
+        def encode(params, inputs, lengths=None):
+            before = kernels.launch_counts()
+            out = orig(params, inputs, lengths)
+            after = kernels.launch_counts()
+            calls.append((entry.cluster,
+                          tuple(np.asarray(inputs["tokens"]).shape),
+                          {k: after[k] - before[k] for k in after
+                           if after[k] != before[k]}))
+            return out
+        entry.runtime.encode = encode
+
+    for e in router.entries.values():
+        spy(e)
+
+    def remove():
+        for e in router.entries.values():
+            del e.runtime.encode            # back to the class's method
+    return remove
+
+
+def adaptive_encoder(model, device):
+    """The routed encoder: full-width BERT-base with ``main_path``'s
+    weights, LengthBuckets(16, 64), cluster-conditional calibration on
+    ``clustered_synthetic_batches`` (2 batches of 4 a cluster, at 16, 64 and
+    128 tokens, each member's calibrators), and three members: the span
+    plan, the tiled golden plan and quant_ffn_only at k = 8. ``main_path``'s
+    32 requests are served through ``EncoderServeEngine(router=...)`` on
+    the fused backend (a warm-up, then the counted run with every member
+    forward's launches read around it) and each cluster's requests through
+    an unrouted engine running that cluster's entry alone."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.adaptive import (LengthBuckets, PlanSet, batch_clusters,
+                                      build_router,
+                                      clustered_synthetic_batches)
+    from repro_torch.core.plan import plan_from_policy
+    from repro_torch.core.precision import EncoderPolicy, LayerMode
+    from repro_torch.core.samp import int8_dataflow_variant
+    from repro_torch.quant import ptq
+    from repro_torch.serve import EncoderRequest, EncoderServeEngine
+    from repro_torch.serve.runtime import bucket_size
+
+    cfg, params = model["cfg"], model["params"]
+    cm = LengthBuckets(ADAPTIVE_EDGES)
+    ffn = plan_from_policy(EncoderPolicy.prefix(
+        cfg.num_layers, ADAPTIVE_FFN_K, LayerMode.QUANT_FFN_ONLY, "float32"))
+    planset = PlanSet(((0, int8_dataflow_variant(model["plan"])),
+                       (1, model["plan"]), (2, ffn)), default=1)
+    t0 = time.perf_counter()
+    batches, classes = clustered_synthetic_batches(
+        cfg, cm, batches_per_cluster=2, batch_size=4, max_len=128)
+    stats = ptq.capture_stats(params, batches, cfg, model["float_plan"],
+                              precision=planset, clusters=batch_clusters(
+                                  cm, batches, batch_classes=classes))
+    router = build_router(cfg, params, planset, stats, cluster_model=cm,
+                          float_plan=model["float_plan"], backend="fused")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    requests = model["requests"]
+    split = collections.Counter(cm.assign(t) for t in requests)
+    d = router.entry(planset.default)
+    routed = EncoderServeEngine(cfg, d.params, d.plan, backend="fused",
+                                max_batch=8, router=router, device=device)
+    serve(routed, requests)                        # warm-up, not counted
+    calls = []
+    remove = _counted_encodes(router, calls)
+    with SubCounts() as sub:
+        kernels.reset_launches()
+        done, _ = serve(routed, requests)
+        launches = kernels.launch_counts()
+    remove()
+    _, routed_wall = serve(routed, requests)       # timed, no spies
+
+    expected, cases_by = {}, {}
+    for cid, plan in planset:
+        cases_by[cid] = kernel_cases(cfg, plan)
+        per = collections.Counter()
+        for key, case in cases_by[cid].items():
+            per[key[0]] += case["count"]
+        expected[cid] = dict(per)
+    wrong = [(c, shape, got) for c, shape, got in calls
+             if got != expected[c]]
+    want = collections.Counter()
+    for c, _, _ in calls:
+        want.update(expected[c])
+
+    # each cluster's requests alone through its entry, at the same buckets
+    solo, solo_wall = {}, 0.0
+    for cid in planset.cluster_ids:
+        e = router.entry(cid)
+        eng = EncoderServeEngine(cfg, e.params, e.plan, backend="fused",
+                                 max_batch=8, device=device)
+        uids = [i for i, t in enumerate(requests) if cm.assign(t) == cid]
+        for i in uids:
+            eng.submit(EncoderRequest(uid=i, tokens=requests[i]))
+        t = time.perf_counter()
+        for r in eng.run():
+            solo[r.uid] = r.logits
+        solo_wall += time.perf_counter() - t
+    diff = max(float(np.abs(r.logits - solo[r.uid]).max()) for r in done)
+    logits = np.stack([r.logits for r in done])
+
+    # one unrouted engine under the default member serving all 32, warm
+    unrouted = EncoderServeEngine(cfg, d.params, d.plan, backend="fused",
+                                  max_batch=8, device=device)
+    serve(unrouted, requests)
+    _, unrouted_wall = serve(unrouted, requests)
+
+    # admission: LengthBuckets needs no compute
+    t = time.perf_counter()
+    for toks in requests:
+        cm.assign(toks)
+    admit_ms = (time.perf_counter() - t) * 1e3 / len(requests)
+
+    served = {(c, bucket_size(shape[0]), bucket_size(shape[1], 8, 256))
+              for c, shape, _ in calls}
+    keys = [k for k in routed.runtime._exe if k[0] == "encode"]
+    by_bucket = collections.Counter(("fused",) + k[2:4] for k in keys)
+    key_ok = all(k[1][0] == "fused" and k[1][2] in planset.cluster_ids
+                 and k[1][1] == planset.plan_for(k[1][2]).fingerprint()
+                 for k in keys)
+    served_by_bucket = collections.Counter(("fused", b, s)
+                                           for _, b, s in served)
+    rec = {"phase": "adaptive_path", "part": "encoder", "model": cfg.name,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "cluster_model": cm.describe(), "planset": planset.describe(),
+           "members": {c: {"plan": p.describe(),
+                           "fingerprint": p.fingerprint()}
+                       for c, p in planset},
+           "setup_s": setup_s, "requests": len(requests),
+           "requests_by_cluster": dict(router.requests_by_cluster),
+           "length_split": dict(split),
+           "member_forwards": len(calls),
+           "forwards_by_cluster": dict(collections.Counter(
+               c for c, _, _ in calls)),
+           "launches": launches, "expected_launches": dict(want),
+           "launches_per_member_forward": expected,
+           "forwards_off_plan": wrong[:3],
+           "sub_counts": dict(sub.counts),
+           "routed_vs_solo_max_abs": diff,
+           "callables": len(keys),
+           "callables_by_bucket": {f"{b}x{s}": n for (_, b, s), n in
+                                   sorted(by_bucket.items())},
+           "served_cluster_buckets": len(served),
+           "routed_wall_s": routed_wall,
+           "routed_requests_per_s": len(requests) / routed_wall,
+           "unrouted_wall_s": unrouted_wall,
+           "unrouted_requests_per_s": len(requests) / unrouted_wall,
+           "solo_engines_wall_s": solo_wall,
+           "admission_ms_per_request": admit_ms}
+    emit(rec)
+    if logits.shape != (N_REQUESTS, 15) or not np.isfinite(logits).all():
+        fail(f"adaptive_path: routed logits shape {logits.shape} or "
+             f"not finite")
+    if diff != 0.0:
+        fail(f"adaptive_path: routed logits differ from the solo members' "
+             f"by {diff}")
+    if dict(router.requests_by_cluster) != {c: 3 * split[c]
+                                             for c in planset.cluster_ids}:
+        fail(f"adaptive_path: requests_by_cluster "
+             f"{router.requests_by_cluster} over three runs, the length "
+             f"split {dict(split)}")
+    if wrong:
+        fail(f"adaptive_path: {len(wrong)} member forwards launched off "
+             f"their plan: {wrong[:3]}; the plans name {expected}")
+    if launches != {k: want.get(k, 0) for k in launches} \
+            or not launches["quant_flash_attention"]:
+        fail(f"adaptive_path: launch counts {launches} != the member "
+             f"plans' {dict(want)}")
+    if not key_ok or set((k[1][2],) + k[2:4] for k in keys) != served \
+            or by_bucket != served_by_bucket:
+        fail(f"adaptive_path: the runtime holds {len(keys)} callables "
+             f"{sorted(by_bucket.items())}; the routed forwards reached "
+             f"{sorted(served)}")
+    union = collections.OrderedDict()
+    for cid, cases in cases_by.items():
+        for key, case in cases.items():
+            c = union.setdefault(key, dict(
+                case, count=0, qparams=router.entry(cid).params))
+            c["count"] += case["count"]
+    per_fwd = collections.Counter()
+    for per in expected.values():
+        per_fwd.update(per)
+    buckets = {(b, s) for _, b, s in served}
+    return {"name": "adaptive_path", "cfg": cfg, "qparams": d.params,
+            "qplan": d.plan, "fused": routed, "launches": launches,
+            "per_fwd": per_fwd, "cases": union,
+            "buckets": sorted(buckets | {PROFILE_BUCKET}),
+            "timed_bucket": PROFILE_BUCKET, "unit": "member_forwards",
+            "batches": batches, "router": router}
+
+
+def adaptive_kmeans(model, batches, device):
+    """EmbeddingKMeans(k=2) fitted on the pooled embeddings of the
+    encoder's calibration batches (on the card, through fused_embed),
+    calibrated per cluster, deployed under quant_ffn_only uniformly, and 8
+    of ``main_path``'s requests admitted and served: each assignment is
+    held against the torch argmin on the card and a numpy argmin from the
+    same centroids on embeddings recomputed on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.adaptive import (EmbeddingKMeans, PlanSet,
+                                      batch_clusters, build_router,
+                                      fit_cluster_model, pooled_embeddings)
+    from repro_torch.core.plan import plan_from_policy
+    from repro_torch.core.precision import EncoderPolicy, LayerMode
+    from repro_torch.interop import map_leaves
+    from repro_torch.quant import ptq
+    from repro_torch.serve import EncoderRequest, EncoderServeEngine
+
+    cfg, params = model["cfg"], model["params"]
+    t0 = time.perf_counter()
+    cm = EmbeddingKMeans(2, seed=0)
+    fit_cluster_model(cm, params, batches, cfg, backend="fused")
+    ffn = plan_from_policy(EncoderPolicy.prefix(
+        cfg.num_layers, ADAPTIVE_FFN_K, LayerMode.QUANT_FFN_ONLY, "float32"))
+    stats = ptq.capture_stats(params, batches, cfg, model["float_plan"],
+                              precision=ffn,
+                              clusters=batch_clusters(cm, batches))
+    router = build_router(cfg, params, PlanSet.uniform(ffn, range(2)),
+                          stats, cluster_model=cm,
+                          float_plan=model["float_plan"], backend="fused")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    requests = model["requests"][:ADAPTIVE_KMEANS_REQUESTS]
+    reqs = [EncoderRequest(uid=i, tokens=t) for i, t in enumerate(requests)]
+    walls = []
+    for r in reqs:
+        t = time.perf_counter()
+        router.admit(r)
+        walls.append((time.perf_counter() - t) * 1e3)
+    admitted = [r.cluster for r in reqs]
+    cpu_embed = {"embed": map_leaves(params["embed"], lambda _, v: v.cpu())}
+    on_card, on_cpu, pooled_diff = [], [], 0.0
+    for toks in requests:
+        batch = {"tokens": np.asarray([toks], np.int32),
+                 "segments": np.zeros((1, len(toks)), np.int32)}
+        x = pooled_embeddings(params, batch, cfg, backend="fused")
+        on_card.append(int(cm.assign_embedded(
+            torch.from_numpy(x).to(device))[0]))
+        xc = pooled_embeddings(cpu_embed, batch, cfg)
+        pooled_diff = max(pooled_diff, float(np.abs(x - xc).max()))
+        on_cpu.append(int(((cm.centroids - xc) ** 2).sum(-1).argmin()))
+    e = router.entry(0)
+    engine = EncoderServeEngine(cfg, e.params, e.plan, backend="fused",
+                                max_batch=8, router=router, device=device)
+    for r in reqs:
+        engine.batcher.submit(r)              # admitted above
+    served = engine.run()
+    keys = [k for k in engine.runtime._exe if k[0] == "encode"]
+    rec = {"phase": "adaptive_path", "part": "kmeans",
+           "cluster_model": cm.describe(), "setup_s": setup_s,
+           "calibration_rows": int(sum(len(b["tokens"]) for b in batches)),
+           "requests": len(requests), "assignments": admitted,
+           "card_argmin": on_card, "cpu_argmin": on_cpu,
+           "pooled_card_vs_cpu_max_abs": pooled_diff,
+           "admission_ms_per_request": statistics.median(walls),
+           "admission_ms_runs": walls,
+           "served": len(served),
+           "callables_by_bucket": dict(collections.Counter(
+               f"{k[2]}x{k[3]}" for k in keys))}
+    emit(rec)
+    if admitted != on_card or admitted != on_cpu:
+        fail(f"adaptive_path: k-means admission {admitted}, card argmin "
+             f"{on_card}, CPU recomputation {on_cpu}")
+    if len(served) != len(requests) or not all(
+            np.isfinite(r.logits).all() for r in served):
+        fail("adaptive_path: the k-means routed requests were not all "
+             "served with finite logits")
+
+
+def adaptive_facade(model, device):
+    """``SAMP.autotune(clusters=LengthBuckets(16, 64))`` on full-width
+    BERT-base (``main_path``'s weights, float32, ``tnews``, 128 positions,
+    the fused backend, wallclock latency): one prefix-grid search per
+    cluster at ``autotune_path``'s stride and evaluation, saved as a v3
+    bundle and reloaded on both backends. The reloaded member trees and
+    fused predictions must be the saved ones bit for bit, the routed
+    serving of ``main_path``'s requests too, and the reference backend
+    within rel-Linf 5e-3 with identical predictions."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.adaptive import LengthBuckets
+    from repro_torch.data.pipeline import get_batch
+    from repro_torch.interop import flatten_names
+    from repro_torch.toolkit import SAMP
+    from repro_torch.toolkit.latency import WallclockBackend
+
+    cfg = model["cfg"]
+    B, S = AUTOTUNE_LATENCY
+    n_eval, eval_bs = AUTOTUNE_EVAL
+    samp = SAMP.from_config(cfg, task="tnews", seq_len=S,
+                            float_dtype="float32",
+                            latency=WallclockBackend(reps=5, warmup=2),
+                            latency_batch=B, backend="fused", device=device)
+    samp.pipeline.params = model["params"]
+    tmp = Path(tempfile.mkdtemp(prefix="samp_adaptive_"))
+    try:
+        t0 = time.perf_counter()
+        report = samp.autotune(clusters=LengthBuckets(ADAPTIVE_EDGES),
+                               stride=AUTOTUNE_STRIDE, eval_batches=n_eval,
+                               eval_batch_size=eval_bs)
+        torch.cuda.synchronize()
+        autotune_s = time.perf_counter() - t0
+        path = samp.save(str(tmp / "adaptive"))
+        with open(Path(path) / "artifact.json") as f:
+            version = json.load(f)["version"]
+        t0 = time.perf_counter()
+        fused = SAMP.load(path, backend="fused", device=device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        ref = SAMP.load(path, backend="reference", device=device)
+        trees_equal = True
+        for cid in samp.planset.cluster_ids:
+            a = flatten_names(samp.router.entry(cid).params)
+            b = flatten_names(fused.router.entry(cid).params)
+            trees_equal &= [n for n, _ in a] == [n for n, _ in b] and all(
+                x.dtype == y.dtype and torch.equal(x, y)
+                for (_, x), (_, y) in zip(a, b))
+        batches = [get_batch(samp.task, i, eval_bs, "dev")
+                   for i in range(n_eval)]
+        mine = np.concatenate([samp.current.predict_logits(b)
+                               for b in batches])
+        got = np.concatenate([fused.current.predict_logits(b)
+                              for b in batches])
+        refl = np.concatenate([ref.current.predict_logits(b)
+                               for b in batches])
+        routed = {}
+        for name, s in (("saved", samp), ("loaded", fused)):
+            routed[name] = np.stack([r.logits for r in serve(
+                s.serve(batch_slots=8, max_len=S), model["requests"])[0]])
+        nbytes = _bundle_bytes(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    per_cluster = {
+        c: {"candidates": len(points), "chosen": [ch.mode_name, ch.point.k],
+            "plan": ch.point.plan.describe(), "accuracy": ch.point.accuracy,
+            "wallclock_ms": ch.point.latency * 1e3}
+        for c, (points, _, ch) in report.per_cluster.items()}
+    rec = {"phase": "adaptive_path", "part": "facade",
+           "stride": AUTOTUNE_STRIDE, "eval": [n_eval, eval_bs],
+           "latency_batch": [B, S], "planset": report.planset.describe(),
+           "per_cluster": per_cluster, "accuracy": report.accuracy,
+           "autotune_s": autotune_s, "bundle_version": version,
+           "bundle_bytes": nbytes, "load_s": load_s,
+           "member_trees_equal": bool(trees_equal),
+           "loaded_vs_saved_max_abs": float(np.abs(got - mine).max()),
+           "routed_loaded_vs_saved_max_abs": float(np.abs(
+               routed["loaded"] - routed["saved"]).max()),
+           "reference_vs_fused_rel_linf": rel_linf(
+               torch.from_numpy(refl), torch.from_numpy(got)),
+           "reference_predictions_equal": bool(
+               (refl.argmax(-1) == got.argmax(-1)).all())}
+    emit(rec)
+    if version != 3 or len(report.planset) != 3:
+        fail(f"adaptive_path: the facade saved a v{version} bundle of "
+             f"{len(report.planset)} members, not v3 of 3")
+    if not trees_equal or rec["loaded_vs_saved_max_abs"] != 0.0 \
+            or rec["routed_loaded_vs_saved_max_abs"] != 0.0:
+        fail(f"adaptive_path: the v3 reload on the fused backend is not "
+             f"the saved deployment: trees equal {trees_equal}, logits "
+             f"{rec['loaded_vs_saved_max_abs']}, routed "
+             f"{rec['routed_loaded_vs_saved_max_abs']}")
+    if rec["reference_vs_fused_rel_linf"] > REL_LINF_BUDGET \
+            or not rec["reference_predictions_equal"]:
+        fail(f"adaptive_path: the v3 reload on the reference backend: "
+             f"rel-Linf {rec['reference_vs_fused_rel_linf']}, predictions "
+             f"equal {rec['reference_predictions_equal']}")
+
+
+def adaptive_decode(decoder, device):
+    """Routed decode: full-width qwen2-0.5b, LengthBuckets(32), the tiled
+    golden plan deployed uniformly with per-cluster scales (calibrated on
+    one batch of 4 a cluster, at 32 and 64 tokens), int8 per-token pages
+    shared by both clusters; the 16 decode prompts served routed on the
+    fused backend (counted) and each cluster's prompts through an unrouted
+    engine running that member alone."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.adaptive import (LengthBuckets, PlanSet, batch_clusters,
+                                      build_router,
+                                      clustered_synthetic_batches)
+    from repro_torch.quant import ptq
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg, plan, params = decoder["cfg"], decoder["plan"], decoder["params"]
+    cm = LengthBuckets(ADAPTIVE_DECODE_EDGES)
+    t0 = time.perf_counter()
+    batches, classes = clustered_synthetic_batches(
+        cfg, cm, batches_per_cluster=1, batch_size=4, max_len=64)
+    stats = ptq.capture_stats(params, batches, cfg, decoder["float_plan"],
+                              precision=plan, clusters=batch_clusters(
+                                  cm, batches, batch_classes=classes))
+    planset = PlanSet.uniform(plan, range(cm.num_clusters))
+    router = build_router(cfg, params, planset, stats, cluster_model=cm,
+                          float_plan=decoder["float_plan"], backend="fused")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    kw = dict(batch_slots=DECODE_SLOTS, max_len=DECODE_MAX_LEN,
+              page_size=PAGE_SIZE, kv_cache="int8_per_token",
+              backend="fused", device=device)
+    prompts = decoder["prompts"]
+    e = router.entry(planset.default)
+    routed = ServeEngine(cfg, e.params, e.plan, router=router, **kw)
+    kernels.reset_launches()
+    outputs, wall = serve_decode(routed, prompts,
+                                 max_tokens=ADAPTIVE_DECODE_MAX_TOKENS)
+    launches = kernels.launch_counts()
+    n_ticks = routed.stats["ticks"]
+    per_tick = collections.Counter()
+    for key, case in kernel_cases(
+            cfg, plan, ("int8_per_token",) * cfg.num_layers).items():
+        per_tick[key[0]] += case["count"]
+    want = {k: per_tick[k] * n_ticks for k in launches}
+    solo, solo_wall, solo_ticks = {}, 0.0, 0
+    for cid in planset.cluster_ids:
+        ec = router.entry(cid)
+        eng = ServeEngine(cfg, ec.params, ec.plan, **kw)
+        for i, p in enumerate(prompts):
+            if cm.assign(p) == cid:
+                eng.submit(Request(uid=i, prompt=list(p),
+                                   max_tokens=ADAPTIVE_DECODE_MAX_TOKENS))
+        t = time.perf_counter()
+        solo.update({r.uid: r.output for r in eng.run()})
+        solo_wall += time.perf_counter() - t
+        solo_ticks += eng.stats["ticks"]
+    split = collections.Counter(cm.assign(p) for p in prompts)
+    decode_keys = sorted(k[1][2] for k in routed.runtime._exe
+                         if k[0] == "decode")
+    generated = sum(len(o) for o in outputs.values())
+    rec = {"phase": "adaptive_path", "part": "decode", "model": cfg.name,
+           "layers": cfg.num_layers, "cluster_model": cm.describe(),
+           "planset": planset.describe(), "setup_s": setup_s,
+           "requests": len(prompts), "max_tokens": ADAPTIVE_DECODE_MAX_TOKENS,
+           "slots": DECODE_SLOTS, "page_size": PAGE_SIZE,
+           "requests_by_cluster": dict(router.requests_by_cluster),
+           "ticks": n_ticks, "generated_tokens": generated,
+           "wall_s": wall, "generated_tokens_per_s": generated / wall,
+           "solo_wall_s": solo_wall, "solo_ticks": solo_ticks,
+           "solo_generated_tokens_per_s": generated / solo_wall,
+           "launches": launches, "expected_launches": want,
+           "decode_callables_by_cluster": decode_keys,
+           "tokens_equal_solo": outputs == solo,
+           "kv_pages_in_use_after": routed.kv_pages_in_use}
+    emit(rec)
+    if outputs != solo or any(len(o) != ADAPTIVE_DECODE_MAX_TOKENS
+                              for o in outputs.values()):
+        fail("adaptive_path: routed decode tokens differ from the solo "
+             "members'")
+    if dict(router.requests_by_cluster) != dict(split) or len(split) != 2:
+        fail(f"adaptive_path: decode requests_by_cluster "
+             f"{router.requests_by_cluster}, the length split {dict(split)}")
+    if routed.kv_pages_in_use:
+        fail(f"adaptive_path: {routed.kv_pages_in_use} pages in use after "
+             f"the routed decode run")
+    if launches != want or not launches["decode_attention"]:
+        fail(f"adaptive_path: routed decode launched {launches}, the plan "
+             f"implies {want} over {n_ticks} ticks")
+    if decode_keys != [0, 1]:
+        fail(f"adaptive_path: decode callables for clusters {decode_keys}")
+
+
+def phase_adaptive(model, decoder, device):
+    """``adaptive_path``: input-adaptive precision on the card, the routed
+    encoder (its record and kernel summary entry are the path's), the
+    k-means router, the facade's clustered autotune with its v3 bundle, and
+    routed decode. Returns the routed encoder as a path of the kernel
+    phase."""
+    path = adaptive_encoder(model, device)
+    adaptive_kmeans(model, path.pop("batches"), device)
+    path.pop("router")
+    adaptive_facade(model, device)
+    adaptive_decode(decoder, device)
+    return path
+
+
 def setup_moe(device):
     """Full-width mixtral-8x22b cut to the golden v4 plan's 4 layers, with
     seeded float weights on the card, its calibration batches and the
@@ -1935,15 +2470,16 @@ def decode_witness(args):
 
 
 def decode_operands(device, lengths, pages_per_slot, mode="per_token",
-                    seed=0):
-    """Seeded operands of one ``decode_attention`` call at the decode
-    paths' geometry (qwen2-0.5b: 8 slots, 2 KV heads, a GQA group of 7,
-    head dim 64; pages of 16): each slot's pages scattered over the pool
+                    seed=0, kv_heads=2, group=7, head_dim=64,
+                    page_size=PAGE_SIZE):
+    """Seeded operands of one ``decode_attention`` call, by default at the
+    decode paths' geometry (qwen2-0.5b: 8 slots, 2 KV heads, a GQA group of
+    7, head dim 64; pages of 16): each slot's pages scattered over the pool
     in a seeded order, its table filled as far as ``lengths`` reach; mode
     "per_token" (``decode_path``'s scale pages) or "p_scale"
     (``decode_head_path``'s per-head scales and uint8 softmax)."""
     import torch
-    B, Hkv, g, hd, ps = DECODE_SLOTS, 2, 7, 64, PAGE_SIZE
+    B, Hkv, g, hd, ps = DECODE_SLOTS, kv_heads, group, head_dim, page_size
     gen = torch.Generator(device=device).manual_seed(seed)
     NP = B * pages_per_slot
     q = torch.randn((B, Hkv, g, hd), generator=gen, device=device)
@@ -2067,6 +2603,29 @@ def run_long_decode_case(device, timer):
     emit(rec)
     if not ok:
         fail(f"decode_attention at {LONG_DECODE_TOKENS} cached tokens "
+             f"disagrees with its plain version or the gathered witness: "
+             f"{rec}")
+    return rec
+
+
+def run_wide_page_decode_case(device, timer):
+    """:func:`check_decode` at head dim 256 with pages of 128 tokens
+    (:data:`WIDE_PAGE_DECODE`, gemma2-2b's attention), the shape whose K and
+    V pages share one buffer in a block: seeded operands with per-token
+    scales."""
+    w = WIDE_PAGE_DECODE
+    pps = w["tokens"] // w["page_size"]
+    args = decode_operands(device, [w["tokens"]] * DECODE_SLOTS, pps,
+                           kv_heads=w["kv_heads"], group=w["group"],
+                           head_dim=w["head_dim"], page_size=w["page_size"])
+    args["softcap"] = w["softcap"]
+    rec, _, ok = check_decode(args, device, timer)
+    rec = {"phase": "kernel", "kernel": "decode_attention",
+           "path": "hd256_pages128", "mode": "per_token",
+           "softcap": w["softcap"], **rec}
+    emit(rec)
+    if not ok or not rec["exact"]:
+        fail(f"decode_attention at head dim 256 with pages of 128 "
              f"disagrees with its plain version or the gathered witness: "
              f"{rec}")
     return rec
@@ -2302,8 +2861,11 @@ def check_kernels(paths, device, timed, max_err):
     classes = collections.OrderedDict()
     for path in paths:
         for key, case in path["cases"].items():
+            # a routed path's case carries its member's params
             c = classes.setdefault(key, {"layer": case["layer"],
-                                         "path": path, "buckets": set()})
+                                         "path": path, "buckets": set(),
+                                         "qparams": case.get(
+                                             "qparams", path.get("qparams"))})
             c["buckets"] |= set(path["buckets"])
     timer = Timer(device)
     for key, c in classes.items():
@@ -2330,21 +2892,22 @@ def check_kernels(paths, device, timed, max_err):
                 bucket = ((path["cfg"].moe.num_experts, shape) if routed
                           else shape)
                 rec, tb = run_case(path["cfg"], key, c["layer"], bucket,
-                                   path["qparams"], device, t)
+                                   c["qparams"], device, t)
             max_err[key[0]] = max(max_err[key[0]], rec["max_abs_err"])
             if at:
                 timed[key] = (rec, tb)
 
 
-def summarize(paths, timed, max_err, flash, long_decode, long_attention,
-              wide):
+def summarize(paths, timed, max_err, flash, long_decode, wide_page,
+              long_attention, wide):
     """The per-kernel summary entries: sums over one forward of the span
     path, else one tick of the decode path, else one tick of the MoE path,
     and over one forward or tick of each path under ``by_path``; for the
     float ``flash_attention``, which no served path runs, its long-context
     path's qwen2 float32 call, each case under ``by_case``; for
     ``decode_attention`` also its call at 4096 cached tokens a slot
-    (``long_context``), for ``quant_flash_attention`` its calls at 512
+    (``long_context``) and at head dim 256 with pages of 128
+    (``hd256_pages128``), for ``quant_flash_attention`` its calls at 512
     positions (``bert_512``)."""
 
     def sums(path, name):
@@ -2398,9 +2961,14 @@ def summarize(paths, timed, max_err, flash, long_decode, long_attention,
         entry.update({f: top[f] for f in TIMES})
         entry["by_path"] = by_path
         if name == "decode_attention":
-            entry["long_context"] = {f: long_decode[f] for f in (
-                "slots", "valid_tokens", "page_size", "pages_per_slot",
-                "splits", "max_abs_err", "exact") + TIMES}
+            for case, r in (("long_context", long_decode),
+                            ("hd256_pages128", wide_page)):
+                entry[case] = {f: r[f] for f in (
+                    "slots", "head_dim", "valid_tokens", "page_size",
+                    "pages_per_slot", "splits", "max_abs_err", "exact")
+                    + TIMES}
+                entry["max_abs_err"] = max(entry["max_abs_err"],
+                                           r["max_abs_err"])
         if name == "quant_flash_attention":
             entry["bert_512"] = {k: {f: r[f] for f in (
                 "valid_keys", "max_abs_err", "exact") + TIMES}
@@ -2590,9 +3158,11 @@ def main() -> int:
               phase_decode("decode_head_path", decoder,
                            decode_head_plan(decoder["plan"]), device),
               autotune]
+    paths.append(phase_adaptive(model, decoder, device))
     timed, max_err = {}, collections.defaultdict(float)
     check_kernels(paths, device, timed, max_err)
     long_decode = run_long_decode_case(device, Timer(device))
+    wide_page = run_wide_page_decode_case(device, Timer(device))
     long_attention = run_long_attention_case(device, Timer(device))
     wide = run_wide_row_cases(device, Timer(device))
     phase_profile(model, paths, device)
@@ -2603,6 +3173,8 @@ def main() -> int:
     for path in paths:
         for k in ("qparams", "qplan", "fused", "decode_args", "prompts"):
             path.pop(k, None)
+        for case in path["cases"].values():
+            case.pop("qparams", None)
     gc.collect()
     torch.cuda.empty_cache()
     moe = phase_moe(setup_moe(device), device)
@@ -2610,7 +3182,7 @@ def main() -> int:
     check_kernels([moe], device, timed, max_err)
     phase_profile_decode(moe)
     emit({"kernels": summarize(paths, timed, max_err, flash, long_decode,
-                               long_attention, wide)})
+                               wide_page, long_attention, wide)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -9,7 +9,7 @@ sha256 of the canonical JSON form and is byte-identical to the JAX
 package's for the same plan, so both packages key caches and artifacts on
 one identity. :class:`PlanSet` holds K plans keyed by traffic cluster: its
 schema, fingerprint and JSON are here (``plan_lint`` checks planset files);
-routing over one is not ported yet.
+:mod:`repro_torch.adaptive` routes requests over one.
 """
 from __future__ import annotations
 
@@ -511,8 +511,7 @@ class PlanSet:
     tree and K precision plans, one per traffic cluster. Each member keeps
     its own ``fingerprint()``, so two clusters that landed the same plan
     content still get distinct cache entries and per-cluster activation
-    scales. The port holds the schema and the identity; the router that
-    serves a set is not ported yet.
+    scales. :class:`repro_torch.adaptive.PlanRouter` serves a set.
 
     ``members`` maps cluster id -> plan; ``default`` names the cluster that
     serves requests the router cannot classify. All members must describe

@@ -47,10 +47,17 @@
 // (rows, hd) accumulator in shared memory. Each live page is staged in
 // shared memory as float (K and V, PS x HD on an odd word stride, so lanes
 // reading one dim of different tokens hit distinct banks) with its
-// per-token scales. The kernel is instantiated at the power-of-two head
-// dims HD in {16, ..., 256} and page sizes PS in {4, ..., 128}; a head dim
-// hd <= HD and a page size ps <= PS in between run zero-padded to HD and
-// PS (K, V, q and the scales of the padding are 0, and a padded token's
+// per-token scales. Where a block of one query row cannot hold both pages
+// (head dim 256 with pages of 128 tokens: 2 x 128 x 257 floats, 263 KB,
+// over the 227 KB a block may take), K and V share one page buffer: K is
+// staged, the scores are taken, and V is staged into the same buffer while
+// the warps take the softmax statistics, which read neither; the barrier
+// after them then orders V's staging before P.V too, so the sums keep
+// their order and no barrier is added. Every other shape keeps two
+// buffers, staged together. The kernel is instantiated at the power-of-two
+// head dims HD in {16, ..., 256} and page sizes PS in {4, ..., 128}; a head
+// dim hd <= HD and a page size ps <= PS in between run zero-padded to HD
+// and PS (K, V, q and the scales of the padding are 0, and a padded token's
 // probability is 0 and takes no part in the max). Then thread (i, t) forms
 // one score: the HD products are added in halves (d with d + HD/2, then
 // with d + HD/4, ...) in registers; one warp per query row takes the max,
@@ -85,20 +92,27 @@ enum Walk {
   kCodes,    // p_scale pass 2: acc of the coded final probabilities
 };
 
-// Shared-memory layout of one block of `rows` query rows, in floats.
+// the shared memory a block may take on the H100 (227 KB, opt-in)
+constexpr size_t kMaxSmem = 232448;
+
+// Shared-memory layout of one block of `rows` query rows, in floats; with
+// `two` K and V each have a page buffer, else they share one (v_off ==
+// k_off).
 struct Layout {
   int rs;                        // row stride of q, K and V (HD | 1)
   size_t q_off, k_off, v_off, ks_off, vs_off, s_off, acc_off, m_off, l_off,
       a_off, w_off, f_off, floats;
 };
 
-__host__ __device__ inline Layout layout(int rows, int HD, int PS) {
-  Layout L;
+__host__ __device__ constexpr Layout layout(int rows, int HD, int PS,
+                                            bool two) {
+  Layout L{};
   L.rs = HD | 1;
   size_t off = 0;
   L.q_off = off;   off += (size_t)rows * L.rs;
   L.k_off = off;   off += (size_t)PS * L.rs;
-  L.v_off = off;   off += (size_t)PS * L.rs;
+  L.v_off = two ? off : L.k_off;
+  if (two) off += (size_t)PS * L.rs;
   L.ks_off = off;  off += PS;
   L.vs_off = off;  off += PS;
   L.s_off = off;   off += (size_t)rows * PS;  // scores, then P.V weights
@@ -110,6 +124,16 @@ __host__ __device__ inline Layout layout(int rows, int HD, int PS) {
   L.f_off = off;   off += 1;                 // the last-block flag
   L.floats = off;
   return L;
+}
+
+// whether an instantiation stages K and V in two buffers: where a block of
+// one query row fits with both
+__host__ __device__ constexpr bool two_buffers(int HD, int PS) {
+  return layout(1, HD, PS, true).floats * sizeof(float) <= kMaxSmem;
+}
+
+__host__ __device__ constexpr Layout layout(int rows, int HD, int PS) {
+  return layout(rows, HD, PS, two_buffers(HD, PS));
 }
 
 template <int HD, int PS>
@@ -128,6 +152,7 @@ decode_attention_kernel(const float* __restrict__ q,
                         int splits, int phase, float* __restrict__ work,
                         int* __restrict__ counters) {
   extern __shared__ float smem[];
+  constexpr bool kTwo = two_buffers(HD, PS);
   const Layout L = layout(rows, HD, PS);
   float* qs = smem + L.q_off;
   float* ks = smem + L.k_off;
@@ -182,7 +207,8 @@ decode_attention_kernel(const float* __restrict__ q,
     m[i] = kNegInf;
     l[i] = 0.0f;
   }
-  // the padding of K and V (dims hd..HD, tokens ps..PS) stays zero
+  // the padding of K and V (dims hd..HD, tokens ps..PS) stays zero (with
+  // one buffer both loops clear it)
   for (int idx = tid; idx < PS * HD; idx += kThreads) {
     const int t = idx / HD;
     const int d = idx - t * HD;
@@ -208,36 +234,43 @@ decode_attention_kernel(const float* __restrict__ q,
         kst = per_head ? k_scale[h] : k_scale[si];
         vst = per_head ? v_scale[h] : v_scale[si];
       }
-      // stage the page's K and V rows of head h, widened to float (pass 1
-      // of p_scale needs no V)
+      // stage the page's rows of head h, widened to float: K, and V with
+      // it where it has a buffer of its own (pass 1 of p_scale needs no V)
       const bool need_v = mode != kStats;
       const size_t page_base = (size_t)pg * ps * Hkv * hd;
-      if (words) {
-        const int hw = hd / 4;
-        for (int w = tid; w < ps * hw; w += kThreads) {
-          const int t = w / hw;
-          const int d = (w - t * hw) * 4;
-          const size_t src = page_base + ((size_t)t * Hkv + h) * hd + d;
-          const char4 kk = *reinterpret_cast<const char4*>(k_pages + src);
-          float* kr = ks + t * L.rs + d;
-          kr[0] = (float)kk.x; kr[1] = (float)kk.y;
-          kr[2] = (float)kk.z; kr[3] = (float)kk.w;
-          if (need_v) {
-            const char4 vv = *reinterpret_cast<const char4*>(v_pages + src);
-            float* vr = vs + t * L.rs + d;
-            vr[0] = (float)vv.x; vr[1] = (float)vv.y;
-            vr[2] = (float)vv.z; vr[3] = (float)vv.w;
+      auto stage = [&](bool with_k, bool with_v) {
+        if (words) {
+          const int hw = hd / 4;
+          for (int w = tid; w < ps * hw; w += kThreads) {
+            const int t = w / hw;
+            const int d = (w - t * hw) * 4;
+            const size_t src = page_base + ((size_t)t * Hkv + h) * hd + d;
+            if (with_k) {
+              const char4 kk =
+                  *reinterpret_cast<const char4*>(k_pages + src);
+              float* kr = ks + t * L.rs + d;
+              kr[0] = (float)kk.x; kr[1] = (float)kk.y;
+              kr[2] = (float)kk.z; kr[3] = (float)kk.w;
+            }
+            if (with_v) {
+              const char4 vv =
+                  *reinterpret_cast<const char4*>(v_pages + src);
+              float* vr = vs + t * L.rs + d;
+              vr[0] = (float)vv.x; vr[1] = (float)vv.y;
+              vr[2] = (float)vv.z; vr[3] = (float)vv.w;
+            }
+          }
+        } else {
+          for (int e = tid; e < ps * hd; e += kThreads) {
+            const int t = e / hd;
+            const int d = e - t * hd;
+            const size_t src = page_base + ((size_t)t * Hkv + h) * hd + d;
+            if (with_k) ks[t * L.rs + d] = (float)k_pages[src];
+            if (with_v) vs[t * L.rs + d] = (float)v_pages[src];
           }
         }
-      } else {
-        for (int e = tid; e < ps * hd; e += kThreads) {
-          const int t = e / hd;
-          const int d = e - t * hd;
-          const size_t src = page_base + ((size_t)t * Hkv + h) * hd + d;
-          ks[t * L.rs + d] = (float)k_pages[src];
-          if (need_v) vs[t * L.rs + d] = (float)v_pages[src];
-        }
-      }
+      };
+      stage(true, kTwo && need_v);
       if (tid < ps) {
         ksc[tid] = kst;
         vsc[tid] = vst;
@@ -265,6 +298,9 @@ decode_attention_kernel(const float* __restrict__ q,
         sw[idx] = s;
       }
       __syncthreads();
+      // one buffer: V over K, which no thread reads any more; the warps'
+      // statistics below read only the scores and the scales
+      if (!kTwo && need_v) stage(false, true);
 
       // one warp per query row, lane l holding tokens l + 32 k: the softmax
       // statistics of this page (the max by shuffles; the exponentials'

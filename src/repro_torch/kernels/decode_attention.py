@@ -68,6 +68,21 @@ def _width(n: int, widths: tuple) -> Optional[int]:
     return next((w for w in widths if n <= w), None)
 
 
+def _smem_floats(rows: int, HD: int, PS: int, buffers: int) -> int:
+    rs = HD | 1
+    return (rows * rs + buffers * PS * rs + 2 * PS + rows * PS + rows * HD
+            + 3 * rows + rows * MAX_SPLITS + 1)
+
+
+def kv_buffers(head_dim: int, page_size: int) -> int:
+    """Page buffers a block of the kernel stages K and V in: 2 where a
+    block of one query row fits with both, else 1, which K and V share
+    (head dim 256 with pages of 128 tokens); the instantiation's
+    ``two_buffers`` in ``csrc/decode_attention.cu``."""
+    HD, PS = _width(head_dim, HEAD_DIMS), _width(page_size, PAGE_SIZES)
+    return 2 if 4 * _smem_floats(1, HD, PS, 2) <= _MAX_SMEM else 1
+
+
 def decode_attention_smem(rows: int, head_dim: int, page_size: int) -> int:
     """Bytes of shared memory a block of ``rows`` query rows takes:
     ``samp_decode_attention_smem`` of ``csrc/decode_attention.cu`` (0 for a
@@ -75,9 +90,7 @@ def decode_attention_smem(rows: int, head_dim: int, page_size: int) -> int:
     HD, PS = _width(head_dim, HEAD_DIMS), _width(page_size, PAGE_SIZES)
     if rows <= 0 or head_dim <= 0 or page_size <= 0 or not HD or not PS:
         return 0
-    rs = HD | 1
-    return 4 * (rows * rs + 2 * PS * rs + 2 * PS + rows * PS + rows * HD
-                + 3 * rows + rows * MAX_SPLITS + 1)
+    return 4 * _smem_floats(rows, HD, PS, kv_buffers(HD, PS))
 
 
 def decode_split_pages(pages_per_slot: int) -> int:

@@ -1,5 +1,5 @@
 """Post-training quantization: apply a precision plan to float params (port
-of ``repro.quant.ptq``, without the cluster-conditional capture).
+of ``repro.quant.ptq``).
 
     float params --capture_stats(calibration batches)--> amax per (layer, site)
                  --apply_plan(PrecisionPlan)--> mixed-precision params + plan
@@ -20,6 +20,10 @@ the schema-v4 ``experts`` family governs the routed expert stacks
 (per-expert-per-channel weight scales (E, 1, F); static activation scales
 per expert, (E, 1, 1), from the (E,) ``expert_in``/``expert_hidden``
 vectors) and ``shared_ffn`` the shared expert's GEMMs.
+
+``capture_stats(clusters=)`` is the input-adaptive capture: per-row cluster
+ids partition the calibration rows, and the stats come back keyed
+``{cluster: {layer: {site: amax}}}``.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, BlockKind
 from repro_torch.core.calibration import (CALIBRATORS, Calibrator,
                                           make_calibrator)
-from repro_torch.core.plan import LayerPlan, PrecisionPlan
+from repro_torch.core.plan import LayerPlan, PlanSet, PrecisionPlan
 from repro_torch.core.quantize import (UINT8_MAX, QuantizedTensor,
                                        compute_scale_symmetric, divide,
                                        quantize)
@@ -255,6 +259,7 @@ def capture_stats(params: dict, batches: Sequence[dict], cfg: ArchConfig,
                   calibrator: Optional[str] = None,
                   precision: Optional[PrecisionPlan] = None,
                   hist_sites: tuple[str, ...] = HIST_SITES,
+                  clusters: Optional[Sequence] = None,
                   **calib_kw) -> dict[str, dict[str, float]]:
     """Run calibration batches (dicts of (B, S) token / segment arrays)
     through the float model with observers on and reduce per-(layer, site)
@@ -262,7 +267,19 @@ def capture_stats(params: dict, batches: Sequence[dict], cfg: ArchConfig,
 
     Calibrator selection: ``calibrator=`` for every site; else
     ``precision=``'s per-block choices via :data:`SITE_BLOCK`; else min-max.
-    Histogram calibrators consume raw values on ``hist_sites``."""
+    Histogram calibrators consume raw values on ``hist_sites``.
+
+    ``clusters=`` (one (B,) int vector of cluster ids per batch) captures
+    per cluster: each batch's rows are split into cluster-pure sub-batches
+    and the stats come back as ``{cluster: {"layer{i}": {site: amax}}}``.
+    Every observation is a max, so the split is exact: a cluster's amax is
+    the amax over its own rows. A :class:`PlanSet` ``precision`` gives each
+    cluster its member's calibrator choices."""
+    if clusters is not None:
+        return _capture_stats_clustered(
+            params, batches, cfg, plan, scheme, clusters,
+            calibrator=calibrator, precision=precision,
+            hist_sites=hist_sites, **calib_kw)
     device = params["final_norm"]["scale"].device
 
     def site_calibrator(layer_idx: int, site: str) -> str:
@@ -330,6 +347,33 @@ def capture_stats(params: dict, batches: Sequence[dict], cfg: ArchConfig,
     for key, cal in cals.items():
         layer, site = key.split("/", 1)
         out.setdefault(layer, {})[site] = float(cal.compute_amax())
+    return out
+
+
+def _capture_stats_clustered(params, batches, cfg, plan, scheme, clusters,
+                             *, precision=None, **kw):
+    """Partition calibration rows by cluster id and capture per-cluster
+    stats (see :func:`capture_stats`)."""
+    ids = [np.asarray(c).reshape(-1).astype(np.int64) for c in clusters]
+    if len(ids) != len(batches):
+        raise ValueError(f"clusters has {len(ids)} entries for "
+                         f"{len(batches)} batches")
+    groups: dict[int, list] = {}
+    for batch, cid in zip(batches, ids):
+        sizes = {np.asarray(v).shape[0] for v in batch.values()}
+        if sizes != {len(cid)}:
+            raise ValueError(f"cluster-id vector of length {len(cid)} does "
+                             f"not match batch row counts {sorted(sizes)}")
+        for c in sorted({int(x) for x in cid}):
+            rows = np.nonzero(cid == c)[0]
+            groups.setdefault(c, []).append(
+                {k: np.asarray(v)[rows] for k, v in batch.items()})
+    out = {}
+    for c, bs in sorted(groups.items()):
+        member = (precision.plan_for(c)
+                  if isinstance(precision, PlanSet) else precision)
+        out[c] = capture_stats(params, bs, cfg, plan, scheme,
+                               precision=member, **kw)
     return out
 
 

@@ -1,10 +1,13 @@
 """Encoder serving engine — the paper's primary workload, served (port of
-``repro.serve.encoder``, without the adaptive router).
+``repro.serve.encoder``).
 
 Admission is a :class:`~repro_torch.serve.scheduler.MicroBatcher`;
 execution is a :class:`~repro_torch.serve.runtime.Runtime`, which pads each
 flushed micro-batch to its (batch, length) bucket and masks the padding;
-the target head comes from :mod:`repro_torch.toolkit.targets`.
+the target head comes from :mod:`repro_torch.toolkit.targets`. With a
+``router`` (:class:`~repro_torch.adaptive.PlanRouter`) admission stamps
+each request's traffic cluster, and each cluster-pure micro-batch runs its
+cluster's params through that cluster's runtime sibling.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ class EncoderServeEngine:
                  scheme: T.QuantScheme = T.QuantScheme(),
                  max_batch: int = 8, max_wait: float = 0.0,
                  max_len: int = 256, runtime: Optional[Runtime] = None,
-                 backend="reference",
+                 backend="reference", router=None,
                  device: Union[str, torch.device] = "cuda"):
         if isinstance(target, str):
             target = get_target(target)
@@ -51,6 +54,9 @@ class EncoderServeEngine:
             backend=backend, device=device)
         self.batcher = MicroBatcher(max_batch=max_batch, max_wait=max_wait,
                                     max_len=max_len)
+        self.router = router
+        if router is not None and not router.bound:
+            router.bind(self.runtime)
         self._stats = {"requests": 0, "batches": 0, "retired": 0,
                        "batched_rows": 0}
 
@@ -63,6 +69,8 @@ class EncoderServeEngine:
                              f"max_len {self.max_len}")
         if req.segments is not None and len(req.segments) != len(req.tokens):
             raise ValueError("segments length must match tokens")
+        if self.router is not None:
+            self.router.admit(req)      # stamps req.cluster before queueing
         self.batcher.submit(req, now)
         self._stats["requests"] += 1
 
@@ -84,7 +92,13 @@ class EncoderServeEngine:
             inputs = {"tokens": tokens}
             if self.cfg.num_segments:
                 inputs["segments"] = segments
-            logits = self.runtime.encode(self.params, inputs, lengths)
+            if self.router is not None:
+                # the batcher keys its queues on (bucket, cluster): one
+                # member serves the whole batch
+                entry = self.router.entry(reqs[0].cluster)
+                logits = entry.runtime.encode(entry.params, inputs, lengths)
+            else:
+                logits = self.runtime.encode(self.params, inputs, lengths)
             for i, req in enumerate(reqs):
                 row = logits[i]
                 if self.target.token_level:

@@ -1,5 +1,5 @@
 """Token-level continuous-batching decode engine (port of
-``repro.serve.engine``, without the router and meshes).
+``repro.serve.engine``, without meshes).
 
 * scheduling — a :class:`~repro_torch.serve.scheduler.SlotScheduler`: a
   fixed number of batch slots, FIFO admission, per-slot token cursors,
@@ -15,7 +15,12 @@ with ``active``, which gates their cache writes. With ``page_size`` the KV
 caches are paged: pages are allocated as a slot's sequence grows, freed on
 retirement or cancel, and their position rows invalidated before reuse; a
 pool that cannot grow any live slot preempts the youngest request, which
-replays from its prompt.
+replays from its prompt. With a ``router``
+(:class:`~repro_torch.adaptive.PlanRouter`) each request is assigned a
+traffic cluster at admission, the slot scheduler keeps the live batch to
+one cluster, and each tick runs that cluster's params through its own
+cached decode step; the KV caches are shared across clusters, so every
+member plan must name the same KV-cache schemes.
 """
 from __future__ import annotations
 
@@ -43,6 +48,10 @@ class Request:
     max_tokens: int = 32
     temperature: float = 0.0
     eos_id: Optional[int] = None
+    # adaptive routing: a tag from the client, and the cluster id assigned
+    # at admission (decode batches stay cluster-pure)
+    traffic_class: Optional[str] = None
+    cluster: int = 0
     # engine-filled:
     output: list[int] = dataclasses.field(default_factory=list)
     done: bool = False
@@ -59,7 +68,9 @@ class ServeEngine:
     the per-layer schemes of ``precision`` (a PrecisionPlan, which implies
     paging when it quantizes any KV cache), else float. ``pool_pages``
     sizes the shared page pool (default: slots * pages_per_slot, no
-    oversubscription). ``backend`` is ignored when a runtime is passed."""
+    oversubscription). ``backend`` is ignored when a runtime is passed.
+    ``router`` makes decode input-adaptive (see the module docstring);
+    ``precision`` then defaults to the default member's plan."""
 
     def __init__(self, cfg: ArchConfig, params, plan, *,
                  scheme: T.QuantScheme = T.QuantScheme(),
@@ -68,10 +79,19 @@ class ServeEngine:
                  page_size: Optional[int] = None,
                  kv_cache: Optional[str] = None,
                  pool_pages: Optional[int] = None, precision=None,
+                 router=None,
                  device: Union[str, torch.device] = "cuda"):
         if not cfg.supports_decode:
             raise ValueError(f"{cfg.name} is encoder-only; no decode — "
                              f"serve it through EncoderServeEngine")
+        if router is not None:
+            if not router.uniform_kv():
+                raise ValueError(
+                    "routed decode shares one KV-cache tree across "
+                    "clusters: every PlanSet member must name the same "
+                    "per-layer kv_cache schemes")
+            if precision is None:
+                precision = router.planset.plan_for(router.planset.default)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -100,15 +120,23 @@ class ServeEngine:
         elif kv_cache not in (None, "float"):
             raise ValueError("kv_cache quantization needs the paged layout; "
                              "pass page_size= as well")
-        self.sched = SlotScheduler(batch_slots, pool=self.pool)
+        self.sched = SlotScheduler(batch_slots, pool=self.pool,
+                                   cluster_pure=router is not None)
         self.runtime = runtime or Runtime(cfg, plan, scheme=scheme,
                                           precision=precision,
                                           backend=backend,
                                           device=self.device)
+        self.router = router
+        if router is not None and not router.bound:
+            router.bind(self.runtime)
         with torch.inference_mode():
             self.caches = T.init_caches(cfg, plan, batch_slots, max_len,
                                         device=self.device, **cache_kw)
-        self._decode = self.runtime.decode_fn(params, self.caches)
+        # the decode step, resolved once; a routed engine resolves one per
+        # cluster on first use, each under its sibling's cache key
+        self._decode = (None if router is not None
+                        else self.runtime.decode_fn(params, self.caches))
+        self._decode_by_cluster: dict = {}
         self.rng = np.random.default_rng(seed)
         self._stats = {"ticks": 0, "tokens": 0, "retired": 0, "stalls": 0,
                        "preemptions": 0, "requests": 0}
@@ -124,6 +152,8 @@ class ServeEngine:
         if len(req.prompt) + req.max_tokens > self.max_len:
             raise ValueError(f"prompt+max_tokens exceeds max_len "
                              f"{self.max_len}")
+        if self.router is not None:
+            self.router.admit(req)      # stamps req.cluster before queueing
         self.sched.submit(req)
         self._stats["requests"] += 1
 
@@ -212,8 +242,18 @@ class ServeEngine:
             pos[s] = c
             active[s] = True
         pages = self.pool.table if self.pool is not None else None
-        logits, self.caches = self._decode(self.params, self.caches, tokens,
-                                           pos, active, pages)
+        if self.router is not None:
+            # a cluster-pure batch: run the live cluster's step and params
+            entry = self.router.entry(self.sched.active_cluster)
+            decode = self._decode_by_cluster.get(entry.cluster)
+            if decode is None:
+                decode = self._decode_by_cluster[entry.cluster] = \
+                    entry.runtime.decode_fn(entry.params, self.caches)
+            step_params = entry.params
+        else:
+            decode, step_params = self._decode, self.params
+        logits, self.caches = decode(step_params, self.caches, tokens, pos,
+                                     active, pages)
         logits = logits.to(torch.float32).cpu().numpy()
         self._stats["ticks"] += 1
         self._stats["tokens"] += len(live)

@@ -59,11 +59,22 @@ def engine_counters(engine) -> dict:
     encoder): ``queue_depth`` (requests admitted but not yet running),
     ``occupancy`` (busy decode slots / mean encoder micro-batch fill),
     ``capacity`` (slot count / flush size), ``completed``, ``evicted``
-    (cancelled or deadline-evicted by the scheduler), plus the runtime's
+    (cancelled or deadline-evicted by the scheduler), the runtime's
     ``retraces`` / ``executables`` census (the port builds each cached
-    callable once, and counts that build where JAX counts a trace)."""
+    callable once, and counts that build where JAX counts a trace), and
+    the routing pair the JAX server exports: ``cluster_requests``
+    (``samp_cluster_requests_total``, requests per traffic cluster at
+    admission) and ``active_plans`` (``samp_active_plans``, distinct member
+    fingerprints); an unrouted engine books every request under cluster 0
+    and one plan."""
     rt = engine.runtime.stats
-    base = {"retraces": rt["traces"], "executables": rt["executables"]}
+    router = getattr(engine, "router", None)
+    base = {"retraces": rt["traces"], "executables": rt["executables"],
+            "cluster_requests": (dict(router.requests_by_cluster)
+                                 if router is not None
+                                 else {0: engine._stats["requests"]}),
+            "active_plans": (router.active_plans if router is not None
+                             else 1)}
     sched = getattr(engine, "sched", None)
     if sched is not None:                               # decode engine
         return {"queue_depth": len(sched.queue),

@@ -1,6 +1,6 @@
 """The runtime every inference path goes through (port of
-``repro.serve.runtime``, without meshes and clusters): bucketed encodes and
-the decode step.
+``repro.serve.runtime``, without meshes): bucketed encodes and the decode
+step.
 
 A :class:`Runtime` is bound to one ``(cfg, plan, scheme, head, backend)``
 deployment on one device:
@@ -14,11 +14,14 @@ deployment on one device:
   clamped to 0 for the embedding gather, so a padded forward matches the
   natural-shape forward on the real rows and positions;
 * the built forward callables are cached per (backend name, plan
-  fingerprint, batch bucket, length bucket) — the JAX package's executable
-  key without the mesh and cluster parts, which arrive with their slices;
+  fingerprint, cluster, batch bucket, length bucket): the JAX package's
+  executable key without the mesh part. ``cluster`` is the traffic-cluster
+  id of a routed deployment (None unrouted), so K clusters hold K entries
+  per bucket even where their plans coincide: their calibrated scales
+  differ;
 * the decode step (:meth:`Runtime.decode_fn`) is cached per (backend name,
-  plan fingerprint, slot count, ``kv_geometry``), so float and int8 caches
-  never share an entry;
+  plan fingerprint, cluster, slot count, ``kv_geometry``), so float and
+  int8 caches never share an entry;
 * ``stats`` counts calls, real and padded tokens, cached callables and
   ``traces``, the callables built (the JAX package counts its traces
   there; here each build is one);
@@ -72,7 +75,8 @@ class Runtime:
                  max_len: Optional[int] = None,
                  chunk: Optional[int] = T.DEFAULT_CHUNK,
                  backend="reference",
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 cluster: Optional[int] = None):
         self.device = resolve_device(device)
         # TF32 off, float32 matmuls at "highest": the JAX reference computes
         # in full float32, and int_matmul's float32 products must stay exact
@@ -90,34 +94,53 @@ class Runtime:
         self.backend = get_backend(backend)
         self.bucketed = cfg.moe is None
         # cache key half that names the scheme: the backend (one plan runs
-        # different code per backend) and the plan's stable fingerprint, or
-        # a structural hash of (execution plan, scheme) without one
+        # different code per backend), the plan's stable fingerprint (or a
+        # structural hash of (execution plan, scheme) without one) and the
+        # traffic cluster of a routed deployment
+        self.cluster = cluster
         self._plan_key = (self.backend.name,
                           precision.fingerprint() if precision is not None
-                          else hash((plan, scheme)))
+                          else hash((plan, scheme)),
+                          cluster)
         self._exe: dict[tuple, Callable] = {}
         self._stats = {"calls": 0, "traces": 0, "real_tokens": 0,
                        "padded_tokens": 0}
 
     @property
+    def identity(self) -> dict:
+        """The deployment identity every cache key leads with, as strings
+        (the ``samp_build_info`` labels of an HTTP front-end): backend,
+        plan fingerprint (or the structural hash), and the cluster of a
+        routed sibling."""
+        fp = self._plan_key[1]
+        out = {"backend": self.backend.name,
+               "plan": fp if isinstance(fp, str)
+               else f"structural:{fp & 0xFFFFFFFFFFFFFFFF:016x}"}
+        if self.cluster is not None:
+            out["cluster"] = str(self.cluster)
+        return out
+
+    @property
     def stats(self) -> dict:
         return dict(self._stats, executables=len(self._exe),
-                    buckets=sorted(k[2:4] for k in self._exe
-                                   if k[0] == "encode"))
+                    buckets=sorted({k[2:4] for k in self._exe
+                                    if k[0] == "encode"}))
 
     def share(self, plan, *, scheme: Optional[T.QuantScheme] = None,
-              precision=None, backend=None) -> "Runtime":
+              precision=None, backend=None,
+              cluster: Optional[int] = None) -> "Runtime":
         """A sibling Runtime bound to a different (plan, scheme, precision,
-        backend) that SHARES this runtime's callable cache and counters.
-        Cache keys lead with (backend name, precision fingerprint), so two
-        pipelines under different plans, or one plan on two backends, share
-        one runtime without key collisions."""
+        backend, cluster) that SHARES this runtime's callable cache and
+        counters. Cache keys lead with (backend name, precision
+        fingerprint, cluster), so two pipelines under different plans, one
+        plan on two backends, or the K clusters of a routed deployment
+        share one runtime without key collisions."""
         rt = Runtime(self.cfg, plan, scheme=scheme or self.scheme,
                      precision=precision, head=self.head,
                      token_level=self.token_level, min_batch=self.min_batch,
                      min_len=self.min_len, max_len=self.max_len,
                      chunk=self.chunk, backend=backend or self.backend,
-                     device=self.device)
+                     device=self.device, cluster=cluster)
         rt._exe = self._exe
         rt._stats = self._stats
         return rt

@@ -1,14 +1,15 @@
-"""Scheduling for both serving engines (port of ``repro.serve.scheduler``,
-without cluster-pure admission).
+"""Scheduling for both serving engines (port of ``repro.serve.scheduler``).
 
 * :class:`SlotScheduler` — token-level continuous batching: a fixed number
   of batch slots, FIFO admission into free slots, per-slot token cursors,
   release on retirement; with a :class:`PagePool` it also owns the KV
-  pages' lifecycle.
+  pages' lifecycle; with ``cluster_pure`` the live batch holds one traffic
+  cluster at a time (a routed decode tick runs one member plan).
 * :class:`MicroBatcher` — per-(length bucket, cluster) FIFO queues of
   encoder requests, flushed when a bucket reaches ``max_batch``, when its
   oldest request has waited ``max_wait`` seconds, or on demand (drain), so
-  similar-length requests batch together and padding waste stays bounded.
+  similar-length requests batch together, padding waste stays bounded and
+  every micro-batch runs under one member plan.
 """
 from __future__ import annotations
 
@@ -96,9 +97,13 @@ class SlotScheduler:
     batching. ``active[s]`` holds the request in slot ``s`` (None = free);
     ``cursor[s]`` counts the tokens it has consumed (prompt, then generated).
     With a :class:`PagePool`, release and cancel return the slot's pages and
-    stash their ids in ``freed_pages`` for the engine to invalidate."""
+    stash their ids in ``freed_pages`` for the engine to invalidate. With
+    ``cluster_pure``, admission keeps the live batch to one cluster:
+    requests of other clusters wait, FIFO among themselves, until the batch
+    drains."""
 
-    def __init__(self, slots: int, pool: Optional[PagePool] = None):
+    def __init__(self, slots: int, pool: Optional[PagePool] = None, *,
+                 cluster_pure: bool = False):
         self.slots = slots
         self.queue: deque = deque()
         self.active: list = [None] * slots
@@ -106,19 +111,44 @@ class SlotScheduler:
         self.evicted = 0        # cancellations
         self.pool = pool
         self.freed_pages: list[int] = []
+        self.cluster_pure = cluster_pure
 
     def submit(self, req) -> None:
         self.queue.append(req)
 
+    @property
+    def active_cluster(self) -> Optional[int]:
+        """Cluster id of the live batch (None when no slot is occupied)."""
+        for a in self.active:
+            if a is not None:
+                return getattr(a, "cluster", 0)
+        return None
+
     def admit(self) -> list[int]:
         """Fill free slots FIFO; returns the newly occupied slot ids (the
-        caller resets their per-slot state)."""
+        caller resets their per-slot state). In ``cluster_pure`` mode only
+        requests of the live batch's cluster (on an empty batch, the queue
+        head's) are admitted; the others keep their queue order."""
         newly = []
+        current = self.active_cluster
+        if current is None and self.queue:
+            current = getattr(self.queue[0], "cluster", 0)
+        skipped: deque = deque()
         for s in range(self.slots):
-            if self.active[s] is None and self.queue:
-                self.active[s] = self.queue.popleft()
+            if self.active[s] is not None:
+                continue
+            while self.queue:
+                req = self.queue.popleft()
+                if self.cluster_pure and getattr(req, "cluster", 0) \
+                        != current:
+                    skipped.append(req)
+                    continue
+                self.active[s] = req
                 self.cursor[s] = 0
                 newly.append(s)
+                break
+        skipped.extend(self.queue)
+        self.queue = skipped
         return newly
 
     def live(self) -> list[int]:
@@ -186,6 +216,13 @@ class MicroBatcher:
                 out.append((key[0], [q.popleft()
                                      for _ in range(min(self.max_batch,
                                                         len(q)))]))
+        return out
+
+    def depth_by_cluster(self) -> dict[int, int]:
+        """Queued request count per cluster id."""
+        out: dict[int, int] = {}
+        for (_b, c), q in self._queues.items():
+            out[c] = out.get(c, 0) + len(q)
         return out
 
     def evict(self, predicate) -> list[EncoderRequest]:

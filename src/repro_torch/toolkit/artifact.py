@@ -1,5 +1,6 @@
 """Quantized artifact bundles: deploy a tuned model without re-calibration
-(port of ``repro.toolkit.artifact``, single-plan bundles, v1 and v2).
+(port of ``repro.toolkit.artifact``: single-plan bundles, v1 and v2, and
+adaptive v3 bundles).
 
 An artifact is everything SAMP chose plus everything PTQ produced, saved as
 one directory in the JAX package's format, so a bundle either package
@@ -25,9 +26,13 @@ reloaded plan's ``fingerprint()`` is byte-identical to the recorded one,
 and no calibration batches are needed at deployment time.
 
 v1 bundles stored an ``EncoderPolicy`` (``policy`` key); they load through
-the lossless policy -> plan shim. v3 (adaptive) bundles need the port of
-``PlanSet`` routing and raise. The port computes in float32 whatever
-``compute_dtype`` a bundle names; bundles it writes say float32.
+the lossless policy -> plan shim. v3 bundles are adaptive: they hold the
+FLOAT parameters, a :class:`~repro_torch.core.plan.PlanSet`, the cluster
+model and the per-cluster calibration stats (keyed by string cluster id),
+and loading rebuilds each member's quantized tree with ``ptq.apply_plan``
+(the default member's at once, every member's in :meth:`Artifact.router`),
+bit-identical to the trees that were served. The port computes in float32
+whatever ``compute_dtype`` a bundle names; bundles it writes say float32.
 """
 from __future__ import annotations
 
@@ -42,7 +47,8 @@ import torch
 from repro_torch.checkpoint import store
 from repro_torch.configs.base import ArchConfig, MLAConfig, MoEConfig
 from repro_torch.core.device import resolve_device
-from repro_torch.core.plan import PrecisionPlan, as_plan, plan_from_policy
+from repro_torch.core.plan import (PlanSet, PrecisionPlan, as_plan,
+                                   plan_from_policy)
 from repro_torch.core.precision import EncoderPolicy, LayerMode
 from repro_torch.core.quantize import QuantizedTensor
 from repro_torch.data.pipeline import TaskSpec
@@ -53,7 +59,8 @@ from repro_torch.quant import ptq
 from repro_torch.toolkit.registry import get_target
 
 METADATA = "artifact.json"
-VERSION = 2                 # the newest version the port reads and writes
+VERSION = 3                 # the newest version the port reads
+SINGLE_PLAN_VERSION = 2     # what save_artifact writes
 
 
 @dataclasses.dataclass
@@ -71,6 +78,29 @@ class Artifact:
     path: str
     device: torch.device
     tokenizer: Optional[object] = None       # WordPieceTokenizer
+    # v3 adaptive bundles only:
+    planset: Optional[PlanSet] = None
+    cluster_model: Optional[object] = None   # repro_torch.adaptive model
+    cluster_stats: Optional[dict] = None     # {cluster: {layer: {site: v}}}
+    float_params: Optional[dict] = None      # the shared float weight tree
+
+    @property
+    def adaptive(self) -> bool:
+        return self.planset is not None
+
+    def router(self, backend=None):
+        """Rebuild the :class:`~repro_torch.adaptive.PlanRouter` a v3
+        bundle was deployed with: each member re-quantizes the shared float
+        tree under its own cluster's stats. ``backend`` is the compute
+        backend an EmbeddingKMeans model's admission embedder runs on."""
+        if not self.adaptive:
+            raise ValueError(f"{self.path}: not an adaptive (v3) bundle — "
+                             f"no PlanSet to route over")
+        from repro_torch.adaptive import build_router
+        return build_router(self.cfg, self.float_params, self.planset,
+                            self.cluster_stats,
+                            cluster_model=self.cluster_model,
+                            scheme=self.scheme, backend=backend)
 
     def pipeline(self, backend="reference"):
         """Rebuild the (quantized) Pipeline this artifact was saved from, on
@@ -118,7 +148,7 @@ def save_artifact(directory: str, *, cfg: ArchConfig,
     tree = params_to_numpy(params, T.build_plan(cfg, precision))
     os.makedirs(directory, exist_ok=True)
     meta = {
-        "version": VERSION,
+        "version": SINGLE_PLAN_VERSION,
         "arch": dataclasses.asdict(cfg),
         "plan": precision.to_dict(),
         "plan_fingerprint": precision.fingerprint(),
@@ -132,11 +162,59 @@ def save_artifact(directory: str, *, cfg: ArchConfig,
                        "granularity": tokenizer.granularity}
                       if tokenizer is not None else None),
     }
+    _write(directory, meta, tree)
+    return directory
+
+
+def _write(directory: str, meta: dict, tree: dict) -> None:
     tmp = os.path.join(directory, METADATA + ".tmp")
     with open(tmp, "w") as f:
         json.dump(meta, f, indent=1)
     os.rename(tmp, os.path.join(directory, METADATA))
     store.save(directory, 0, tree, keep_last=1)
+
+
+def _float_plan(cfg: ArchConfig):
+    """The execution plan float params are packed under."""
+    return T.build_plan(cfg, PrecisionPlan.full_float(cfg.num_layers,
+                                                      "float32"))
+
+
+def save_adaptive_artifact(directory: str, *, cfg: ArchConfig,
+                           planset: PlanSet, cluster_model,
+                           cluster_stats: dict, float_params: dict,
+                           scheme: T.QuantScheme = T.QuantScheme(),
+                           task: Optional[TaskSpec] = None,
+                           target: str = "lm", n_out: int = 0,
+                           tokenizer=None) -> str:
+    """Write an adaptive (v3) bundle: the FLOAT parameter tree, the
+    PlanSet, the cluster model and the per-cluster calibration stats. The K
+    quantized trees are not stored: :func:`load_artifact` rebuilds them
+    with ``ptq.apply_plan`` from the same inputs."""
+    if set(cluster_stats) - set(planset.cluster_ids):
+        raise ValueError(f"cluster_stats covers {sorted(cluster_stats)} but "
+                         f"the planset only {list(planset.cluster_ids)}")
+    tree = params_to_numpy(float_params, _float_plan(cfg))
+    os.makedirs(directory, exist_ok=True)
+    meta = {
+        "version": 3,
+        "arch": dataclasses.asdict(cfg),
+        "planset": planset.to_dict(),
+        "planset_fingerprint": planset.fingerprint(),
+        "cluster_model": cluster_model.to_dict(),
+        "cluster_model_fingerprint": cluster_model.fingerprint(),
+        "scheme": dataclasses.asdict(scheme),
+        # JSON objects key on strings; load restores the int cluster ids
+        "cluster_stats": {str(c): st for c, st in cluster_stats.items()},
+        "task": dataclasses.asdict(task) if task is not None else None,
+        "target": {"name": target, "n_out": n_out},
+        "param_dtype": _param_dtype(tree),
+        "compute_dtype": "float32",
+        "tokenizer": ({"vocab": tokenizer.vocab,
+                       "granularity": tokenizer.granularity}
+                      if tokenizer is not None else None),
+    }
+    _write(directory, meta, tree)
     return directory
 
 
@@ -196,21 +274,17 @@ def _check_layout(params: dict, cfg: ArchConfig, precision: PrecisionPlan,
 
 def load_artifact(directory: str,
                   device: Union[str, torch.device] = "cuda") -> Artifact:
-    """Reload a bundle onto ``device``: the per-layer params from the saved
-    leaves, checked against the saved plan and stats. No re-calibration."""
+    """Reload a bundle onto ``device``: v1-v2, the per-layer params from the
+    saved leaves, checked against the saved plan and stats; v3, the float
+    tree and the default member's quantized tree rebuilt from it. No
+    re-calibration."""
     device = resolve_device(device)
     with open(os.path.join(directory, METADATA)) as f:
         meta = json.load(f)
-    if meta["version"] == 3:
-        raise ValueError(
-            f"{directory}: a v3 (adaptive, PlanSet) bundle; the port does "
-            f"not route over plan sets yet (ROADMAP queue 1 item 4)")
     if not 1 <= meta["version"] <= VERSION:
         raise ValueError(f"artifact version {meta['version']} not in "
                          f"[1, {VERSION}]")
     cfg = _cfg_from_dict(meta["arch"])
-    precision = _precision_from_meta(meta)
-    stats = _coerce_stats(meta["stats"])
     scheme = T.QuantScheme(**meta["scheme"])
     task = TaskSpec(**meta["task"]) if meta["task"] is not None else None
     tokenizer = None
@@ -218,12 +292,40 @@ def load_artifact(directory: str,
         from repro_torch.data.tokenizer import WordPieceTokenizer
         tokenizer = WordPieceTokenizer(meta["tokenizer"]["vocab"],
                                        meta["tokenizer"]["granularity"])
-    plan = T.build_plan(cfg, precision)
-    params = params_from_numpy(tree_from_names(store.load_leaves(
-        directory, 0)), plan, device)
-    _check_layout(params, cfg, precision, stats, directory)
+    leaves = tree_from_names(store.load_leaves(directory, 0))
+    adaptive = {}
+    if meta["version"] >= 3:
+        from repro_torch.adaptive import cluster_model_from_dict
+        planset = PlanSet.from_dict(meta["planset"])
+        want = meta.get("planset_fingerprint")
+        if want is not None and planset.fingerprint() != want:
+            raise ValueError(
+                f"planset fingerprint mismatch: metadata says {want}, "
+                f"reloaded set hashes to {planset.fingerprint()} — the "
+                f"bundle's artifact.json was edited or corrupted")
+        cluster_stats = {int(c): _coerce_stats(st)
+                         for c, st in meta["cluster_stats"].items()}
+        precision = planset.plan_for(planset.default)
+        stats = cluster_stats.get(planset.default,
+                                  cluster_stats[sorted(cluster_stats)[0]])
+        float_plan = _float_plan(cfg)
+        float_params = params_from_numpy(leaves, float_plan, device)
+        # the default member's tree; Artifact.router() rebuilds every
+        # member the same way
+        params, plan = ptq.apply_plan(float_params, cfg, precision, stats,
+                                      scheme=scheme, float_plan=float_plan)
+        adaptive = dict(planset=planset, cluster_stats=cluster_stats,
+                        cluster_model=cluster_model_from_dict(
+                            meta["cluster_model"]),
+                        float_params=float_params)
+    else:
+        precision = _precision_from_meta(meta)
+        stats = _coerce_stats(meta["stats"])
+        plan = T.build_plan(cfg, precision)
+        params = params_from_numpy(leaves, plan, device)
+        _check_layout(params, cfg, precision, stats, directory)
     return Artifact(cfg=cfg, precision=precision, scheme=scheme, stats=stats,
                     params=params, plan=plan, task=task,
                     target_name=meta["target"]["name"],
                     n_out=int(meta["target"]["n_out"]), path=directory,
-                    device=device, tokenizer=tokenizer)
+                    device=device, tokenizer=tokenizer, **adaptive)

@@ -1,5 +1,5 @@
 """The one-call SAMP facade: the paper's workflow as a fluent object (port
-of ``repro.toolkit.samp``, single-plan deployments).
+of ``repro.toolkit.samp``).
 
     samp = SAMP.from_config("bert-base", task="tnews", latency="wallclock")
     samp.pipeline.init_params(torch.Generator("cuda").manual_seed(0))
@@ -13,10 +13,11 @@ facade contributes the Pipeline wiring, the latency-backend resolution
 (bound to the pipeline's compute backend and device, so ``wallclock`` times
 the kernels that deploy), artifact persistence, and a serving handoff.
 
-Not ported yet, each raising ``NotImplementedError`` that names its item of
-ROADMAP queue 1: ``finetune`` (item 7, training), input-adaptive precision
-(``clusters=``, ``apply_planset``, plan-set files; item 4) and
-``serve_http`` (item 5).
+Input-adaptive precision (``calibrate(clusters=)``, ``apply_planset``,
+plan-set files, ``autotune(clusters=)``) deploys a PlanSet through a
+:class:`~repro_torch.adaptive.PlanRouter`, saved as a v3 bundle. Not ported
+yet, each raising ``NotImplementedError`` that names its item of ROADMAP
+queue 1: ``finetune`` (item 7, training) and ``serve_http`` (item 5).
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.plan import PrecisionPlan, as_plan, load_plan_or_planset
+from repro_torch.core.plan import (PlanSet, PrecisionPlan, as_plan,
+                                   load_plan_or_planset)
 from repro_torch.core.precision import EncoderPolicy
 from repro_torch.core.samp import SAMPEngine, SAMPResult, SweepPoint
 from repro_torch.data.pipeline import get_batch
@@ -56,6 +58,11 @@ class AutotuneReport:
     accuracy: float                      # deployed dev accuracy, re-measured
     artifact_path: Optional[str] = None
     strategy: str = "prefix_grid"
+    # adaptive (clusters=) autotune only: the deployed PlanSet and the
+    # per-cluster search record {cid: (points, recommendations, chosen)};
+    # the flat fields above then describe the default cluster's search
+    planset: Optional[PlanSet] = None
+    per_cluster: Optional[dict] = None
 
     @property
     def plan(self) -> PrecisionPlan:
@@ -99,6 +106,11 @@ class SAMP:
         self.stats: Optional[dict] = None
         self.points: Optional[list[SweepPoint]] = None
         self.quantized: Optional[Pipeline] = None
+        # input-adaptive precision (repro_torch.adaptive): set by
+        # calibrate(clusters=...) / apply_planset / autotune(clusters=...)
+        self.cluster_model = None
+        self.planset: Optional[PlanSet] = None
+        self.router = None
         # True for facades rebuilt from an artifact: the bundle holds only
         # the quantized params, so the tuning workflow has no float model
         # to operate on — predict/eval/serve only.
@@ -146,6 +158,13 @@ class SAMP:
         samp.stats = art.stats
         samp.quantized = qpipe
         samp.deploy_only = True
+        if art.adaptive:
+            # v3: rebuild the router (K quantized trees from the stored
+            # float tree) so serve() comes back input-adaptive; predict()
+            # runs the default member
+            samp.planset = art.planset
+            samp.cluster_model = art.cluster_model
+            samp.router = art.router(backend=qpipe.backend)
         return samp
 
     # -- convenience state ---------------------------------------------------
@@ -190,29 +209,68 @@ class SAMP:
                   num_batches: int = 4, batch_size: int = 16,
                   calibrator: Optional[str] = None,
                   precision: Optional[PrecisionPlan] = None,
-                  clusters=None, **kw) -> dict:
+                  clusters=None, batch_classes=None, **kw) -> dict:
         """Observe activation ranges. Default batches come from the task's
         training stream (disjoint indices from fine-tuning).
 
         ``calibrator`` names one of the four PTQ calibrators
         (minmax/percentile/mse/entropy) for every site; ``precision``
         instead honors a plan's per-block calibrator choices. Default:
-        min-max everywhere (paper §4.1)."""
-        if clusters is not None:
-            raise _not_ported("cluster-conditional calibration (clusters=)",
-                              4, "adaptive precision")
+        min-max everywhere (paper §4.1).
+
+        ``clusters`` (a :class:`repro_torch.adaptive.ClusterModel`)
+        switches to cluster-conditional calibration: the model is fitted
+        where it needs fitting (EmbeddingKMeans, on the pipeline's compute
+        backend), every batch row is assigned a cluster, and the stats are
+        keyed ``{cluster: {layer: {site: amax}}}``. Without explicit
+        batches a synthetic stream covering every cluster is generated
+        (task batches are fixed-width, so LengthBuckets would see one bin).
+        ``batch_classes`` tags each batch with a traffic class (for
+        :class:`~repro_torch.adaptive.TaskLabel`)."""
         params = self._require_params()
         if batches is None:
-            batches = [self.pipeline._model_inputs(
-                get_batch(self.task, 999 + i, batch_size))
-                for i in range(num_batches)]
+            if clusters is not None:
+                from repro_torch.adaptive import clustered_synthetic_batches
+                batches, batch_classes = clustered_synthetic_batches(
+                    self.cfg, clusters,
+                    batches_per_cluster=max(
+                        1, num_batches // clusters.num_clusters),
+                    batch_size=batch_size, max_len=self.task.seq_len)
+            else:
+                batches = [self.pipeline._model_inputs(
+                    get_batch(self.task, 999 + i, batch_size))
+                    for i in range(num_batches)]
+        if clusters is not None:
+            from repro_torch.adaptive import batch_clusters, fit_cluster_model
+            fit_cluster_model(clusters, params, batches, self.cfg,
+                              backend=self.pipeline.backend)
+            kw["clusters"] = batch_clusters(clusters, batches,
+                                            batch_classes=batch_classes)
+            self.cluster_model = clusters
         self.stats = self.engine.calibrate(params, batches,
                                            calibrator=calibrator,
                                            precision=precision, **kw)
         # sweep results and applied quantization depended on the old stats
         self.points = None
         self.quantized = None
+        self.planset = None
+        self.router = None
         return self.stats
+
+    @property
+    def _clustered(self) -> bool:
+        """True when the current stats are cluster-keyed."""
+        return bool(self.stats) and all(isinstance(k, int)
+                                        for k in self.stats)
+
+    def _default_stats(self) -> dict:
+        """The flat {layer: {site: amax}} view single-plan paths consume:
+        the default cluster's slice when stats are cluster-keyed."""
+        if not self._clustered:
+            return self.stats
+        d = (self.planset.default if self.planset is not None
+             else sorted(self.stats)[0])
+        return self.stats.get(d, self.stats[sorted(self.stats)[0]])
 
     # -- step 2: search --------------------------------------------------------
     def sweep(self, *, strategy: str = "prefix_grid", stride: int = 1,
@@ -229,7 +287,8 @@ class SAMP:
             kw["stride"] = stride
             if modes is not None:
                 kw["modes"] = modes
-        self.points = self.engine.search(strategy, params, self.stats,
+        self.points = self.engine.search(strategy, params,
+                                         self._default_stats(),
                                          eval_fn, latency_fn, **kw)
         return self.points
 
@@ -266,20 +325,47 @@ class SAMP:
             self.calibrate()
         precision = as_plan(policy,
                             dynamic_acts=self.pipeline.scheme.dynamic_acts)
-        qparams, qplan = self.engine.apply(params, self.stats, precision)
+        qparams, qplan = self.engine.apply(params, self._default_stats(),
+                                           precision)
         self.quantized = self.pipeline.with_policy(qparams, qplan, precision)
         return self.quantized
 
-    def apply_planset(self, planset):
-        raise _not_ported("SAMP.apply_planset", 4, "adaptive precision")
+    def apply_planset(self, planset: PlanSet):
+        """Deploy a :class:`~repro_torch.core.plan.PlanSet`: quantize the
+        float tree once per member under that cluster's calibration stats
+        and build the :class:`~repro_torch.adaptive.PlanRouter` serving
+        routes through. The default member also binds as
+        ``self.quantized``, so ``predict()``/``eval()`` keep working
+        unrouted. Needs ``calibrate(clusters=...)`` first."""
+        params = self._require_params()
+        if self.cluster_model is None or not self._clustered:
+            raise ValueError(
+                "apply_planset needs cluster-conditional calibration: call "
+                "calibrate(clusters=<ClusterModel>) first")
+        if self.cluster_model.num_clusters != len(planset):
+            raise ValueError(
+                f"cluster model yields {self.cluster_model.num_clusters} "
+                f"clusters but the planset has {len(planset)} members")
+        from repro_torch.adaptive import build_router
+        self.router = build_router(self.cfg, params, planset, self.stats,
+                                   cluster_model=self.cluster_model,
+                                   scheme=self.pipeline.scheme,
+                                   float_plan=self.engine.float_plan,
+                                   backend=self.pipeline.backend)
+        self.planset = planset
+        d = self.router.entry(planset.default)
+        self.quantized = self.pipeline.with_policy(d.params, d.plan,
+                                                   d.precision)
+        return self.router
 
     def apply_plan_file(self, path: str) -> Pipeline:
-        """Load a saved ``plan.json`` and deploy it (plan-set files need
-        :meth:`apply_planset`)."""
+        """Load a saved ``plan.json`` or ``planset.json`` and deploy it:
+        plan sets route, single plans bind directly."""
         loaded = load_plan_or_planset(path)
         if isinstance(loaded, PrecisionPlan):
             return self.apply(loaded)
-        return self.apply_planset(loaded)
+        self.apply_planset(loaded)
+        return self.quantized
 
     # -- the one call ----------------------------------------------------------
     def autotune(self, *, strategy: str = "prefix_grid",
@@ -302,13 +388,25 @@ class SAMP:
         bundle (the chosen plan itself is ``report.plan``). Sweep points
         cached by an earlier sweep()/autotune() on the same weights+stats
         are reused (so ``strategy``/``stride``/``eval_*`` only apply to a
-        fresh search); calibrate() invalidates the cache."""
-        if clusters is not None:
-            raise _not_ported("autotune(clusters=)", 4,
-                              "adaptive precision")
+        fresh search); calibrate() invalidates the cache.
+
+        ``clusters`` (a :class:`repro_torch.adaptive.ClusterModel`), or an
+        earlier ``calibrate(clusters=...)``, switches to input-adaptive
+        autotune: one search per cluster over that cluster's stats, the
+        winners assembled into a PlanSet and deployed through a PlanRouter.
+        The report's flat fields then describe the default cluster;
+        ``report.planset`` and ``report.per_cluster`` the whole."""
         self._require_params()
-        if self.stats is None:
+        if clusters is not None:
+            self.calibrate(clusters=clusters)
+        elif self.stats is None:
             self.calibrate()
+        if self._clustered:
+            return self._autotune_adaptive(
+                strategy=strategy, max_latency=max_latency,
+                min_accuracy=min_accuracy, prefer=prefer, stride=stride,
+                eval_batches=eval_batches, eval_batch_size=eval_batch_size,
+                save_to=save_to, **strategy_kw)
         if self.points is None:
             if strategy == "latency_budget" and max_latency is not None:
                 strategy_kw.setdefault("max_latency", max_latency)
@@ -336,15 +434,65 @@ class SAMP:
                               chosen=chosen, accuracy=acc,
                               artifact_path=path, strategy=strategy)
 
+    def _autotune_adaptive(self, *, strategy: str, max_latency, min_accuracy,
+                           prefer, stride: int, eval_batches: int,
+                           eval_batch_size: int, save_to,
+                           **strategy_kw) -> AutotuneReport:
+        """The clusters= branch of autotune: one search per cluster ->
+        PlanSet -> router deployment."""
+        from repro_torch.adaptive import autotune_planset
+        params = self._require_params()
+        eval_fn, latency_fn = self._search_fns(eval_batches, eval_batch_size)
+        kw = dict(strategy_kw)
+        if strategy in ("prefix_grid", "latency_budget"):
+            kw["stride"] = stride
+            if strategy == "latency_budget" and max_latency is not None:
+                kw.setdefault("max_latency", max_latency)
+        planset, details = autotune_planset(
+            self.engine, params, self.stats, eval_fn=eval_fn,
+            latency_fn=latency_fn, strategy=strategy,
+            max_latency=max_latency, min_accuracy=min_accuracy,
+            prefer=prefer, **kw)
+        # clusters the calibration stream never observed borrow the default
+        # member: the set must cover every cluster the model can emit
+        missing = (set(range(self.cluster_model.num_clusters))
+                   - set(planset.cluster_ids))
+        if missing:
+            fallback = planset.plan_for(planset.default)
+            planset = PlanSet(planset.members
+                              + tuple((c, fallback) for c in sorted(missing)),
+                              default=planset.default)
+        self.apply_planset(planset)
+        acc = self.quantized.eval(batches=eval_batches,
+                                  batch_size=eval_batch_size)
+        path = self.save(save_to) if save_to else None
+        d_points, d_recs, d_chosen = details[min(details)]
+        self.points = d_points
+        return AutotuneReport(points=d_points, recommendations=d_recs,
+                              chosen=d_chosen, accuracy=acc,
+                              artifact_path=path, strategy=strategy,
+                              planset=planset, per_cluster=details)
+
     # -- persistence / serving ---------------------------------------------------
     def save(self, directory: str) -> str:
-        """Write the deployed pipeline as a v2 artifact bundle (quantized
-        params + plan + stats)."""
+        """Write the deployed pipeline as an artifact bundle: v2 (quantized
+        params + plan + stats) for a single plan, v3 (float params +
+        PlanSet + cluster model + per-cluster stats) when a plan set is
+        deployed."""
         if self.quantized is None:
             raise ValueError("nothing to save: call autotune() or apply() "
                              "first")
         if self.stats is None:
             raise ValueError("missing calibration stats")
+        if self.planset is not None:
+            return A.save_adaptive_artifact(
+                directory, cfg=self.cfg, planset=self.planset,
+                cluster_model=self.cluster_model, cluster_stats=self.stats,
+                float_params=self.pipeline.params,
+                scheme=self.pipeline.scheme, task=self.task,
+                target=self.pipeline.target.spec.name,
+                n_out=self.pipeline.target.n_out,
+                tokenizer=self.pipeline.tokenizer.tokenizer)
         return A.save_artifact(
             directory, cfg=self.cfg, policy=self.quantized.precision,
             stats=self.stats, params=self.quantized.params,
@@ -365,13 +513,15 @@ class SAMP:
         (encoder). ``backend=`` overrides the pipeline's compute backend
         for this server. Decode engines additionally take ``page_size=``
         and ``kv_cache=``; a PrecisionPlan's per-layer ``kv_cache`` schemes
-        apply automatically."""
+        apply automatically. A deployed PlanSet serves routed
+        (``router=None`` opts out)."""
         # imported here: the serving engines import the toolkit's targets
         from repro_torch.serve import EncoderServeEngine, ServeEngine
         pipe = self.current
         if pipe.params is None:
             raise ValueError("pipeline has no params to serve")
         backend = kw.pop("backend", None)
+        router = kw.pop("router", self.router)
         if pipe.cfg.supports_decode and pipe.target.spec.name == "lm":
             kw.setdefault("precision", pipe.precision)
             return ServeEngine(pipe.cfg, pipe.params, pipe.plan,
@@ -379,10 +529,10 @@ class SAMP:
                                max_len=max_len,
                                backend=(pipe.backend if backend is None
                                         else backend),
-                               device=pipe.device, **kw)
+                               router=router, device=pipe.device, **kw)
         enc_kw = dict(target=pipe.target.spec, scheme=pipe.scheme,
                       max_batch=kw.pop("max_batch", batch_slots),
-                      max_len=max_len)
+                      max_len=max_len, router=router)
         if backend is not None \
                 and get_backend(backend).name != pipe.backend.name:
             # explicit override: a fresh runtime on the requested backend

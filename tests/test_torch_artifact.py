@@ -275,7 +275,14 @@ def test_bundles_the_port_refuses(s, tmp_path):
         cluster_model=LengthBuckets(), cluster_stats={0: s["jstats"]},
         float_params=s["jparams"], task=_task(s), target="cls",
         n_out=N_CLASSES)
-    with pytest.raises(ValueError, match="item 4"):
+    assert A.load_artifact(v3, device="cpu").adaptive   # v3 loads now
+    future = os.path.join(v3, A.METADATA)
+    with open(future) as f:
+        meta = json.load(f)
+    meta["version"] = A.VERSION + 1
+    with open(future, "w") as f:
+        json.dump(meta, f)
+    with pytest.raises(ValueError, match="not in"):
         A.load_artifact(v3, device="cpu")
 
     edited = str(tmp_path / "edited")

@@ -390,15 +390,15 @@ def test_facade_sweep_accuracy_matches_jax(facades, tmp_path):
 def test_facade_refuses_what_is_not_ported(facades, tmp_path):
     _, samp = facades
     for call, item in ((lambda: samp.finetune(steps=1), "item 7"),
-                       (lambda: samp.calibrate(clusters=object()),
-                        "item 4"),
-                       (lambda: samp.autotune(clusters=object()), "item 4"),
-                       (lambda: samp.apply_planset(None), "item 4"),
                        (samp.serve_http, "item 5")):
         with pytest.raises(NotImplementedError, match=item):
             call()
+    # plan sets deploy now, as in the JAX package: after a calibration
+    # with clusters= only
     from repro_torch.core.plan import PlanSet
     plan = samp.pipeline.precision
     path = PlanSet.single(plan).save(str(tmp_path / "planset.json"))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        samp.apply_plan_file(path)
+    for call in (lambda: samp.apply_planset(PlanSet.single(plan)),
+                 lambda: samp.apply_plan_file(path)):
+        with pytest.raises(ValueError, match="cluster-conditional"):
+            call()

@@ -633,6 +633,7 @@ DECODE_SHAPES = [(8, 2, 7, 64, 16, 8), (3, 2, 2, 16, 8, 3),
                  (2, 1, 48, 128, 16, 2),      # granite's group: 2 blocks
                  (3, 2, 40, 64, 16, 2),
                  (2, 2, 3, 80, 16, 3),        # padded to 128
+                 (2, 2, 2, 256, 128, 2),      # gemma2's, pages of 128
                  (3, 1, 2, 18, 3, 4)]         # bytewise, pages of 3
 
 
@@ -685,8 +686,7 @@ def test_decode_attention_splits_equal_plain(dev, hd, ps, pps, mode):
     """Split over pages (flash-decoding), the kernel still sums in the
     plain version's order: equal bit for bit at 1, 2 and many splits, with
     empty splits past short slots, -1 holes and a slot of length 0."""
-    if not decode_attention.block_rows(hd, ps, SPLIT_GROUPS[hd]):
-        pytest.skip(f"head dim {hd} with pages of {ps} is not built")
+    assert decode_attention.block_rows(hd, ps, SPLIT_GROUPS[hd])
     args, kw = _decode_case(dev, 3, 2, SPLIT_GROUPS[hd], hd, ps, pps, mode,
                             seed=hd + ps + pps)
     assert decode_attention.decode_splits(
@@ -719,9 +719,9 @@ def test_decode_attention_refuses(dev):
     args, kw = _decode_case(dev, 2, 2, 2, 64, 16, 2, "per_token")
     q, k, v, table, lengths = args
     da = decode_attention.decode_attention
-    with pytest.raises(ValueError):      # a 256-dim page of 128 tokens
-        (bq, bk, bv, btable, blen), bkw = _decode_case(dev, 1, 1, 1, 256,
-                                                       128, 1, "per_token")
+    with pytest.raises(ValueError):      # a head dim over 256
+        (bq, bk, bv, btable, blen), bkw = _decode_case(dev, 1, 1, 1, 320,
+                                                       16, 1, "per_token")
         da(bq, bk, bv, btable, blen, **bkw)
     with pytest.raises(TypeError):                      # float pages
         da(q, k.float(), v.float(), table, lengths, **kw)
@@ -1063,9 +1063,33 @@ def test_flash_attention_smem_mirrors_the_library(dev):
     dfn = build.function("samp_decode_attention_smem",
                          (build.I, build.I, build.I), ctypes.c_longlong)
     for rows, hd, ps in ((7, 64, 16), (1, 18, 3), (24, 128, 128),
-                         (32, 256, 64), (1, 256, 128), (4, 320, 16)):
+                         (32, 256, 64), (1, 256, 128), (32, 256, 128),
+                         (4, 320, 16)):
         assert dfn(rows, hd, ps) == decode_attention.decode_attention_smem(
             rows, hd, ps)
+
+
+@pytest.mark.parametrize("group",
+                         sorted({1, 2, 7, 32, *SPLIT_GROUPS.values()}))
+def test_decode_attention_256_128_fits_a_block(dev, group):
+    """Head dim 256 with pages of 128 tokens: K and V share one page
+    buffer, so the block the wrapper picks for any group is within the
+    card's opt-in shared memory, and the kernel launches there."""
+    rows = decode_attention.block_rows(256, 128, group)
+    assert 0 < rows <= decode_attention.MAX_BLOCK_ROWS
+    dfn = build.function("samp_decode_attention_smem",
+                         (build.I, build.I, build.I), ctypes.c_longlong)
+    smem = dfn(rows, 256, 128)
+    assert smem == decode_attention.decode_attention_smem(rows, 256, 128)
+    assert 0 < smem <= decode_attention._MAX_SMEM
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    assert smem <= limit
+    assert decode_attention.kv_buffers(256, 128) == 1
+    args, kw = _decode_case(dev, 2, 1, group, 256, 128, 2, "per_token")
+    out = decode_attention.decode_attention(*args, **kw)
+    want = decode_attention.decode_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert out.equal(want), float((out - want).abs().max())
 
 
 def test_flash_attention_refuses(dev):
@@ -1134,7 +1158,8 @@ def test_fused_attention_launches_past_shared_memory(dev):
         assert kernels.launch_counts()["quant_flash_attention"] == 1
 
 
-@pytest.mark.parametrize("page_size,head_dim", [(64, None), (16, 256)])
+@pytest.mark.parametrize("page_size,head_dim", [(64, None), (16, 256),
+                                                (128, 256)])
 def test_decode_engine_unbuilt_shapes_equal_reference(dev, page_size,
                                                       head_dim):
     """Reduced qwen2 over int8 pages of 64 tokens, or at gemma2's head dim
@@ -1220,3 +1245,60 @@ def test_the_port_imports_no_jax(dev):
                          text=True, env=dict(os.environ,
                                              PYTHONPATH=str(src)))
     assert run.returncode == 0, run.stdout + run.stderr
+
+
+def test_routed_fused_encoder_equals_the_solo_member(dev):
+    """Reduced BERT routed by length over two member plans on the fused
+    backend (the ffn policy, and the whole-layer int8 span, which runs
+    quant_flash_attention): each response bit-equal to an unrouted engine
+    running its cluster's entry alone at the same bucket, one cached
+    callable per (cluster, bucket), and the span's kernel launched."""
+    import numpy as np
+    from repro_torch.adaptive import (LengthBuckets, PlanSet,
+                                      batch_clusters, build_router,
+                                      clustered_synthetic_batches)
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import plan_from_policy
+    from repro_torch.core.precision import make_policy
+    from repro_torch.core.samp import SAMPEngine, int8_dataflow_variant
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import EncoderRequest, EncoderServeEngine
+    cfg = get_config("bert-base").reduced().replace(num_layers=2)
+    eng = SAMPEngine(cfg, float_dtype="float32")
+    params = T.init_params(cfg, eng.float_precision, seed=0,
+                           head=("cls", 15), device=dev)
+    model = LengthBuckets((8,))
+    batches, classes = clustered_synthetic_batches(cfg, model, max_len=16,
+                                                   batch_size=3)
+    stats = eng.calibrate(params, batches, clusters=batch_clusters(
+        model, batches, batch_classes=classes))
+    ffn = plan_from_policy(make_policy(cfg, "ffn"))
+    span = int8_dataflow_variant(plan_from_policy(make_policy(cfg, "full")))
+    router = build_router(cfg, params, PlanSet(((0, ffn), (1, span))),
+                          stats, cluster_model=model,
+                          float_plan=eng.float_plan, backend="fused")
+    rng = np.random.default_rng(0)
+    reqs = [rng.integers(1, cfg.vocab_size, n).tolist()
+            for n in (5, 7, 12, 14)]
+    e0 = router.entry(0)
+    routed = EncoderServeEngine(cfg, e0.params, e0.plan, backend="fused",
+                                max_batch=2, max_len=16, router=router,
+                                device=dev)
+    for i, toks in enumerate(reqs):
+        routed.submit(EncoderRequest(uid=i, tokens=toks))
+    kernels.reset_launches()
+    done = {r.uid: r for r in routed.run()}
+    launches = kernels.launch_counts()
+    assert [done[i].cluster for i in range(4)] == [0, 0, 1, 1]
+    assert launches["quant_flash_attention"] > 0
+    assert launches["quant_linear"] > 0 and launches["fused_embed"] == 2
+    assert routed.stats["runtime_executables"] == 2
+    for c in (0, 1):
+        e = router.entry(c)
+        solo = EncoderServeEngine(cfg, e.params, e.plan, backend="fused",
+                                  max_batch=2, max_len=16, device=dev)
+        uids = [i for i in range(4) if done[i].cluster == c]
+        for i in uids:
+            solo.submit(EncoderRequest(uid=i, tokens=reqs[i]))
+        for r in solo.run():
+            np.testing.assert_array_equal(r.logits, done[r.uid].logits)

@@ -370,18 +370,20 @@ def test_ops_launch_nothing_on_cpu():
 def test_decode_block_rows_cover_the_kernel_tables():
     """Every head dim up to 256 with every page size up to 128 (zero-padded
     to the next instantiation), any GQA group (split over blocks of at most
-    32 rows that fit the shared memory); only a 256-dim page of 128 tokens
-    overflows a block."""
+    32 rows that fit the shared memory); a 256-dim page of 128 tokens fits
+    with K and V sharing one page buffer."""
     for hd, ps, g in ((64, 16, 7), (256, 16, 2), (64, 64, 1), (64, 16, 48),
                       (48, 16, 1), (80, 3, 7), (18, 5, 1), (128, 128, 48),
-                      (256, 64, 32)):
+                      (256, 64, 32), (256, 128, 1), (256, 128, 2),
+                      (200, 100, 7)):
         assert DA.block_rows(hd, ps, g), (hd, ps, g)
-    assert not DA.block_rows(256, 128, 1)
     assert not DA.block_rows(320, 16, 1) and not DA.block_rows(64, 256, 1)
     assert not DA.block_rows(64, 16, 0)
     assert [DA.block_rows(64, 16, g) for g in (1, 7, 32, 33, 40, 48)] == \
         [1, 7, 32, 17, 20, 24]
     assert DA.block_rows(256, 64, 48) == 24
+    assert [DA.block_rows(256, 128, g) for g in (1, 7, 32, 48)] == \
+        [1, 7, 32, 24]
     # the layout of csrc/decode_attention.cu in floats, at qwen2's shape:
     # q, K, V, their scales, scores, acc, m / l / alpha, the weights of up
     # to 32 splits a row, the last-block flag
@@ -390,12 +392,17 @@ def test_decode_block_rows_cover_the_kernel_tables():
         + 1)
     assert DA.decode_attention_smem(7, 48, 16) == \
         DA.decode_attention_smem(7, 64, 16)
+    # at head dim 256 with pages of 128, one page buffer for K and V
+    assert DA.decode_attention_smem(2, 256, 128) == 4 * (
+        2 * 257 + 128 * 257 + 2 * 128 + 2 * 128 + 2 * 256 + 3 * 2 + 2 * 32
+        + 1)
     for hd in DA.HEAD_DIMS:
         for ps in DA.PAGE_SIZES:
+            assert DA.kv_buffers(hd, ps) == (1 if (hd, ps) == (256, 128)
+                                             else 2)
             rows = DA.block_rows(hd, ps, 64)
-            assert (rows == 0) == ((hd, ps) == (256, 128))
-            if rows:
-                assert DA.decode_attention_smem(rows, hd, ps) <= DA._MAX_SMEM
+            assert rows
+            assert DA.decode_attention_smem(rows, hd, ps) <= DA._MAX_SMEM
 
 
 def test_quant_flash_attention_smem_mirrors_the_kernel_layout():

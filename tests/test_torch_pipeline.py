@@ -394,8 +394,9 @@ def test_with_policy_shares_the_runtime(golden):
     pipe.predict_logits(b)
     sib.predict_logits(b)
     keys = {k[1] for k in pipe.runtime._exe}
-    assert ("reference", pipe.precision.fingerprint()) in keys
-    assert ("reference", sib.precision.fingerprint()) in keys
+    # (backend, plan fingerprint, cluster): None for an unrouted runtime
+    assert ("reference", pipe.precision.fingerprint(), None) in keys
+    assert ("reference", sib.precision.fingerprint(), None) in keys
     assert pipe.runtime.stats["executables"] >= before + 1
     # an EncoderPolicy coerces through the lossless shim, as in JAX
     pol = P.make_policy(pipe.cfg, "ffn2", "float32")
