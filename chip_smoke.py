@@ -104,6 +104,34 @@ line per phase:
   and unrouted, admission ms a request, ``autotune`` s, v3 bundle bytes and
   load s, and is a path of the kernel summary (``by_path``, per one forward
   of each member);
+* ``http_path``: the HTTP/SSE front-end and the serving CLIs, as a user
+  starts them. ``repro_torch.launch.server.build_frontend`` on the
+  server's argv builds full-width BERT-base (``--task tnews``, the tiled
+  golden plan from a file, the fused backend, 8 slots, max_len 128):
+  ``main_path``'s 32 requests from concurrent clients (a warm-up pass, the
+  counted pass, a timed pass), every response's logits equal (0.0) to a
+  direct ``EncoderServeEngine`` over the front-end's params and plan fed
+  the micro-batches the batcher made, in their order, predictions equal,
+  the reference backend within rel-Linf 5e-3 with identical predictions,
+  42 / 6 / 6 / 1 launches a forward the batcher made, every
+  ``CORE_METRICS`` family at ``/metrics``; then, on engines sharing its
+  runtime, 429 + ``Retry-After: 1`` for 4 of 6 clients against
+  ``max_pending=2``, 504 for a queued request past its 100 ms deadline
+  (evicted, never batched), and a drain answering 200 in flight and 503 +
+  ``Retry-After: 5`` to a new request. It builds full-width qwen2-0.5b
+  (``--task lm``, the golden plan tiled 6x, int8 per-token pages of 16) and
+  streams the 16 decode prompts over SSE, 32 tokens each: each stream's
+  tokens equal to a direct ``ServeEngine``'s, the ``done`` transcript equal
+  to the streamed tokens with indices 0..31, 0 pages in use after, 102 /
+  12 / 18 / 12 launches a tick. Last, ``python -m
+  repro_torch.launch.server`` as a subprocess (its port read from its
+  ``listening on`` line, ``/healthz`` and 8 ``/v1/encode`` requests,
+  SIGTERM, exit 0 within 60 s) and ``python -m repro_torch.launch.serve``
+  on qwen2-0.5b (exit 0). It records HTTP and direct requests/s, the
+  driver's latency p50 / p95, SSE and direct generated tokens/s and the
+  start-up seconds, each with the card's name and power limit; both
+  front-ends are paths of the kernel summary (``http_path``,
+  ``http_decode_path``);
 * ``kernel``: each kernel against its plain version at every shape a path
   gave it, and at the (8, 128) bucket (the decode paths: 8 slots, the
   longest tick) its time, its plain version's and a PyTorch library call's
@@ -269,6 +297,21 @@ GOLDEN_FINGERPRINT = ("15b938404e76359d6c4ef8dc3ac5eae8"
 # 1024 cached tokens
 WIDE_PAGE_DECODE = {"kv_heads": 4, "group": 2, "head_dim": 256,
                     "page_size": 128, "softcap": 50.0, "tokens": 1024}
+# http_path: the front-ends' slots (encoder micro-batch, decode slots) and
+# length cap; the time limits of one HTTP exchange, one front-end session,
+# a server subprocess's start (spawn to its listening line) and its exit
+# after SIGTERM, and the one-shot serve CLI; its requests and tokens, and
+# the /v1/encode requests sent to the server subprocess
+HTTP_SLOTS = 8
+HTTP_MAX_LEN = 128
+HTTP_EXCHANGE_S = 120.0
+HTTP_SESSION_S = 300.0
+HTTP_START_S = 300.0
+HTTP_EXIT_S = 60.0
+HTTP_CLI_S = 600.0
+HTTP_CLI_REQUESTS = 8
+HTTP_CLI_TOKENS = 16
+HTTP_CLI_ENCODES = 8
 # the times of each kernel's summary entry
 TIMES = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
          "library_device_ms")
@@ -1832,6 +1875,617 @@ def phase_adaptive(model, decoder, device):
     return path
 
 
+# ---------------------------------------------------------------------------
+# http_path: the HTTP/SSE front-end and the serving CLIs
+# ---------------------------------------------------------------------------
+
+
+def _http_request(method: str, path: str, body=None) -> bytes:
+    data = b"" if body is None else json.dumps(body).encode("utf-8")
+    return (f"{method} {path} HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+            f"Content-Length: {len(data)}\r\n\r\n").encode("latin1") + data
+
+
+async def http_exchange(port: int, method: str, path: str, body=None):
+    """One request on its own connection, read to close (the front-end
+    answers ``Connection: close``), within ``HTTP_EXCHANGE_S``:
+    ``(status, headers, body bytes)``."""
+    import asyncio
+
+    async def go():
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        try:
+            writer.write(_http_request(method, path, body))
+            await writer.drain()
+            return await reader.read()
+        finally:
+            writer.close()
+            try:
+                await writer.wait_closed()
+            except ConnectionError:
+                pass
+
+    raw = await asyncio.wait_for(go(), HTTP_EXCHANGE_S)
+    head, _, payload = raw.partition(b"\r\n\r\n")
+    lines = head.decode("latin1").split("\r\n")
+    headers = {}
+    for line in lines[1:]:
+        k, _, v = line.partition(":")
+        headers[k.strip().lower()] = v.strip()
+    return int(lines[0].split()[1]), headers, payload
+
+
+async def http_json(port: int, method: str, path: str, body=None):
+    status, headers, payload = await http_exchange(port, method, path, body)
+    return status, headers, json.loads(payload)
+
+
+async def http_sse(port: int, body):
+    """``POST /v1/generate``: ``(status, [(event, data), ...])`` parsed by
+    the port's ``protocol.parse_sse``."""
+    from repro_torch.serve.frontend import protocol
+    status, headers, payload = await http_exchange(port, "POST",
+                                                   "/v1/generate", body)
+    if headers.get("content-type") != "text/event-stream":
+        return status, json.loads(payload)
+    return status, protocol.parse_sse(payload.decode("utf-8"))
+
+
+def run_http(fe, scenario):
+    """Start ``fe``, run ``scenario(port)`` (which returns a dict) within
+    ``HTTP_SESSION_S``, always stop it (a hard stop: 503 into anything
+    still waiting); the dict gains ``listen_s``, the seconds to bind."""
+    import asyncio
+
+    async def main():
+        t = time.perf_counter()
+        await fe.start()
+        listen_s = time.perf_counter() - t
+        try:
+            out = await asyncio.wait_for(scenario(fe.port), HTTP_SESSION_S)
+        finally:
+            await fe.stop()
+        out["listen_s"] = listen_s
+        return out
+
+    return asyncio.run(main())
+
+
+def _quiet(*args, **kw):
+    pass
+
+
+def _server_argv(plan_path, *extra):
+    return ["--plan", str(plan_path), "--backend", "fused", "--slots",
+            str(HTTP_SLOTS), "--max-len", str(HTTP_MAX_LEN), "--port", "0",
+            *extra]
+
+
+def http_encoder(model, tmp, device, card):
+    """Full-width BERT-base over HTTP, in process: ``build_frontend`` on
+    the server's argv (the tiled golden plan from a file, the fused
+    backend), ``main_path``'s 32 requests from concurrent clients (a
+    warm-up pass, the counted pass, a timed pass), every response held
+    bit for bit against a direct engine over the front-end's own params
+    and plan fed the very batches the micro-batcher made, and against the
+    reference backend; the front-end's kernels counted per forward. Then
+    admission (429), deadline (504) and drain (503) on engines sharing its
+    runtime."""
+    import asyncio
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.plan import PrecisionPlan
+    from repro_torch.launch.server import (build_frontend, load_kernels,
+                                           make_parser)
+    from repro_torch.serve import EncoderRequest, EncoderServeEngine
+    from repro_torch.serve.metrics import CORE_METRICS
+
+    plan_path = tmp / "golden_x3.json"
+    model["plan"].save(str(plan_path))
+    args = make_parser().parse_args(
+        ["--arch", "bert-base", "--task", "tnews"]
+        + _server_argv(plan_path))
+    t0 = time.perf_counter()
+    fe = build_frontend(args, log=_quiet)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    load_kernels(fe, log=_quiet)
+    kernels_s = time.perf_counter() - t0
+    eng = fe.encoder
+    cfg = eng.cfg
+    if cfg.num_layers != 12 or cfg.d_model != 768 or cfg.vocab_size != 21128:
+        fail(f"http_path: --device cuda built {cfg.name} at "
+             f"{cfg.num_layers} layers x {cfg.d_model}, not full width")
+    requests = model["requests"]
+    batches = []                     # the micro-batches, as flushed
+    ready = eng.batcher.ready
+
+    def spy(now=None, force=False):
+        out = ready(now, force)
+        batches.extend([list(reqs) for _, reqs in out])
+        return out
+    eng.batcher.ready = spy
+
+    async def burst(port):
+        t = time.perf_counter()
+        res = await asyncio.gather(*(http_json(
+            port, "POST", "/v1/encode", {"tokens": toks})
+            for toks in requests))
+        return res, time.perf_counter() - t
+
+    async def scenario(port):
+        out = {}
+        t = time.perf_counter()
+        await burst(port)                              # warm-up
+        batches.clear()
+        calls = eng.runtime.stats["calls"]
+        kernels.reset_launches()
+        out["results"], out["wall"] = await burst(port)
+        out["launches"] = kernels.launch_counts()
+        out["forwards"] = eng.runtime.stats["calls"] - calls
+        out["batches"] = list(batches)
+        _, out["wall_2"] = await burst(port)
+        _, _, m = await http_exchange(port, "GET", "/metrics")
+        out["metrics"] = m.decode("utf-8")
+        out["health"] = await http_json(port, "GET", "/healthz")
+        out["p50"] = fe.driver.latency.quantile(0.5)
+        out["p95"] = fe.driver.latency.quantile(0.95)
+        out["session_s"] = time.perf_counter() - t
+        return out
+
+    got = run_http(fe, scenario)
+    eng.batcher.ready = ready
+
+    # replay each micro-batch, in its order, through direct engines
+    def replay(backend):
+        direct = EncoderServeEngine(cfg, eng.params, eng.plan,
+                                    target=eng.target, backend=backend,
+                                    max_batch=HTTP_SLOTS,
+                                    max_len=HTTP_MAX_LEN, device=device)
+        out = {}
+        for group in got["batches"]:
+            calls = direct.runtime.stats["calls"]
+            for r in group:
+                direct.submit(EncoderRequest(uid=r.uid,
+                                             tokens=list(r.tokens)))
+            done = direct.run()
+            if direct.runtime.stats["calls"] - calls != 1:
+                fail(f"http_path: a micro-batch of {len(group)} took "
+                     f"{direct.runtime.stats['calls'] - calls} forwards "
+                     f"in the direct engine")
+            out.update({r.uid: r for r in done})
+        return out, direct
+
+    fused, direct = replay("fused")
+    reference, _ = replay("reference")
+    _, direct_wall = serve(direct, requests)           # warm, then timed
+    _, direct_wall = serve(direct, requests)
+    statuses = [s for s, _, _ in got["results"]]
+    objs = {o["uid"]: o for s, _, o in got["results"] if s == 200}
+    if statuses != [200] * N_REQUESTS or sorted(objs) != sorted(fused):
+        fail(f"http_path: statuses {collections.Counter(statuses)}, "
+             f"{len(objs)} answers for {len(fused)} batched requests")
+    http = np.stack([np.asarray(objs[u]["logits"], np.float32)
+                     for u in sorted(objs)])
+    dfused = np.stack([fused[u].logits for u in sorted(objs)])
+    dref = np.stack([reference[u].logits for u in sorted(objs)])
+    diff = float(np.abs(http - dfused).max())
+    ref_err = rel_linf(torch.from_numpy(dref), torch.from_numpy(dfused))
+    preds = [objs[u]["prediction"] for u in sorted(objs)]
+    dpreds = [int(fused[u].prediction) for u in sorted(objs)]
+    rpreds = [int(reference[u].prediction) for u in sorted(objs)]
+    cases = kernel_cases(cfg, model["plan"])
+    per_fwd = collections.Counter()
+    for key, case in cases.items():
+        per_fwd[key[0]] += case["count"]
+    launches, forwards = got["launches"], got["forwards"]
+    want = {k: per_fwd[k] * forwards for k in launches}
+    missing = [n for n in CORE_METRICS if n not in got["metrics"]]
+    rec = {"phase": "http_path", "part": "encode", "model": cfg.name,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "plan_fingerprint":
+           PrecisionPlan.load(str(plan_path)).fingerprint(), "card": card,
+           "build_frontend_s": build_s, "load_kernels_s": kernels_s,
+           "listen_s": got["listen_s"], "session_s": got["session_s"],
+           "requests": N_REQUESTS, "forwards": forwards,
+           "micro_batches": [len(g) for g in got["batches"]],
+           "buckets": eng.runtime.stats["buckets"],
+           "http_wall_s": [got["wall"], got["wall_2"]],
+           "http_requests_per_s": [N_REQUESTS / got["wall"],
+                                   N_REQUESTS / got["wall_2"]],
+           "direct_wall_s": direct_wall,
+           "direct_requests_per_s": N_REQUESTS / direct_wall,
+           "latency_p50_s": got["p50"], "latency_p95_s": got["p95"],
+           "latency_samples": fe.driver.latency.count,
+           "http_vs_direct_max_abs": diff,
+           "predictions_equal_direct": preds == dpreds,
+           "reference_rel_linf": ref_err,
+           "reference_predictions_equal": rpreds == dpreds,
+           "launches": launches, "expected_launches": want,
+           "launches_per_forward": dict(per_fwd),
+           "metrics_missing": missing, "healthz": got["health"][2]}
+    emit(rec)
+    if rec["plan_fingerprint"] != GOLDEN_FINGERPRINT:
+        fail(f"http_path: the plan file holds {rec['plan_fingerprint']}, "
+             f"not the tiled golden plan")
+    if diff != 0.0 or preds != dpreds:
+        fail(f"http_path: HTTP logits differ from the direct engine's at "
+             f"the same buckets by {diff}, predictions equal "
+             f"{preds == dpreds}")
+    if ref_err > REL_LINF_BUDGET or rpreds != dpreds:
+        fail(f"http_path: the reference backend is {ref_err} rel-Linf "
+             f"away, predictions equal {rpreds == dpreds}")
+    if dict(per_fwd) != EXPECTED["main_path"]:
+        fail(f"http_path: the plan implies {dict(per_fwd)} launches per "
+             f"forward, not {EXPECTED['main_path']}")
+    if forwards != len(got["batches"]) or launches != want \
+            or any(launches[k] == 0 for k in per_fwd):
+        fail(f"http_path: {launches} launches over {forwards} forwards "
+             f"({len(got['batches'])} micro-batches), plan-implied {want}")
+    if missing:
+        fail(f"http_path: /metrics lacks {missing}")
+    http_admission(eng, device, card)
+    path = {"name": "http_path", "cfg": cfg, "launches": launches,
+            "per_fwd": per_fwd, "cases": cases,
+            "buckets": sorted(set(map(tuple, eng.runtime.stats["buckets"]))
+                              | {PROFILE_BUCKET}),
+            "timed_bucket": PROFILE_BUCKET, "unit": "forward"}
+    return path, rec
+
+
+def http_admission(eng, device, card):
+    """Admission control on the card, on engines sharing the encoder
+    front-end's runtime, each held as ``tests/test_frontend.py`` holds it:
+    6 concurrent clients against ``max_pending=2`` (4 answered 429 +
+    ``Retry-After: 1``), a queued request past its 100 ms deadline (504,
+    evicted, never batched) and ``begin_drain`` with one request in flight
+    (200 for it, 503 + ``Retry-After: 5`` for a new one; the forced flush
+    waits at a gate until the 503 is read)."""
+    import asyncio
+    import threading
+    from repro_torch.serve import EncoderServeEngine
+    from repro_torch.serve.frontend import HTTPFrontend
+
+    def engine(max_wait):
+        return EncoderServeEngine(eng.cfg, eng.params, eng.plan,
+                                  target=eng.target, runtime=eng.runtime,
+                                  max_batch=HTTP_SLOTS, max_wait=max_wait,
+                                  max_len=HTTP_MAX_LEN, device=device)
+
+    def toks(i):
+        return [3 + i, 5, 9, 2]
+
+    fe = HTTPFrontend(encoder=engine(0.5), port=0, max_pending=2,
+                      log=_quiet)
+
+    async def burst(port):
+        res = await asyncio.gather(*(http_json(
+            port, "POST", "/v1/encode", {"tokens": toks(i)})
+            for i in range(6)))
+        _, _, m = await http_exchange(port, "GET", "/metrics")
+        return {"results": res, "metrics": m.decode("utf-8")}
+
+    got = run_http(fe, burst)
+    statuses = sorted(s for s, _, _ in got["results"])
+    retry = sorted({h.get("retry-after") for s, h, _ in got["results"]
+                    if s == 429})
+    counted = ('samp_requests_rejected_total{reason="capacity"} 4'
+               in got["metrics"])
+
+    late_engine = engine(10.0)
+    late = HTTPFrontend(encoder=late_engine, port=0, log=_quiet)
+
+    async def deadline(port):
+        t = time.perf_counter()
+        res = await http_json(port, "POST", "/v1/encode",
+                              {"tokens": toks(0), "deadline_ms": 100})
+        return {"result": res, "took": time.perf_counter() - t}
+
+    dl = run_http(late, deadline)
+
+    drain_engine = engine(30.0)
+    gate = threading.Event()
+    step = drain_engine.step
+
+    def gated(now=None, force=False):
+        if force:
+            gate.wait(HTTP_SESSION_S)
+        return step(now, force)
+    drain_engine.step = gated
+    dfe = HTTPFrontend(encoder=drain_engine, port=0, log=_quiet)
+
+    async def drain(port):
+        try:
+            inflight = asyncio.create_task(http_json(
+                port, "POST", "/v1/encode", {"tokens": toks(1)}))
+            for _ in range(1000):
+                if dfe.driver.inflight:
+                    break
+                await asyncio.sleep(0.01)
+            dfe.begin_drain()
+            rejected = await http_json(port, "POST", "/v1/encode",
+                                       {"tokens": toks(2)})
+        finally:
+            gate.set()
+        done = await inflight
+        await asyncio.wait_for(dfe.serve_forever(), HTTP_SESSION_S)
+        return {"done": done, "rejected": rejected}
+
+    dr = run_http(dfe, drain)
+    rec = {"phase": "http_path", "part": "admission", "card": card,
+           "burst_statuses": statuses, "burst_retry_after": retry,
+           "rejections_at_metrics": counted,
+           "deadline_status": dl["result"][0],
+           "deadline_s": dl["took"],
+           "deadline_evicted": late_engine.batcher.evicted,
+           "deadline_batches": late_engine._stats["batches"],
+           "drain_inflight_status": dr["done"][0],
+           "drain_new_status": dr["rejected"][0],
+           "drain_retry_after": dr["rejected"][1].get("retry-after")}
+    emit(rec)
+    if statuses != [200, 200, 429, 429, 429, 429] or retry != ["1"] \
+            or not counted or fe.driver.counts["rejected_capacity"] != 4:
+        fail(f"http_path: 6 clients against max_pending 2 got {statuses}, "
+             f"Retry-After {retry}, counted at /metrics {counted}")
+    if dl["result"][0] != 504 or "deadline" not in dl["result"][2]["error"] \
+            or dl["took"] >= 5.0 or late_engine.batcher.evicted != 1 \
+            or late_engine._stats["batches"] != 0:
+        fail(f"http_path: a request past its deadline: {rec}")
+    if dr["done"][0] != 200 or "logits" not in dr["done"][2] \
+            or dr["rejected"][0] != 503 \
+            or dr["rejected"][1].get("retry-after") != "5":
+        fail(f"http_path: drain answered {dr['done'][0]} in flight and "
+             f"{dr['rejected'][0]} to a new request")
+
+
+def http_decode(decoder, tmp, device, card):
+    """Full-width qwen2-0.5b over SSE, in process: ``build_frontend`` on
+    the server's argv (``--task lm``, the golden plan tiled 6x from a file,
+    int8 per-token pages of 16, the fused backend), the 16 decode prompts
+    as concurrent ``/v1/generate`` streams of 32 tokens (after a 2-stream
+    warm-up), each stream's tokens held against a direct ``ServeEngine``
+    over the front-end's own params and plan, the ticks' launches
+    counted."""
+    import asyncio
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch.server import build_frontend, make_parser
+    from repro_torch.serve import ServeEngine
+
+    plan_path = tmp / "golden_x6.json"
+    decoder["plan"].save(str(plan_path))
+    args = make_parser().parse_args(
+        ["--arch", "qwen2-0.5b", "--task", "lm", "--page-size",
+         str(PAGE_SIZE), "--kv-dtype", "int8_per_token"]
+        + _server_argv(plan_path))
+    t0 = time.perf_counter()
+    fe = build_frontend(args, log=_quiet)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    eng, prompts = fe.decode, decoder["prompts"]
+    cfg = eng.cfg
+    if fe.encoder is not None or cfg.num_layers != 24 \
+            or cfg.d_model != 896:
+        fail(f"http_path: --task lm built {cfg.name} at {cfg.num_layers} "
+             f"layers x {cfg.d_model}, encoder {fe.encoder is not None}")
+
+    async def scenario(port):
+        out = {}
+        await asyncio.gather(*(http_sse(port, {"prompt": p,
+                                                "max_tokens": 4})
+                               for p in prompts[:2]))   # warm-up
+        ticks = eng.stats["ticks"]
+        kernels.reset_launches()
+        t = time.perf_counter()
+        out["results"] = await asyncio.gather(*(http_sse(
+            port, {"prompt": p, "max_tokens": DECODE_MAX_TOKENS})
+            for p in prompts))
+        out["wall"] = time.perf_counter() - t
+        out["launches"] = kernels.launch_counts()
+        out["ticks"] = eng.stats["ticks"] - ticks
+        out["pages_in_use"] = eng.kv_pages_in_use
+        out["p50"] = fe.driver.latency.quantile(0.5)
+        out["p95"] = fe.driver.latency.quantile(0.95)
+        return out
+
+    got = run_http(fe, scenario)
+    direct = ServeEngine(cfg, eng.params, eng.plan,
+                         batch_slots=HTTP_SLOTS, max_len=HTTP_MAX_LEN,
+                         page_size=PAGE_SIZE, kv_cache="int8_per_token",
+                         precision=eng.runtime.precision, backend="fused",
+                         device=device)
+    serve_decode(direct, prompts[:2], max_tokens=4)    # warm-up
+    want, direct_wall = serve_decode(direct, prompts)
+    streams, bad = {}, []
+    for i, (status, events) in enumerate(got["results"]):
+        toks = [d["token"] for e, d in events if e == "token"] \
+            if status == 200 else None
+        done = [d for e, d in events if e == "done"] if toks is not None \
+            else []
+        idx = [d["index"] for e, d in events if e == "token"] \
+            if toks is not None else []
+        streams[i] = toks
+        if status != 200 or len(done) != 1 or done[0]["tokens"] != toks \
+                or idx != list(range(len(toks))) \
+                or len(toks) != DECODE_MAX_TOKENS:
+            bad.append((i, status, len(done), toks and len(toks)))
+    schemes = ("int8_per_token",) * cfg.num_layers
+    cases = kernel_cases(cfg, decoder["plan"], schemes)
+    per_tick = collections.Counter()
+    for key, case in cases.items():
+        per_tick[key[0]] += case["count"]
+    launches, ticks = got["launches"], got["ticks"]
+    expect = {k: per_tick[k] * ticks for k in launches}
+    generated = len(prompts) * DECODE_MAX_TOKENS
+    rec = {"phase": "http_path", "part": "generate", "model": cfg.name,
+           "layers": cfg.num_layers, "d_model": cfg.d_model, "card": card,
+           "plan_fingerprint": eng.runtime.precision.fingerprint(),
+           "build_frontend_s": build_s, "listen_s": got["listen_s"],
+           "streams": len(prompts), "max_tokens": DECODE_MAX_TOKENS,
+           "slots": HTTP_SLOTS, "page_size": PAGE_SIZE, "ticks": ticks,
+           "sse_wall_s": got["wall"],
+           "sse_generated_tokens_per_s": generated / got["wall"],
+           "direct_wall_s": direct_wall,
+           "direct_generated_tokens_per_s": generated / direct_wall,
+           "latency_p50_s": got["p50"], "latency_p95_s": got["p95"],
+           "tokens_equal_direct": streams == want,
+           "bad_streams": bad, "kv_pages_in_use_after": got["pages_in_use"],
+           "launches": launches, "expected_launches": expect,
+           "launches_per_tick": dict(per_tick)}
+    emit(rec)
+    if bad:
+        fail(f"http_path: malformed streams (index, status, done events, "
+             f"tokens): {bad}")
+    if streams != want:
+        fail("http_path: SSE tokens differ from the direct ServeEngine's")
+    if got["pages_in_use"] or direct.kv_pages_in_use:
+        fail(f"http_path: {got['pages_in_use']} pages in use after the "
+             f"streams")
+    if dict(per_tick) != EXPECTED_DECODE:
+        fail(f"http_path: the plan implies {dict(per_tick)} launches per "
+             f"tick, not {EXPECTED_DECODE}")
+    if launches != expect or any(launches[k] == 0 for k in per_tick):
+        fail(f"http_path: {launches} launches over {ticks} ticks, "
+             f"plan-implied {expect}")
+    path = {"name": "http_decode_path", "cfg": cfg, "launches": launches,
+            "per_fwd": per_tick, "cases": cases, "buckets": [DECODE_BUCKET],
+            "timed_bucket": DECODE_BUCKET, "unit": "tick"}
+    return path, rec
+
+
+def http_cli(model, tmp, card):
+    """The entry points as a user starts them, as subprocesses: the server
+    (``--port 0``; its port read from its ``listening on`` line; 8
+    ``/v1/encode`` requests and ``/healthz``; SIGTERM; exit 0 within
+    ``HTTP_EXIT_S``) and the one-shot serve CLI on qwen2-0.5b (exit 0)."""
+    import asyncio
+    import os
+    import queue
+    import re
+    import signal
+    import threading
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    argv = [sys.executable, "-m", "repro_torch.launch.server", "--arch",
+            "bert-base", "--task", "tnews"] + _server_argv(tmp /
+                                                         "golden_x3.json")
+    err = (tmp / "server.err").open("w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=err,
+                            text=True, cwd=ROOT, env=env)
+    lines: queue.Queue = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout]
+                     + [lines.put(None)], daemon=True).start()
+    out, port, start_s = [], None, None
+    try:
+        while port is None:
+            left = HTTP_START_S - (time.perf_counter() - t0)
+            try:
+                line = lines.get(timeout=max(left, 0.0))
+            except queue.Empty:
+                fail(f"http_path: the server printed no listening line in "
+                     f"{HTTP_START_S} s: {out}")
+            if line is None:
+                fail(f"http_path: the server exited ({proc.wait()}) before "
+                     f"listening: {out} "
+                     f"{(tmp / 'server.err').read_text()[-2000:]}")
+            out.append(line.rstrip())
+            m = re.search(r"listening on http://[\d.]+:(\d+)", line)
+            if m:
+                port, start_s = int(m.group(1)), time.perf_counter() - t0
+
+        async def scenario():
+            health = await http_json(port, "GET", "/healthz")
+            res = await asyncio.gather(*(http_json(
+                port, "POST", "/v1/encode", {"tokens": toks})
+                for toks in model["requests"][:HTTP_CLI_ENCODES]))
+            return health, res
+
+        health, res = asyncio.run(scenario())
+        t = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(HTTP_EXIT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"http_path: the server did not exit within {HTTP_EXIT_S} "
+                 f"s of SIGTERM")
+        exit_s = time.perf_counter() - t
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        err.close()
+    while (line := lines.get(timeout=HTTP_EXIT_S)) is not None:
+        out.append(line.rstrip())
+    loaded = [ln for ln in out if "kernels loaded" in ln]
+    t = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "qwen2-0.5b", "--policy", "ffn", "--backend", "fused",
+         "--requests", str(HTTP_CLI_REQUESTS), "--max-tokens",
+         str(HTTP_CLI_TOKENS)], capture_output=True, text=True,
+        timeout=HTTP_CLI_S, cwd=ROOT, env=env)
+    cli_s = time.perf_counter() - t
+    summary = [ln for ln in cli.stdout.splitlines()
+               if ln.startswith("[serve] backend=")]
+    statuses = [s for s, _, _ in res]
+    rec = {"phase": "http_path", "part": "cli", "card": card,
+           "server_start_s": start_s, "server_kernels_line": loaded,
+           "server_healthz": health[2], "server_encode_statuses": statuses,
+           "server_exit_code": rc, "server_exit_s": exit_s,
+           "server_last_line": out[-1] if out else None,
+           "serve_cli_exit_code": cli.returncode, "serve_cli_s": cli_s,
+           "serve_cli_summary": summary}
+    emit(rec)
+    if health[0] != 200 or statuses != [200] * HTTP_CLI_ENCODES or any(
+            len(o["logits"]) != 15 for _, _, o in res):
+        fail(f"http_path: the server subprocess answered /healthz "
+             f"{health[0]} and /v1/encode {statuses}")
+    if rc != 0 or "drained; bye" not in out[-1] or len(loaded) != 1:
+        fail(f"http_path: the server exited {rc} after SIGTERM: {out} "
+             f"{(tmp / 'server.err').read_text()[-2000:]}")
+    if cli.returncode != 0 or not summary:
+        fail(f"http_path: launch.serve exited {cli.returncode}: "
+             f"{cli.stdout[-2000:]} {cli.stderr[-2000:]}")
+    return rec
+
+
+def phase_http(model, decoder, device, card):
+    """``http_path``: the HTTP/SSE front-end and the serving CLIs on the
+    card. Returns the encoder and the decode front-end as paths of the
+    kernel phase."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="samp_http_"))
+    try:
+        enc_path, enc = http_encoder(model, tmp, device, card)
+        dec_path, dec = http_decode(decoder, tmp, device, card)
+        cli = http_cli(model, tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "http_path", "part": "summary", "card": card,
+          "http_requests_per_s": enc["http_requests_per_s"],
+          "direct_requests_per_s": enc["direct_requests_per_s"],
+          "encode_latency_p50_s": enc["latency_p50_s"],
+          "encode_latency_p95_s": enc["latency_p95_s"],
+          "sse_generated_tokens_per_s": dec["sse_generated_tokens_per_s"],
+          "direct_generated_tokens_per_s":
+              dec["direct_generated_tokens_per_s"],
+          "generate_latency_p50_s": dec["latency_p50_s"],
+          "generate_latency_p95_s": dec["latency_p95_s"],
+          "encoder_startup_s": {"build_frontend": enc["build_frontend_s"],
+                                "load_kernels": enc["load_kernels_s"],
+                                "listen": enc["listen_s"]},
+          "decoder_startup_s": {"build_frontend": dec["build_frontend_s"],
+                                "listen": dec["listen_s"]},
+          "server_subprocess_start_s": cli["server_start_s"],
+          "phase_s": time.perf_counter() - t0})
+    return [enc_path, dec_path]
+
+
 def setup_moe(device):
     """Full-width mixtral-8x22b cut to the golden v4 plan's 4 layers, with
     seeded float weights on the card, its calibration batches and the
@@ -3024,7 +3678,7 @@ def phase_profile(model, paths, device):
         for _ in range(n):
             path["fused"].runtime.encode(path["qparams"], inputs, lengths)
 
-    paths = [p for p in paths if p["unit"] == "forward"]
+    paths = [p for p in paths if p["unit"] == "forward" and "fused" in p]
     for path in paths:
         for _ in range(3):
             path["fused"].runtime.encode(path["qparams"], inputs, lengths)
@@ -3141,7 +3795,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     device = torch.device("cuda", 0)
     phase_build()
     flash = phase_flash(device)
@@ -3159,6 +3814,7 @@ def main() -> int:
                            decode_head_plan(decoder["plan"]), device),
               autotune]
     paths.append(phase_adaptive(model, decoder, device))
+    paths += phase_http(model, decoder, device, card)
     timed, max_err = {}, collections.defaultdict(float)
     check_kernels(paths, device, timed, max_err)
     long_decode = run_long_decode_case(device, Timer(device))

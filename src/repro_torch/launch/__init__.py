@@ -1,0 +1,5 @@
+"""Serving entry points (port of ``repro.launch``'s serving CLIs):
+``python -m repro_torch.launch.serve`` serves a batch of requests in
+process, ``python -m repro_torch.launch.server`` serves them over HTTP/SSE;
+both take the flags of :mod:`repro_torch.launch.cli`. Importing a module
+here starts nothing: each entry point runs under its ``__main__`` check."""

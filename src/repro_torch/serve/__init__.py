@@ -1,5 +1,7 @@
 """Serving (port of ``repro.serve``): the runtime, the schedulers, the
-encoder engine, the token-level decode engine and the metrics surface."""
+encoder engine, the token-level decode engine and the metrics surface. The
+HTTP/SSE front-end (``repro_torch.serve.frontend``) is imported lazily, so
+``import repro_torch.serve`` stays free of asyncio machinery."""
 from repro_torch.serve.encoder import EncoderServeEngine
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.runtime import Runtime, bucket_size

@@ -15,9 +15,10 @@ the kernels that deploy), artifact persistence, and a serving handoff.
 
 Input-adaptive precision (``calibrate(clusters=)``, ``apply_planset``,
 plan-set files, ``autotune(clusters=)``) deploys a PlanSet through a
-:class:`~repro_torch.adaptive.PlanRouter`, saved as a v3 bundle. Not ported
-yet, each raising ``NotImplementedError`` that names its item of ROADMAP
-queue 1: ``finetune`` (item 7, training) and ``serve_http`` (item 5).
+:class:`~repro_torch.adaptive.PlanRouter`, saved as a v3 bundle.
+``serve_http`` wraps the serving engine in the HTTP/SSE front-end. Not
+ported yet: ``finetune``, which raises ``NotImplementedError`` naming ROADMAP
+queue 1 item 7 (training).
 """
 from __future__ import annotations
 
@@ -542,5 +543,24 @@ class SAMP:
         return EncoderServeEngine(pipe.cfg, pipe.params, pipe.plan,
                                   runtime=pipe.runtime, **enc_kw, **kw)
 
-    def serve_http(self, **kw):
-        raise _not_ported("SAMP.serve_http", 5, "the HTTP/SSE front-end")
+    def serve_http(self, *, host: str = "127.0.0.1", port: int = 8000,
+                   max_pending: int = 64,
+                   default_deadline_s: Optional[float] = None,
+                   batch_slots: int = 4, max_len: int = 256,
+                   log=print, **kw):
+        """Wrap :meth:`serve` in the asyncio HTTP/SSE front-end
+        (docs/http-serving.md): encoder pipelines mount ``POST /v1/encode``
+        (JSON), decode pipelines mount ``POST /v1/generate`` (SSE token
+        streaming); both get ``/metrics`` and ``/healthz``. Returns the
+        unstarted :class:`~repro_torch.serve.frontend.HTTPFrontend` — call
+        ``run_forever()`` (blocking, SIGTERM-drains) or ``await start()``
+        inside an event loop. Engine kwargs (``backend=``, ``max_wait=``,
+        ...) pass through to :meth:`serve`."""
+        from repro_torch.serve import ServeEngine
+        from repro_torch.serve.frontend import HTTPFrontend
+        engine = self.serve(batch_slots=batch_slots, max_len=max_len, **kw)
+        sides = ({"decode": engine} if isinstance(engine, ServeEngine)
+                 else {"encoder": engine})
+        return HTTPFrontend(host=host, port=port, max_pending=max_pending,
+                            default_deadline_s=default_deadline_s, log=log,
+                            **sides)
