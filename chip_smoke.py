@@ -178,16 +178,56 @@ The models of those four paths are then freed, and the MoE slice runs:
   in two further runs outside the timed ones that must serve the same
   tokens.
 
+Then the attention archs of slice 13, one model at a time (``setup_arch``:
+full width, seeded float32 weights, 2 calibration batches of 4 x 128; each
+calibrated, quantized, its float tree dropped, served on the fused and the
+reference backends, its kernels held against their plain versions at the
+shapes it gave them and timed there, then freed; ``arch_summary`` prints
+its seconds and peak device memory). The decode paths serve 8 prompts of
+8-64 tokens (numpy seed 0), 16 greedy tokens each, 8 slots, max_len 128,
+with the decode paths' checks (identical tokens, logits within rel-Linf
+5e-3 at every tick both engines saw, the plan's launches a tick exactly,
+0 pages in use after):
+
+* ``gemma2_decode_path``: gemma2-2b, all 26 layers, the golden plan tiled
+  over them, int8 per-token pages of 128 tokens on the 13 global layers
+  beside the 13 local layers' dense rings: ``decode_attention`` at head
+  dim 256 with pages of 128 and softcap 50 on the float-qkv global
+  layers, the final softcap 30;
+* ``granite_decode_path``: granite-20b cut from 52 to 8 layers (golden x
+  2), MQA: ``decode_attention`` with a group of 48, split over two blocks;
+* ``deepseek_coder_decode_path``: deepseek-coder-33b cut from 62 to 8
+  layers, a group of 7;
+* ``hubert_encode_path``: hubert-xlarge, all 48 layers, the span (golden x
+  12 through ``int8_dataflow_variant``): 16 seeded frame sequences (T
+  uniform in 16-128, 512 features) through ``Runtime.encode`` with their
+  lengths, 8 a call, frame logits within rel-Linf 5e-3 and the predicted
+  codes identical: ``quant_flash_attention`` at head dim 80;
+* ``paligemma_path`` and ``paligemma_decode_path``: paligemma-3b, all 18
+  layers: one ``Runtime.encode`` of 8 rows of 256 seeded prefix embeddings
+  (1152 wide) beside 8-32 tokens (hidden states and the text positions'
+  logits within 5e-3, their argmax identical), then the text decode of
+  the prompts over int8 per-token pages of 16;
+* ``mla_decode_path``: deepseek-v2-236b cut from 60 to 3 layers (layer 0
+  dense, layers 1-2 MoE: 160 experts, top 6, 2 shared), ``quant_ffn_only``
+  with the experts family: MLA's absorbed decode over float latent pages
+  on the reference path, ``quant_expert_gemm`` at 160 experts (C = 1 a
+  tick), and the routings expert capacity dropped on both backends.
+
+Every launch count is also held to the table :data:`EXPECTED_ARCHS`, and
+``fused_embed`` launches on none of them (no learned positions).
+
 Then the kernel summary line (per kernel, its sums over one forward of the
 span path at (8, 128), or over one tick of the decode path, or of the MoE
 path for ``quant_expert_gemm``, and over one forward or tick of each path
-under ``by_path``; for ``flash_attention`` its qwen2 float32 32k call, the
+under ``by_path``, the slice-13 paths included; for ``flash_attention`` its qwen2 float32 32k call, the
 other cases under ``by_case``) and, last, ``{"ok": true, "device": ...}``. A failed
 check or a missing CUDA device exits non-zero before the ok line.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 import gc
 import json
 import math
@@ -312,6 +352,54 @@ HTTP_CLI_S = 600.0
 HTTP_CLI_REQUESTS = 8
 HTTP_CLI_TOKENS = 16
 HTTP_CLI_ENCODES = 8
+# slice 13, the attention archs, each built after the MoE path and freed
+# before the next: (arch, its paths). Decode: 8 prompts of 8-64 tokens, 16
+# greedy tokens each, 8 slots, max_len 128, int8 per-token pages of 16
+# (gemma2-2b: of 128; deepseek-v2's latent pages are float). Cuts of depth
+# (the float tree must fit beside PTQ on one 80 GB card): granite-20b 52 ->
+# 8, deepseek-coder-33b 62 -> 8, deepseek-v2-236b 60 -> 3 (layer 0 dense,
+# layers 1-2 MoE)
+ARCH_PHASES = (("gemma2-2b", ("gemma2_decode_path",)),
+               ("granite-20b", ("granite_decode_path",)),
+               ("deepseek-coder-33b", ("deepseek_coder_decode_path",)),
+               ("hubert-xlarge", ("hubert_encode_path",)),
+               ("paligemma-3b", ("paligemma_path", "paligemma_decode_path")),
+               ("deepseek-v2-236b", ("mla_decode_path",)))
+ARCH_CUTS = {"granite-20b": 8, "deepseek-coder-33b": 8,
+             "deepseek-v2-236b": 3}
+ARCH_PROMPTS = 8
+ARCH_MAX_TOKENS = 16
+ARCH_PAGE_SIZE = {"gemma2_decode_path": 128}
+HUBERT_SEQS = 16                 # frame sequences, T uniform in 16-128
+HUBERT_BATCH = 8                 # sequences a Runtime.encode call
+PALIGEMMA_ROWS = 8               # encode rows: 256 prefix embeddings +
+PALIGEMMA_TOKENS = 32            # up to 32 tokens
+# launches per tick (decode) or forward (encode) each plan implies: the
+# golden plan's four layers cost 17 quant_linear, 2 addnorm_quant, 3
+# dynamic_quant and 2 decode_attention (layers 1 and 2, float qkv over int8
+# pages) a tick; gemma2's local layers (even) keep rings, so only its
+# global layers 1, 5, ..., 25 run the decode kernel; hubert's span runs
+# per four layers 14 / 2 / 2 and 2 quant_flash_attention; deepseek-v2's MLA
+# body stays on the reference path: layer 0's FFN (3 + 1 addnorm) and each
+# MoE layer's shared experts (3) and routed stacks (3 quant_expert_gemm)
+EXPECTED_ARCHS = {
+    "gemma2_decode_path": {"quant_linear": 112, "addnorm_quant": 13,
+                           "dynamic_quant": 21, "decode_attention": 7},
+    "granite_decode_path": {"quant_linear": 34, "addnorm_quant": 4,
+                            "dynamic_quant": 6, "decode_attention": 4},
+    "deepseek_coder_decode_path": {"quant_linear": 34, "addnorm_quant": 4,
+                                   "dynamic_quant": 6,
+                                   "decode_attention": 4},
+    "hubert_encode_path": {"quant_linear": 168, "addnorm_quant": 24,
+                           "dynamic_quant": 24,
+                           "quant_flash_attention": 24},
+    "paligemma_path": {"quant_linear": 78, "addnorm_quant": 9,
+                       "dynamic_quant": 15},
+    "paligemma_decode_path": {"quant_linear": 78, "addnorm_quant": 9,
+                              "dynamic_quant": 15, "decode_attention": 9},
+    "mla_decode_path": {"quant_linear": 9, "addnorm_quant": 1,
+                        "quant_expert_gemm": 6},
+}
 # the times of each kernel's summary entry
 TIMES = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
          "library_device_ms")
@@ -346,6 +434,16 @@ def emit(obj) -> None:
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def measured(v):
+    """``v`` with each NaN time (a profile window that recorded nothing)
+    made None, through dicts and lists: the kernel line stays JSON."""
+    if isinstance(v, dict):
+        return {k: measured(x) for k, x in v.items()}
+    if isinstance(v, list):
+        return [measured(x) for x in v]
+    return None if isinstance(v, float) and math.isnan(v) else v
 
 
 def rel_linf(a, b) -> float:
@@ -397,7 +495,8 @@ class Timer:
         last kernels go missing, an earlier window's appear first, or a
         window records nothing), so each window ends in three more flushes,
         events before the first flush are dropped, and only the calls with
-        the most common number of kernels count."""
+        the most common number of kernels count. NaN (not measured) when
+        no window recorded the call."""
         import torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
@@ -427,7 +526,7 @@ class Timer:
         def step():
             self.flush.zero_()
             fn()
-        for _ in range(3):
+        for _ in range(6):
             calls = []
             for e in window(step, reps):
                 if e.name == self.flush_kernel:
@@ -2738,25 +2837,474 @@ def phase_moe(model, device):
             "expert_args": sub.expert_args, "prompts": prompts}
 
 
-def _gemms(cfg):
-    """(block, K, N, activation, param path) of each GEMM of a layer."""
+def setup_arch(arch, device):
+    """Full-width ``arch`` (cut to :data:`ARCH_CUTS` layers where its float
+    tree must fit beside PTQ on one card) with seeded float32 weights on the
+    card, 2 calibration batches of 4 x 128 (frames for an audio arch, 256
+    prefix embeddings beside the tokens for a vision one) and
+    :data:`ARCH_PROMPTS` decode prompts (8-64 tokens uniform over the vocab,
+    numpy seed 0). Resets the card's peak-memory counter: the phase's peak
+    covers the float model, calibration, PTQ and serving."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.calibration import synthetic_calibration_batches
+    from repro_torch.core.plan import PrecisionPlan
+    from repro_torch.models import transformer as T
+
+    full = get_config(arch)
+    cfg = full.replace(num_layers=ARCH_CUTS.get(arch, full.num_layers))
+    torch.cuda.init()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    float_policy = PrecisionPlan.full_float(cfg.num_layers, "float32")
+    params = T.init_params(cfg, float_policy, seed=0, device=device)
+    B, S = MOE_FORWARD
+    batches = synthetic_calibration_batches(cfg, num_batches=2, batch_size=B,
+                                            seq_len=S, seed=0)
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(8, 65, ARCH_PROMPTS)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in lengths]
+    n_params = sum(t.numel() for t in _tensors(params))
+    rec = {"phase": "setup_arch", "model": cfg.name,
+           "layers": cfg.num_layers, "of_layers": full.num_layers,
+           "d_model": cfg.d_model, "heads": cfg.num_heads,
+           "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+           "float_params": n_params, "float_bytes": 4 * n_params,
+           "init_s": time.perf_counter() - t0}
+    if cfg.moe is not None:
+        rec.update(experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+                   shared_experts=cfg.moe.num_shared,
+                   d_ff_expert=cfg.moe.d_ff_expert)
+    if cfg.mla is not None:
+        rec["mla"] = dataclasses.asdict(cfg.mla)
+    emit(rec)
+    return {"cfg": cfg, "params": params, "batches": batches,
+            "float_plan": T.build_plan(cfg, float_policy),
+            "prompts": prompts, "t0": t0}
+
+
+def arch_plan(name, cfg):
+    """The plan each slice-13 path serves: the golden plan's four layers
+    tiled over the depth (``setup_decoder``'s rule for qwen2, cut at the
+    last layer), for hubert its ``int8_dataflow_variant`` (the span), for
+    deepseek-v2 ``quant_ffn_only`` on every layer with the experts family
+    (``tests/test_conformance.py``'s MoE plan)."""
+    from repro_torch.core.plan import PrecisionPlan, plan_from_policy
+    from repro_torch.core.precision import make_policy
+    from repro_torch.core.samp import (int8_dataflow_variant,
+                                       moe_family_variant)
+    if name == "mla_decode_path":
+        return moe_family_variant(plan_from_policy(
+            make_policy(cfg, "ffn", float_dtype="float32")))
+    golden = PrecisionPlan.load(str(GOLDEN_PLAN))
+    reps = -(-cfg.num_layers // golden.num_layers)
+    plan = PrecisionPlan((golden.layers * reps)[:cfg.num_layers],
+                         golden.float_dtype)
+    return int8_dataflow_variant(plan) if name == "hubert_encode_path" \
+        else plan
+
+
+def quantize_arch(model, plan, device):
+    """Calibrate and quantize the float model under ``plan``, then drop the
+    float tree (``qparams`` keeps what the plan left float). Returns
+    (qparams, qplan, the PTQ peak device bytes)."""
+    import torch
+    from repro_torch.quant import ptq
+    cfg = model["cfg"]
+    stats = ptq.capture_stats(model["params"], model["batches"], cfg,
+                              model["float_plan"], precision=plan)
+    qparams, qplan = ptq.apply_plan(model["params"], cfg, plan, stats,
+                                    float_plan=model["float_plan"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device)
+    model["params"] = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return qparams, qplan, peak
+
+
+def per_pass(cases):
+    """Launches per forward or tick of each kernel, and of each sub-count
+    variant, from :func:`kernel_cases`."""
+    per, sub = collections.Counter(), collections.Counter()
+    for key, case in cases.items():
+        per[key[0]] += case["count"]
+        if case["sub"]:
+            sub[case["sub"]] += case["count"]
+    return per, sub
+
+
+def check_launches(name, per, sub, launches, subs, n):
+    """The launches a run of ``n`` forwards or ticks counted against the
+    plan's (``per``, ``sub`` a pass, from :func:`kernel_cases`) and against
+    :data:`EXPECTED_ARCHS`: every kernel the plan names ran, ``fused_embed``
+    never (no arch here has learned positions)."""
+    want_per = EXPECTED_ARCHS[name]
+    if dict(per) != want_per:
+        fail(f"{name}: the plan implies {dict(per)} launches per pass, not "
+             f"{want_per}")
+    want = {k: per[k] * n for k in launches}
+    if launches != want or any(launches[k] == 0 for k in want_per) \
+            or launches["fused_embed"]:
+        fail(f"{name}: launch counts {launches} != plan-implied {want}")
+    want_sub = {k: v * n for k, v in sub.items()}
+    if {k: v for k, v in subs.items() if v} != want_sub:
+        fail(f"{name}: sub-counts {subs} over {n} passes; the plan implies "
+             f"{dict(sub)} a pass")
+
+
+def serve_arch_decode(name, model, qparams, qplan, plan, device, *,
+                      page_size=PAGE_SIZE, kv_cache=None):
+    """Serve the model's prompts (:data:`ARCH_MAX_TOKENS` greedy tokens
+    each, 8 slots, max_len 128, paged) on the fused backend (counters zeroed
+    just before the counted run, read just after) and on the reference
+    backend, and check them as the decode paths are checked: identical
+    tokens, logits within rel-Linf 5e-3 at every tick both engines saw, the
+    plan's launches a tick exactly, 0 pages in use after. An MoE model's
+    runs also count the routings expert capacity dropped."""
+    import statistics as st
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeEngine
+
+    cfg, prompts = model["cfg"], model["prompts"]
+    kw = dict(batch_slots=DECODE_SLOTS, max_len=DECODE_MAX_LEN,
+              page_size=page_size, kv_cache=kv_cache, precision=plan,
+              device=device)
+    schemes = ((kv_cache,) * cfg.num_layers if kv_cache is not None
+               else plan.kv_schemes)
+    serve_decode(ServeEngine(cfg, qparams, qplan, backend="fused", **kw),
+                 prompts[:2], max_tokens=4)            # warm-up, not counted
+    moe = cfg.moe is not None
+    fused = ServeEngine(cfg, qparams, qplan, backend="fused", **kw)
+    with SubCounts() as sub, MoEDrops() as drops:
+        longest = [-1]
+
+        def on_tick(pos, active):
+            drops.on_tick(pos, active)
+            total = int((pos + 1)[active].sum())
+            if total >= longest[0]:
+                longest[0], sub.capture = total, True
+        ticks = Ticks(fused, on_tick=on_tick)
+        kernels.reset_launches()
+        outputs, wall = serve_decode(fused, prompts, ARCH_MAX_TOKENS)
+        launches = kernels.launch_counts()
+        subs = dict(sub.counts)
+        subs["quant_expert_gemm with per-token scales"] = \
+            kernels.expert_gemm.per_token_launches
+        dropped = {"fused": drops.counts()}
+    fused._decode = ticks.step
+    n_ticks = fused.stats["ticks"]
+    in_use = fused.kv_pages_in_use
+    reference = ServeEngine(cfg, qparams, qplan, backend="reference", **kw)
+    with MoEDrops() as drops:
+        ref_ticks = Ticks(reference, against=ticks, on_tick=drops.on_tick)
+        ref_outputs, ref_wall = serve_decode(reference, prompts,
+                                             ARCH_MAX_TOKENS)
+        dropped["reference"] = drops.counts()
+    in_use_ref = reference.kv_pages_in_use
+    cases = kernel_cases(cfg, plan, schemes, page_size)
+    per_tick, sub_tick = per_pass(cases)
+    generated = sum(len(o) for o in outputs.values())
+    rec = {"phase": name, "model": cfg.name, "layers": cfg.num_layers,
+           "plan": plan.describe(), "plan_fingerprint": plan.fingerprint(),
+           "kv_schemes": sorted(set(schemes)), "requests": len(prompts),
+           "slots": DECODE_SLOTS, "page_size": page_size,
+           "max_len": DECODE_MAX_LEN, "ticks": n_ticks,
+           "slot_tokens": fused.stats["tokens"],
+           "generated_tokens": generated, "wall_s": wall,
+           "tokens_per_s": fused.stats["tokens"] / wall,
+           "generated_tokens_per_s": generated / wall,
+           "median_tick_ms": st.median(ticks.walls) * 1e3,
+           "reference_wall_s": ref_wall,
+           "reference_median_tick_ms": st.median(ref_ticks.walls) * 1e3,
+           "launches": launches, "launches_per_tick": dict(per_tick),
+           "sub_counts": subs, "sub_counts_per_tick": dict(sub_tick),
+           "ticks_compared": ref_ticks.compared,
+           "fused_vs_reference_rel_linf": ref_ticks.max_rel,
+           "tokens_equal": outputs == ref_outputs,
+           "kv_pages_in_use_after": [in_use, in_use_ref],
+           "kv_cache_bytes": fused.kv_cache_bytes,
+           "cache_layers": {"paged": sum("pages_pos" in c
+                                         for c in fused.caches),
+                            "ring": sum("k_pos" in c
+                                        for c in fused.caches)},
+           "kv_geometry": list(T.kv_geometry(fused.caches)),
+           "longest_tick_tokens": longest[0]}
+    if moe:
+        E = cfg.moe.num_experts
+        rec["expert_capacity"] = max(1, math.ceil(
+            cfg.moe.capacity_factor * DECODE_SLOTS * cfg.moe.top_k / E))
+        rec["expert_capacity_drops"] = dropped
+    emit(rec)
+    if outputs != ref_outputs:
+        fail(f"{name}: fused and reference tokens differ")
+    if sorted(outputs) != list(range(len(prompts))) or any(
+            len(o) != ARCH_MAX_TOKENS or not all(0 <= t < cfg.vocab_size
+                                                 for t in o)
+            for o in outputs.values()) or not ticks.finite:
+        fail(f"{name}: outputs are not {ARCH_MAX_TOKENS} in-vocabulary "
+             f"tokens per request from finite logits")
+    if ref_ticks.compared == 0 or ref_ticks.max_rel > REL_LINF_BUDGET:
+        fail(f"{name}: fused vs reference logits rel-Linf "
+             f"{ref_ticks.max_rel} over {ref_ticks.compared} ticks (budget "
+             f"{REL_LINF_BUDGET})")
+    check_launches(name, per_tick, sub_tick, launches, subs, n_ticks)
+    if in_use or in_use_ref or fused.pool is None:
+        fail(f"{name}: page pool {fused.pool is not None}, {in_use} / "
+             f"{in_use_ref} pages still in use after the run")
+    if per_tick["decode_attention"] and sub.decode_args is None:
+        fail(f"{name}: no decode_attention call was captured")
+    out = {"name": name, "cfg": cfg, "qparams": qparams, "launches": launches,
+           "per_fwd": per_tick, "cases": cases, "buckets": [DECODE_BUCKET],
+           "timed_bucket": DECODE_BUCKET, "unit": "tick",
+           "decode_args": sub.decode_args, "record": rec}
+    if moe:
+        B, S = MOE_FORWARD
+        prefill_c = max(1, math.ceil(cfg.moe.capacity_factor * B * S
+                                     * cfg.moe.top_k / cfg.moe.num_experts))
+        out.update(expert_args=sub.expert_args, timed_capacity=rec[
+            "expert_capacity"], capacities=[rec["expert_capacity"],
+                                            prefill_c])
+    return out
+
+
+def encode_pair(cfg, qparams, qplan, device, batches, *, head):
+    """``Runtime.encode`` of ``batches`` (each (inputs, lengths)) on a fused
+    runtime (one warm-up pass, then counted) and on a reference one; returns
+    the outputs of both, the launches and the wall of the counted pass."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.serve import Runtime
+    rts = [Runtime(cfg, qplan, head=head, token_level=True, backend=b,
+                   device=device) for b in ("fused", "reference")]
+    for inputs, lengths in batches:
+        rts[0].encode(qparams, inputs, lengths)      # warm-up, not counted
+    with SubCounts() as sub:
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fused = [rts[0].encode(qparams, i, n) for i, n in batches]
+        wall = time.perf_counter() - t
+        launches = kernels.launch_counts()
+    t = time.perf_counter()
+    ref = [rts[1].encode(qparams, i, n) for i, n in batches]
+    return fused, ref, launches, dict(sub.counts), wall, \
+        time.perf_counter() - t, rts[0].stats["buckets"]
+
+
+def phase_hubert(model, device):
+    """hubert-xlarge, all 48 layers, under the span (the tiled golden plan's
+    ``int8_dataflow_variant``): :data:`HUBERT_SEQS` seeded frame sequences
+    (T uniform in 16-128, 512 features, numpy seed 1) through
+    ``Runtime.encode`` with their ``lengths``, :data:`HUBERT_BATCH` a call,
+    on both backends: frame logits (``lm_head`` over the 504-code
+    codebook) within rel-Linf 5e-3 and the predicted codes identical on
+    every real frame; ``quant_flash_attention`` at head dim 80 (run padded
+    to 128) in the span layers."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+
+    name, cfg = "hubert_encode_path", model["cfg"]
+    plan = arch_plan(name, cfg)
+    qparams, qplan, ptq_peak = quantize_arch(model, plan, device)
+    rng = np.random.default_rng(1)
+    lengths = rng.integers(16, 129, HUBERT_SEQS).astype(np.int32)
+    frames = rng.standard_normal((HUBERT_SEQS, int(lengths.max()),
+                                  cfg.frontend_dim), dtype=np.float32)
+    batches = []
+    for i in range(0, HUBERT_SEQS, HUBERT_BATCH):
+        n = lengths[i:i + HUBERT_BATCH]
+        batches.append(({"frames": frames[i:i + HUBERT_BATCH,
+                                          :int(n.max())]}, n))
+    fused, ref, launches, subs, wall, ref_wall, buckets = encode_pair(
+        cfg, qparams, qplan, device, batches,
+        head=lambda p, x: T.unembed(x, p, cfg))
+    errs, equal, finite = [], True, True
+    for (inputs, n), f, r in zip(batches, fused, ref):
+        for b, m in enumerate(n):
+            fb, rb = torch.from_numpy(f[b, :m]), torch.from_numpy(r[b, :m])
+            finite &= bool(torch.isfinite(fb).all())
+            errs.append(rel_linf(rb, fb))
+            equal &= bool((fb.argmax(-1) == rb.argmax(-1)).all())
+    cases = kernel_cases(cfg, plan)
+    per_fwd, sub_fwd = per_pass(cases)
+    rec = {"phase": name, "model": cfg.name, "layers": cfg.num_layers,
+           "plan": plan.describe(), "plan_fingerprint": plan.fingerprint(),
+           "sequences": HUBERT_SEQS, "frames": int(lengths.sum()),
+           "forwards": len(batches), "buckets": buckets, "wall_s": wall,
+           "frames_per_s": int(lengths.sum()) / wall,
+           "reference_wall_s": ref_wall, "launches": launches,
+           "launches_per_forward": dict(per_fwd), "sub_counts": subs,
+           "sub_counts_per_forward": dict(sub_fwd),
+           "fused_vs_reference_rel_linf": max(errs),
+           "predictions_equal": equal, "ptq_peak_memory_bytes": ptq_peak}
+    emit(rec)
+    if not finite or any(f.shape != (HUBERT_BATCH, int(n.max()),
+                                     cfg.vocab_size)
+                         for f, (_, n) in zip(fused, batches)):
+        fail(f"{name}: frame logits are not finite (B, T, 504)")
+    if max(errs) > REL_LINF_BUDGET or not equal:
+        fail(f"{name}: fused vs reference rel-Linf {max(errs)}, predictions "
+             f"equal {equal}")
+    check_launches(name, per_fwd, sub_fwd, launches, subs, len(batches))
+    shapes = sorted({(HUBERT_BATCH, int(n.max())) for _, n in batches})
+    return {"name": name, "cfg": cfg, "qparams": qparams,
+            "launches": launches, "per_fwd": per_fwd, "cases": cases,
+            "buckets": shapes, "timed_bucket": shapes[-1],
+            "unit": "forward", "record": rec}
+
+
+def phase_paligemma(model, device):
+    """paligemma-3b, all 18 layers, under the tiled golden plan: one
+    ``Runtime.encode`` of :data:`PALIGEMMA_ROWS` rows of 256 seeded prefix
+    embeddings (1152 wide, the SigLIP width, numpy seed 1) beside
+    :data:`PALIGEMMA_TOKENS` tokens (lengths 8-32), on both backends: the
+    final hidden states within rel-Linf 5e-3, the text positions' logits
+    within 5e-3 and their argmax identical; then the text decode of the
+    prompts over int8 per-token pages (``serve_arch_decode``). Returns the
+    encode path and the decode path."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+
+    cfg = model["cfg"]
+    plan = arch_plan("paligemma_path", cfg)
+    qparams, qplan, ptq_peak = quantize_arch(model, plan, device)
+    rng = np.random.default_rng(1)
+    P, S, B = cfg.num_prefix_embeds, PALIGEMMA_TOKENS, PALIGEMMA_ROWS
+    inputs = {"prefix_embeds": rng.standard_normal(
+                  (B, P, cfg.frontend_dim), dtype=np.float32),
+              "tokens": rng.integers(1, cfg.vocab_size, (B, S),
+                                     dtype=np.int32)}
+    lengths = rng.integers(8, S + 1, B).astype(np.int32)
+    lengths[0] = S
+    fused, ref, launches, subs, wall, ref_wall, buckets = encode_pair(
+        cfg, qparams, qplan, device, [(inputs, lengths)],
+        head=None)
+    hf, hr = (torch.from_numpy(x[0]).to(device) for x in (fused, ref))
+    errs, equal = [rel_linf(hr, hf)], True
+    with torch.inference_mode():
+        for b, n in enumerate(lengths):       # the row's real positions
+            lf, lr = (T.unembed(h[b:b + 1, P:P + n], qparams, cfg)
+                      for h in (hf, hr))
+            errs.append(rel_linf(lr, lf))
+            equal &= bool((lf.argmax(-1) == lr.argmax(-1)).all())
+    finite = bool(torch.isfinite(hf).all())
+    cases = kernel_cases(cfg, plan)
+    per_fwd, sub_fwd = per_pass(cases)
+    rec = {"phase": "paligemma_path", "model": cfg.name,
+           "layers": cfg.num_layers, "plan": plan.describe(),
+           "plan_fingerprint": plan.fingerprint(), "rows": B,
+           "prefix_embeds": P, "tokens": int(lengths.sum()),
+           "buckets": buckets, "wall_s": wall,
+           "reference_wall_s": ref_wall, "launches": launches,
+           "launches_per_forward": dict(per_fwd), "sub_counts": subs,
+           "hidden_rel_linf": errs[0],
+           "fused_vs_reference_rel_linf": max(errs),
+           "text_predictions_equal": equal,
+           "ptq_peak_memory_bytes": ptq_peak}
+    emit(rec)
+    if not finite or tuple(hf.shape) != (B, P + S, cfg.d_model):
+        fail(f"paligemma_path: hidden states {tuple(hf.shape)}, finite "
+             f"{finite}")
+    if max(errs) > REL_LINF_BUDGET or not equal:
+        fail(f"paligemma_path: fused vs reference rel-Linf {max(errs)}, "
+             f"text predictions equal {equal}")
+    check_launches("paligemma_path", per_fwd, sub_fwd, launches, subs, 1)
+    Sb = buckets[0][1]
+    encode = {"name": "paligemma_path", "cfg": cfg, "qparams": qparams,
+              "launches": launches, "per_fwd": per_fwd, "cases": cases,
+              "buckets": [(B, P + Sb)], "timed_bucket": (B, P + Sb),
+              "unit": "forward", "record": rec}
+    decode = serve_arch_decode("paligemma_decode_path", model, qparams,
+                               qplan, plan, device,
+                               kv_cache="int8_per_token")
+    return [encode, decode]
+
+
+def phase_arch_decode(name, model, device):
+    """Quantize a decoder under its plan and serve it
+    (:func:`serve_arch_decode`): int8 per-token pages, but MLA's float
+    latent pages. The quantized tree lives in the returned path only, so
+    the caller frees it with the path."""
+    plan = arch_plan(name, model["cfg"])
+    qparams, qplan, _ = quantize_arch(model, plan, device)
+    return serve_arch_decode(
+        name, model, qparams, qplan, plan, device,
+        page_size=ARCH_PAGE_SIZE.get(name, PAGE_SIZE),
+        kv_cache=None if model["cfg"].mla is not None else "int8_per_token")
+
+
+def phase_archs(device, timed, max_err):
+    """The slice-13 paths, one model at a time: each built, served, its
+    kernels held against their plain versions at the shapes it gave them
+    (timed at its bucket), then freed. Each path's record gains its
+    seconds and the phase's peak device memory. Returns the paths, their
+    models dropped."""
+    import torch
+    paths = []
+    for arch, names in ARCH_PHASES:
+        model = setup_arch(arch, device)
+        if arch == "hubert-xlarge":
+            run = [phase_hubert(model, device)]
+        elif arch == "paligemma-3b":
+            run = phase_paligemma(model, device)
+        else:
+            run = [phase_arch_decode(names[0], model, device)]
+        for p in run:
+            # each path keeps the times of its own shape classes: a class
+            # may recur at another bucket on the next path
+            p["timed"] = {}
+            check_kernels([p], device, p["timed"], max_err)
+            for key, t in p["timed"].items():
+                timed.setdefault(key, t)
+        summary = {"phase": "arch_summary", "model": model["cfg"].name,
+                   "paths": [p["name"] for p in run],
+                   "seconds": time.perf_counter() - model["t0"],
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated(
+                       device)}
+        emit(summary)
+        for p in run:
+            for k in ("qparams", "decode_args", "expert_args"):
+                p.pop(k, None)
+            p["record"].update(seconds=summary["seconds"],
+                               peak_memory_bytes=summary[
+                                   "peak_memory_bytes"])
+        paths += run
+        del model, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths
+
+
+def _gemms(cfg, ffn=("ffn",)):
+    """(block, K, N, activation, param path) of each GEMM of a layer, the
+    FFN's under the path ``ffn``."""
     D, F, Q, KV = cfg.d_model, cfg.d_ff, cfg.q_dim, cfg.kv_dim
     out = [("qkv", D, Q, None, ("attn", "wq")),
            ("qkv", D, KV, None, ("attn", "wk")),
            ("qkv", D, KV, None, ("attn", "wv")),
            ("attn_out", Q, D, None, ("attn", "wo"))]
     if cfg.ffn_kind == "glu":
-        return out + [("ffn_in", D, F, "silu", ("ffn", "wg")),
-                      ("ffn_in", D, F, None, ("ffn", "wu")),
-                      ("ffn_out", F, D, None, ("ffn", "wd"))]
-    return out + [("ffn_in", D, F, "gelu", ("ffn", "wi")),
-                  ("ffn_out", F, D, None, ("ffn", "wo"))]
+        return out + [("ffn_in", D, F, "silu", ffn + ("wg",)),
+                      ("ffn_in", D, F, None, ffn + ("wu",)),
+                      ("ffn_out", F, D, None, ffn + ("wd",))]
+    return out + [("ffn_in", D, F, "gelu", ffn + ("wi",)),
+                  ("ffn_out", F, D, None, ffn + ("wo",))]
 
 
-def kernel_cases(cfg, plan, kv_schemes=None):
+def kernel_cases(cfg, plan, kv_schemes=None, page_size=PAGE_SIZE):
     """The kernel calls one forward of the fused backend makes under
-    ``plan`` (with ``kv_schemes``, the served per-layer KV-cache schemes:
-    one decode tick), grouped by shape class and variant, each with its
+    ``plan`` (with ``kv_schemes``, the served per-layer KV-cache schemes,
+    over pages of ``page_size``: one decode tick), grouped by shape class
+    and variant, each with its
     count, the layer whose parameters it reads and the sub-count variant it
     is (``sub``, or None). GEMMs of one block and shape form one class,
     named by the first one's parameters."""
@@ -2774,9 +3322,19 @@ def kernel_cases(cfg, plan, kv_schemes=None):
         span = lp.norm == "int8"
         ffn_out_static = lp.ffn_out.quantized and lp.ffn_out.static_acts
         first = {}
-        for block, K, N, act, path in _gemms(cfg)[:4] if moe else \
-                _gemms(cfg):
-            spec = lp.spec(block)
+        # an MLA body keeps every GEMM on the reference path; an MoE layer
+        # runs its shared experts' GLU (under the shared_ffn family) where
+        # a dense layer runs its FFN
+        gemms = [] if cfg.mla is not None else _gemms(cfg)[:4]
+        if not moe:
+            gemms += _gemms(cfg)[4:]
+        elif cfg.moe.num_shared:
+            gemms += _gemms(cfg.replace(
+                d_ff=cfg.moe.d_ff_expert * cfg.moe.num_shared),
+                ("ffn", "shared"))[4:]
+        for block, K, N, act, path in gemms:
+            spec = (lp.shared_ffn or lp.spec(block)) if "shared" in path \
+                else lp.spec(block)
             if not spec.quantized:
                 continue
             token = not spec.static_acts
@@ -2812,18 +3370,24 @@ def kernel_cases(cfg, plan, kv_schemes=None):
             # the kernel takes the one-token step of float-bmm layers over
             # int8 pages; int8-bmm layers gather the pages, and local layers
             # keep dense rings
+            # keep dense rings; an MLA layer pages its latent in float.
+            # A shape class is a mode at one geometry: (KV heads, group,
+            # head dim, page size)
             if (not lp.qkv.quantized and kv_schemes[i] != "float"
-                    and not kinds[i].local):
+                    and not kinds[i].local and cfg.mla is None):
                 quant_p = lp.softmax == "uint8"
                 mode = ("per_token" if kv_schemes[i] == "int8_per_token"
                         else "per_head")
                 add(("decode_attention", mode + ("_p_scale" if quant_p
-                                                 else "")), i, 1,
+                                                 else ""),
+                     cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads,
+                     cfg.head_dim, page_size), i, 1,
                     "decode_attention with p_scale" if quant_p else None)
         elif (lp.softmax == "uint8" and lp.qkv.quantized
               and lp.qkv.static_acts):
             requant = lp.attn_out.quantized and lp.attn_out.static_acts
-            add(("quant_flash_attention", requant), i, 1,
+            add(("quant_flash_attention", requant, cfg.num_heads,
+                 cfg.num_kv_heads, cfg.head_dim), i, 1,
                 "quant_flash_attention with o_scale" if requant else None)
     if cfg.position == "learned":
         add(("fused_embed", D), 0)
@@ -2854,7 +3418,9 @@ def run_case(cfg, key, layer, bucket, qparams, device, timer=None):
     aside = None
     if key[0] == "quant_linear":
         _, K, N, act, token, path, out = key
-        p = lp[path[0]][path[1]]
+        p = lp
+        for k in path:
+            p = p[k]
         w = p["w"]
         ws = w.scale.reshape(-1).expand(N).contiguous()
         x_q = torch.randint(-128, 128, (M, K), generator=gen, device=device,
@@ -3573,14 +4139,14 @@ def summarize(paths, timed, max_err, flash, long_decode, wide_page,
         for key, case in path["cases"].items():
             if key[0] != name:
                 continue
-            rec, (tb, to) = timed[key]
+            rec, (tb, to) = path.get("timed", timed)[key]
             n = case["count"]
-            for f in ("ms", "device_ms", "plain_ms", "bound_ms"):
+            for f in ("ms", "plain_ms", "bound_ms"):
                 out[f] += n * rec[f]
             t_bytes += n * tb
             t_ops += n * to
-            for f in ("library_ms", "library_device_ms"):
-                out[f] = (None if rec[f] is None or out[f] is None
+            for f in ("device_ms", "library_ms", "library_device_ms"):
+                out[f] = (None if measured(rec[f]) is None or out[f] is None
                           else out[f] + n * rec[f])
         out["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         return out
@@ -3643,7 +4209,7 @@ def summarize(paths, timed, max_err, flash, long_decode, wide_page,
                         f"its launches (by_path for each path); launches: "
                         f"the counted runs of every path")
         summary.append(entry)
-    return summary
+    return measured(summary)
 
 
 def kernel_named(kernel: str, device_name: str) -> bool:
@@ -3837,6 +4403,11 @@ def main() -> int:
     paths.append(moe)
     check_kernels([moe], device, timed, max_err)
     phase_profile_decode(moe)
+    for k in ("qparams", "fused", "expert_args", "prompts"):
+        moe.pop(k, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths += phase_archs(device, timed, max_err)
     emit({"kernels": summarize(paths, timed, max_err, flash, long_decode,
                                wide_page, long_attention, wide)})
     emit({"ok": True, "device": {"platform": "gpu",

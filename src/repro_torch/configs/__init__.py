@@ -1,6 +1,22 @@
-"""Architecture config registry (port of ``repro.configs``)."""
+"""Architecture config registry (port of ``repro.configs``). ``load_all()``
+imports every ported config module (side-effect registration);
+``get_config(name)`` resolves one."""
 from repro_torch.configs.base import (ArchConfig, BlockKind, MLAConfig,
-                                      MoEConfig, get_config, register)
+                                      MoEConfig, all_configs, get_config,
+                                      load_all, register)
+
+# the archs the port registers, in the JAX package's order
+ARCH_IDS = (
+    "bert-base",
+    "deepseek-coder-33b",
+    "qwen2-0.5b",
+    "gemma2-2b",
+    "granite-20b",
+    "deepseek-v2-236b",
+    "mixtral-8x22b",
+    "paligemma-3b",
+    "hubert-xlarge",
+)
 
 __all__ = ["ArchConfig", "BlockKind", "MLAConfig", "MoEConfig", "register",
-           "get_config"]
+           "get_config", "all_configs", "load_all", "ARCH_IDS"]

@@ -2,8 +2,9 @@
 
 The dataclasses are field-for-field copies of the JAX package's, so a config
 built here compares equal, field by field, to its JAX twin. Only the configs
-the ported slices serve are registered (``bert-base``, ``qwen2-0.5b``,
-``mixtral-8x22b``); the others arrive with the slices that run them.
+the ported slices serve are registered: every config whose layers are
+attention layers (``ARCH_IDS`` in :mod:`repro_torch.configs`); the two
+recurrent configs arrive with the slice that runs their bodies.
 """
 from __future__ import annotations
 
@@ -158,8 +159,11 @@ class ArchConfig:
 
 _REGISTRY: dict[str, ArchConfig] = {}
 
-# config modules of the ported slices (import side-effect registration)
-_MODULES = ("bert_base", "qwen2_0_5b", "mixtral_8x22b")
+# config modules of the ported slices (import side-effect registration),
+# in the JAX package's order
+_MODULES = ("bert_base", "deepseek_coder_33b", "qwen2_0_5b", "gemma2_2b",
+            "granite_20b", "deepseek_v2_236b", "mixtral_8x22b",
+            "paligemma_3b", "hubert_xlarge")
 
 
 def register(cfg: ArchConfig) -> ArchConfig:
@@ -169,9 +173,19 @@ def register(cfg: ArchConfig) -> ArchConfig:
     return cfg
 
 
-def get_config(name: str) -> ArchConfig:
+def load_all() -> None:
+    """Import every ported config module (each registers its config)."""
     for m in _MODULES:
         importlib.import_module(f"repro_torch.configs.{m}")
+
+
+def get_config(name: str) -> ArchConfig:
+    load_all()
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def all_configs() -> dict[str, ArchConfig]:
+    load_all()
+    return dict(_REGISTRY)

@@ -25,19 +25,28 @@ def _host(x) -> np.ndarray:
 def synthetic_calibration_batches(cfg, *, num_batches: int = 4,
                                   batch_size: int = 2, seq_len: int = 32,
                                   seed: int = 0) -> list[dict]:
-    """Random-token calibration batches (numpy int32), drawn from
-    ``np.random.default_rng(seed + i)`` for batch ``i``. BERT-family configs
-    get the zero segment ids their embedding expects. The JAX package draws
-    its batches from ``jax.random``, so parity tests hand both packages the
-    same numpy batches instead."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.frontend!r} front-ends are not ported yet")
+    """Random-token calibration batches (numpy), drawn from
+    ``np.random.default_rng(seed + i)`` for batch ``i``: uniform int32
+    tokens. BERT-family configs get the zero segment ids their embedding
+    expects; audio front-ends get unit-normal float32 feature frames
+    (``frames`` (B, S, frontend_dim)) instead of tokens, and vision configs
+    get unit-normal ``prefix_embeds`` (B, num_prefix_embeds, frontend_dim)
+    beside the tokens. The JAX package draws its batches from
+    ``jax.random`` (same keys, same shapes and dtypes), so parity tests hand
+    both packages the same numpy batches instead."""
     batches = []
     for i in range(num_batches):
         rng = np.random.default_rng(seed + i)
+        if cfg.frontend == "audio":
+            batches.append({"frames": rng.standard_normal(
+                (batch_size, seq_len, cfg.frontend_dim), dtype=np.float32)})
+            continue
         b = {"tokens": rng.integers(0, cfg.vocab_size, (batch_size, seq_len),
                                     dtype=np.int32)}
+        if cfg.frontend == "vision":
+            b["prefix_embeds"] = rng.standard_normal(
+                (batch_size, cfg.num_prefix_embeds, cfg.frontend_dim),
+                dtype=np.float32)
         if cfg.num_segments:
             b["segments"] = np.zeros((batch_size, seq_len), np.int32)
         batches.append(b)

@@ -1,7 +1,10 @@
 """Quantization-aware building blocks — the attention-body subset of
 ``repro.models.layers``: BERT encoders, the rope / GQA / GLU decoders
-(qwen2) with their dense and paged decode caches, and the top-k MoE FFN
-(mixtral) with its sort-based capacity dispatch.
+(qwen2, gemma2, granite, deepseek-coder, paligemma's backbone) with their
+dense and paged decode caches, the top-k MoE FFN (mixtral, deepseek-v2) with
+its sort-based capacity dispatch, deepseek-v2's multi-head latent attention
+(MLA) with its absorbed decode, and the audio and vision front-end
+projections.
 
 Every GEMM goes through :func:`dense` (projections) or :func:`quant_bmm`
 (the attention score/value batched matmuls), so the precision plan applies
@@ -660,6 +663,119 @@ def attention_block(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (deepseek-v2), with absorbed decode
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen: torch.Generator, cfg, *, device=None,
+             dtype=torch.float32) -> dict:
+    m = cfg.mla
+    qk_dim = m.qk_nope_dim + m.qk_rope_dim
+    kw = dict(device=device, dtype=dtype)
+    p = {"wkv_a": init_linear(gen, cfg.d_model,
+                              m.kv_lora_rank + m.qk_rope_dim, False, **kw),
+         "kv_norm": init_norm("rmsnorm", m.kv_lora_rank, **kw),
+         "wkv_b": init_linear(gen, m.kv_lora_rank,
+                              cfg.num_heads * (m.qk_nope_dim + m.v_head_dim),
+                              False, **kw),
+         "wo": init_linear(gen, cfg.num_heads * m.v_head_dim, cfg.d_model,
+                           False, **kw)}
+    if m.q_lora_rank:
+        p["wq_a"] = init_linear(gen, cfg.d_model, m.q_lora_rank, False, **kw)
+        p["q_norm"] = init_norm("rmsnorm", m.q_lora_rank, **kw)
+        p["wq_b"] = init_linear(gen, m.q_lora_rank, cfg.num_heads * qk_dim,
+                                False, **kw)
+    else:
+        p["wq"] = init_linear(gen, cfg.d_model, cfg.num_heads * qk_dim,
+                              False, **kw)
+    return p
+
+
+def mla_block(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
+              spec: MaskSpec, quant: AttnQuant = AttnQuant(),
+              obs: Optional[dict] = None, kv_cache: Optional[dict] = None,
+              active: Optional[torch.Tensor] = None,
+              chunk: Optional[int] = None,
+              pages: Optional[torch.Tensor] = None):
+    """deepseek-v2's MLA. Prefill expands per-head K and V from the latent
+    and runs :func:`attention_core`; a one-token step over a cache runs the
+    absorbed form: ``wkv_b`` folds into the query and output sides, and
+    attention runs in the latent space against a cache of
+    ``kv_lora_rank + qk_rope_dim`` floats a token (``ckv``, ``krope``; the
+    paged pool holds them as ``pages_ckv``/``pages_krope``, float, under the
+    standard layers' page table). Every GEMM takes the reference path, as
+    in the JAX package, whose fused backend leaves the MLA body to it.
+    Returns the output, or ``(output, new_cache)`` with a ``kv_cache``."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H, nope, rd, vd = cfg.num_heads, m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim
+    r = m.kv_lora_rank
+    observe(obs, "attn_in", x)
+    if m.q_lora_rank:
+        q_lat = rms_norm(dense(x, p["wq_a"]), p["q_norm"])
+        observe(obs, "q_lat", q_lat)
+        q = dense(q_lat, p["wq_b"])
+    else:
+        q = dense(x, p["wq"])
+    q = q.reshape(B, S, H, nope + rd)
+    q_nope = q[..., :nope]
+    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    kv = dense(x, p["wkv_a"])
+    ckv = rms_norm(kv[..., :r], p["kv_norm"])
+    observe(obs, "c_kv", ckv)
+    k_rope = apply_rope(kv[..., r:], positions, cfg.rope_theta,
+                        heads_axis=False)                 # (B, S, rd) shared
+    scale = 1.0 / math.sqrt(nope + rd)
+    wkv_b = p["wkv_b"]["w"]
+    wkv_b = (wkv_b.dequantize(x.dtype) if isinstance(wkv_b, QuantizedTensor)
+             else wkv_b.to(x.dtype)).reshape(r, H, nope + vd)
+    wk, wv = wkv_b[..., :nope], wkv_b[..., nope:]       # (r, H, nope|vd)
+    new_cache = None
+    if is_paged(kv_cache):
+        if pages is None:
+            raise ValueError("paged kv_cache requires the page-table "
+                             "operand (pages=)")
+        new_cache = _paged_cache_write(kv_cache, {"ckv": ckv,
+                                                  "krope": k_rope},
+                                       positions, active, pages)
+    elif kv_cache is not None:
+        new_cache = _cache_write(kv_cache, {"ckv": ckv, "krope": k_rope},
+                                 positions, active)
+    if new_cache is not None and S == 1:
+        if is_paged(new_cache):
+            (ckv_all, krope_all), k_pos = _paged_cache_read(
+                new_cache, pages, ("ckv", "krope"), x.dtype)
+        else:
+            ckv_all = new_cache["ckv"].to(x.dtype)
+            krope_all = new_cache["krope"].to(x.dtype)
+            k_pos = new_cache["k_pos"]
+        q_pos = positions if positions.ndim == 2 else positions[None]
+        mask = band_mask(q_pos, k_pos, spec)             # (B|1, S, T)
+        q_abs = torch.einsum("bshn,rhn->bshr", q_nope, wk)
+        s = (torch.einsum("bshr,btr->bhst", q_abs, ckv_all)
+             + torch.einsum("bshr,btr->bhst", q_rope, krope_all)) * scale
+        s = torch.where(mask[:, None], s.to(torch.float32), NEG_INF)
+        prob = _softmax(s).to(x.dtype)
+        o_lat = torch.einsum("bhst,btr->bshr", prob, ckv_all)
+        o = torch.einsum("bshr,rhv->bshv", o_lat, wv)    # (B, S, H, vd)
+    else:
+        k_nope = torch.einsum("btr,rhn->bthn", ckv, wk)
+        v = torch.einsum("btr,rhv->bthv", ckv, wv)
+        k = torch.cat([k_nope, torch.broadcast_to(k_rope[:, :, None, :],
+                                                  (B, S, H, rd))], dim=-1)
+        qf = torch.cat([q_nope, q_rope], dim=-1)
+        sc = {s_: p[f"{s_}_scale"] for s_ in ("q", "k", "p", "v")
+              if f"{s_}_scale" in p} or None
+        o = attention_core(qf, k, v, positions, positions, spec, scale=scale,
+                           quant=quant, scales=sc, obs=obs, chunk=chunk)
+    o = o.reshape(B, S, H * vd)
+    observe(obs, "attn_out", o)
+    observe_values(obs, "attn_out", o)
+    out = dense(o, p["wo"])
+    return out if kv_cache is None else (out, new_cache)
+
+
+# ---------------------------------------------------------------------------
 # FFN: GLU (qwen2 and the llama family), GELU (BERT)
 # ---------------------------------------------------------------------------
 
@@ -840,15 +956,16 @@ def moe_block(x: torch.Tensor, p: dict, cfg, obs: Optional[dict] = None,
 
 def init_embeddings(gen: torch.Generator, cfg, *, device=None,
                     dtype=torch.float32) -> dict:
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.frontend!r} front-ends are not ported yet")
     kw = dict(generator=gen, dtype=dtype, device=device)
     p = {"tok": torch.randn((cfg.vocab_size, cfg.d_model), **kw) * 0.02}
     if cfg.position == "learned":
         p["pos"] = torch.randn((cfg.max_position, cfg.d_model), **kw) * 0.02
     if cfg.num_segments:
         p["seg"] = torch.randn((cfg.num_segments, cfg.d_model), **kw) * 0.02
+    if cfg.frontend is not None:
+        # audio frames / vision patch embeddings -> d_model
+        p["frontend_proj"] = init_linear(gen, cfg.frontend_dim, cfg.d_model,
+                                         True, device=device, dtype=dtype)
     if cfg.norm_kind == "layernorm" and cfg.family == "bert":
         p["emb_norm"] = init_norm("layernorm", cfg.d_model, device=device,
                                   dtype=dtype)

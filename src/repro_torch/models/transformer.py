@@ -1,6 +1,10 @@
 """Config-driven model driver (port of ``repro.models.transformer``, the
 attention-body subset): BERT encoders, rope / GQA / GLU decoders with their
-decode caches, and MoE decoders (mixtral) with sliding-window rings.
+decode caches (gemma2's local layers keep sliding-window rings beside its
+paged global layers), MoE decoders (mixtral with sliding-window rings,
+deepseek-v2 with MLA and its latent cache), the audio encoder (hubert,
+``frames`` in) and the vision prefix-LM (paligemma, ``prefix_embeds``
+before the tokens).
 
 Parameters are ``{"embed", "layers": [one dict per layer], "final_norm",
 ["lm_head"], ["head"]}``: a plain Python list of per-layer dicts where the
@@ -12,6 +16,7 @@ likewise a plain list with one dict per layer (:func:`init_caches`).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Sequence, Union
 
 import torch
@@ -92,12 +97,14 @@ def build_plan(cfg: ArchConfig, policy) -> tuple[Group, ...]:
 
 def init_layer(gen: torch.Generator, cfg: ArchConfig, kind: BlockKind, *,
                device=None, dtype=torch.float32) -> dict:
-    if kind.body != "attn" or cfg.mla is not None:
+    if kind.body != "attn":
         raise NotImplementedError(
-            f"layer body {kind} is not ported yet (attention bodies only)")
+            f"layer body {kind.body!r} is not ported yet (the rglru and "
+            f"xLSTM bodies)")
     kw = dict(device=device, dtype=dtype)
     return {"norm1": L.init_norm(cfg.norm_kind, cfg.d_model, **kw),
-            "attn": L.init_attention(gen, cfg, **kw),
+            "attn": (L.init_mla(gen, cfg, **kw) if cfg.mla is not None
+                     else L.init_attention(gen, cfg, **kw)),
             "norm2": L.init_norm(cfg.norm_kind, cfg.d_model, **kw),
             "ffn": (L.init_moe(gen, cfg, **kw) if kind.moe
                     else L.init_ffn(gen, cfg, **kw))}
@@ -184,20 +191,33 @@ def layer_forward(x, lp, cfg: ArchConfig, kind: BlockKind, mode: LayerMode,
     requantization into ``addnorm_quant`` when the ffn_in GEMM has a static
     int8 scale to feed. An MoE layer keeps the float residual boundary (a
     requantized attention output is dequantized) and runs
-    :func:`~repro_torch.models.layers.moe_block` in place of the FFN.
-    Returns x, or ``(x, new_cache)`` with a ``cache``."""
-    if kind.body != "attn" or cfg.mla is not None:
-        raise NotImplementedError(f"layer body {kind} is not ported yet")
+    :func:`~repro_torch.models.layers.moe_block` in place of the FFN. An
+    MLA layer runs :func:`~repro_torch.models.layers.mla_block` (on the
+    reference path) in place of the attention block. Returns x, or
+    ``(x, new_cache)`` with a ``cache``."""
+    if kind.body != "attn":
+        raise NotImplementedError(
+            f"layer body {kind.body!r} is not ported yet (the rglru and "
+            f"xLSTM bodies)")
     quant = L.AttnQuant(enabled=(mode.quant_mha if quant_bmm is None
                                  else quant_bmm),
                         softmax_mode=scheme.softmax_mode,
                         plan_scheme=softmax)
-    spec = L.MaskSpec(causal=cfg.causal,
-                      window=cfg.sliding_window if kind.local else None)
+    # a vision prefix attends bidirectionally (prefix-LM)
+    spec = L.MaskSpec(
+        causal=cfg.causal,
+        window=cfg.sliding_window if kind.local else None,
+        prefix_len=cfg.num_prefix_embeds if cfg.frontend == "vision" else 0)
     h = L.norm(x, lp["norm1"], cfg.norm_kind)
-    a = L.attention_block(h, lp["attn"], cfg, positions=positions, spec=spec,
-                          quant=quant, obs=obs, chunk=chunk, backend=backend,
-                          kv_cache=cache, active=active, pages=pages)
+    if cfg.mla is not None:
+        a = L.mla_block(h, lp["attn"], cfg, positions=positions, spec=spec,
+                        quant=quant, obs=obs, chunk=chunk, kv_cache=cache,
+                        active=active, pages=pages)
+    else:
+        a = L.attention_block(h, lp["attn"], cfg, positions=positions,
+                              spec=spec, quant=quant, obs=obs, chunk=chunk,
+                              backend=backend, kv_cache=cache, active=active,
+                              pages=pages)
     if cache is not None:
         a, new_cache = a
     ns = (ffn_input_scale(lp["ffn"], cfg.ffn_kind)
@@ -251,13 +271,23 @@ def run_groups(x, params, cfg: ArchConfig, plan: tuple[Group, ...],
 
 def embed_inputs(params, batch: dict, cfg: ArchConfig, *, positions,
                  backend=None) -> torch.Tensor:
-    """Map token inputs to the first-layer activation."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.frontend!r} front-ends are not ported yet")
-    return L.embed(batch["tokens"], params["embed"], cfg,
-                   positions=positions, segments=batch.get("segments"),
-                   backend=backend)
+    """Map raw inputs to the first-layer activation per family: audio
+    ``frames`` (B, T, frontend_dim) through ``frontend_proj``; tokens
+    through the embedding, after a vision config's projected (and, for the
+    gemma family, sqrt(d)-scaled) ``prefix_embeds`` (B, P, frontend_dim)
+    when the batch has them."""
+    emb = params["embed"]
+    if cfg.frontend == "audio":
+        return L.dense(batch["frames"].to(torch.float32), emb["frontend_proj"])
+    x = L.embed(batch["tokens"], emb, cfg, positions=positions,
+                segments=batch.get("segments"), backend=backend)
+    if cfg.frontend == "vision" and "prefix_embeds" in batch:
+        pfx = L.dense(batch["prefix_embeds"].to(torch.float32),
+                      emb["frontend_proj"])
+        if cfg.emb_scale_by_sqrt_dim:
+            pfx = pfx * math.sqrt(cfg.d_model)
+        x = torch.cat([pfx, x], dim=1)
+    return x
 
 
 def unembed(x, params, cfg: ArchConfig) -> torch.Tensor:
@@ -274,7 +304,10 @@ def forward(params, batch: dict, cfg: ArchConfig, plan: tuple[Group, ...],
             return_hidden: bool = False, backend=None, caches=None, pos=None,
             active=None, pages=None):
     """Full-sequence (encode, prefill) or incremental (decode) forward of
-    token tensors ``batch["tokens"]`` (B, S) (+ ``"segments"``). Returns the
+    token tensors ``batch["tokens"]`` (B, S) (+ ``"segments"``; audio
+    configs take ``"frames"`` (B, T, frontend_dim) instead, vision configs
+    ``"prefix_embeds"`` (B, P, frontend_dim) before the S tokens, P + S
+    positions in all). Returns the
     final-norm hidden states when the params carry a task head (or
     ``return_hidden``), else the logits; with ``caches``, the pair
     ``(output, new_caches)``.
@@ -283,11 +316,13 @@ def forward(params, batch: dict, cfg: ArchConfig, plan: tuple[Group, ...],
     synchronized batch) or a (B,) tensor (continuous batching: per-row
     positions, with ``active`` (B,) bool gating idle slots' cache writes);
     ``pages`` is the (B, pages_per_slot) page table of paged caches."""
-    tokens = batch["tokens"]
-    S = tokens.shape[1]
-    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    lead = batch["frames"] if cfg.frontend == "audio" else batch["tokens"]
+    S = lead.shape[1]
+    if cfg.frontend == "vision" and "prefix_embeds" in batch:
+        S += batch["prefix_embeds"].shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=lead.device)
     if pos is not None:
-        pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=lead.device)
         positions = (positions[None] + pos[:, None] if pos.ndim == 1
                      else positions + pos)
     x = embed_inputs(params, batch, cfg, positions=positions,
@@ -322,20 +357,31 @@ def apply_head(hidden, params, kind: str) -> torch.Tensor:
 def _layer_cache(cfg: ArchConfig, kind: BlockKind, batch: int, max_len: int,
                  dtype, device, *, page_size: Optional[int] = None,
                  num_pages: int = 0, kv_scheme: str = "float") -> dict:
-    if kind.body != "attn" or cfg.mla is not None:
+    if kind.body != "attn":
         raise NotImplementedError(
-            f"decode caches of layer body {kind} are not ported yet "
-            f"(attention bodies only)")
+            f"decode state of layer body {kind.body!r} is not ported yet "
+            f"(the rglru and xLSTM bodies)")
     H, hd = cfg.num_kv_heads, cfg.head_dim
     kw = dict(device=device)
     # a local (sliding-window) layer keeps its dense ring of W positions
     # even when the engine pages: the ring is already W-bounded, and its
     # KV scheme is inert, as in the JAX package
     W = min(cfg.sliding_window, max_len) if kind.local else max_len
+    m = cfg.mla
     if page_size is not None and not kind.local:
         # pooled token pages + per-slot pos; the (B, pages_per_slot) page
         # table is a separate operand (PagePool), not a cache entry
         ps, NP = page_size, num_pages
+        if m is not None:
+            # MLA pages its latent, in the cache dtype: it is already the
+            # compressed form, and the KV scheme is inert
+            return {"pages_ckv": torch.zeros((NP, ps, m.kv_lora_rank),
+                                             dtype=dtype, **kw),
+                    "pages_krope": torch.zeros((NP, ps, m.qk_rope_dim),
+                                               dtype=dtype, **kw),
+                    "pages_pos": torch.full((NP, ps), -1, dtype=torch.int32,
+                                            **kw),
+                    "pos": torch.zeros((batch,), dtype=torch.int32, **kw)}
         kv_dtype = torch.int8 if kv_scheme.startswith("int8") else dtype
         d = {"pages_k": torch.zeros((NP, ps, H, hd), dtype=kv_dtype, **kw),
              "pages_v": torch.zeros((NP, ps, H, hd), dtype=kv_dtype, **kw),
@@ -347,6 +393,13 @@ def _layer_cache(cfg: ArchConfig, kind: BlockKind, batch: int, max_len: int,
             d["pages_vs"] = torch.zeros((NP, ps, H), dtype=torch.float32,
                                         **kw)
         return d
+    if m is not None:
+        return {"ckv": torch.zeros((batch, W, m.kv_lora_rank), dtype=dtype,
+                                   **kw),
+                "krope": torch.zeros((batch, W, m.qk_rope_dim), dtype=dtype,
+                                     **kw),
+                "k_pos": torch.full((batch, W), -1, dtype=torch.int32, **kw),
+                "pos": torch.zeros((batch,), dtype=torch.int32, **kw)}
     return {"k": torch.zeros((batch, W, H, hd), dtype=dtype, **kw),
             "v": torch.zeros((batch, W, H, hd), dtype=dtype, **kw),
             "k_pos": torch.full((batch, W), -1, dtype=torch.int32, **kw),

@@ -19,7 +19,9 @@ under ``softmax='uint8'`` gets the decode-side ``p_scale``. On MoE layers
 the schema-v4 ``experts`` family governs the routed expert stacks
 (per-expert-per-channel weight scales (E, 1, F); static activation scales
 per expert, (E, 1, 1), from the (E,) ``expert_in``/``expert_hidden``
-vectors) and ``shared_ffn`` the shared expert's GEMMs.
+vectors) and ``shared_ffn`` the shared expert's GEMMs. An MLA layer's qkv
+block covers its query and latent projections (``wq_a``, ``wq_b``,
+``wkv_a``, ``wkv_b``), observed at ``attn_in``, ``q_lat`` and ``c_kv``.
 
 ``capture_stats(clusters=)`` is the input-adaptive capture: per-row cluster
 ids partition the calibration rows, and the stats come back keyed
@@ -50,6 +52,14 @@ SITE_MAP: dict[str, list[tuple[str, tuple[str, ...], str, str]]] = {
         ("mha", ("attn", "wq"), "attn_in", "qkv"),
         ("mha", ("attn", "wk"), "attn_in", "qkv"),
         ("mha", ("attn", "wv"), "attn_in", "qkv"),
+        ("mha", ("attn", "wo"), "attn_out", "attn_out"),
+    ],
+    "attn_mla": [
+        ("mha", ("attn", "wq_a"), "attn_in", "qkv"),
+        ("mha", ("attn", "wq_b"), "q_lat", "qkv"),
+        ("mha", ("attn", "wq"), "attn_in", "qkv"),   # q_lora_rank == 0
+        ("mha", ("attn", "wkv_a"), "attn_in", "qkv"),
+        ("mha", ("attn", "wkv_b"), "c_kv", "qkv"),
         ("mha", ("attn", "wo"), "attn_out", "attn_out"),
     ],
     "ffn_glu": [
@@ -90,10 +100,11 @@ HIST_SITES = ("attn_in", "attn_out", "attn_delta", "ffn_in", "ffn_hidden",
 
 
 def _kind_entries(cfg: ArchConfig, kind: BlockKind):
-    if kind.body != "attn" or cfg.mla is not None:
+    if kind.body != "attn":
         raise NotImplementedError(
-            f"PTQ of layer body {kind} is not ported yet")
-    return SITE_MAP["attn"] + SITE_MAP[
+            f"PTQ of layer body {kind.body!r} is not ported yet (the rglru "
+            f"and xLSTM bodies)")
+    return SITE_MAP["attn_mla" if cfg.mla is not None else "attn"] + SITE_MAP[
         "moe" if kind.moe else
         ("ffn_glu" if cfg.ffn_kind == "glu" else "ffn_gelu")]
 
@@ -261,7 +272,8 @@ def capture_stats(params: dict, batches: Sequence[dict], cfg: ArchConfig,
                   hist_sites: tuple[str, ...] = HIST_SITES,
                   clusters: Optional[Sequence] = None,
                   **calib_kw) -> dict[str, dict[str, float]]:
-    """Run calibration batches (dicts of (B, S) token / segment arrays)
+    """Run calibration batches (dicts of model inputs: (B, S) token /
+    segment arrays, audio ``frames``, vision ``prefix_embeds``)
     through the float model with observers on and reduce per-(layer, site)
     statistics to amax values: ``{"layer{i}": {site: amax}}``.
 

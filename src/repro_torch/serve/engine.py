@@ -158,17 +158,16 @@ class ServeEngine:
         self._stats["requests"] += 1
 
     def _reset_slot(self, s: int) -> None:
-        """Reset slot ``s``'s rows of every cache (in place). The page pool
-        has no slot axis: a slot's pages are its page-table row, owned by
-        the scheduler, and stale page contents are invalidated by
-        :meth:`_drain_freed`."""
+        """Reset slot ``s``'s rows of every cache (in place): a dense ring's
+        entries (K and V, or MLA's latent) to 0, its ``k_pos`` to -1, and
+        ``pos`` to 0. The page pool has no slot axis: a slot's pages are its
+        page-table row, owned by the scheduler, and stale page contents are
+        invalidated by :meth:`_drain_freed`."""
         with torch.inference_mode():
             for c in self.caches:
-                c["pos"][s] = 0
-                if "k_pos" in c:
-                    c["k"][s] = 0
-                    c["v"][s] = 0
-                    c["k_pos"][s] = -1
+                for key, leaf in c.items():
+                    if not key.startswith("pages_"):
+                        leaf[s] = -1 if key == "k_pos" else 0
 
     def _drain_freed(self) -> None:
         """Invalidate the position rows of the pages freed since the last

@@ -8,8 +8,10 @@ deployment on one device:
 * request shapes are rounded up to power-of-two (batch, length) buckets, so
   a mixed-length stream runs a bounded set of shapes, except for MoE
   configs, whose expert capacity scales with the token count: padded rows
-  would take capacity and change the routing of real ones;
-* padded positions carry ``-1``, which
+  would take capacity and change the routing of real ones. Only token
+  inputs take a length bucket: audio ``frames`` run at their own length;
+* padded positions carry ``-1`` (past ``lengths + P`` with a vision
+  config's P prefix embeddings), which
   :func:`repro_torch.models.layers.band_mask` drops from attention, and are
   clamped to 0 for the embedding gather, so a padded forward matches the
   natural-shape forward on the real rows and positions;
@@ -151,9 +153,14 @@ class Runtime:
         head, chunk, backend = self.head, self.chunk, self.backend
 
         def fn(params, inputs: dict, lengths: torch.Tensor) -> torch.Tensor:
-            S = inputs["tokens"].shape[1]
-            idx = torch.arange(S, dtype=torch.int32, device=lengths.device)
-            valid = idx[None, :] < lengths[:, None]               # (B, S)
+            S = inputs["frames" if cfg.frontend == "audio"
+                       else "tokens"].shape[1]
+            P = (inputs["prefix_embeds"].shape[1]
+                 if cfg.frontend == "vision" and "prefix_embeds" in inputs
+                 else 0)
+            idx = torch.arange(S + P, dtype=torch.int32,
+                               device=lengths.device)
+            valid = idx[None, :] < (lengths + P)[:, None]         # (B, S+P)
             # -1 on padding: band_mask drops these keys, so real rows
             # attend only over their true tokens
             positions = torch.where(valid, idx[None], -1)
@@ -170,22 +177,30 @@ class Runtime:
     def encode(self, params, inputs: dict,
                lengths: Optional[np.ndarray] = None) -> np.ndarray:
         """Full-sequence forward through the bucketed cache. ``inputs`` maps
-        ``"tokens"`` (and ``"segments"``) to (B, S) integer arrays;
-        ``lengths`` (B,) gives each row's true token count (default S).
-        Returns the head's output for the real rows as numpy."""
+        ``"tokens"`` (and ``"segments"``) to (B, S) integer arrays, or, for
+        an audio config, ``"frames"`` to (B, S, frontend_dim) floats; a
+        vision config may add ``"prefix_embeds"`` (B, P, frontend_dim).
+        ``lengths`` (B,) gives each row's true token or frame count (default
+        S; a prefix counts whole). Returns the head's output for the real
+        rows as numpy (a token-level output cut to P + S positions)."""
         arrs = {k: np.asarray(v) for k, v in inputs.items()}
-        B, S = arrs["tokens"].shape
+        lead = arrs.get("tokens", arrs.get("frames"))
+        B, S = lead.shape[0], lead.shape[1]
         if lengths is None:
             lengths = np.full((B,), S, np.int32)
         lengths = np.asarray(lengths, np.int32)
         Bb = bucket_size(B, self.min_batch) if self.bucketed else B
-        Sb = (bucket_size(S, self.min_len, self.max_len) if self.bucketed
-              else S)
+        Sb = (bucket_size(S, self.min_len, self.max_len)
+              if self.bucketed and "tokens" in arrs else S)
         padded = {}
         for k, v in arrs.items():
-            pad = [(0, Bb - B), (0, Sb - v.shape[1])] + \
-                [(0, 0)] * (v.ndim - 2)
-            padded[k] = np.pad(v.astype(np.int32), pad)
+            pad = [(0, Bb - B)] + [(0, 0)] * (v.ndim - 1)
+            if k in ("tokens", "segments"):
+                pad[1] = (0, Sb - v.shape[1])
+                v = v.astype(np.int32)
+            else:                        # frames and prefix embeddings
+                v = v.astype(np.float32)
+            padded[k] = np.pad(v, pad)
         full_len = np.zeros((Bb,), np.int32)
         full_len[:B] = lengths
         key = ("encode", self._plan_key, Bb, Sb)
@@ -202,7 +217,10 @@ class Runtime:
         self._stats["real_tokens"] += int(lengths.sum())
         self._stats["padded_tokens"] += Bb * Sb - int(lengths.sum())
         if self.token_level and out.ndim >= 2:
-            out = out[:, :S]
+            P = (arrs["prefix_embeds"].shape[1]
+                 if self.cfg.frontend == "vision" and "prefix_embeds" in arrs
+                 else 0)
+            out = out[:, :P + S]
         return out
 
     # -- decode / token-level path -------------------------------------------

@@ -252,16 +252,18 @@ class Pipeline:
     def forward(self, params: dict, batch: dict) -> torch.Tensor:
         """Compose the stages: batch (tensors on the device) -> logits, at
         the batch's own shape (no bucket, no padding)."""
-        S = batch["tokens"].shape[1]
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=batch["tokens"].device)
+        lead = batch.get("tokens", batch.get("frames"))
+        S = lead.shape[1]
+        if self.cfg.frontend == "vision" and "prefix_embeds" in batch:
+            S += batch["prefix_embeds"].shape[1]
+        positions = torch.arange(S, dtype=torch.int32, device=lead.device)
         with torch.inference_mode():
             x = self.embedding(params, batch, positions=positions)
             hidden = self.encoder(params, x, positions=positions)
             return self.target(params, hidden)
 
     def _model_inputs(self, batch: dict) -> dict:
-        keep = ("tokens", "segments")
+        keep = ("tokens", "segments", "frames", "prefix_embeds")
         return {k: np.asarray(v) for k, v in batch.items() if k in keep}
 
     def predict_logits(self, batch: dict) -> np.ndarray:

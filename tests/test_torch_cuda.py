@@ -43,7 +43,13 @@ output cancels near 0 (where one 16-bit rounding of P would break 2e-4).
 The paged decode kernel, split over a slot's pages, equals its plain
 version bit for bit at every built head dim and page size at 1, 2, 8 and
 20 splits and at 4096 cached tokens; the expert GEMM's tensor-core stream
-at capacities 1 to 160 over 8 experts.
+at capacities 1 to 160 over 8 experts. The shapes the attention archs
+serve are held there too: the decode kernel at granite-20b's group of 48,
+deepseek-coder-33b's group of 7, gemma2-2b's head dim 256 over pages of
+128 with softcap 50 and paligemma-3b's group of 8 at head dim 256 (through
+the fused backend, bit for bit the reference's plain version), hubert's
+head dim 80 in the quantized attention (bit for bit), and deepseek-v2's
+160-expert stacks at decode and forward capacities.
 """
 import ctypes
 import importlib.util
@@ -1302,3 +1308,77 @@ def test_routed_fused_encoder_equals_the_solo_member(dev):
             solo.submit(EncoderRequest(uid=i, tokens=reqs[i]))
         for r in solo.run():
             np.testing.assert_array_equal(r.logits, done[r.uid].logits)
+
+
+# ---------------------------------------------------------------------------
+# the shapes the attention archs serve (chip_smoke.py's gemma2, granite,
+# deepseek-coder, paligemma, hubert and deepseek-v2 paths)
+# ---------------------------------------------------------------------------
+
+# (slots, KV heads, group, head dim, page size, pages a slot, softcap)
+SERVED_DECODE = {
+    "granite_group48": (8, 1, 48, 128, 16, 8, None),
+    "deepseek_coder_group7": (8, 8, 7, 128, 16, 8, None),
+    "gemma2_hd256_pages128": (8, 4, 2, 256, 128, 1, 50.0),
+    "paligemma_group8_hd256": (8, 1, 8, 256, 16, 8, None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SERVED_DECODE))
+@pytest.mark.parametrize("mode", ["per_token", "per_head", "p_scale"])
+def test_decode_attention_at_the_served_archs(dev, name, mode):
+    """The decode kernel at each arch's served geometry: granite's MQA
+    group of 48 (two blocks of 24 rows), deepseek-coder's group of 7,
+    gemma2's head dim 256 over pages of 128 with softcap 50 and
+    paligemma's group of 8 at head dim 256: one launch, the fused backend's
+    result bit for bit the plain version the reference backend runs."""
+    B, Hkv, g, hd, ps, pps, softcap = SERVED_DECODE[name]
+    args, kw = _decode_case(dev, B, Hkv, g, hd, ps, pps, mode)
+    if g > decode_attention.MAX_BLOCK_ROWS:
+        assert decode_attention.block_rows(hd, ps, g) == -(-g // 2)
+    q, k, v, table, lengths = args
+    ops_ = dict(q=q, k_pages=k, v_pages=v, page_table=table,
+                lengths=lengths, softcap=softcap, **kw)
+    kernels.reset_launches()
+    out = backend.FusedBackend().paged_decode(**ops_)
+    assert kernels.launch_counts()["decode_attention"] == 1
+    want = backend.ComputeBackend().paged_decode(**ops_)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert out.equal(want), float((out - want).abs().max())
+
+
+@pytest.mark.parametrize("requant", [False, True])
+@pytest.mark.parametrize("lens", [(128, 93, 16, 57, 128, 40, 111, 77),
+                                  (16, 1, 9, 16, 0, 3, 12, 5)])
+def test_quant_flash_attention_at_head_dim_80(dev, requant, lens):
+    """hubert-xlarge's bidirectional span attention: 16 heads of 80 (run
+    padded to 128), a batch of 8 frame sequences of up to 128 (and up to
+    16) positions: equal to the plain version bit for bit, float and int8
+    out."""
+    Sk = max(lens)
+    q, k, v, k_pos, kw = _attn_case(dev, 8, 16, 16, Sk, Sk, 80, lens)
+    if requant:
+        kw["o_scale"] = torch.tensor(0.01, device=dev)
+    kernels.reset_launches()
+    out = flash_attention.quant_flash_attention(q, k, v, k_pos, **kw)
+    assert kernels.launch_counts()["quant_flash_attention"] == 1
+    want = flash_attention.quant_flash_attention_plain(q, k, v, k_pos, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == want.dtype and out.equal(want)
+
+
+@pytest.mark.parametrize("C", [1, 24])
+@pytest.mark.parametrize("D,F", [(5120, 1536), (1536, 5120)])
+@pytest.mark.parametrize("mode", ["per_expert", "per_token"])
+def test_quant_expert_gemm_at_160_experts(dev, C, D, F, mode):
+    """deepseek-v2's routed stacks at full width: 160 experts, at a decode
+    tick's capacity (8 slots, top 6: C = 1) and a 4 x 128 forward's (C =
+    24): one launch, equal to the plain version bit for bit."""
+    xe, wq, ws, xs = _expert_case(dev, 1, 160, C, D, F, mode)
+    kernels.reset_launches()
+    y = expert_gemm.quant_expert_gemm(xe, wq, ws, xs)
+    assert kernels.launch_counts()["quant_expert_gemm"] == 1
+    want = expert_gemm.quant_expert_gemm_plain(xe, wq, ws, xs)
+    torch.cuda.synchronize()
+    assert y.shape == (1, 160, C, F) and y.equal(want)

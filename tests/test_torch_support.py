@@ -1,7 +1,10 @@
 """Shared helpers of the ``test_torch_*`` parity suite (this module holds
 no tests): moving JAX values into numpy for the port, and building the
-reduced BERT slice once in both packages from the same numpy inputs."""
+reduced BERT slice, and any reduced arch under the golden plan, once in both
+packages from the same numpy inputs."""
 from __future__ import annotations
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -11,13 +14,14 @@ from repro.configs import get_config as jax_get_config
 from repro.core.plan import PrecisionPlan as JaxPlan
 from repro.core.quantize import QuantizedTensor as JaxQT
 from repro.core.samp import int8_dataflow_variant as jax_dataflow_variant
+from repro.core.samp import moe_family_variant as jax_moe_variant
 from repro.models import transformer as JT
 from repro.quant import ptq as jptq
 
 from repro_torch.configs import get_config
 from repro_torch.core.calibration import synthetic_calibration_batches
 from repro_torch.core.plan import PrecisionPlan
-from repro_torch.core.samp import int8_dataflow_variant
+from repro_torch.core.samp import int8_dataflow_variant, moe_family_variant
 from repro_torch.interop import params_from_numpy
 from repro_torch.models import transformer as T
 
@@ -83,3 +87,46 @@ def bert_slice(plan_path: str = GOLDEN, *, dataflow: bool = False) -> dict:
             "jstats": jstats, "jq": jq, "jqplan": jqplan, "qplan": qplan,
             "qparams_from_jax": params_from_numpy(jax_to_numpy(jq), qplan,
                                                   "cpu")}
+
+
+def golden_plans(num_layers: int, moe: bool = False):
+    """The golden plan's four layers tiled to ``num_layers``, as
+    ``chip_smoke.py`` tiles them, in both packages; an MoE arch takes its
+    schema-v4 experts-family variant. Returns (port plan, JAX plan)."""
+    plan, jplan = PrecisionPlan.load(GOLDEN), JaxPlan.load(GOLDEN)
+    reps = -(-num_layers // plan.num_layers)
+    plan = PrecisionPlan((plan.layers * reps)[:num_layers], plan.float_dtype)
+    jplan = JaxPlan((jplan.layers * reps)[:num_layers], jplan.float_dtype)
+    if moe:
+        plan, jplan = moe_family_variant(plan), jax_moe_variant(jplan)
+    return plan, jplan
+
+
+@functools.lru_cache(maxsize=None)
+def arch_slice(arch: str) -> dict:
+    """A reduced arch in both packages: JAX float params (seeded) carried
+    into the port, numpy calibration batches (2 of 2 x 8; a vision arch's
+    carry its prefix embeddings, an audio arch's are frames), and the tiled
+    golden plan (:func:`golden_plans`) calibrated by JAX on those batches,
+    quantized by JAX and carried across. Built once a process; tests must
+    not mutate it."""
+    jcfg = jax_get_config(arch).reduced()
+    cfg = get_config(arch).reduced()
+    jfp = JaxPlan.full_float(jcfg.num_layers, "float32")
+    fp = PrecisionPlan.full_float(cfg.num_layers, "float32")
+    jfloat_plan, float_plan = JT.build_plan(jcfg, jfp), T.build_plan(cfg, fp)
+    jparams = JT.init_params(jax.random.PRNGKey(0), jcfg, jfp)
+    params = params_from_numpy(jax_to_numpy(jparams), float_plan, "cpu")
+    batches = synthetic_calibration_batches(cfg, num_batches=2, batch_size=2,
+                                            seq_len=8, seed=0)
+    plan, jplan = golden_plans(cfg.num_layers, cfg.moe is not None)
+    jstats = jptq.capture_stats(jparams, to_jax_batches(batches), jcfg,
+                                jfloat_plan, precision=jplan)
+    jq, jqplan = jptq.apply_plan(jparams, jcfg, jplan, jstats,
+                                 float_plan=jfloat_plan)
+    qplan = T.build_plan(cfg, plan)
+    return {"jcfg": jcfg, "cfg": cfg, "jfloat_plan": jfloat_plan,
+            "float_plan": float_plan, "jparams": jparams, "params": params,
+            "batches": batches, "plan": plan, "jplan": jplan,
+            "jstats": jstats, "jq": jq, "jqplan": jqplan, "qplan": qplan,
+            "q": params_from_numpy(jax_to_numpy(jq), qplan, "cpu")}
