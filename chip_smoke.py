@@ -214,8 +214,24 @@ with the decode paths' checks (identical tokens, logits within rel-Linf
   on the reference path, ``quant_expert_gemm`` at 160 experts (C = 1 a
   tick), and the routings expert capacity dropped on both backends.
 
+Then the recurrent archs of slice 14, the same way:
+
+* ``recurrentgemma_decode_path``: recurrentgemma-9b, all 38 layers (26
+  RG-LRU, 12 local attention; 9.4 B parameters), the golden plan tiled
+  over them: the RG-LRU mix on the reference path, its FFN's GEMMs through
+  ``quant_linear`` and ``dynamic_quant``, ``addnorm_quant`` at the local
+  layers' residual boundary, no ``decode_attention`` (the local layers
+  keep rings);
+* ``xlstm_decode_path`` and ``xlstm_encode_path``: xlstm-125m, all 12
+  layers (mLSTM and sLSTM blocks): the decode of the prompts, and one
+  ``Runtime.encode`` of 4 x 512 seeded tokens (two mLSTM chunks: logits
+  within 5e-3, argmax identical). No kernel launches on either: each
+  count is held to 0.
+
 Every launch count is also held to the table :data:`EXPECTED_ARCHS`, and
-``fused_embed`` launches on none of them (no learned positions).
+``fused_embed`` launches on none of them (no learned positions). The
+kernel phase also runs the three attention kernels at head dims 320 and
+512 (``run_wide_head_cases``: their wide kernels, which no config serves).
 
 Then the kernel summary line (per kernel, its sums over one forward of the
 span path at (8, 128), or over one tick of the decode path, or of the MoE
@@ -364,9 +380,22 @@ ARCH_PHASES = (("gemma2-2b", ("gemma2_decode_path",)),
                ("deepseek-coder-33b", ("deepseek_coder_decode_path",)),
                ("hubert-xlarge", ("hubert_encode_path",)),
                ("paligemma-3b", ("paligemma_path", "paligemma_decode_path")),
-               ("deepseek-v2-236b", ("mla_decode_path",)))
+               ("deepseek-v2-236b", ("mla_decode_path",)),
+               # slice 14, the recurrent archs, at full depth
+               ("recurrentgemma-9b", ("recurrentgemma_decode_path",)),
+               ("xlstm-125m", ("xlstm_decode_path", "xlstm_encode_path")))
 ARCH_CUTS = {"granite-20b": 8, "deepseek-coder-33b": 8,
              "deepseek-v2-236b": 3}
+# xlstm_encode_path: one Runtime.encode of 4 x 512 seeded tokens, two mLSTM
+# chunks of 256, so the chunk hand-off runs on the card
+XLSTM_ENCODE = (4, 512)
+# head dims over 256 (the attention kernels' wide kernels), which no
+# registered config serves: quant_flash_attention and flash_attention at
+# (B, Hq, Hkv, S), decode_attention at the decode paths' 8 slots of 512
+# cached tokens over pages of 16, 2 KV heads in groups of 4
+WIDE_HEAD_DIMS = (320, 512)
+WIDE_ATTENTION = (2, 8, 2, 512)
+WIDE_DECODE = {"kv_heads": 2, "group": 4, "tokens": 512, "page_size": 16}
 ARCH_PROMPTS = 8
 ARCH_MAX_TOKENS = 16
 ARCH_PAGE_SIZE = {"gemma2_decode_path": 128}
@@ -381,7 +410,11 @@ PALIGEMMA_TOKENS = 32            # up to 32 tokens
 # global layers 1, 5, ..., 25 run the decode kernel; hubert's span runs
 # per four layers 14 / 2 / 2 and 2 quant_flash_attention; deepseek-v2's MLA
 # body stays on the reference path: layer 0's FFN (3 + 1 addnorm) and each
-# MoE layer's shared experts (3) and routed stacks (3 quant_expert_gemm)
+# MoE layer's shared experts (3) and routed stacks (3 quant_expert_gemm).
+# recurrentgemma's 26 RG-LRU layers run only their FFN's GEMMs (the mix is
+# on the reference path, the residual boundary unfused) and its 12 local
+# attention layers keep rings (no decode_attention); xlstm's blocks run no
+# kernel at all, so both of its paths launch none
 EXPECTED_ARCHS = {
     "gemma2_decode_path": {"quant_linear": 112, "addnorm_quant": 13,
                            "dynamic_quant": 21, "decode_attention": 7},
@@ -399,6 +432,10 @@ EXPECTED_ARCHS = {
                               "dynamic_quant": 15, "decode_attention": 9},
     "mla_decode_path": {"quant_linear": 9, "addnorm_quant": 1,
                         "quant_expert_gemm": 6},
+    "recurrentgemma_decode_path": {"quant_linear": 111, "addnorm_quant": 6,
+                                   "dynamic_quant": 30},
+    "xlstm_decode_path": {},
+    "xlstm_encode_path": {},
 }
 # the times of each kernel's summary entry
 TIMES = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -2947,6 +2984,8 @@ def check_launches(name, per, sub, launches, subs, n):
     if dict(per) != want_per:
         fail(f"{name}: the plan implies {dict(per)} launches per pass, not "
              f"{want_per}")
+    # every kernel's count against the plan's, so a plan that names no
+    # kernel (xlstm's blocks) holds each count to 0
     want = {k: per[k] * n for k in launches}
     if launches != want or any(launches[k] == 0 for k in want_per) \
             or launches["fused_embed"]:
@@ -3229,6 +3268,69 @@ def phase_paligemma(model, device):
     return [encode, decode]
 
 
+def phase_xlstm(model, device):
+    """xlstm-125m, all 12 layers, under the tiled golden plan (its MHA
+    blocks have no GEMM to quantize: the blocks' projections are FFN-group
+    GEMMs): the decode of the prompts (``serve_arch_decode``; the recurrent
+    states take no pages), then one ``Runtime.encode`` of
+    :data:`XLSTM_ENCODE` seeded tokens on both backends, the logits within
+    rel-Linf 5e-3 and their argmax identical. Neither path launches a
+    kernel: the fused backend declines every op of the blocks. Returns the
+    decode path and the encode path."""
+    import numpy as np
+    import torch
+    from repro_torch.interop import flatten_names
+    from repro_torch.models import transformer as T
+
+    cfg = model["cfg"]
+    plan = arch_plan("xlstm_decode_path", cfg)
+    qparams, qplan, ptq_peak = quantize_arch(model, plan, device)
+    # int8 GEMMs of the FFN group and of the MHA group (no attention here)
+    weights = [n for n, _ in flatten_names(qparams["layers"])
+               if n.endswith("/w/values")]
+    mha = sum("/attn/" in n for n in weights)
+    int8 = [len(weights) - mha, mha]
+    decode = serve_arch_decode("xlstm_decode_path", model, qparams, qplan,
+                               plan, device, kv_cache="int8_per_token")
+    decode["record"].update(int8_ffn_gemms=int8[0], int8_mha_gemms=int8[1])
+    rng = np.random.default_rng(1)
+    B, S = XLSTM_ENCODE
+    inputs = {"tokens": rng.integers(1, cfg.vocab_size, (B, S),
+                                     dtype=np.int32)}
+    fused, ref, launches, subs, wall, ref_wall, buckets = encode_pair(
+        cfg, qparams, qplan, device, [(inputs, None)],
+        head=lambda p, x: T.unembed(x, p, cfg))
+    lf, lr = torch.from_numpy(fused[0]), torch.from_numpy(ref[0])
+    err = rel_linf(lr, lf)
+    equal = bool((lf.argmax(-1) == lr.argmax(-1)).all())
+    finite = bool(torch.isfinite(lf).all())
+    cases = kernel_cases(cfg, plan)
+    per_fwd, sub_fwd = per_pass(cases)
+    rec = {"phase": "xlstm_encode_path", "model": cfg.name,
+           "layers": cfg.num_layers, "plan": plan.describe(),
+           "plan_fingerprint": plan.fingerprint(), "rows": B, "tokens": S,
+           "mlstm_chunks": S // 256, "buckets": buckets, "wall_s": wall,
+           "tokens_per_s": B * S / wall, "reference_wall_s": ref_wall,
+           "launches": launches, "launches_per_forward": dict(per_fwd),
+           "sub_counts": subs, "fused_vs_reference_rel_linf": err,
+           "predictions_equal": equal, "int8_ffn_gemms": int8[0],
+           "int8_mha_gemms": int8[1], "ptq_peak_memory_bytes": ptq_peak}
+    emit(rec)
+    if not finite or tuple(lf.shape) != (B, S, cfg.vocab_size):
+        fail(f"xlstm_encode_path: logits {tuple(lf.shape)}, finite {finite}")
+    if err > REL_LINF_BUDGET or not equal:
+        fail(f"xlstm_encode_path: fused vs reference rel-Linf {err}, "
+             f"predictions equal {equal}")
+    if int8[1] or not int8[0]:
+        fail(f"xlstm: {int8[0]} int8 FFN-group GEMMs, {int8[1]} MHA ones")
+    check_launches("xlstm_encode_path", per_fwd, sub_fwd, launches, subs, 1)
+    encode = {"name": "xlstm_encode_path", "cfg": cfg, "qparams": qparams,
+              "launches": launches, "per_fwd": per_fwd, "cases": cases,
+              "buckets": [(B, S)], "timed_bucket": (B, S),
+              "unit": "forward", "record": rec}
+    return [decode, encode]
+
+
 def phase_arch_decode(name, model, device):
     """Quantize a decoder under its plan and serve it
     (:func:`serve_arch_decode`): int8 per-token pages, but MLA's float
@@ -3256,6 +3358,8 @@ def phase_archs(device, timed, max_err):
             run = [phase_hubert(model, device)]
         elif arch == "paligemma-3b":
             run = phase_paligemma(model, device)
+        elif arch == "xlstm-125m":
+            run = phase_xlstm(model, device)
         else:
             run = [phase_arch_decode(names[0], model, device)]
         for p in run:
@@ -3318,14 +3422,19 @@ def kernel_cases(cfg, plan, kv_schemes=None, page_size=PAGE_SIZE):
         cases[key]["count"] += n
 
     for i, lp in enumerate(plan.layers):
+        body = kinds[i].body
+        if body in ("mlstm", "slstm"):
+            continue                 # an xLSTM block: the reference path
         moe = kinds[i].moe
         span = lp.norm == "int8"
         ffn_out_static = lp.ffn_out.quantized and lp.ffn_out.static_acts
         first = {}
-        # an MLA body keeps every GEMM on the reference path; an MoE layer
-        # runs its shared experts' GLU (under the shared_ffn family) where
-        # a dense layer runs its FFN
-        gemms = [] if cfg.mla is not None else _gemms(cfg)[:4]
+        # an MLA body keeps every GEMM on the reference path, and so does an
+        # RG-LRU mix (its FFN is a dense layer's); an MoE layer runs its
+        # shared experts' GLU (under the shared_ffn family) where a dense
+        # layer runs its FFN
+        gemms = [] if cfg.mla is not None or body == "rglru" \
+            else _gemms(cfg)[:4]
         if not moe:
             gemms += _gemms(cfg)[4:]
         elif cfg.moe.num_shared:
@@ -3363,9 +3472,14 @@ def kernel_cases(cfg, plan, kv_schemes=None, page_size=PAGE_SIZE):
                     else None)
                 if token:
                     add(("dynamic_quant", K, "experts"), i, n)
-        elif lp.ffn_in.quantized and lp.ffn_in.static_acts:
+        elif lp.ffn_in.quantized and lp.ffn_in.static_acts \
+                and body == "attn":
+            # an RG-LRU layer adds its residual and norms on the reference
+            # path: only an attention layer's boundary is fused
             add(("addnorm_quant", D, span, cfg.norm_kind), i, 1,
                 "addnorm_quant with an int8 delta" if span else None)
+        if body != "attn":
+            continue
         if kv_schemes is not None:
             # the kernel takes the one-token step of float-bmm layers over
             # int8 pages; int8-bmm layers gather the pages, and local layers
@@ -3912,6 +4026,121 @@ def run_long_attention_case(device, timer):
     return recs
 
 
+def run_wide_head_cases(device, timer):
+    """The three attention kernels at the head dims over 256 of
+    :data:`WIDE_HEAD_DIMS` (their wide kernels), seeded:
+    ``quant_flash_attention`` at :data:`WIDE_ATTENTION` with ragged key
+    lengths, equal to its plain version bit for bit; ``flash_attention`` at
+    the same shape in float32, causal, within its 2e-4 budget, beside SDPA;
+    ``decode_attention`` at :data:`WIDE_DECODE` (per-token scales), equal
+    to its plain version bit for bit and within 1e-4 of the gathered
+    witness. Each is timed beside its bound. Returns {kernel: {"hd<d>":
+    record}}."""
+    import torch
+    import torch.nn.functional as Fn
+    from repro_torch.kernels import flash_attention as FA
+    out = collections.defaultdict(dict)
+    B, Hq, Hkv, S = WIDE_ATTENTION
+    g = Hq // Hkv
+    for d in WIDE_HEAD_DIMS:
+        gen = torch.Generator(device=device).manual_seed(S + d)
+        q = _codes((B, Hq, S, d), gen, device)
+        k, v = (_codes((B, Hkv, S, d), gen, device) for _ in range(2))
+        lens = torch.tensor([S, S // 2 + 7], device=device)
+        idx = torch.arange(S, device=device, dtype=torch.int32)
+        k_pos = torch.where(idx[None] < lens[:, None], idx[None],
+                            -1).to(torch.int32)
+        kw = dict(q_scale=torch.tensor(0.35 / d, device=device),
+                  k_scale=torch.tensor(0.013, device=device),
+                  p_scale=torch.tensor(0.6 / 255, device=device),
+                  v_scale=torch.tensor(0.02, device=device))
+        kern = lambda: FA.quant_flash_attention(q, k, v, k_pos, **kw)  # noqa
+        plain = lambda: FA.quant_flash_attention_plain(  # noqa
+            q, k, v, k_pos, **kw)
+        got, want = kern(), plain()
+        exact = bool(got.equal(want))
+        pairs = Hq * S * int(lens.sum())
+        n_q, n_kv = B * Hq * S * d, B * Hkv * S * d
+        t_bytes, t_ops = bound(n_q + 2.0 * n_kv + 4.0 * B * S + 16
+                               + 4.0 * n_q, int8_ops=4.0 * pairs * d,
+                               f32_ops=10.0 * pairs + 4.0 * n_q)
+        rec = {"phase": "kernel", "kernel": "quant_flash_attention",
+               "path": f"hd{d}", "batch": B, "heads": Hq, "kv_heads": Hkv,
+               "length": S, "head_dim": d, "valid_keys": int(lens.sum()),
+               "max_abs_err": float((got - want).abs().max()),
+               "exact": exact, "tolerance": "bit for bit",
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "ms": timer.ms(kern),
+               "device_ms": timer.device_ms(kern, "quant_flash_attention"),
+               "plain_ms": timer.ms(plain), "library_ms": None,
+               "library_device_ms": None}
+        emit(rec)
+        out["quant_flash_attention"][f"hd{d}"] = rec
+        if not exact:
+            fail(f"quant_flash_attention at head dim {d} differs from its "
+                 f"plain version: {rec}")
+        del q, k, v, got, want
+
+        qf = torch.randn((B, Hq, S, d), generator=gen, device=device)
+        kf, vf = (torch.randn((B, Hkv, S, d), generator=gen, device=device)
+                  for _ in range(2))
+        fkw = {"causal": True}
+        kern = lambda: FA.flash_attention(qf, kf, vf, **fkw)  # noqa
+        plain = lambda: FA.flash_attention_plain(qf, kf, vf, **fkw)  # noqa
+        got, want = kern(), plain()
+        err = (got - want).abs()
+        excess = float((err - FLASH_TOL - FLASH_TOL * want.abs()).max())
+        t_bytes, t_ops, pairs, _, _ = flash_bound(B, Hq, Hkv, S, d, fkw,
+                                                  torch.float32)
+        ke, ve = (t.repeat_interleave(g, dim=1) for t in (kf, vf))
+
+        def library():
+            return Fn.scaled_dot_product_attention(qf, ke, ve,
+                                                   is_causal=True,
+                                                   scale=d ** -0.5)
+        rec = {"phase": "kernel", "kernel": "flash_attention",
+               "path": f"hd{d}", "batch": B, "heads": Hq, "kv_heads": Hkv,
+               "length": S, "head_dim": d, "dtype": "float32",
+               "mask": fkw, "valid_pairs": pairs,
+               "max_abs_err": float(err.max()),
+               "tolerance": (f"|out - plain| <= {FLASH_TOL:g} + "
+                             f"{FLASH_TOL:g} |plain|"),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "ms": timer.ms(kern),
+               "device_ms": timer.device_ms(kern, "flash_attention"),
+               "plain_ms": timer.ms(plain),
+               "library": ("F.scaled_dot_product_attention, K and V "
+                           "expanded to the query heads"),
+               "library_max_abs_diff": float((library() - got).abs().max()),
+               "library_ms": timer.ms(library),
+               "library_device_ms": timer.device_ms(library)}
+        emit(rec)
+        out["flash_attention"][f"hd{d}"] = rec
+        if excess > 0 or not bool(torch.isfinite(got).all()):
+            fail(f"flash_attention at head dim {d} disagrees with its plain "
+                 f"version: {rec}")
+        del qf, kf, vf, ke, ve, got, want, err
+
+        w = WIDE_DECODE
+        pps = w["tokens"] // w["page_size"]
+        args = decode_operands(device, [w["tokens"]] * DECODE_SLOTS, pps,
+                               kv_heads=w["kv_heads"], group=w["group"],
+                               head_dim=d, page_size=w["page_size"])
+        rec, _, ok = check_decode(args, device, timer)
+        rec = {"phase": "kernel", "kernel": "decode_attention",
+               "path": f"hd{d}", "mode": "per_token", **rec}
+        emit(rec)
+        out["decode_attention"][f"hd{d}"] = rec
+        if not ok or not rec["exact"]:
+            fail(f"decode_attention at head dim {d} disagrees with its "
+                 f"plain version or the gathered witness: {rec}")
+        del args
+        torch.cuda.empty_cache()
+    return out
+
+
 def run_wide_row_cases(device, timer):
     """``addnorm_quant`` and ``dynamic_quant`` at rows past their register
     plans, which no served path reaches and which both kernels stream:
@@ -4119,7 +4348,7 @@ def check_kernels(paths, device, timed, max_err):
 
 
 def summarize(paths, timed, max_err, flash, long_decode, wide_page,
-              long_attention, wide):
+              long_attention, wide, wide_heads):
     """The per-kernel summary entries: sums over one forward of the span
     path, else one tick of the decode path, else one tick of the MoE path,
     and over one forward or tick of each path under ``by_path``; for the
@@ -4128,7 +4357,8 @@ def summarize(paths, timed, max_err, flash, long_decode, wide_page,
     ``decode_attention`` also its call at 4096 cached tokens a slot
     (``long_context``) and at head dim 256 with pages of 128
     (``hd256_pages128``), for ``quant_flash_attention`` its calls at 512
-    positions (``bert_512``)."""
+    positions (``bert_512``), and for the three attention kernels their
+    calls at head dims over 256 (``wide_head_dims``)."""
 
     def sums(path, name):
         out = {"launches": path["launches"][name],
@@ -4167,6 +4397,7 @@ def summarize(paths, timed, max_err, flash, long_decode, wide_page,
             entry["per"] = ("one call of ops.flash_attention at qwen2's 32k "
                             "causal prefill in float32 (by_case: each "
                             "case); launches: one a call of the flash path")
+            _wide_heads(entry, wide_heads[name])
             summary.append(entry)
             continue
         by_path = {p["name"]: sums(p, name) for p in paths
@@ -4195,6 +4426,8 @@ def summarize(paths, timed, max_err, flash, long_decode, wide_page,
                 for k, r in long_attention.items()}
             entry["max_abs_err"] = max([entry["max_abs_err"]] + [
                 r["max_abs_err"] for r in long_attention.values()])
+        if name in wide_heads:
+            _wide_heads(entry, wide_heads[name])
         if name in wide:
             r = wide[name]
             entry["wide_rows"] = {f: r[f] for f in (
@@ -4212,13 +4445,22 @@ def summarize(paths, timed, max_err, flash, long_decode, wide_page,
     return measured(summary)
 
 
+def _wide_heads(entry, recs):
+    """Add a kernel's calls at head dims over 256 to its summary entry."""
+    entry["wide_head_dims"] = {k: {f: r[f] for f in (
+        "head_dim", "max_abs_err") + TIMES} for k, r in recs.items()}
+    entry["max_abs_err"] = max([entry["max_abs_err"]] + [
+        r["max_abs_err"] for r in recs.values()])
+
+
 def kernel_named(kernel: str, device_name: str) -> bool:
-    """Whether a profiled device kernel is ``kernel``'s CUDA function
+    """Whether a profiled device kernel is one of ``kernel``'s CUDA
+    functions, its wide kernel (head dims over 256) included
     (``flash_attention_kernel`` is a suffix of
     ``quant_flash_attention_kernel``, so the name must not follow a letter
     or an underscore)."""
     import re
-    return re.search(r"(^|[^A-Za-z_])" + kernel + r"_kernel",
+    return re.search(r"(^|[^A-Za-z_])" + kernel + r"(_wide)?_kernel",
                      device_name) is not None
 
 
@@ -4387,6 +4629,7 @@ def main() -> int:
     wide_page = run_wide_page_decode_case(device, Timer(device))
     long_attention = run_long_attention_case(device, Timer(device))
     wide = run_wide_row_cases(device, Timer(device))
+    wide_heads = run_wide_head_cases(device, Timer(device, reps=5))
     phase_profile(model, paths, device)
     phase_profile_decode(paths[2])
     # free the earlier paths' models and engines before the 42 GB MoE model;
@@ -4409,7 +4652,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths += phase_archs(device, timed, max_err)
     emit({"kernels": summarize(paths, timed, max_err, flash, long_decode,
-                               wide_page, long_attention, wide)})
+                               wide_page, long_attention, wide,
+                               wide_heads)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -5,7 +5,7 @@ from repro_torch.configs.base import (ArchConfig, BlockKind, MLAConfig,
                                       MoEConfig, all_configs, get_config,
                                       load_all, register)
 
-# the archs the port registers, in the JAX package's order
+# every arch, in the JAX package's order
 ARCH_IDS = (
     "bert-base",
     "deepseek-coder-33b",
@@ -15,7 +15,9 @@ ARCH_IDS = (
     "deepseek-v2-236b",
     "mixtral-8x22b",
     "paligemma-3b",
+    "xlstm-125m",
     "hubert-xlarge",
+    "recurrentgemma-9b",
 )
 
 __all__ = ["ArchConfig", "BlockKind", "MLAConfig", "MoEConfig", "register",

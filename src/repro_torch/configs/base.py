@@ -1,10 +1,10 @@
 """Architecture configuration schema + registry (port of ``repro.configs.base``).
 
 The dataclasses are field-for-field copies of the JAX package's, so a config
-built here compares equal, field by field, to its JAX twin. Only the configs
-the ported slices serve are registered: every config whose layers are
-attention layers (``ARCH_IDS`` in :mod:`repro_torch.configs`); the two
-recurrent configs arrive with the slice that runs their bodies.
+built here compares equal, field by field, to its JAX twin. Every config of
+the JAX package is registered (``ARCH_IDS`` in :mod:`repro_torch.configs`):
+the attention archs and the two recurrent ones, recurrentgemma-9b (RG-LRU
+beside local attention) and xlstm-125m (mLSTM and sLSTM blocks).
 """
 from __future__ import annotations
 
@@ -163,7 +163,8 @@ _REGISTRY: dict[str, ArchConfig] = {}
 # in the JAX package's order
 _MODULES = ("bert_base", "deepseek_coder_33b", "qwen2_0_5b", "gemma2_2b",
             "granite_20b", "deepseek_v2_236b", "mixtral_8x22b",
-            "paligemma_3b", "hubert_xlarge")
+            "paligemma_3b", "xlstm_125m", "hubert_xlarge",
+            "recurrentgemma_9b")
 
 
 def register(cfg: ArchConfig) -> ArchConfig:

@@ -8,7 +8,9 @@ same leaves as tensors on ``device``, with the scan-stacked
 ``params["layers"]``. Any leaf carries as it is, so a BERT tree, a qwen2
 tree (GLU ``wg``/``wu``/``wd``, QKV biases, the static KV-cache scales
 ``kc_scale``/``vc_scale`` and ``p_scale``) and a mixtral tree all come
-across whole; unstacking slices only the scan axis, so an expert stack
+across whole, as do the recurrent layers' leaves (the RG-LRU's ``lam``
+and ``conv``, the sLSTM's per-head ``r`` (4, H, dh, dh)); unstacking
+slices only the scan axis, so an expert stack
 ``(steps, E, D, F)`` arrives as (E, D, F), its scales as (E, 1, F) and a
 per-expert ``xs`` as (E, 1, 1). :func:`params_to_numpy` is its inverse:
 it restacks the port's per-layer list into ``groups[g]["layers"][j]`` with

@@ -25,8 +25,9 @@ The PrecisionPlan decides *what* is quantized; the compute backend decides
   on the CPU, where it exercises the same dispatch. A claim depends on the
   plan and the layer kind, never on a shape: on the card each claimed op
   launches its kernel (the quantized attention core streams K and V past
-  a block's shared memory; decode attention takes head dims up to 256 and
-  any GQA group) or raises.
+  a block's shared memory; the attention kernels take any head dim, past
+  256 on their wide kernels, and decode attention any GQA group) or
+  raises.
 * ``auto``      — ``fused`` for CUDA tensors, ``reference`` on the CPU
   (where ``decode_attention`` and ``expert_gemm`` are the same plain
   versions in both).
@@ -350,6 +351,14 @@ BACKENDS: dict[str, type] = {
     "fused": FusedBackend,
     "auto": AutoBackend,
 }
+
+
+def register_backend(name: str, cls: type) -> type:
+    """Register a :class:`ComputeBackend` subclass under ``name``, so that
+    :func:`get_backend` (and every ``backend=`` argument that takes a name)
+    resolves it. Returns ``cls``."""
+    BACKENDS[name] = cls
+    return cls
 
 
 def get_backend(backend: Union[str, ComputeBackend, None]) -> ComputeBackend:

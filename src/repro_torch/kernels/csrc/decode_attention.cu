@@ -73,7 +73,8 @@
 // p_scale and S > 1 a call is two launches: the first writes each split's
 // (m_s, l_s); in the second every block combines them into m and l (the
 // same order in each), runs pass 2 over its split, and the last block of the
-// group adds the accs. Division is IEEE, rounding is rintf (half to even),
+// group adds the accs. A head dim over 256 runs the wide kernel at the end
+// of this file, in the same orders. Division is IEEE, rounding is rintf (half to even),
 // exp is expf: no fast math, -fmad=false.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -533,6 +534,214 @@ cudaError_t launch_ps(int PS, int blocks, cudaStream_t stream,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Head dims over 256: the wide kernel
+// ---------------------------------------------------------------------------
+// A simple kernel that takes any head dim hd and page size ps, where the
+// instantiations' staged pages and unrolled halves would not fit, and keeps
+// the plain version's orders, so it is bit for bit the plain version too.
+// One block of 256 threads per (slot, KV head, query row of the group,
+// chunk of 256 output columns); a chunk's block recomputes the row's scores
+// and statistics, and walks every split of the slot's pages in turn (the
+// splits' (m_s, l_s, acc_s) in registers, then the same combine), so a
+// call is one launch. Per live page:
+//  * the scores: warp w takes tokens w, w + 8, ...; lane l holds dims
+//    l + 32 u (u < HD / 32, HD the head dim's next power of two) and adds
+//    their products over u, then the lanes add by shuffles (16, 8, ... 1).
+//    That is tree_sum's order over HD: its halves pair the top bits of d
+//    first (u's), then the low five (the lanes');
+//  * every thread takes the page's max and the new m itself, thread t the
+//    exponential (or the code) of token t into shared memory, and every
+//    thread adds the exponentials over the page's tokens in halves (l, the
+//    same in each) and its column's P.V terms in halves (acc).
+// A sum in halves over n = 2^k terms is streamed (halving_sum): its tree is
+// the tree of adjacent pairs over the bit-reversed indices, so the terms
+// arrive in bit-reversed order and merge on a binary counter of partial
+// sums.
+constexpr int kWideThreads = 256;         // threads, and columns a block
+
+// the least k with 2^k >= n
+__host__ __device__ inline int log2_ceil(int n) {
+  int k = 0;
+  while ((1 << k) < n) ++k;
+  return k;
+}
+
+// sum of f(0), ..., f(2^bits - 1) in tree_sum's order (x[i] + x[i + n/2],
+// then halves of that, ...)
+template <class F>
+__device__ __forceinline__ float halving_sum(int bits, F&& f) {
+  float part[32];
+  int top = 0;
+  for (int r = 0; r < (1 << bits); ++r) {
+    float x = f(bits ? (int)(__brev((unsigned)r) >> (32 - bits)) : 0);
+    for (int c = r; c & 1; c >>= 1) x = part[--top] + x;
+    part[top++] = x;
+  }
+  return part[0];
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+decode_attention_wide_kernel(const float* __restrict__ q,
+                             const int8_t* __restrict__ k_pages,
+                             const int8_t* __restrict__ v_pages,
+                             const float* __restrict__ k_scale,
+                             const float* __restrict__ v_scale,
+                             const int* __restrict__ page_table,
+                             const int* __restrict__ lengths,
+                             const float* __restrict__ p_scale,
+                             float* __restrict__ out, int Hkv, int g, int hd,
+                             int ps, int pps, int num_pages, int per_head,
+                             float scale, int use_cap, float cap,
+                             int split_pages, int splits) {
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int chunks = (hd + kWideThreads - 1) / kWideThreads;
+  const int row = blockIdx.x / chunks;               // (slot, head, i)
+  const int d = (blockIdx.x - row * chunks) * kWideThreads + tid;
+  const int bh = row / g;
+  const int b = bh / Hkv;
+  const int h = bh - b * Hkv;
+  const int length = lengths[b];
+  const int* table = page_table + (size_t)b * pps;
+  const int dbits = log2_ceil(hd) - 5;               // u's bits
+  const int tbits = log2_ceil(ps);                   // a page's tokens
+  const int W = 1 << tbits;
+  float* qs = smem;                                  // hd
+  float* sc = qs + hd;                               // W scores
+  float* ex = sc + W;                                // W exponentials
+  float* wt = ex + W;                                // W P.V weights
+  const bool quant_p = p_scale != nullptr;
+  const float pscale = quant_p ? *p_scale : 1.0f;
+  for (int e = tid; e < hd; e += kWideThreads)
+    qs[e] = q[(size_t)row * hd + e] * scale;
+  for (int t = tid; t < W; t += kWideThreads) {
+    ex[t] = 0.0f;
+    wt[t] = 0.0f;
+  }
+
+  // one live page j: the scores into sc, then the walk's update
+  auto page = [&](int j, int pg, Walk mode, float& m, float& l, float& acc,
+                  float m_all, float denom) {
+    __syncthreads();                         // the last page fully used
+    const size_t page_base = (size_t)pg * ps;
+    for (int t = warp; t < ps; t += kWideThreads / 32) {
+      const int8_t* kr = k_pages + ((page_base + t) * Hkv + h) * hd;
+      float x = halving_sum(dbits, [&](int u) {
+        const int e = lane + 32 * u;
+        return e < hd ? qs[e] * (float)kr[e] : 0.0f;
+      });
+#pragma unroll
+      for (int o = 16; o >= 1; o >>= 1)
+        x = x + __shfl_down_sync(0xffffffffu, x, o);
+      if (lane == 0) {
+        float s = x * (per_head ? k_scale[h]
+                                : k_scale[(page_base + t) * Hkv + h]);
+        if (use_cap) s = tanhf(s / cap) * cap;
+        if (j * ps + t >= length) s = kNegInf;
+        sc[t] = s;
+      }
+    }
+    __syncthreads();
+    float a = 1.0f;
+    if (mode != kCodes) {
+      float mx = kNegInf;
+      for (int t = 0; t < ps; ++t) mx = fmaxf(mx, sc[t]);
+      const float m_new = fmaxf(m, mx);
+      a = expf(m - m_new);
+      for (int t = tid; t < ps; t += kWideThreads) {
+        ex[t] = expf(sc[t] - m_new);
+        wt[t] = ex[t] * (per_head ? v_scale[h]
+                                  : v_scale[(page_base + t) * Hkv + h]);
+      }
+      m = m_new;
+    } else {
+      for (int t = tid; t < ps; t += kWideThreads) {
+        const float pt = expf(sc[t] - m_all) / denom;
+        const float c = fminf(fmaxf(rintf(pt / pscale), 0.0f), 255.0f);
+        wt[t] = (c * pscale) * (per_head ? v_scale[h]
+                                         : v_scale[(page_base + t) * Hkv
+                                                   + h]);
+      }
+    }
+    __syncthreads();
+    if (mode != kCodes) l = l * a + halving_sum(tbits, [&](int t) {
+      return ex[t];
+    });
+    if (mode != kStats && d < hd) {
+      const int8_t* vc = v_pages + (page_base * Hkv + h) * hd + d;
+      const float pvs = halving_sum(tbits, [&](int t) {
+        return t < ps ? wt[t] * (float)vc[(size_t)t * Hkv * hd] : 0.0f;
+      });
+      acc = mode == kCodes ? acc + pvs : acc * a + pvs;
+    }
+  };
+  auto walk = [&](int s, Walk mode, float& m, float& l, float& acc,
+                  float m_all, float denom) {
+    const int j1 = min(pps, (s + 1) * split_pages);
+    for (int j = s * split_pages; j < j1; ++j) {
+      const int pg = table[j];
+      if (pg < 0 || pg >= num_pages || length <= j * ps) continue;
+      page(j, pg, mode, m, l, acc, m_all, denom);
+    }
+  };
+
+  float ms[kMaxSplits], ls[kMaxSplits], as[kMaxSplits], ws[kMaxSplits];
+  for (int s = 0; s < splits; ++s) {
+    float m = kNegInf, l = 0.0f, acc = 0.0f;
+    walk(s, quant_p ? kStats : kOnline, m, l, acc, 0.0f, 1.0f);
+    ms[s] = m;
+    ls[s] = l;
+    as[s] = acc;
+  }
+  float l_all = ls[0], m_all = ms[0];
+  if (splits > 1) {
+    for (int s = 1; s < splits; ++s) m_all = fmaxf(m_all, ms[s]);
+    for (int s = 0; s < splits; ++s) {
+      ws[s] = expf(ms[s] - m_all);
+      const float t = ls[s] * ws[s];
+      l_all = s == 0 ? t : l_all + t;
+    }
+  }
+  const float denom = fmaxf(l_all, 1e-30f);
+  float o;
+  if (!quant_p) {
+    o = splits > 1 ? as[0] * ws[0] : as[0];
+    for (int s = 1; s < splits; ++s) o = o + as[s] * ws[s];
+    o = o / denom;
+  } else {
+    for (int s = 0; s < splits; ++s) {
+      float m = m_all, l = 0.0f, acc = 0.0f;
+      walk(s, kCodes, m, l, acc, m_all, denom);
+      o = s == 0 ? acc : o + acc;
+    }
+  }
+  if (d < hd) out[(size_t)row * hd + d] = o;
+}
+
+cudaError_t launch_wide(int B, cudaStream_t stream, const Args& a) {
+  const int W = 1 << log2_ceil(a.ps);
+  const size_t bytes = ((size_t)a.hd + 3 * W) * sizeof(float);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        decode_attention_wide_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) {
+      cudaGetLastError();                      // leave no sticky error
+      return err;
+    }
+  }
+  const int blocks = B * a.Hkv * a.g *
+                     ((a.hd + kWideThreads - 1) / kWideThreads);
+  decode_attention_wide_kernel<<<blocks, kWideThreads, bytes, stream>>>(
+      a.q, a.k, a.v, a.ks, a.vs, a.table, a.lengths, a.p_scale, a.out, a.Hkv,
+      a.g, a.hd, a.ps, a.pps, a.num_pages, a.per_head, a.scale, a.use_cap,
+      a.cap, a.split_pages, a.splits);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Bytes of dynamic shared memory a block of `rows` query rows takes at head
@@ -548,9 +757,10 @@ extern "C" long long samp_decode_attention_smem(int rows, int hd, int ps) {
 // k_scale, v_scale float32 (num_pages, ps, Hkv), or (Hkv,) when per_head;
 // page_table (B, pps) int32, -1 = unallocated; lengths (B,) int32; p_scale a
 // device scalar, or null for the one-pass softmax; out (B, Hkv, g, hd)
-// float32, all contiguous. hd <= 256, ps <= 128; `rows` (<= 32) query rows
-// of the group per block, with samp_decode_attention_smem(rows, hd, ps)
-// within the card's opt-in limit. use_cap selects the softcap cap.
+// float32, all contiguous. hd <= 256 with ps <= 128: `rows` (<= 32) query
+// rows of the group per block, with samp_decode_attention_smem(rows, hd, ps)
+// within the card's opt-in limit; hd over 256 (any ps) runs the wide
+// kernel, which takes neither `rows` nor work and counters. use_cap selects the softcap cap.
 // split_pages: table entries a split (>= 1); with S = max(1, ceil(pps /
 // split_pages)) <= 32 splits over 1, work holds groups S rows (2 + hd)
 // floats and counters `groups` int32 zeros, groups = B Hkv ceil(g / rows).
@@ -563,14 +773,16 @@ extern "C" int samp_decode_attention(
     int quant_p, float scale, int use_cap, float cap, int split_pages,
     void* work, void* counters, void* stream) {
   if (B <= 0 || Hkv <= 0 || g <= 0) return (int)cudaGetLastError();
+  const bool wide = hd > 256;
   const int HD = width(hd, 16, 256);
   const int PS = width(ps, 4, 128);
-  if (HD == 0 || PS == 0 || rows <= 0 || rows > 32 || hd <= 0 || ps <= 0 ||
-      split_pages <= 0 || pps < 0)
+  if ((!wide && (HD == 0 || PS == 0 || rows <= 0 || rows > 32)) || hd <= 0 ||
+      ps <= 0 || split_pages <= 0 || pps < 0)
     return (int)cudaErrorInvalidValue;
   const int splits = pps > split_pages ? (pps + split_pages - 1) / split_pages
                                        : 1;
-  if (splits > kMaxSplits || (splits > 1 && (!work || !counters)))
+  if (splits > kMaxSplits ||
+      (!wide && splits > 1 && (!work || !counters)))
     return (int)cudaErrorInvalidValue;
   const Args a{(const float*)q, (const int8_t*)k_pages,
                (const int8_t*)v_pages, (const float*)k_scale,
@@ -579,8 +791,9 @@ extern "C" int samp_decode_attention(
                quant_p ? (const float*)p_scale : nullptr, (float*)out, Hkv,
                g, rows, hd, ps, pps, num_pages, per_head, scale, use_cap,
                cap, split_pages, splits, (float*)work, (int*)counters};
-  const int blocks = B * Hkv * ((g + rows - 1) / rows) * splits;
   const cudaStream_t st = (cudaStream_t)stream;
+  if (wide) return (int)launch_wide(B, st, a);
+  const int blocks = B * Hkv * ((g + rows - 1) / rows) * splits;
   cudaError_t err;
   switch (HD) {
     case 16: err = launch_ps<16>(PS, blocks, st, a); break;

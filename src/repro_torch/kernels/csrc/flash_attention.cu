@@ -62,7 +62,8 @@
 // whose keys are valid in all 16 rows of a warp skips the masks and folds
 // the scaling into the exponent's fmaf.
 // Head dims 16, 32, 64, 128 and 256 are instantiated; a dim in between is
-// zero-padded up to the next. tanh is tanhf, division IEEE; the build's
+// zero-padded up to the next, and a dim over 256 runs the wide kernel at
+// the end of this file. tanh is tanhf, division IEEE; the build's
 // -fmad=false keeps every multiply and add separately rounded.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -627,6 +628,128 @@ int padded_dim(int d) {
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// Head dims over 256: the wide kernel
+// ---------------------------------------------------------------------------
+// A simple kernel that takes any head dim d, where the tensor-core kernel's
+// (16 x D) accumulator and D-wide tiles would not fit. One warp per query
+// row, 4 rows a block; the output's columns are split into chunks of 256,
+// a grid axis, and each chunk's block recomputes the row's scores and its
+// softmax, so that a lane keeps 8 output columns in registers at any d.
+// The keys run in tiles of 32 within each logical (bq x bk) block that the
+// JAX grid runs for the row's query block (the same skipping rule): the
+// warp takes each key's score in turn, lane l adding dims l, l + 32, ...
+// (q scaled in float32 first, in shared memory; the K row read coalesced)
+// and the lanes adding by shuffles, lane t keeping key t0 + t's; then the
+// tile's max by shuffles, one rescale of (m, l, acc) a tile, and the
+// tile's 32 P.V terms in key order, each p broadcast by a shuffle. A masked key in a run block is
+// NEG_INF, a key of a skipped block is absent, as in the tensor-core
+// kernel. It is held to the same 2e-4 budget against the float32 plain
+// version: only the order of the sums differs.
+constexpr int kWideRows = 4;              // query rows (warps) a block
+constexpr int kWideCols = 256;            // output columns a block
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kWideRows)
+flash_attention_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, T* __restrict__ out,
+                            int Hq, int Hkv, int Sq, int Sk, int d, int bq,
+                            int bk, int causal, int use_window, int window,
+                            int use_cap, float cap, float scale) {
+  extern __shared__ float wide_q[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int bh = blockIdx.x;
+  const int i = blockIdx.y * kWideRows + warp;
+  const int c0 = blockIdx.z * kWideCols + 8 * lane;   // the lane's columns
+  const int b = bh / Hq;
+  const int kvh = (bh - b * Hq) / (Hq / Hkv);
+  float* qs = wide_q + (size_t)warp * d;
+  if (i >= Sq) return;
+  const T* qr = q + ((size_t)bh * Sq + i) * d;
+  for (int e = lane; e < d; e += 32) qs[e] = to_f(qr[e]) * scale;
+  __syncwarp();
+  const T* kb = k + ((size_t)b * Hkv + kvh) * Sk * d;
+  const T* vb = v + ((size_t)b * Hkv + kvh) * Sk * d;
+  const int q_lo = i / bq * bq;
+  float m = kNegInf, l = 0.0f, acc[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) acc[e] = 0.0f;
+  for (int k_lo = 0; k_lo < Sk; k_lo += bk) {
+    if (causal && k_lo > q_lo + bq - 1) break;
+    if (use_window && k_lo + bk - 1 <= q_lo - window) continue;
+    for (int t0 = k_lo; t0 < k_lo + bk; t0 += 32) {
+      const int n = min(32, k_lo + bk - t0);
+      const int j = t0 + lane;
+      float s = -INFINITY;                  // absent: past the block
+      for (int t = 0; t < n; ++t) {
+        const T* kr = kb + (size_t)(t0 + t) * d;
+        float x = 0.0f;
+        for (int e = lane; e < d; e += 32) x += qs[e] * to_f(kr[e]);
+#pragma unroll
+        for (int o = 16; o >= 1; o >>= 1)
+          x += __shfl_xor_sync(0xffffffffu, x, o);
+        if (lane == t) s = x;
+      }
+      if (lane < n) {
+        if (use_cap) s = tanhf(s / cap) * cap;
+        if ((causal && j > i) || (use_window && j <= i - window))
+          s = kNegInf;
+      }
+      float mx = s;
+#pragma unroll
+      for (int o = 16; o >= 1; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m, mx);
+      const float a = expf(m - m_new);
+      const float p = lane < n ? expf(s - m_new) : 0.0f;
+      float ps = p;
+#pragma unroll
+      for (int o = 16; o >= 1; o >>= 1)
+        ps += __shfl_xor_sync(0xffffffffu, ps, o);
+      l = l * a + ps;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[e] *= a;
+      for (int t = 0; t < n; ++t) {
+        const float pt = __shfl_sync(0xffffffffu, p, t);
+        const T* vr = vb + (size_t)(t0 + t) * d;
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (c0 + e < d) acc[e] += pt * to_f(vr[c0 + e]);
+      }
+      m = m_new;
+    }
+  }
+  const float den = fmaxf(l, 1e-30f);
+  T* orow = out + ((size_t)bh * Sq + i) * d;
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if (c0 + e < d) orow[c0 + e] = from_f<T>(acc[e] / den);
+}
+
+template <typename T>
+int launch_wide(const void* q, const void* k, const void* v, void* out,
+                int B, int Hq, int Hkv, int Sq, int Sk, int d, int bq, int bk,
+                int causal, int use_window, int window, int use_cap,
+                float cap, float scale, cudaStream_t stream) {
+  const size_t bytes = sizeof(float) * (size_t)kWideRows * d;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_wide_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) {
+      cudaGetLastError();            // a refused attribute must not linger
+      return (int)err;
+    }
+  }
+  const dim3 grid(B * Hq, (Sq + kWideRows - 1) / kWideRows,
+                  (d + kWideCols - 1) / kWideCols);
+  flash_attention_wide_kernel<T><<<grid, 32 * kWideRows, bytes, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, Hq, Hkv, Sq, Sk, d, bq,
+      bk, causal, use_window, window, use_cap, cap, scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 long long smem_of(int dp) {
   switch (dp) {
@@ -660,20 +783,38 @@ extern "C" long long samp_flash_attention_smem(int d) {
 
 // q (B, Hq, Sq, d), k and v (B, Hkv, Sk, d), out (B, Hq, Sq, d): contiguous,
 // all of one dtype (0 float32, 1 bfloat16, 2 float16), Hq % Hkv == 0,
-// 1 <= d <= 256, Sq % bq == 0 and Sk % bk == 0. use_window selects the
-// window mask, use_cap the softcap; scale multiplies q . k.
+// d >= 1 (over 256 the wide kernel), Sq % bq == 0 and Sk % bk == 0.
+// use_window selects the window mask, use_cap the softcap; scale
+// multiplies q . k.
 extern "C" int samp_flash_attention(const void* q, const void* k,
                                     const void* v, void* out, int dtype,
                                     int B, int Hq, int Hkv, int Sq, int Sk,
                                     int d, int bq, int bk, int causal,
                                     int use_window, int window, int use_cap,
                                     float cap, float scale, void* stream) {
-  const int dp = padded_dim(d);
-  if (dp == 0 || Hkv <= 0 || Hq % Hkv || bq <= 0 || bk <= 0)
+  if (d <= 0 || Hkv <= 0 || Hq % Hkv || bq <= 0 || bk <= 0)
     return (int)cudaErrorInvalidValue;
   if (B <= 0 || Hq <= 0 || Sq <= 0 || Sk <= 0)
     return (int)cudaGetLastError();
   const cudaStream_t st = (cudaStream_t)stream;
+  const int dp = padded_dim(d);
+  if (dp == 0) {                     // over 256: the wide kernel
+    switch (dtype) {
+      case 0:
+        return launch_wide<float>(q, k, v, out, B, Hq, Hkv, Sq, Sk, d, bq,
+                                  bk, causal, use_window, window, use_cap,
+                                  cap, scale, st);
+      case 1:
+        return launch_wide<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, Sq, Sk,
+                                          d, bq, bk, causal, use_window,
+                                          window, use_cap, cap, scale, st);
+      case 2:
+        return launch_wide<__half>(q, k, v, out, B, Hq, Hkv, Sq, Sk, d, bq,
+                                   bk, causal, use_window, window, use_cap,
+                                   cap, scale, st);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   switch (dtype) {
     case 0:
       return dispatch<float>(dp, q, k, v, out, B, Hq, Hkv, Sq, Sk, d, bq, bk,

@@ -97,6 +97,8 @@
 //    adds the same two values), then the codes and P.V in registers; warp w
 //    takes V's column sums of n-tile w of each dim group as one more mma
 //    whose A is all ones.
+// Both are instantiated at head dims up to 256 (DP); a head dim over 256
+// runs a third, simple kernel at the end of this file, with the same bits.
 #include <cuda_runtime.h>
 #include <float.h>
 #include <limits.h>
@@ -971,6 +973,141 @@ int launch(const void* q, const void* k, const void* v, const void* k_pos,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Head dims over 256: the wide kernel
+// ---------------------------------------------------------------------------
+// A simple kernel that takes any head dim (a multiple of 4), where the
+// tensor-core kernels' fragments of the whole head dim would not fit. One
+// warp per query row, 4 rows a block; the output's columns are split into
+// chunks of 256, a grid axis, and each chunk's block recomputes the row's
+// scores and its softmax in the plain version's order, so the result is
+// the plain version's bit for bit, as the tensor-core kernels' is. Lane l
+// holds keys l, l + 32, ...: the warp takes a tile of 32 keys' int32 dots
+// in turn, lane l adding the head dim's words l, l + 32, ... by __dp4a
+// (the K row read coalesced) and the lanes adding by shuffles (exact, so
+// the order needs no care), lane t keeping key t's. The warp sweeps the
+// keys three times, recomputing the scores: the row max (an exact fmaxf),
+// the sum of exp(s - max) in softmax_sum's order (lane l adds its keys in
+// turn, then the butterfly over 16, 8, 4, 2, 1), and the codes by the IEEE
+// divides, (e / sum) / p_scale. Each tile of 32 keys then
+// broadcasts its codes plus 128 (the zero point folded in: sum (c + 128)
+// v = sum c v + 128 vsum, exact in int32) and every lane adds them into
+// its 8 columns' int32 sums.
+constexpr int kWideRows = 4;              // query rows (warps) a block
+constexpr int kWideCols = 256;            // output columns a block
+
+__global__ void __launch_bounds__(32 * kWideRows)
+quant_flash_attention_wide_kernel(
+    const int8_t* __restrict__ q, const int8_t* __restrict__ k,
+    const int8_t* __restrict__ v, const int* __restrict__ k_pos,
+    const float* __restrict__ q_scale, const float* __restrict__ k_scale,
+    const float* __restrict__ p_scale, const float* __restrict__ v_scale,
+    const float* __restrict__ o_scale, float* __restrict__ out_f,
+    int8_t* __restrict__ out_q, int Hq, int Hkv, int Sq, int Sk, int hd,
+    int use_cap, float cap) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int bh = blockIdx.x;
+  const int row = blockIdx.y * kWideRows + warp;
+  if (row >= Sq) return;
+  const int c0 = blockIdx.z * kWideCols + 8 * lane;   // the lane's columns
+  const int b = bh / Hq;
+  const int kvh = (bh - b * Hq) / (Hq / Hkv);
+  const int words = hd / 4;
+  const int* qw = reinterpret_cast<const int*>(q + ((size_t)bh * Sq + row)
+                                               * hd);
+  const int8_t* kb = k + ((size_t)b * Hkv + kvh) * Sk * hd;
+  const int8_t* vb = v + ((size_t)b * Hkv + kvh) * Sk * hd;
+  const int* kp = k_pos + (size_t)b * Sk;
+  const float qk = *q_scale * *k_scale;
+  const float ps = *p_scale;
+  const float pv = ps * *v_scale;
+  // the score of key t0 + lane (lanes past Sk: unused), the warp's dots
+  // one key after another
+  auto score = [&](int t0) {
+    const int n = min(32, Sk - t0);
+    int dot = 0;
+    for (int t = 0; t < n; ++t) {
+      const int* kw = reinterpret_cast<const int*>(kb + (size_t)(t0 + t)
+                                                   * hd);
+      int x = 0;
+      for (int w = lane; w < words; w += 32) x = __dp4a(qw[w], kw[w], x);
+#pragma unroll
+      for (int o = 16; o >= 1; o >>= 1)
+        x += __shfl_xor_sync(0xffffffffu, x, o);
+      if (lane == t) dot = x;
+    }
+    float s = (float)dot * qk;
+    if (use_cap) s = tanhf(s / cap) * cap;
+    return lane < n && kp[t0 + lane] < 0 ? kNegInf : s;
+  };
+  float mx = -INFINITY;
+  for (int t0 = 0; t0 < Sk; t0 += 32) {
+    const float s = score(t0);
+    if (t0 + lane < Sk) mx = fmaxf(mx, s);
+  }
+#pragma unroll
+  for (int o = 16; o >= 1; o >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  float sum = 0.0f;
+  for (int t0 = 0; t0 < Sk; t0 += 32) {
+    const float e = expf(score(t0) - mx);
+    if (t0 + lane < Sk) sum = t0 == 0 ? e : sum + e;
+  }
+#pragma unroll
+  for (int o = 16; o >= 1; o >>= 1)
+    sum = sum + __shfl_down_sync(0xffffffffu, sum, o);
+  sum = __shfl_sync(0xffffffffu, sum, 0);
+  int acc[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) acc[e] = 0;
+  for (int t0 = 0; t0 < Sk; t0 += 32) {
+    const float s = score(t0);
+    int w = 0;                              // the code plus 128
+    if (t0 + lane < Sk) {
+      const float p = expf(s - mx) / sum;
+      w = (int)fminf(fmaxf(rintf(p / ps), 0.0f), 255.0f);
+    }
+    const int n = min(32, Sk - t0);
+    for (int t = 0; t < n; ++t) {
+      const int wt = __shfl_sync(0xffffffffu, w, t);
+      if (wt == 0) continue;
+      const int8_t* vr = vb + (size_t)(t0 + t) * hd;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (c0 + e < hd) acc[e] += wt * (int)vr[c0 + e];
+    }
+  }
+  const size_t base = ((size_t)bh * Sq + row) * hd;
+  const float os = out_q != nullptr ? *o_scale : 1.0f;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    if (c0 + e >= hd) continue;
+    const float o = (float)acc[e] * pv;
+    if (out_q != nullptr)
+      out_q[base + c0 + e] =
+          (int8_t)fminf(fmaxf(rintf(o / os), -128.0f), 127.0f);
+    else
+      out_f[base + c0 + e] = o;
+  }
+}
+
+int launch_wide(const void* q, const void* k, const void* v,
+                const void* k_pos, const void* q_scale, const void* k_scale,
+                const void* p_scale, const void* v_scale,
+                const void* o_scale, void* out_f, void* out_q, int B, int Hq,
+                int Hkv, int Sq, int Sk, int hd, int use_cap, float cap,
+                cudaStream_t st) {
+  const dim3 grid(B * Hq, (Sq + kWideRows - 1) / kWideRows,
+                  (hd + kWideCols - 1) / kWideCols);
+  quant_flash_attention_wide_kernel<<<grid, 32 * kWideRows, 0, st>>>(
+      (const int8_t*)q, (const int8_t*)k, (const int8_t*)v,
+      (const int*)k_pos, (const float*)q_scale, (const float*)k_scale,
+      (const float*)p_scale, (const float*)v_scale, (const float*)o_scale,
+      (float*)out_f, (int8_t*)out_q, Hq, Hkv, Sq, Sk, hd, use_cap, cap);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Bytes of dynamic shared memory one block of the row-block kernel takes
@@ -979,12 +1116,13 @@ extern "C" long long samp_quant_flash_attention_smem(int Sk, int hd) {
   return (long long)row_layout(Sk, hd).bytes;
 }
 
-// q (B, Hq, Sq, hd), k and v (B, Hkv, Sk, hd): int8, contiguous, hd % 4 == 0,
-// hd <= 256, Hq % Hkv == 0; k_pos (B, Sk) int32; the five scales are device
-// scalars (o_scale null for float output). Exactly one of out_f (B, Hq, Sq,
-// hd) float32 / out_q int8 is non-null. use_cap selects the softcap cap;
-// tiled selects the long-key kernel, for a key axis whose row-block kernel
-// would overflow shared memory.
+// q (B, Hq, Sq, hd), k and v (B, Hkv, Sk, hd): int8, contiguous, hd % 4 == 0
+// (over 256 the wide kernel, which ignores `tiled`), Hq % Hkv == 0; k_pos
+// (B, Sk) int32; the five scales are device scalars (o_scale null for float
+// output). Exactly one of out_f (B, Hq, Sq, hd) float32 / out_q int8 is
+// non-null. use_cap selects the softcap cap; tiled selects the long-key
+// kernel, for a key axis whose row-block kernel would overflow shared
+// memory.
 extern "C" int samp_quant_flash_attention(
     const void* q, const void* k, const void* v, const void* k_pos,
     const void* q_scale, const void* k_scale, const void* p_scale,
@@ -992,8 +1130,12 @@ extern "C" int samp_quant_flash_attention(
     int B, int Hq, int Hkv, int Sq, int Sk, int hd, int use_cap, float cap,
     int tiled, void* stream) {
   if (B > 0 && Hq > 0 && Sq > 0 && Sk > 0) {
-    if (hd <= 0 || hd % 4 || hd > kMaxDim || Hkv <= 0 || Hq % Hkv)
+    if (hd <= 0 || hd % 4 || Hkv <= 0 || Hq % Hkv)
       return (int)cudaErrorInvalidValue;
+    if (hd > kMaxDim)                     // over 256: the wide kernel
+      return launch_wide(q, k, v, k_pos, q_scale, k_scale, p_scale, v_scale,
+                         o_scale, out_f, out_q, B, Hq, Hkv, Sq, Sk, hd,
+                         use_cap, cap, (cudaStream_t)stream);
     const int vec = hd % 16 == 0 && ((uintptr_t)q | (uintptr_t)k |
                                      (uintptr_t)v) % 16 == 0;
     auto* st = (cudaStream_t)stream;

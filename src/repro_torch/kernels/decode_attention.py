@@ -53,8 +53,9 @@ from repro_torch.kernels.flash_attention import _MAX_SMEM, NEG_INF
 launches = 0
 
 # the power-of-two head dims and page sizes csrc/decode_attention.cu
-# instantiates (a shape in between runs zero-padded at the next), and the
-# query rows of the GQA group one block takes at most
+# instantiates (a shape in between runs zero-padded at the next; a head dim
+# over 256 runs its wide kernel), and the query rows of the GQA group one
+# block takes at most
 HEAD_DIMS = (16, 32, 64, 128, 256)
 PAGE_SIZES = (4, 8, 16, 32, 64, 128)
 MAX_BLOCK_ROWS = 32
@@ -293,7 +294,9 @@ def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     (num_pages, page_size, Hkv) scale pages, or (Hkv,) when ``per_head``;
     ``scale`` defaults to hd ** -0.5; ``p_scale`` (a scalar) selects the
     two-pass uint8 softmax. A block takes :func:`decode_split_pages`
-    table entries of a slot. Returns (B, Hkv, g, hd) float32."""
+    table entries of a slot; a head dim over 256 runs the file's wide
+    kernel, a block per query row and 256 output columns, over every split
+    in the same orders. Returns (B, Hkv, g, hd) float32."""
     global launches
     kw = dict(k_scale=k_scale, v_scale=v_scale, per_head=per_head,
               scale=scale, softcap=softcap, p_scale=p_scale)
@@ -312,12 +315,14 @@ def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if k_pages.shape[2:] != (Hkv, hd):
         raise ValueError(f"{name}: pages {tuple(k_pages.shape)} do not hold "
                          f"{Hkv} heads of {hd}")
-    rows = block_rows(hd, ps, g)
+    # a head dim over 256 runs the wide kernel (any page size), which
+    # takes no block rows and combines the splits itself
+    wide = hd > HEAD_DIMS[-1]
+    rows = 1 if wide else block_rows(hd, ps, g)
     if not rows:
-        raise ValueError(f"{name}: head dim {hd} with page size {ps} is "
-                         f"not built (head dims up to {HEAD_DIMS[-1]}, "
-                         f"pages up to {PAGE_SIZES[-1]} tokens that fit a "
-                         f"block's shared memory)")
+        raise ValueError(f"{name}: page size {ps} at head dim {hd} is not "
+                         f"built (pages up to {PAGE_SIZES[-1]} tokens that "
+                         f"fit a block's shared memory)")
     if page_table.ndim != 2 or page_table.shape[0] != B:
         raise ValueError(f"{name}: page_table {tuple(page_table.shape)} is "
                          f"not (B={B}, pages_per_slot)")
@@ -345,7 +350,7 @@ def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     splits = decode_splits(pps, split)
     out = torch.empty((B, Hkv, g, hd), dtype=torch.float32, device=dev)
     work = counters = None
-    if splits > 1:              # the splits' partials and a counter a group
+    if splits > 1 and not wide:  # the splits' partials, a counter a group
         groups = B * Hkv * -(-g // rows)
         work = torch.empty(groups * splits * rows * (2 + hd),
                            dtype=torch.float32, device=dev)

@@ -48,15 +48,15 @@ launches = 0
 float_launches = 0
 
 # head dims csrc/flash_attention.cu instantiates (a dim in between runs
-# zero-padded at the next)
+# zero-padded at the next; a dim over 256 runs the file's wide kernel)
 FLOAT_HEAD_DIMS = (16, 32, 64, 128, 256)
 FLOAT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # csrc/quant_flash_attention.cu: the row-block kernel's blocks of 32 query
 # rows (2 groups of 16, each group's keys over 4 warps) and key tiles of
-# 128; both of the file's kernels take head dims up to 256
+# 128; both of the file's tensor-core kernels take head dims up to 256, and
+# a wider head runs its wide kernel
 _QUANT_ROWS, _QUANT_KEYS, _QUANT_KEY_WARPS = 32, 128, 4
-_QUANT_MAX_DIM = 256
 
 Scale = Union[float, torch.Tensor]
 
@@ -197,8 +197,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Hq, Sq, d); k, v: (B, Hkv, Sk, d) with Hq % Hkv == 0, all of
     one float dtype (float32, bfloat16 or float16). ``bq`` and ``bk``
     (capped at Sq and Sk, dividing them) set which key blocks run, as in
-    the JAX kernel. ``causal`` defaults off. Returns (B, Hq, Sq, d) in q's
-    dtype."""
+    the JAX kernel. ``causal`` defaults off. A head dim over 256 runs the
+    file's wide kernel (a warp a query row, 256 output columns a block).
+    Returns (B, Hq, Sq, d) in q's dtype."""
     global float_launches
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
               bq=bq, bk=bk)
@@ -216,10 +217,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape[0] != B or k.shape[3] != D or Hkv == 0 or Hq % Hkv:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not attend over "
                          f"k {tuple(k.shape)} (batch, dim, Hq % Hkv)")
-    if float_head_dim(D) is None:
-        raise ValueError(f"{name}: head dim {D} is over "
-                         f"{FLOAT_HEAD_DIMS[-1]}, the widest the kernel "
-                         f"instantiates")
     if q.dtype not in FLOAT_DTYPES:
         raise ValueError(f"{name}: dtype {q.dtype} is not one of "
                          f"{sorted(map(str, FLOAT_DTYPES))}")
@@ -291,8 +288,9 @@ def quant_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, Hq, Sq, d) int8, quantized from ``q * rsqrt(d)`` at
     ``q_scale``; k, v: (B, Hkv, Sk, d) int8 with Hq % Hkv == 0; k_pos:
     (B, Sk) or (Sk,) int32 key positions, -1 = padding. The scales are
-    scalar operands. Returns (B, Hq, Sq, d) float32, or int8 when
-    ``o_scale`` is given."""
+    scalar operands. A head dim over 256 runs the file's wide kernel (a
+    warp a query row, 256 output columns a block), with the same bits.
+    Returns (B, Hq, Sq, d) float32, or int8 when ``o_scale`` is given."""
     global launches
     kw = dict(q_scale=q_scale, k_scale=k_scale, p_scale=p_scale,
               v_scale=v_scale, o_scale=o_scale, softcap=softcap)
@@ -321,9 +319,6 @@ def quant_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"runs on {dev}")
     kp = torch.broadcast_to(k_pos.reshape(-1, Sk).to(torch.int32),
                             (B, Sk)).contiguous()
-    if D > _QUANT_MAX_DIM:
-        raise ValueError(f"{name}: head dim {D} is over {_QUANT_MAX_DIM}, "
-                         f"the widest the kernel instantiates")
     # the kernels copy rows 4 bytes at a time at least: a head dim in
     # between runs with zero dims appended, which leave every integer dot
     # unchanged

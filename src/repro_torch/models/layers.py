@@ -1,10 +1,11 @@
-"""Quantization-aware building blocks — the attention-body subset of
-``repro.models.layers``: BERT encoders, the rope / GQA / GLU decoders
-(qwen2, gemma2, granite, deepseek-coder, paligemma's backbone) with their
-dense and paged decode caches, the top-k MoE FFN (mixtral, deepseek-v2) with
-its sort-based capacity dispatch, deepseek-v2's multi-head latent attention
-(MLA) with its absorbed decode, and the audio and vision front-end
-projections.
+"""Quantization-aware building blocks (port of ``repro.models.layers``):
+BERT encoders, the rope / GQA / GLU decoders (qwen2, gemma2, granite,
+deepseek-coder, paligemma's backbone) with their dense and paged decode
+caches, the top-k MoE FFN (mixtral, deepseek-v2) with its sort-based
+capacity dispatch, deepseek-v2's multi-head latent attention (MLA) with its
+absorbed decode, the audio and vision front-end projections, and the
+causal temporal conv and recurrent-state gate of the recurrent blocks
+(:mod:`repro_torch.models.rglru`, :mod:`repro_torch.models.xlstm`).
 
 Every GEMM goes through :func:`dense` (projections) or :func:`quant_bmm`
 (the attention score/value batched matmuls), so the precision plan applies
@@ -574,6 +575,20 @@ def is_paged(kv_cache: Optional[dict]) -> bool:
     return kv_cache is not None and "pages_pos" in kv_cache
 
 
+def select_state(new: dict, old: dict, active: Optional[torch.Tensor]
+                 ) -> dict:
+    """The recurrent-state gate: rows with ``active`` False keep their old
+    state (continuous batching over the recurrent archs). Returns a new
+    dict of new tensors."""
+    if active is None:
+        return new
+
+    def sel(n: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+        a = active.reshape((active.shape[0],) + (1,) * (n.ndim - 1))
+        return torch.where(a, n, o.to(n.dtype))
+    return {k: sel(n, old[k]) for k, n in new.items()}
+
+
 def attention_block(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
                     spec: MaskSpec, quant: AttnQuant = AttnQuant(),
                     obs: Optional[dict] = None,
@@ -993,3 +1008,37 @@ def embed(tokens: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
     if "emb_norm" in p:
         x = layer_norm(x, p["emb_norm"])
     return x
+
+
+# ---------------------------------------------------------------------------
+# causal temporal conv (RG-LRU / xLSTM blocks)
+# ---------------------------------------------------------------------------
+
+
+def init_conv1d(gen: torch.Generator, width: int, channels: int, *,
+                device=None, dtype=torch.float32) -> dict:
+    return {"w": torch.randn((width, channels), generator=gen, dtype=dtype,
+                             device=device) / math.sqrt(width),
+            "b": torch.zeros((channels,), dtype=dtype, device=device)}
+
+
+def causal_conv1d(x: torch.Tensor, p: dict,
+                  state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv over time. x: (B, S, C); ``state`` (B, W-1, C)
+    carries the left context for decode. The W taps are added in the JAX
+    package's order (tap 0 first), then the bias. Returns (y, new_state)."""
+    W = p["w"].shape[0]
+    if state is None:
+        pad = torch.zeros((x.shape[0], W - 1, x.shape[2]), dtype=x.dtype,
+                          device=x.device)
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)                      # (B, S+W-1, C)
+    S = x.shape[1]
+    w = p["w"].to(x.dtype)
+    y = xp[:, 0:S, :] * w[0]
+    for i in range(1, W):
+        y = y + xp[:, i:i + S, :] * w[i]
+    y = y + p["b"].to(x.dtype)
+    new_state = xp[:, -(W - 1):, :] if W > 1 else pad
+    return y, new_state

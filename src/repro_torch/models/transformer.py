@@ -1,10 +1,12 @@
-"""Config-driven model driver (port of ``repro.models.transformer``, the
-attention-body subset): BERT encoders, rope / GQA / GLU decoders with their
-decode caches (gemma2's local layers keep sliding-window rings beside its
-paged global layers), MoE decoders (mixtral with sliding-window rings,
-deepseek-v2 with MLA and its latent cache), the audio encoder (hubert,
-``frames`` in) and the vision prefix-LM (paligemma, ``prefix_embeds``
-before the tokens).
+"""Config-driven model driver (port of ``repro.models.transformer``): BERT
+encoders, rope / GQA / GLU decoders with their decode caches (gemma2's
+local layers keep sliding-window rings beside its paged global layers), MoE
+decoders (mixtral with sliding-window rings, deepseek-v2 with MLA and its
+latent cache), the audio encoder (hubert, ``frames`` in), the vision
+prefix-LM (paligemma, ``prefix_embeds`` before the tokens), and the
+recurrent bodies: recurrentgemma's RG-LRU layers beside its local attention
+and xlstm's mLSTM and sLSTM blocks, whose decode caches are recurrent
+states.
 
 Parameters are ``{"embed", "layers": [one dict per layer], "final_norm",
 ["lm_head"], ["head"]}``: a plain Python list of per-layer dicts where the
@@ -26,6 +28,8 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.precision import EncoderPolicy, LayerMode
 from repro_torch.kernels.backend import ffn_input_scale
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as R
+from repro_torch.models import xlstm as X
 
 DEFAULT_CHUNK = 512          # query-block size for attention
 
@@ -97,17 +101,24 @@ def build_plan(cfg: ArchConfig, policy) -> tuple[Group, ...]:
 
 def init_layer(gen: torch.Generator, cfg: ArchConfig, kind: BlockKind, *,
                device=None, dtype=torch.float32) -> dict:
-    if kind.body != "attn":
-        raise NotImplementedError(
-            f"layer body {kind.body!r} is not ported yet (the rglru and "
-            f"xLSTM bodies)")
     kw = dict(device=device, dtype=dtype)
-    return {"norm1": L.init_norm(cfg.norm_kind, cfg.d_model, **kw),
-            "attn": (L.init_mla(gen, cfg, **kw) if cfg.mla is not None
-                     else L.init_attention(gen, cfg, **kw)),
-            "norm2": L.init_norm(cfg.norm_kind, cfg.d_model, **kw),
-            "ffn": (L.init_moe(gen, cfg, **kw) if kind.moe
-                    else L.init_ffn(gen, cfg, **kw))}
+    norm1 = L.init_norm(cfg.norm_kind, cfg.d_model, **kw)
+    if kind.body == "attn":
+        return {"norm1": norm1,
+                "attn": (L.init_mla(gen, cfg, **kw) if cfg.mla is not None
+                         else L.init_attention(gen, cfg, **kw)),
+                "norm2": L.init_norm(cfg.norm_kind, cfg.d_model, **kw),
+                "ffn": (L.init_moe(gen, cfg, **kw) if kind.moe
+                        else L.init_ffn(gen, cfg, **kw))}
+    if kind.body == "rglru":
+        return {"norm1": norm1, "rec": R.init_rglru(gen, cfg, **kw),
+                "norm2": L.init_norm(cfg.norm_kind, cfg.d_model, **kw),
+                "ffn": L.init_ffn(gen, cfg, **kw)}
+    if kind.body == "mlstm":
+        return {"norm1": norm1, "blk": X.init_mlstm(gen, cfg, **kw)}
+    if kind.body == "slstm":
+        return {"norm1": norm1, "blk": X.init_slstm(gen, cfg, **kw)}
+    raise ValueError(f"unknown block body {kind.body!r}")
 
 
 def init_params(cfg: ArchConfig, policy=None, *, seed: int = 0,
@@ -193,12 +204,15 @@ def layer_forward(x, lp, cfg: ArchConfig, kind: BlockKind, mode: LayerMode,
     requantized attention output is dequantized) and runs
     :func:`~repro_torch.models.layers.moe_block` in place of the FFN. An
     MLA layer runs :func:`~repro_torch.models.layers.mla_block` (on the
-    reference path) in place of the attention block. Returns x, or
+    reference path) in place of the attention block. An RG-LRU layer runs
+    x + rglru_mix(norm1(x)), then x + ffn(norm2(x)) (the FFN on
+    ``backend``), and an mLSTM or sLSTM layer x + block(norm1(x)); their
+    recurrent bodies run on the reference path, and ``cache`` is their
+    recurrent state, which ``active`` gates. Returns x, or
     ``(x, new_cache)`` with a ``cache``."""
     if kind.body != "attn":
-        raise NotImplementedError(
-            f"layer body {kind.body!r} is not ported yet (the rglru and "
-            f"xLSTM bodies)")
+        return _recurrent_layer(x, lp, cfg, kind, obs=obs, backend=backend,
+                                cache=cache, active=active)
     quant = L.AttnQuant(enabled=(mode.quant_mha if quant_bmm is None
                                  else quant_bmm),
                         softmax_mode=scheme.softmax_mode,
@@ -226,6 +240,23 @@ def layer_forward(x, lp, cfg: ArchConfig, kind: BlockKind, mode: LayerMode,
                             backend=backend)
     ffn = L.moe_block if kind.moe else L.ffn_block
     x = x + ffn(h2, lp["ffn"], cfg, obs=obs, backend=backend)
+    return x if cache is None else (x, new_cache)
+
+
+def _recurrent_layer(x, lp, cfg: ArchConfig, kind: BlockKind, *, obs,
+                     backend, cache, active):
+    h = L.norm(x, lp["norm1"], cfg.norm_kind)
+    if kind.body == "rglru":
+        a, new_cache = R.rglru_mix(h, lp["rec"], cfg, obs=obs, state=cache,
+                                   active=active)
+        x = x + a
+        h2 = L.norm(x, lp["norm2"], cfg.norm_kind)
+        x = x + L.ffn_block(h2, lp["ffn"], cfg, obs=obs, backend=backend)
+    else:
+        blk = X.mlstm_block if kind.body == "mlstm" else X.slstm_block
+        a, new_cache = blk(h, lp["blk"], cfg, obs=obs, state=cache,
+                           active=active)
+        x = x + a
     return x if cache is None else (x, new_cache)
 
 
@@ -357,10 +388,12 @@ def apply_head(hidden, params, kind: str) -> torch.Tensor:
 def _layer_cache(cfg: ArchConfig, kind: BlockKind, batch: int, max_len: int,
                  dtype, device, *, page_size: Optional[int] = None,
                  num_pages: int = 0, kv_scheme: str = "float") -> dict:
-    if kind.body != "attn":
-        raise NotImplementedError(
-            f"decode state of layer body {kind.body!r} is not ported yet "
-            f"(the rglru and xLSTM bodies)")
+    if kind.body == "rglru":
+        return R.init_state(cfg, batch, dtype, device)
+    if kind.body == "mlstm":
+        return X.mlstm_state(cfg, batch, dtype, device)
+    if kind.body == "slstm":
+        return X.slstm_state(cfg, batch, dtype, device)
     H, hd = cfg.num_kv_heads, cfg.head_dim
     kw = dict(device=device)
     # a local (sliding-window) layer keeps its dense ring of W positions
@@ -446,8 +479,17 @@ def init_caches(cfg: ArchConfig, plan: tuple[Group, ...], batch: int,
     return caches
 
 
+def cache_slots(caches) -> int:
+    """The batch slots a cache list holds: its first layer's ``pos`` (an
+    attention cache) or leading axis (a recurrent state)."""
+    c = caches[0]
+    return int(c["pos"].shape[0] if "pos" in c
+               else next(iter(c.values())).shape[0])
+
+
 def cache_bytes(caches) -> int:
-    """Total KV cache footprint in bytes, every tensor of every layer."""
+    """Total KV and recurrent-state footprint in bytes, every tensor of
+    every layer."""
     return int(sum(t.numel() * t.element_size()
                    for c in caches for t in c.values()))
 

@@ -22,6 +22,10 @@ per expert, (E, 1, 1), from the (E,) ``expert_in``/``expert_hidden``
 vectors) and ``shared_ffn`` the shared expert's GEMMs. An MLA layer's qkv
 block covers its query and latent projections (``wq_a``, ``wq_b``,
 ``wkv_a``, ``wkv_b``), observed at ``attn_in``, ``q_lat`` and ``c_kv``.
+The recurrent bodies' projections (an RG-LRU layer's, and its FFN; an
+mLSTM or sLSTM block's) are FFN-group GEMMs; the attention-only operands
+(the bmm scales, ``p_scale``, the span, the KV-cache scales) go to
+attention layers alone.
 
 ``capture_stats(clusters=)`` is the input-adaptive capture: per-row cluster
 ids partition the calibration rows, and the stats come back keyed
@@ -79,6 +83,29 @@ SITE_MAP: dict[str, list[tuple[str, tuple[str, ...], str, str]]] = {
         ("ffn", ("ffn", "shared", "wu"), "shared_ffn_in", "ffn_in"),
         ("ffn", ("ffn", "shared", "wd"), "shared_ffn_hidden", "ffn_out"),
     ],
+    # the recurrent bodies' projections form the FFN group
+    "rglru": [
+        ("ffn", ("rec", "wx"), "rec_in", "ffn_in"),
+        ("ffn", ("rec", "wg"), "rec_in", "ffn_in"),
+        ("ffn", ("rec", "wa"), "rec_gate_in", "ffn_in"),
+        ("ffn", ("rec", "wi"), "rec_gate_in", "ffn_in"),
+        ("ffn", ("rec", "wo"), "rec_out", "ffn_out"),
+    ],
+    "mlstm": [
+        ("ffn", ("blk", "up"), "blk_in", "ffn_in"),
+        ("ffn", ("blk", "wq"), "qkv_in", "ffn_in"),
+        ("ffn", ("blk", "wk"), "qkv_in", "ffn_in"),
+        ("ffn", ("blk", "wif"), "qkv_in", "ffn_in"),
+        ("ffn", ("blk", "wv"), "xm", "ffn_in"),
+        ("ffn", ("blk", "down"), "blk_hidden", "ffn_out"),
+    ],
+    "slstm": [
+        ("ffn", ("blk", "wz"), "blk_in", "ffn_in"),
+        ("ffn", ("blk", "wo"), "blk_in", "ffn_in"),
+        ("ffn", ("blk", "wi"), "blk_conv_in", "ffn_in"),
+        ("ffn", ("blk", "wf"), "blk_conv_in", "ffn_in"),
+        ("ffn", ("blk", "proj"), "blk_hidden", "ffn_out"),
+    ],
 }
 
 BMM_SITES = ("q", "k", "p", "v")    # attention batched-matmul operands
@@ -100,13 +127,16 @@ HIST_SITES = ("attn_in", "attn_out", "attn_delta", "ffn_in", "ffn_hidden",
 
 
 def _kind_entries(cfg: ArchConfig, kind: BlockKind):
-    if kind.body != "attn":
-        raise NotImplementedError(
-            f"PTQ of layer body {kind.body!r} is not ported yet (the rglru "
-            f"and xLSTM bodies)")
-    return SITE_MAP["attn_mla" if cfg.mla is not None else "attn"] + SITE_MAP[
-        "moe" if kind.moe else
-        ("ffn_glu" if cfg.ffn_kind == "glu" else "ffn_gelu")]
+    """The SITE_MAP entries of one layer body: an attention layer's
+    attention and FFN (or MoE), an RG-LRU layer's recurrence projections and
+    its FFN, an xLSTM layer's block."""
+    ffn = "ffn_glu" if cfg.ffn_kind == "glu" else "ffn_gelu"
+    if kind.body == "attn":
+        return SITE_MAP["attn_mla" if cfg.mla is not None else "attn"] + \
+            SITE_MAP["moe" if kind.moe else ffn]
+    if kind.body == "rglru":
+        return SITE_MAP["rglru"] + SITE_MAP[ffn]
+    return SITE_MAP[kind.body]
 
 
 def _entry_spec(layer: LayerPlan, kind: BlockKind, path: tuple[str, ...],
@@ -214,6 +244,10 @@ def quantize_layer(lp: dict, cfg: ArchConfig, kind: BlockKind,
         elif spec.static_acts and site in amax:
             new["xs"] = _scale_of(amax[site], dev)
         _set_path(lp, path, new)
+    if kind.body != "attn":
+        # the bmm scales, p_scale, the int8 norm span and the KV-cache
+        # scales belong to attention layers
+        return lp
     attn = lp["attn"]
     w = attn["wo"]["w"]
     dev = (w.values if isinstance(w, QuantizedTensor) else w).device

@@ -132,6 +132,11 @@ class ServeEngine:
         with torch.inference_mode():
             self.caches = T.init_caches(cfg, plan, batch_slots, max_len,
                                         device=self.device, **cache_kw)
+            # a fresh one-slot cache: what an admitted slot's rows reset to
+            # (0, -1 for k_pos, ones for an sLSTM's normalizer)
+            self._fresh1 = T.init_caches(
+                cfg, plan, 1, max_len, device=self.device,
+                **({**cache_kw, "num_pages": 1} if cache_kw else {}))
         # the decode step, resolved once; a routed engine resolves one per
         # cluster on first use, each under its sibling's cache key
         self._decode = (None if router is not None
@@ -158,16 +163,17 @@ class ServeEngine:
         self._stats["requests"] += 1
 
     def _reset_slot(self, s: int) -> None:
-        """Reset slot ``s``'s rows of every cache (in place): a dense ring's
-        entries (K and V, or MLA's latent) to 0, its ``k_pos`` to -1, and
-        ``pos`` to 0. The page pool has no slot axis: a slot's pages are its
-        page-table row, owned by the scheduler, and stale page contents are
-        invalidated by :meth:`_drain_freed`."""
+        """Reset slot ``s``'s rows of every cache (in place) to a fresh
+        one-slot cache's: a dense ring's entries (K and V, or MLA's latent)
+        to 0 and its ``k_pos`` to -1, ``pos`` to 0, a recurrent state to its
+        start (an sLSTM's ``n`` to ones). The page pool has no slot axis: a
+        slot's pages are its page-table row, owned by the scheduler, and
+        stale page contents are invalidated by :meth:`_drain_freed`."""
         with torch.inference_mode():
-            for c in self.caches:
+            for c, fresh in zip(self.caches, self._fresh1):
                 for key, leaf in c.items():
                     if not key.startswith("pages_"):
-                        leaf[s] = -1 if key == "k_pos" else 0
+                        leaf[s] = fresh[key][0]
 
     def _drain_freed(self) -> None:
         """Invalidate the position rows of the pages freed since the last

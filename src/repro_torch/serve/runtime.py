@@ -242,7 +242,7 @@ class Runtime:
         tick's numpy operands (tokens (B, 1), pos (B,), active (B,), and the
         page table for paged caches, else None) and returns (logits (B, V)
         on the device, new caches)."""
-        key = ("decode", self._plan_key, int(caches[0]["pos"].shape[0]),
+        key = ("decode", self._plan_key, T.cache_slots(caches),
                T.kv_geometry(caches))
         fn = self._exe.get(key)
         if fn is None:

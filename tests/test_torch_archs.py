@@ -87,17 +87,16 @@ def test_registry_equals_jax_field_for_field(arch):
 
 
 def test_registry_holds_the_attention_archs():
-    """The port registers the nine attention archs, ARCH_IDS lists them in
-    the JAX order, and the two recurrent configs stay unregistered until
-    their bodies are ported."""
-    assert set(all_configs()) == set(ATTENTION_ARCHS)
-    assert ARCH_IDS == ATTENTION_ARCHS
+    """The port registers all eleven archs of the JAX package, ARCH_IDS in
+    its order: the nine attention archs and the two recurrent ones, whose
+    configs equal the JAX ones too (``test_torch_recurrent.py``)."""
     from repro.configs import ARCH_IDS as JAX_IDS
-    assert ARCH_IDS == tuple(a for a in JAX_IDS if a in ARCH_IDS)
+    assert ARCH_IDS == JAX_IDS and len(ARCH_IDS) == 11
+    assert set(all_configs()) == set(jax_all_configs()) == set(ARCH_IDS)
+    assert set(ARCH_IDS) - set(ATTENTION_ARCHS) == {"recurrentgemma-9b",
+                                                    "xlstm-125m"}
     for arch in ("recurrentgemma-9b", "xlstm-125m"):
-        assert arch in jax_all_configs()
-        with pytest.raises(KeyError):
-            get_config(arch)
+        assert get_config(arch).name == arch
 
 
 # ---------------------------------------------------------------------------

@@ -49,7 +49,10 @@ deepseek-coder-33b's group of 7, gemma2-2b's head dim 256 over pages of
 128 with softcap 50 and paligemma-3b's group of 8 at head dim 256 (through
 the fused backend, bit for bit the reference's plain version), hubert's
 head dim 80 in the quantized attention (bit for bit), and deepseek-v2's
-160-expert stacks at decode and forward capacities.
+160-expert stacks at decode and forward capacities. Head dims over 256
+(260, 300, 320, 512) run the three attention kernels' wide kernels: the
+quantized and the paged decode attention equal their plain versions bit for
+bit, the float attention is within its budget.
 """
 import ctypes
 import importlib.util
@@ -506,14 +509,38 @@ def test_quant_flash_attention_refuses(dev):
         fa(q, k, v, k_pos[:, :5], **kw)
     with pytest.raises(ValueError):                     # k_pos on the CPU
         fa(q, k, v, k_pos.cpu(), **kw)
-    with pytest.raises(ValueError):     # keys over smem at d over 256
-        big = torch.zeros((1, 1, 4096, 320), dtype=torch.int8, device=dev)
-        fa(big[:, :, :8].contiguous(), big, big,
-           torch.zeros(4096, dtype=torch.int32, device=dev), **kw)
-    with pytest.raises(ValueError):     # d over 256 at any key count
-        big = torch.zeros((1, 1, 8, 260), dtype=torch.int8, device=dev)
-        fa(big, big, big, torch.zeros(8, dtype=torch.int32, device=dev),
-           **kw)
+
+
+# head dims over 256 (the wide kernel): 260 (padded to 264 for its 4-byte
+# rows), 320 and 512, with GQA, ragged and all-padding rows, a query count
+# off the 4-row block, and 4096 keys at 320 (past the row-block kernel's
+# shared memory, where the tensor-core kernels would take the long-key one)
+WIDE_ATTN_SHAPES = [
+    (2, 4, 2, 40, 77, 320, (77, 30)),
+    (2, 2, 2, 9, 64, 512, (64, 0)),
+    (1, 3, 1, 5, 33, 260, (20,)),
+    (1, 2, 1, 8, 4096, 320, (4096,)),
+]
+
+
+@pytest.mark.parametrize("shape", WIDE_ATTN_SHAPES)
+@pytest.mark.parametrize("requant", [False, True])
+@pytest.mark.parametrize("softcap", [None, 5.0])
+def test_quant_flash_attention_wide_head_dims(dev, shape, requant, softcap):
+    """Head dims over 256 run the wide kernel, which keeps the plain
+    version's order: equal bit for bit, float and int8 output."""
+    q, k, v, k_pos, kw = _attn_case(dev, *shape)
+    if requant:
+        kw["o_scale"] = torch.tensor(0.01, device=dev)
+    before = flash_attention.launches
+    out = flash_attention.quant_flash_attention(q, k, v, k_pos,
+                                                softcap=softcap, **kw)
+    assert flash_attention.launches == before + 1
+    want = flash_attention.quant_flash_attention_plain(q, k, v, k_pos,
+                                                       softcap=softcap, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == want.shape == q.shape
+    assert out.equal(want), float((out.float() - want.float()).abs().max())
 
 
 # bit-exact cases, no softcap: (B, Hq, Hkv, Sq, Sk, d, key lengths) at every
@@ -721,14 +748,38 @@ def test_decode_attention_at_4096_tokens(dev):
         assert out.equal(want), (mode, float((out - want).abs().max()))
 
 
+# head dims over 256 (the wide kernel): 320, 512 and 300 (not a multiple
+# of 32), pages of 16 and 128 and of 5 (not a power of two), 1, 3 and 20
+# splits, groups of 1 to 8
+WIDE_DECODE_SHAPES = [(3, 2, 2, 320, 16, 3), (2, 1, 8, 512, 16, 40),
+                      (2, 2, 1, 512, 128, 2), (3, 1, 3, 300, 5, 4),
+                      (2, 1, 2, 320, 128, 1)]
+
+
+@pytest.mark.parametrize("shape", WIDE_DECODE_SHAPES)
+@pytest.mark.parametrize("mode", ["per_token", "per_head", "p_scale"])
+@pytest.mark.parametrize("softcap", [None, 30.0])
+def test_decode_attention_wide_head_dims(dev, shape, mode, softcap):
+    """Head dims over 256 run the wide kernel, which keeps the plain
+    version's orders (tree_sum over the head dim and the page, the splits'
+    combine): equal bit for bit, and a slot of length 0 is zeros."""
+    args, kw = _decode_case(dev, *shape, mode, seed=sum(shape))
+    before = decode_attention.launches
+    out = decode_attention.decode_attention(*args, softcap=softcap, **kw)
+    assert decode_attention.launches == before + 1
+    want = decode_attention.decode_attention_plain(*args, softcap=softcap,
+                                                   **kw)
+    torch.cuda.synchronize()
+    assert out.shape == want.shape == args[0].shape
+    assert torch.isfinite(out).all()
+    assert out.equal(want), float((out - want).abs().max())
+    assert bool((out[-1] == 0).all())
+
+
 def test_decode_attention_refuses(dev):
     args, kw = _decode_case(dev, 2, 2, 2, 64, 16, 2, "per_token")
     q, k, v, table, lengths = args
     da = decode_attention.decode_attention
-    with pytest.raises(ValueError):      # a head dim over 256
-        (bq, bk, bv, btable, blen), bkw = _decode_case(dev, 1, 1, 1, 320,
-                                                       16, 1, "per_token")
-        da(bq, bk, bv, btable, blen, **bkw)
     with pytest.raises(TypeError):                      # float pages
         da(q, k.float(), v.float(), table, lengths, **kw)
     with pytest.raises(TypeError):                      # int64 table
@@ -1013,6 +1064,22 @@ def test_flash_attention_head_dim_256(dev, dtype, mask):
     assert_float_attention_close(out, q, k, v, **kw)
 
 
+@pytest.mark.parametrize("d", [320, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("mask", ["none", "window", "softcap"])
+def test_flash_attention_wide_head_dims(dev, d, dtype, mask):
+    """Head dims over 256 run the wide kernel: within the float kernel's
+    budget of the plain version, GQA, blocks that differ from its tiles."""
+    q, k, v = _float_attn_case(dev, 1, 4, 2, 192, 192, d, dtype)
+    kw = dict(FLOAT_MASKS[mask], bq=64, bk=48)
+    before = flash_attention.float_launches
+    out = ops.flash_attention(q, k, v, **kw)
+    assert flash_attention.float_launches == before + 1
+    torch.cuda.synchronize()
+    assert_float_attention_close(out, q, k, v, **kw)
+
+
 def test_flash_attention_long_window_bfloat16(dev):
     """4096 keys under a 1024-key causal window, 512-key logical blocks."""
     q, k, v = _float_attn_case(dev, 1, 4, 1, 4096, 4096, 64, torch.bfloat16)
@@ -1101,9 +1168,6 @@ def test_decode_attention_256_128_fits_a_block(dev, group):
 def test_flash_attention_refuses(dev):
     q, k, v = _float_attn_case(dev, 1, 4, 2, 64, 64, 64, torch.float32)
     fa = flash_attention.flash_attention
-    with pytest.raises(ValueError):                     # over 256
-        big = torch.zeros((1, 1, 64, 320), device=dev)
-        fa(big, big, big)
     with pytest.raises(ValueError):                     # dtype
         fa(q.double(), k.double(), v.double())
     with pytest.raises(TypeError):                      # mixed dtypes

@@ -343,6 +343,82 @@ def test_decode_attention_op_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
 
 
+@pytest.mark.parametrize("op", ["flash", "quant_flash", "decode"])
+def test_attention_ops_past_head_dim_256_match_jax(op):
+    """The JAX kernels take any head dim; so do the port's wrappers (on the
+    card the wide kernels, here their plain versions): at 320 each equals
+    the JAX op within the budgets of the tests above."""
+    rng = np.random.default_rng(7)
+    d = 320
+    if op == "flash":
+        q, k, v = _qkv(1, 2, 1, 64, 64, d, seed=7)
+        plain, got, want = _both(q, k, v, bq=32, bk=32, causal=True)
+        np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    elif op == "quant_flash":
+        q, k, v = (_codes(rng, (1, 2, 8, d)) for _ in range(3))
+        k_pos = np.where(np.arange(8)[None] < 6, np.arange(8)[None],
+                         -1).astype(np.int32)
+        kw = dict(q_scale=0.35 / d, k_scale=0.013, p_scale=0.6 / 255,
+                  v_scale=0.02)
+        got = ops.quant_flash_attention(
+            _t(q), _t(k), _t(v), _t(k_pos),
+            **{n: torch.tensor(x) for n, x in kw.items()})
+        want = np.asarray(jops.quant_flash_attention(
+            *(jnp.asarray(a) for a in (q, k, v, k_pos)),
+            **{n: jnp.float32(x) for n, x in kw.items()}))
+        assert got.shape == (1, 2, 8, d)
+        assert rel_linf(want, got.numpy()) <= 5e-3
+    else:
+        q = rng.standard_normal((2, 1, 2, d)).astype(np.float32)
+        kp, vp = (_codes(rng, (4, 8, 1, d)) for _ in range(2))
+        table = np.array([[3, 1], [0, -1]], np.int32)
+        lengths = np.array([13, 5], np.int32)
+        ks, vs = ((rng.random((4, 8, 1)) * 0.03 + 0.01).astype(np.float32)
+                  for _ in range(2))
+        got = ops.decode_attention(_t(q), _t(kp), _t(vp), _t(table),
+                                   _t(lengths), k_scale=_t(ks),
+                                   v_scale=_t(vs), per_head=False)
+        want = jops.decode_attention(*(jnp.asarray(a) for a in
+                                       (q, kp, vp, table, lengths)),
+                                     k_scale=jnp.asarray(ks),
+                                     v_scale=jnp.asarray(vs), per_head=False)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+def test_register_backend_is_reached_through_get_backend(monkeypatch):
+    """A backend registered by name (through the toolkit's re-export) is
+    what ``get_backend`` and a model forward's ``backend=`` resolve to."""
+    from repro_torch import toolkit
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import EncoderPolicy
+    from repro_torch.models import transformer as T
+
+    class Counting(B.ComputeBackend):
+        name = "counting"
+        calls = 0
+
+        def linear(self, x, p, *, act=None):
+            Counting.calls += 1
+            return None                       # the reference path
+
+    monkeypatch.setitem(B.BACKENDS, "counting", B.BACKENDS["reference"])
+    assert toolkit.register_backend("counting", Counting) is Counting
+    assert toolkit.BACKENDS is B.BACKENDS
+    assert B.BACKENDS["counting"] is Counting
+    be = B.get_backend("counting")
+    assert isinstance(be, Counting)
+    cfg = get_config("qwen2-0.5b").reduced()
+    params = T.init_params(cfg, seed=0, device="cpu")
+    plan = T.build_plan(cfg, EncoderPolicy.full_float(cfg.num_layers))
+    tokens = {"tokens": torch.ones((1, 4), dtype=torch.int32)}
+    with torch.inference_mode():
+        want = T.forward(params, tokens, cfg, plan)
+        got = T.forward(params, tokens, cfg, plan, backend=be)
+    assert Counting.calls > 0 and got.equal(want)
+    with pytest.raises(KeyError):
+        B.get_backend("unregistered")
+
+
 def test_ops_launch_nothing_on_cpu():
     """Every op reaches its wrapper, which runs the plain version for CPU
     tensors and counts no launch."""
