@@ -65,6 +65,25 @@ line per phase:
   wallclock median and min-max, roofline ms and both speedups over float),
   the chosen candidate, the seconds of ``autotune``, and each bundle's
   bytes and load seconds;
+* ``train_path``: the paper's step 0 on the card. ``SAMP.from_config`` on
+  full-width BERT-base (float32, ``tnews``, 128 positions, the fused
+  backend) and ``finetune`` from seed 0 (``TRAIN_STEPS`` steps at
+  ``TRAIN_LR``, batches of 32): every step's loss finite, the last 10
+  steps' mean at least 0.1 below the first 10's, float dev accuracy (4
+  batches of 32) above 2/15; ``torch.profiler`` over 3 more steps. Then
+  ``Trainer.fit`` for 10 steps with checkpoints, again uninterrupted (the
+  run-to-run spread), and cut at step 5 and resumed by a fresh Trainer
+  (``resumed from step 5``, params within the spread + 1e-6), with one
+  checkpoint's save and load seconds. The trained weights go through
+  ``main_path`` (calibrated on its batches, the tiled golden plan, its 32
+  requests on both backends, 42 / 6 / 6 / 1 launches a forward) and the
+  int8 dev accuracy is read beside the float one. Last, ``python -m
+  repro_torch.launch.train --arch qwen2-0.5b --full --steps 10 --batch 8
+  --seq 256 --ckpt <tmp>`` as a subprocess, then with ``--steps 15``,
+  which must resume from step 10; both exit 0. It prints the median step
+  ms (host clock after the loss is read), training tokens/s, peak device
+  memory and the phase's seconds; the served path joins the kernel
+  summary (``by_path``);
 * ``setup_decoder``: full-width qwen2-0.5b (random weights from seed 0),
   the golden plan tiled 6x to 24 layers, its calibration batches (2 of
   4 x 128 tokens) and 16 requests (prompt lengths uniform in 8-64, tokens
@@ -276,6 +295,7 @@ EXPECTED = {
     "span_path": {"quant_linear": 42, "addnorm_quant": 6, "dynamic_quant": 6,
                   "fused_embed": 1, "quant_flash_attention": 6},
 }
+EXPECTED["train_path"] = EXPECTED["main_path"]
 EXPECTED_SUB = {"quant_flash_attention with o_scale": 6,
                 "quant_linear with out_scale": 12,
                 "addnorm_quant with an int8 delta": 6}
@@ -335,6 +355,17 @@ PIPELINE_BATCH = 8
 AUTOTUNE_STRIDE = 4              # the prefix grid at k = 4, 8, 12
 AUTOTUNE_EVAL = (2, 64)          # dev batches x batch size a candidate
 AUTOTUNE_LATENCY = (32, 128)     # the facade's latency batch x positions
+# train_path: SAMP.finetune of full-width BERT-base on tnews (float32, 128
+# positions), its gates, the resume check's run length, the CLI's two runs
+TRAIN_STEPS = 100
+TRAIN_LR = 1e-4
+TRAIN_BATCH = 32
+TRAIN_SEQ = 128
+TRAIN_EVAL = (4, 32)             # dev batches x batch size
+TRAIN_LOSS_DROP = 0.1            # mean of the last 10 below the first 10
+TRAIN_RESUME = (10, 5)           # steps, and the step the run is cut at
+TRAIN_CLI = ("qwen2-0.5b", 10, 15, 8, 256)  # arch, steps, resumed, B, S
+TRAIN_CLI_S = 600.0
 # adaptive_path: BERT-base routed over three length clusters (<= 16, <= 64,
 # <= 128 tokens: the buckets 16, 64 and 128), the quant_ffn_only member's
 # prefix, the requests the k-means router admits, and qwen2-0.5b routed
@@ -1296,6 +1327,274 @@ def phase_autotune(model, device):
             "buckets": sorted(set(map(tuple, served_engine.runtime.stats[
                 "buckets"])) | {PROFILE_BUCKET, AUTOTUNE_LATENCY}),
             "timed_bucket": PROFILE_BUCKET, "unit": "forward"}
+
+
+def _train_losses(lines):
+    """(losses, step seconds) from the Trainer's ``[trainer] step i
+    loss=... dt=...s`` lines, in step order."""
+    import re
+    pat = re.compile(r"\[trainer\] step (\d+) loss=(\S+) gnorm=\S+ "
+                     r"dt=(\S+)s")
+    rows = sorted((int(m.group(1)), float(m.group(2)), float(m.group(3)))
+                  for m in map(pat.match, lines) if m)
+    return [r[1] for r in rows], [r[2] for r in rows]
+
+
+def _max_param_diff(a, b) -> float:
+    from repro_torch.interop import flatten_names
+    fb = dict(flatten_names(b))
+    return max(float((x - fb[n]).abs().max()) for n, x in flatten_names(a))
+
+
+def train_profile(samp, device, card, step_ms, n: int = 3):
+    """``torch.profiler`` over ``n`` more steps of the fine-tune's step
+    function on its trained params (the update is functional: they stay
+    as they are): device-busy ms a step, idle share against the median
+    step, device kernels a step and the top kernels by device ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import get_batch
+    from repro_torch.train import AdamW, TrainConfig, Trainer
+
+    pipe = samp.pipeline
+    tr = Trainer(samp.cfg, samp.engine.float_precision,
+                 optimizer=AdamW(lr=TRAIN_LR),
+                 tcfg=TrainConfig(remat=False, compute_dtype="float32"),
+                 loss_fn=pipe.loss_fn(), device=device)
+    opt = tr.optimizer.init(pipe.params)
+    step = tr.make_step()
+    batch = get_batch(samp.task, 0, TRAIN_BATCH)
+
+    def call():
+        float(step(pipe.params, opt, None, batch)[3]["loss"])
+    call()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    by_name = collections.Counter()
+    kernels_run = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3 / n
+            kernels_run += 1
+    busy = sum(by_name.values())
+    if busy <= 0.0:
+        fail("train_path: the profiler recorded no device time")
+    return {"phase": "train_path", "part": "profile", "card": card,
+            "steps": n, "device_busy_ms_per_step": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / step_ms),
+            "device_kernels_per_step": kernels_run / n,
+            "top_device_kernels": [
+                {"kernel": k[:100], "ms_per_step": v,
+                 "share_of_busy": v / busy}
+                for k, v in by_name.most_common(6)]}
+
+
+def train_resume(cfg, device, card):
+    """``Trainer.fit`` on full-width BERT-base for ``TRAIN_RESUME[0]``
+    steps with checkpoints, a second uninterrupted run (the card's
+    run-to-run spread: CUDA's embedding backward sums with atomics), and a
+    run cut at ``TRAIN_RESUME[1]`` then resumed by a fresh Trainer; the
+    resumed params must be within the spread (+ 1e-6) of the first run's.
+    Also times one checkpoint save and one restore."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import store
+    from repro_torch.core.plan import PrecisionPlan
+    from repro_torch.data.pipeline import get_batch, make_task
+    from repro_torch.train import AdamW, TrainConfig, Trainer, TrainState
+
+    steps, cut = TRAIN_RESUME
+    task = make_task("tnews", vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ)
+    policy = PrecisionPlan.full_float(cfg.num_layers, "float32")
+
+    def run(n, ckpt, log):
+        tcfg = TrainConfig(steps=n, log_every=1000, checkpoint_every=cut,
+                           checkpoint_dir=ckpt, remat=False,
+                           compute_dtype="float32")
+        tr = Trainer(cfg, policy, optimizer=AdamW(lr=TRAIN_LR), tcfg=tcfg,
+                     head=("cls", task.n_classes), device=device)
+        state = tr.fit(tr.init_state(0), lambda i: get_batch(
+            task, i, TRAIN_BATCH), log=log)
+        return tr, state
+
+    tmp = Path(tempfile.mkdtemp(prefix="samp_train_"))
+    try:
+        logs = []
+        tr, full = run(steps, str(tmp / "a"), logs.append)
+        _, again = run(steps, None, logs.append)
+        run(cut, str(tmp / "b"), logs.append)
+        resumed_logs = []
+        _, resumed = run(steps, str(tmp / "b"), resumed_logs.append)
+        spread = _max_param_diff(full.params, again.params)
+        diff = _max_param_diff(full.params, resumed.params)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        store.save(str(tmp / "c"), steps, full.as_tree(tr.plan))
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        back = TrainState.from_tree(
+            store.restore(str(tmp / "c"), steps, full.as_tree(tr.plan)),
+            tr.plan, device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        ckpt_bytes = _bundle_bytes(tmp / "c")
+        exact = _max_param_diff(full.params, back.params) == 0.0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {"phase": "train_path", "part": "resume", "card": card,
+           "steps": steps, "cut_at": cut,
+           "resumed_log": [m for m in resumed_logs if "resumed" in m],
+           "resumed_step_counter": int(resumed.opt_state.step),
+           "max_param_diff_resumed": diff,
+           "max_param_diff_two_full_runs": spread,
+           "checkpoint_bytes": ckpt_bytes,
+           "checkpoint_save_s": save_s, "checkpoint_load_s": load_s,
+           "restore_bit_exact": exact}
+    emit(rec)
+    if rec["resumed_log"] != [f"[trainer] resumed from step {cut}"] or \
+            rec["resumed_step_counter"] != steps:
+        fail(f"train_path: the resumed run logged {resumed_logs} and ended "
+             f"at step {rec['resumed_step_counter']}")
+    if diff > spread + 1e-6 or not exact:
+        fail(f"train_path: resumed params differ by {diff} from an "
+             f"uninterrupted run (two uninterrupted runs: {spread}); "
+             f"restore bit-exact {exact}")
+    return rec
+
+
+def train_cli(card):
+    """``python -m repro_torch.launch.train`` as a user runs it, on the full
+    qwen2-0.5b: ``TRAIN_CLI``'s steps into a checkpoint directory, then
+    again to more steps, which must resume."""
+    import os
+    import shutil
+    import tempfile
+
+    arch, steps, more, B, S = TRAIN_CLI
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    tmp = Path(tempfile.mkdtemp(prefix="samp_train_cli_"))
+    runs = []
+    try:
+        for n in (steps, more):
+            t = time.perf_counter()
+            cli = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                 arch, "--full", "--steps", str(n), "--batch", str(B),
+                 "--seq", str(S), "--ckpt", str(tmp / "run")],
+                capture_output=True, text=True, timeout=TRAIN_CLI_S,
+                cwd=ROOT, env=env)
+            lines = cli.stdout.splitlines()
+            losses, _ = _train_losses(lines)
+            runs.append({"steps": n, "exit_code": cli.returncode,
+                         "s": time.perf_counter() - t,
+                         "resumed": [ln for ln in lines if "resumed" in ln],
+                         "done": [ln for ln in lines
+                                  if ln.startswith("[train] done")],
+                         "logged_losses": losses,
+                         "checkpoint_bytes": _bundle_bytes(tmp / "run"),
+                         "stderr_tail": cli.stderr[-1500:]
+                         if cli.returncode else ""})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {"phase": "train_path", "part": "cli", "card": card, "arch": arch,
+           "batch": B, "seq": S, "runs": runs}
+    emit(rec)
+    first, second = runs
+    if first["exit_code"] != 0 or not first["done"] or first["resumed"]:
+        fail(f"train_path: launch.train ({steps} steps) exited "
+             f"{first['exit_code']}: {first}")
+    if second["exit_code"] != 0 or not second["done"] or \
+            second["resumed"] != [f"[trainer] resumed from step {steps}"]:
+        fail(f"train_path: launch.train ({more} steps) did not resume from "
+             f"step {steps}: {second}")
+    return rec
+
+
+def phase_train(model, device, card):
+    """``train_path``: the paper's step 0 on the card, then what was trained
+    through the kernels. (a) ``SAMP.from_config`` on full-width BERT-base
+    (float32, ``tnews``, 128 positions, the fused backend) and ``finetune``
+    for ``TRAIN_STEPS`` steps at ``TRAIN_LR``, batch 32, seed 0: every
+    step's loss finite, the last 10 steps' mean loss at least 0.1 below the
+    first 10's, float dev accuracy (4 batches of 32) above 2/15. (b)
+    :func:`train_resume`. (c) The trained weights calibrated on
+    ``main_path``'s batches, quantized under the tiled golden plan and
+    served like ``main_path`` (:func:`phase_serve`: identical predictions,
+    rel-Linf 5e-3, 42 / 6 / 6 / 1 launches a forward), and the int8 dev
+    accuracy. (d) :func:`train_cli`. Returns the served path."""
+    import statistics as stats
+    import torch
+    from repro_torch.quant import ptq
+    from repro_torch.toolkit import SAMP
+
+    phase_t0 = time.perf_counter()
+    cfg = model["cfg"]
+    samp = SAMP.from_config(cfg, task="tnews", seq_len=TRAIN_SEQ,
+                            float_dtype="float32", backend="fused",
+                            device=device)
+    logs = []
+    torch.cuda.synchronize()
+    start_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    samp.finetune(steps=TRAIN_STEPS, lr=TRAIN_LR, batch_size=TRAIN_BATCH,
+                  log_every=1, seed=0, log=logs.append)
+    torch.cuda.synchronize()
+    finetune_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    losses, dts = _train_losses(logs)
+    n_eval, eval_bs = TRAIN_EVAL
+    float_acc = samp.eval(batches=n_eval, batch_size=eval_bs)
+    step_ms = stats.median(dts) * 1e3
+    first, last = stats.mean(losses[:10]), stats.mean(losses[-10:])
+    rec = {"phase": "train_path", "part": "finetune", "card": card,
+           "model": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "task": "tnews", "steps": TRAIN_STEPS,
+           "lr": TRAIN_LR, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "compute_dtype": "float32", "finetune_s": finetune_s,
+           "median_step_ms": step_ms,
+           "step_ms_min_max": [min(dts) * 1e3, max(dts) * 1e3],
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+           "peak_memory_gb": peak / 1e9,
+           "peak_above_start_gb": (peak - start_bytes) / 1e9,
+           "loss_first10_mean": first, "loss_last10_mean": last,
+           "losses_every_10": losses[::10],
+           "float_dev_accuracy": float_acc,
+           "stragglers": [m for m in logs if "STRAGGLER" in m]}
+    emit(rec)
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"train_path: {len(losses)} step losses of {TRAIN_STEPS}, "
+             f"finite {all(map(math.isfinite, losses))}")
+    if last > first - TRAIN_LOSS_DROP:
+        fail(f"train_path: the loss fell from {first} to {last}, less than "
+             f"{TRAIN_LOSS_DROP}")
+    if float_acc <= 2.0 / 15:
+        fail(f"train_path: float dev accuracy {float_acc} <= 2/15")
+    emit(train_profile(samp, device, card, step_ms))
+    resume = train_resume(cfg, device, card)
+    trained = dict(model, params=samp.pipeline.params)
+    path = phase_serve("train_path", trained, model["plan"], device)
+    qpipe = samp.pipeline.with_policy(path["qparams"], path["qplan"],
+                                      model["plan"])
+    int8_acc = qpipe.eval(batches=n_eval, batch_size=eval_bs)
+    cli = train_cli(card)
+    emit({"phase": "train_path", "part": "summary", "card": card,
+          "float_dev_accuracy": float_acc, "int8_dev_accuracy": int8_acc,
+          "plan": model["plan"].describe(),
+          "median_step_ms": step_ms, "tokens_per_s": rec["tokens_per_s"],
+          "peak_memory_gb": rec["peak_memory_gb"],
+          "checkpoint_save_s": resume["checkpoint_save_s"],
+          "checkpoint_load_s": resume["checkpoint_load_s"],
+          "cli_s": [r["s"] for r in cli["runs"]],
+          "phase_s": time.perf_counter() - phase_t0})
+    del samp, qpipe
+    path.pop("fused")               # not profiled: main_path's shapes
+    return path
 
 
 def setup_decoder(device):
@@ -4615,12 +4914,13 @@ def main() -> int:
                          int8_dataflow_variant(model["plan"]), device)]
     phase_pipeline(model, paths[0], device)
     autotune = phase_autotune(model, device)
+    train = phase_train(model, device, card)
     decoder = setup_decoder(device)
     paths += [phase_decode("decode_path", decoder, decoder["plan"], device,
                            kv_cache="int8_per_token"),
               phase_decode("decode_head_path", decoder,
                            decode_head_plan(decoder["plan"]), device),
-              autotune]
+              autotune, train]
     paths.append(phase_adaptive(model, decoder, device))
     paths += phase_http(model, decoder, device, card)
     timed, max_err = {}, collections.defaultdict(float)

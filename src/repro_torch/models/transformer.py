@@ -6,7 +6,8 @@ latent cache), the audio encoder (hubert, ``frames`` in), the vision
 prefix-LM (paligemma, ``prefix_embeds`` before the tokens), and the
 recurrent bodies: recurrentgemma's RG-LRU layers beside its local attention
 and xlstm's mLSTM and sLSTM blocks, whose decode caches are recurrent
-states.
+states. The training loss (:func:`lm_loss`) runs the same forward with no
+compute backend, each layer optionally recomputed in the backward pass.
 
 Parameters are ``{"embed", "layers": [one dict per layer], "final_norm",
 ["lm_head"], ["head"]}``: a plain Python list of per-layer dicts where the
@@ -22,6 +23,7 @@ import math
 from typing import Optional, Sequence, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, BlockKind
 from repro_torch.core.device import resolve_device
@@ -263,13 +265,19 @@ def _recurrent_layer(x, lp, cfg: ArchConfig, kind: BlockKind, *, obs,
 def run_groups(x, params, cfg: ArchConfig, plan: tuple[Group, ...],
                scheme: QuantScheme, *, positions, obs=None,
                chunk=DEFAULT_CHUNK, backend=None, caches=None, active=None,
-               pages=None):
+               pages=None, remat: bool = False):
     """Execute every layer of every group, in order. Observer capture
     (``obs`` not None) always runs the reference path and records each
     layer's sites as ``obs["layer{i}/{site}"]``. With ``caches`` (one per
-    layer) returns ``(x, new_caches)``, else x."""
+    layer) returns ``(x, new_caches)``, else x.
+
+    ``remat``: recompute each layer in the backward pass (activation
+    checkpointing at layer granularity: only the residual stream between
+    layers is saved). Observer capture and decode caches run without it,
+    as the JAX package's observed layers do."""
     if obs is not None:
         backend = None
+    remat = remat and obs is None and caches is None
     layers = params["layers"]
     new_caches = [] if caches is not None else None
     for g in plan:
@@ -280,13 +288,17 @@ def run_groups(x, params, cfg: ArchConfig, plan: tuple[Group, ...],
                 if obs is not None:
                     lobs = {"__values__": True} if obs.get("__values__") \
                         else {}
-                x = layer_forward(x, layers[idx], cfg, kind, g.mode, scheme,
-                                  positions=positions, obs=lobs, chunk=chunk,
-                                  quant_bmm=g.quant_bmm, softmax=g.softmax,
-                                  backend=backend,
-                                  cache=None if caches is None
-                                  else caches[idx],
-                                  active=active, pages=pages)
+                kw = dict(positions=positions, obs=lobs, chunk=chunk,
+                          quant_bmm=g.quant_bmm, softmax=g.softmax,
+                          backend=backend,
+                          cache=None if caches is None else caches[idx],
+                          active=active, pages=pages)
+                if remat:
+                    x = checkpoint(layer_forward, x, layers[idx], cfg, kind,
+                                   g.mode, scheme, use_reentrant=False, **kw)
+                else:
+                    x = layer_forward(x, layers[idx], cfg, kind, g.mode,
+                                      scheme, **kw)
                 if caches is not None:
                     x, nc = x
                     new_caches.append(nc)
@@ -333,7 +345,7 @@ def forward(params, batch: dict, cfg: ArchConfig, plan: tuple[Group, ...],
             scheme: QuantScheme = QuantScheme(), *,
             obs: Optional[dict] = None, chunk: Optional[int] = DEFAULT_CHUNK,
             return_hidden: bool = False, backend=None, caches=None, pos=None,
-            active=None, pages=None):
+            active=None, pages=None, remat: bool = False):
     """Full-sequence (encode, prefill) or incremental (decode) forward of
     token tensors ``batch["tokens"]`` (B, S) (+ ``"segments"``; audio
     configs take ``"frames"`` (B, T, frontend_dim) instead, vision configs
@@ -346,7 +358,9 @@ def forward(params, batch: dict, cfg: ArchConfig, plan: tuple[Group, ...],
     Decode passes ``caches`` (:func:`init_caches`) and ``pos``: an int (a
     synchronized batch) or a (B,) tensor (continuous batching: per-row
     positions, with ``active`` (B,) bool gating idle slots' cache writes);
-    ``pages`` is the (B, pages_per_slot) page table of paged caches."""
+    ``pages`` is the (B, pages_per_slot) page table of paged caches.
+    ``remat`` recomputes each layer in the backward pass
+    (:func:`run_groups`)."""
     lead = batch["frames"] if cfg.frontend == "audio" else batch["tokens"]
     S = lead.shape[1]
     if cfg.frontend == "vision" and "prefix_embeds" in batch:
@@ -360,7 +374,7 @@ def forward(params, batch: dict, cfg: ArchConfig, plan: tuple[Group, ...],
                      backend=None if obs is not None else backend)
     x = run_groups(x, params, cfg, plan, scheme, positions=positions,
                    obs=obs, chunk=chunk, backend=backend, caches=caches,
-                   active=active, pages=pages)
+                   active=active, pages=pages, remat=remat)
     if caches is not None:
         x, caches = x
     x = L.norm(x, params["final_norm"], cfg.norm_kind)
@@ -378,6 +392,43 @@ def apply_head(hidden, params, kind: str) -> torch.Tensor:
     if kind == "ner":
         return L.dense(hidden, params["head"]["out"])
     raise ValueError(f"unknown head kind {kind!r}")
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean negative log-likelihood of ``labels`` under ``logits`` (float32
+    logsumexp); with ``mask``, the mean over its nonzero positions."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0] - lse
+    nll = -ll
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+    return torch.mean(nll)
+
+
+def lm_loss(params, batch: dict, cfg: ArchConfig, plan,
+            scheme: QuantScheme = QuantScheme(), *, remat: bool = False,
+            chunk: Optional[int] = DEFAULT_CHUNK) -> torch.Tensor:
+    """Next-token CE for decoder LMs; frame CE for audio (``labels`` (B, T));
+    the text region only for vision; head CE for params with a task head
+    (``ner`` when ``labels`` is (B, S), else ``cls``). The forward runs
+    without a compute backend: training is float, as in the JAX package."""
+    if "head" in params:
+        hidden = forward(params, batch, cfg, plan, scheme, remat=remat,
+                         chunk=chunk)
+        kind = "ner" if batch["labels"].ndim == 2 else "cls"
+        return cross_entropy(apply_head(hidden, params, kind),
+                             batch["labels"])
+    logits = forward(params, batch, cfg, plan, scheme, remat=remat,
+                     chunk=chunk)
+    if cfg.frontend == "audio":
+        return cross_entropy(logits, batch["labels"])
+    if cfg.frontend == "vision":
+        # loss over the text region only
+        logits = logits[:, batch["prefix_embeds"].shape[1]:]
+    tokens = batch["tokens"]
+    return cross_entropy(logits[:, :-1], tokens[:, 1:])
 
 
 # ---------------------------------------------------------------------------

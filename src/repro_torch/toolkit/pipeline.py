@@ -15,9 +15,10 @@ the target head is resolved from the ``TARGETS`` registry (default: the
 head matching the task kind). ``with_policy()`` rebinds the same stages to
 quantized params under a new execution plan (the post-PTQ pipeline).
 
-The port computes in the params' dtype (float32), so there is no
-``compute_dtype``; the plan's ``float_dtype`` is part of its fingerprint
-only. Serving meshes and the training loss arrive with their slices.
+The port serves in the params' dtype (float32), so there is no
+``compute_dtype``; the plan's ``float_dtype`` is part of its fingerprint,
+and the compute dtype of fine-tuning (``SAMP.finetune``). Serving meshes
+arrive with their slice.
 """
 from __future__ import annotations
 
@@ -300,6 +301,24 @@ class Pipeline:
             correct += int((pred == want).sum())
             total += int(np.prod(want.shape))
         return correct / max(total, 1)
+
+    # -- training hook -------------------------------------------------------
+    def loss_fn(self):
+        """A loss callable with the Trainer's signature
+        ``(params, batch, cfg, plan, scheme, **kw)``, routed through the
+        registered target head (``lm``: :func:`~repro_torch.models.
+        transformer.lm_loss`). It runs the float forward with no compute
+        backend, as training does."""
+        spec = self.target.spec
+        if spec.name == "lm":
+            return T.lm_loss
+
+        def loss(params, batch, cfg, plan, scheme=T.QuantScheme(), **kw):
+            hidden = T.forward(params, batch, cfg, plan, scheme,
+                               return_hidden=True, **kw)
+            return spec.loss(spec.apply(params, hidden, cfg),
+                             batch["labels"])
+        return loss
 
     def describe(self) -> str:
         return (f"Pipeline[{self.cfg.name}] task={self.task.name} "

@@ -16,9 +16,8 @@ the kernels that deploy), artifact persistence, and a serving handoff.
 Input-adaptive precision (``calibrate(clusters=)``, ``apply_planset``,
 plan-set files, ``autotune(clusters=)``) deploys a PlanSet through a
 :class:`~repro_torch.adaptive.PlanRouter`, saved as a v3 bundle.
-``serve_http`` wraps the serving engine in the HTTP/SSE front-end. Not
-ported yet: ``finetune``, which raises ``NotImplementedError`` naming ROADMAP
-queue 1 item 7 (training).
+``serve_http`` wraps the serving engine in the HTTP/SSE front-end.
+``finetune`` trains the float pipeline with :mod:`repro_torch.train`.
 """
 from __future__ import annotations
 
@@ -40,14 +39,10 @@ from repro_torch.toolkit import artifact as A
 from repro_torch.toolkit.latency import LatencyBackend
 from repro_torch.toolkit.pipeline import Pipeline
 from repro_torch.toolkit.registry import get_latency_backend, get_target
+from repro_torch.train import AdamW, TrainConfig, Trainer, TrainState
 
 if TYPE_CHECKING:
     from repro_torch.serve import EncoderServeEngine, ServeEngine
-
-
-def _not_ported(what: str, item: int, topic: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP queue 1 item {item} ({topic})")
 
 
 @dataclasses.dataclass
@@ -189,18 +184,44 @@ class SAMP:
         return self.current.eval(**kw)
 
     # -- step 0: fine-tune ---------------------------------------------------
-    def finetune(self, **kw) -> "SAMP":
-        raise _not_ported("SAMP.finetune", 7, "train/")
+    def finetune(self, *, steps: int = 120, lr: float = 2e-3,
+                 batch_size: int = 32, log_every: int = 0, seed: int = 0,
+                 log=print) -> "SAMP":
+        """Fine-tune the float pipeline on its task from a fresh init from
+        ``seed``, on the pipeline's device, through ``Trainer.fit``; the
+        loss computes in the plan's ``float_dtype``."""
+        if self.deploy_only:
+            self._require_params()          # raises the deploy-only error
+        pipe = self.pipeline
+        tcfg = TrainConfig(steps=steps, log_every=log_every or steps + 1,
+                           compute_dtype=pipe.policy.float_dtype,
+                           remat=False)
+        trainer = Trainer(self.cfg, self.engine.float_precision,
+                          optimizer=AdamW(lr=lr), tcfg=tcfg,
+                          scheme=pipe.scheme, loss_fn=pipe.loss_fn(),
+                          device=pipe.device)
+        params = pipe.init_params(
+            torch.Generator(pipe.device).manual_seed(seed))
+        state = TrainState(params, trainer.optimizer.init(params), None)
+        state = trainer.fit(
+            state, lambda i: get_batch(self.task, i, batch_size), log=log)
+        pipe.params = state.params
+        # new weights invalidate everything measured on the old ones
+        self.stats = None
+        self.points = None
+        self.quantized = None
+        return self
 
     def _require_params(self) -> dict:
         if self.deploy_only:
             raise ValueError(
                 "a facade rebuilt from an artifact bundle is deploy-only "
                 "(the bundle holds just the quantized params): predict/"
-                "eval/serve are available, but calibrate/sweep/apply need "
-                "the float model — build one with SAMP.from_config")
+                "eval/serve are available, but finetune/calibrate/sweep/"
+                "apply need the float model — build one with "
+                "SAMP.from_config")
         if self.pipeline.params is None:
-            raise ValueError("pipeline has no params: call "
+            raise ValueError("pipeline has no params: call finetune(), "
                              "pipeline.init_params(), bind params, or "
                              "SAMP.load()")
         return self.pipeline.params

@@ -17,7 +17,8 @@ registry; the built-ins cover the paper's CLUE-style text-processing tasks:
 ``init(gen, cfg, n_out, device=, dtype=) -> head params`` (``gen`` a
 ``torch.Generator`` on ``device``) and ``apply(params, hidden, cfg) ->
 logits`` are the whole contract; ``apply`` receives the full params and
-reads the head from ``params["head"]``.
+reads the head from ``params["head"]``. The Pipeline wires loss, prediction
+and eval around them.
 """
 from __future__ import annotations
 
@@ -51,6 +52,10 @@ class TargetSpec:
 
     def predict(self, logits):
         return torch.argmax(torch.as_tensor(logits), dim=-1)
+
+    def loss(self, logits: torch.Tensor,
+             labels: torch.Tensor) -> torch.Tensor:
+        return T.cross_entropy(logits, labels)
 
 
 def _cls_init(gen: torch.Generator, cfg: ArchConfig, n_out: int, *,

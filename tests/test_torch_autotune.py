@@ -389,9 +389,8 @@ def test_facade_sweep_accuracy_matches_jax(facades, tmp_path):
 
 def test_facade_refuses_what_is_not_ported(facades, tmp_path):
     _, samp = facades
-    with pytest.raises(NotImplementedError, match="item 7"):
-        samp.finetune(steps=1)
-    # serve_http is ported: an unstarted front-end over the encoder engine
+    # finetune is ported (tests/test_torch_finetune.py); serve_http is
+    # ported: an unstarted front-end over the encoder engine
     from repro_torch.serve.frontend import HTTPFrontend
     fe = samp.serve_http(port=0, log=lambda *a, **k: None)
     assert isinstance(fe, HTTPFrontend) and fe.decode is None
