@@ -14,7 +14,7 @@ line per phase:
 * ``flash_path``: the long-context path of ``kernels.ops.flash_attention``,
   the float online-softmax kernel, at full width on the models the port
   serves: qwen2-0.5b's 32k causal prefill (14 query / 2 KV heads of 64,
-  the ``prefill_32k`` cell of ``src/repro/launch/shapes.py`` with its
+  the ``prefill_32k`` cell of ``repro_torch.launch.shapes`` with its
   global batch cut from 32 to 1) in float32 and in bfloat16, mixtral's 32k
   prefill under its 4096-token window (48 / 8 heads of 128), and a
   BERT-base bucket (8 x 512, 12 heads of 64, bidirectional); each called
@@ -87,7 +87,7 @@ line per phase:
 * ``setup_decoder``: full-width qwen2-0.5b (random weights from seed 0),
   the golden plan tiled 6x to 24 layers, its calibration batches (2 of
   4 x 128 tokens) and 16 requests (prompt lengths uniform in 8-64, tokens
-  uniform, both from numpy seed 0; 32 greedy tokens each);
+  uniform, both from numpy seed 0; 16 greedy tokens each);
 * ``decode_path``: the requests served by ``ServeEngine(kv_cache=
   "int8_per_token")`` over a paged pool (8 slots, pages of 16, max_len 128,
   no oversubscription) on the fused backend, counted, and on the reference
@@ -139,9 +139,9 @@ line per phase:
   (evicted, never batched), and a drain answering 200 in flight and 503 +
   ``Retry-After: 5`` to a new request. It builds full-width qwen2-0.5b
   (``--task lm``, the golden plan tiled 6x, int8 per-token pages of 16) and
-  streams the 16 decode prompts over SSE, 32 tokens each: each stream's
+  streams the 16 decode prompts over SSE, 16 tokens each: each stream's
   tokens equal to a direct ``ServeEngine``'s, the ``done`` transcript equal
-  to the streamed tokens with indices 0..31, 0 pages in use after, 102 /
+  to the streamed tokens with indices 0..15, 0 pages in use after, 102 /
   12 / 18 / 12 launches a tick. Last, ``python -m
   repro_torch.launch.server`` as a subprocess (its port read from its
   ``listening on`` line, ``/healthz`` and 8 ``/v1/encode`` requests,
@@ -151,6 +151,35 @@ line per phase:
   start-up seconds, each with the card's name and power limit; both
   front-ends are paths of the kernel summary (``http_path``,
   ``http_decode_path``);
+* ``mesh_path``: multi-GPU serving on mesh ranks. Two ranks spawned with
+  ``repro_torch.distributed.comm.spawn``, both on this card over gloo (NCCL
+  refuses two ranks on one device; the gloo collectives it runs on CUDA
+  tensors are probed and printed, with the process-group backend), each
+  rebuilding main_path's BERT-base (seed 0, the tiled golden plan,
+  calibrated on the mesh: stats equal to main_path's exactly) and serving
+  its 32 requests through ``EncoderServeEngine(backend="fused", mesh=...)``
+  at (data=2, model=1) and (data=1, model=2), then qwen2-0.5b (8 of the
+  decode prompts, 16 greedy tokens, int8 per-token pages of 16, 8 slots).
+  Data parallel is held bit for bit against unmeshed runs at the per-rank
+  shapes (each call's rows at the rank's bucket; the decode at 4 slots);
+  tensor parallel, whose int8 GEMMs sum exact int32 accumulators
+  (``quant_linear``'s accumulator mode, ``dynamic_quant``'s scale-in mode
+  for the per-token row-parallel inputs) and whose float layers reorder
+  their sums, within ``MESH_BUDGET`` of main_path's encode logits, and
+  its golden decode, teacher-forced on the unmeshed 8-slot run's tokens,
+  within ``MESH_DECODE_BUDGET`` of that run's logits row by row (a
+  reordered float sum flips int8 codes at ties, which stay in the pages;
+  the unmeshed port's own 4-slot run is compared the same way); under an
+  all-int8 plan (the golden plan's static layers beside fully per-token
+  ones) every teacher-forced row within ``MESH_EXACT_TOL`` and every
+  argmax equal; predictions equal main_path's, no page in use after, and
+  each rank's launches a forward or tick as ``EXPECTED_MESH`` (the
+  unmeshed paths' counts: the kernels take a rank's blocks at any width,
+  qwen2's 64-column ``wk``/``wv`` shards and ``decode_attention`` on one
+  KV head included). The kernels' mesh shapes are held against their
+  plain versions. It records each rank's wall a forward or tick, its
+  collectives and its peak memory, beside the unmeshed port's own
+  batching noise; two ranks on one card measure no multi-GPU speed;
 * ``kernel``: each kernel against its plain version at every shape a path
   gave it, and at the (8, 128) bucket (the decode paths: 8 slots, the
   longest tick) its time, its plain version's and a PyTorch library call's
@@ -181,7 +210,7 @@ The models of those four paths are then freed, and the MoE slice runs:
   weights from seed 0, 41.7 GB), the golden v4 plan (fingerprint held to
   the JAX package's), 2 calibration batches of 4 x 128 and 16 requests
   (prompts uniform in 8-64 tokens over the 32768-token vocab, numpy seed 0;
-  32 greedy tokens each);
+  16 greedy tokens each);
 * ``moe_decode_path``: calibrated, quantized (the float tree then dropped),
   and served by ``ServeEngine(precision=plan)`` (8 slots, max_len 128, pages
   of 16 for the plan's int8 KV, which every local layer's dense ring leaves
@@ -208,9 +237,9 @@ with the decode paths' checks (identical tokens, logits within rel-Linf
 5e-3 at every tick both engines saw, the plan's launches a tick exactly,
 0 pages in use after):
 
-* ``gemma2_decode_path``: gemma2-2b, all 26 layers, the golden plan tiled
-  over them, int8 per-token pages of 128 tokens on the 13 global layers
-  beside the 13 local layers' dense rings: ``decode_attention`` at head
+* ``gemma2_decode_path``: gemma2-2b cut from 26 to 13 layers, the
+  golden plan tiled over them, int8 per-token pages of 128 tokens on the 6
+  global layers beside the 7 local layers' dense rings: ``decode_attention`` at head
   dim 256 with pages of 128 and softcap 50 on the float-qkv global
   layers, the final softcap 30;
 * ``granite_decode_path``: granite-20b cut from 52 to 8 layers (golden x
@@ -222,8 +251,8 @@ with the decode paths' checks (identical tokens, logits within rel-Linf
   uniform in 16-128, 512 features) through ``Runtime.encode`` with their
   lengths, 8 a call, frame logits within rel-Linf 5e-3 and the predicted
   codes identical: ``quant_flash_attention`` at head dim 80;
-* ``paligemma_path`` and ``paligemma_decode_path``: paligemma-3b, all 18
-  layers: one ``Runtime.encode`` of 8 rows of 256 seeded prefix embeddings
+* ``paligemma_path`` and ``paligemma_decode_path``: paligemma-3b cut from
+  18 to 9 layers: one ``Runtime.encode`` of 8 rows of 256 seeded prefix embeddings
   (1152 wide) beside 8-32 tokens (hidden states and the text positions'
   logits within 5e-3, their argmax identical), then the text decode of
   the prompts over int8 per-token pages of 16;
@@ -235,8 +264,8 @@ with the decode paths' checks (identical tokens, logits within rel-Linf
 
 Then the recurrent archs of slice 14, the same way:
 
-* ``recurrentgemma_decode_path``: recurrentgemma-9b, all 38 layers (26
-  RG-LRU, 12 local attention; 9.4 B parameters), the golden plan tiled
+* ``recurrentgemma_decode_path``: recurrentgemma-9b cut from 38 to 19
+  layers (13 RG-LRU, 6 local attention), the golden plan tiled
   over them: the RG-LRU mix on the reference path, its FFN's GEMMs through
   ``quant_linear`` and ``dynamic_quant``, ``addnorm_quant`` at the local
   layers' residual boundary, no ``decode_attention`` (the local layers
@@ -262,8 +291,10 @@ check or a missing CUDA device exits non-zero before the ok line.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import statistics
@@ -302,7 +333,7 @@ EXPECTED_SUB = {"quant_flash_attention with o_scale": 6,
 
 DECODE_TILE = 6                  # golden plan (4 layers) x 6 = 24 layers
 DECODE_REQUESTS = 16
-DECODE_MAX_TOKENS = 32
+DECODE_MAX_TOKENS = 16           # 32 before mesh_path: the time limit
 DECODE_SLOTS = 8
 PAGE_SIZE = 16
 DECODE_MAX_LEN = 128
@@ -337,13 +368,14 @@ EXPECTED_MOE_SUB = {"quant_linear with out_scale": 1,
                     "quant_expert_gemm with per-token scales": 3}
 
 # the long-context cases of the float flash_attention path: (name, (B, Hq,
-# Hkv, S, d), mask, dtype, origin)
+# Hkv, S, d), mask, dtype, origin); "prefill_32k" stands for that cell of
+# repro_torch.launch.shapes (its seq_len), read when the phase runs
 FLASH_CASES = (
-    ("qwen2", (1, 14, 2, 32768, 64), {"causal": True}, "float32",
-     "qwen2-0.5b, prefill_32k (src/repro/launch/shapes.py:39), global "
+    ("qwen2", (1, 14, 2, "prefill_32k", 64), {"causal": True}, "float32",
+     "qwen2-0.5b, prefill_32k (repro_torch.launch.shapes.SHAPES), global "
      "batch 32 cut to 1"),
-    ("qwen2_bf16", (1, 14, 2, 32768, 64), {"causal": True}, "bfloat16",
-     "the same in bfloat16"),
+    ("qwen2_bf16", (1, 14, 2, "prefill_32k", 64), {"causal": True},
+     "bfloat16", "the same in bfloat16"),
     ("mixtral", (1, 48, 8, 32768, 128), {"causal": True, "window": 4096},
      "float32", "mixtral-8x22b, 32k prefill under its sliding window"),
     ("bert", (8, 12, 12, 512, 64), {}, "float32",
@@ -416,7 +448,10 @@ ARCH_PHASES = (("gemma2-2b", ("gemma2_decode_path",)),
                ("recurrentgemma-9b", ("recurrentgemma_decode_path",)),
                ("xlstm-125m", ("xlstm_decode_path", "xlstm_encode_path")))
 ARCH_CUTS = {"granite-20b": 8, "deepseek-coder-33b": 8,
-             "deepseek-v2-236b": 3}
+             "deepseek-v2-236b": 3,
+             # the three slowest of these paths, halved to keep the
+             # script inside its time limit beside mesh_path
+             "gemma2-2b": 13, "recurrentgemma-9b": 19, "paligemma-3b": 9}
 # xlstm_encode_path: one Runtime.encode of 4 x 512 seeded tokens, two mLSTM
 # chunks of 256, so the chunk hand-off runs on the card
 XLSTM_ENCODE = (4, 512)
@@ -438,17 +473,17 @@ PALIGEMMA_TOKENS = 32            # up to 32 tokens
 # golden plan's four layers cost 17 quant_linear, 2 addnorm_quant, 3
 # dynamic_quant and 2 decode_attention (layers 1 and 2, float qkv over int8
 # pages) a tick; gemma2's local layers (even) keep rings, so only its
-# global layers 1, 5, ..., 25 run the decode kernel; hubert's span runs
+# global layers 1, 5 and 9 (of 13) run the decode kernel; hubert's span runs
 # per four layers 14 / 2 / 2 and 2 quant_flash_attention; deepseek-v2's MLA
 # body stays on the reference path: layer 0's FFN (3 + 1 addnorm) and each
 # MoE layer's shared experts (3) and routed stacks (3 quant_expert_gemm).
-# recurrentgemma's 26 RG-LRU layers run only their FFN's GEMMs (the mix is
-# on the reference path, the residual boundary unfused) and its 12 local
+# recurrentgemma's 13 RG-LRU layers run only their FFN's GEMMs (the mix is
+# on the reference path, the residual boundary unfused) and its 6 local
 # attention layers keep rings (no decode_attention); xlstm's blocks run no
 # kernel at all, so both of its paths launch none
 EXPECTED_ARCHS = {
-    "gemma2_decode_path": {"quant_linear": 112, "addnorm_quant": 13,
-                           "dynamic_quant": 21, "decode_attention": 7},
+    "gemma2_decode_path": {"quant_linear": 58, "addnorm_quant": 7,
+                           "dynamic_quant": 9, "decode_attention": 3},
     "granite_decode_path": {"quant_linear": 34, "addnorm_quant": 4,
                             "dynamic_quant": 6, "decode_attention": 4},
     "deepseek_coder_decode_path": {"quant_linear": 34, "addnorm_quant": 4,
@@ -457,14 +492,14 @@ EXPECTED_ARCHS = {
     "hubert_encode_path": {"quant_linear": 168, "addnorm_quant": 24,
                            "dynamic_quant": 24,
                            "quant_flash_attention": 24},
-    "paligemma_path": {"quant_linear": 78, "addnorm_quant": 9,
-                       "dynamic_quant": 15},
-    "paligemma_decode_path": {"quant_linear": 78, "addnorm_quant": 9,
-                              "dynamic_quant": 15, "decode_attention": 9},
+    "paligemma_path": {"quant_linear": 41, "addnorm_quant": 5,
+                       "dynamic_quant": 6},
+    "paligemma_decode_path": {"quant_linear": 41, "addnorm_quant": 5,
+                              "dynamic_quant": 6, "decode_attention": 4},
     "mla_decode_path": {"quant_linear": 9, "addnorm_quant": 1,
                         "quant_expert_gemm": 6},
-    "recurrentgemma_decode_path": {"quant_linear": 111, "addnorm_quant": 6,
-                                   "dynamic_quant": 30},
+    "recurrentgemma_decode_path": {"quant_linear": 50, "addnorm_quant": 2,
+                                   "dynamic_quant": 15},
     "xlstm_decode_path": {},
     "xlstm_encode_path": {},
 }
@@ -684,9 +719,12 @@ def phase_flash(device):
     from repro_torch import kernels
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops
+    from repro_torch.launch.shapes import SHAPES
     timer = Timer(device, reps=3, warmup=1)
     records = []
     for name, (B, Hq, Hkv, S, d), kw, dt, origin in FLASH_CASES:
+        if isinstance(S, str):
+            S = SHAPES[S].seq_len
         dtype = getattr(torch, dt)
         gen = torch.Generator(device=device).manual_seed(S + Hq + d)
         q = torch.randn((B, Hq, S, d), generator=gen, device=device).to(dtype)
@@ -974,7 +1012,8 @@ def phase_serve(name, model, plan, device):
                  f"expected {EXPECTED_SUB}")
     buckets = set(map(tuple, fused.runtime.stats["buckets"]))
     return {"name": name, "cfg": cfg, "qparams": qparams, "qplan": qplan,
-            "fused": fused,
+            "fused": fused, "stats": stats, "logits": logits, "preds": preds,
+            "requests": requests,
             "launches": launches, "per_fwd": per_fwd, "cases": cases,
             "buckets": sorted(buckets | {PROFILE_BUCKET}),
             "timed_bucket": PROFILE_BUCKET, "unit": "forward"}
@@ -1950,8 +1989,8 @@ def adaptive_encoder(model, device):
               for c, shape, _ in calls}
     keys = [k for k in routed.runtime._exe if k[0] == "encode"]
     by_bucket = collections.Counter(("fused",) + k[2:4] for k in keys)
-    key_ok = all(k[1][0] == "fused" and k[1][2] in planset.cluster_ids
-                 and k[1][1] == planset.plan_for(k[1][2]).fingerprint()
+    key_ok = all(k[1][0] == "fused" and k[1][-1] in planset.cluster_ids
+                 and k[1][1] == planset.plan_for(k[1][-1]).fingerprint()
                  for k in keys)
     served_by_bucket = collections.Counter(("fused", b, s)
                                            for _, b, s in served)
@@ -2001,7 +2040,7 @@ def adaptive_encoder(model, device):
             or not launches["quant_flash_attention"]:
         fail(f"adaptive_path: launch counts {launches} != the member "
              f"plans' {dict(want)}")
-    if not key_ok or set((k[1][2],) + k[2:4] for k in keys) != served \
+    if not key_ok or set((k[1][-1],) + k[2:4] for k in keys) != served \
             or by_bucket != served_by_bucket:
         fail(f"adaptive_path: the runtime holds {len(keys)} callables "
              f"{sorted(by_bucket.items())}; the routed forwards reached "
@@ -2261,7 +2300,7 @@ def adaptive_decode(decoder, device):
         solo_wall += time.perf_counter() - t
         solo_ticks += eng.stats["ticks"]
     split = collections.Counter(cm.assign(p) for p in prompts)
-    decode_keys = sorted(k[1][2] for k in routed.runtime._exe
+    decode_keys = sorted(k[1][-1] for k in routed.runtime._exe
                          if k[0] == "decode")
     generated = sum(len(o) for o in outputs.values())
     rec = {"phase": "adaptive_path", "part": "decode", "model": cfg.name,
@@ -2679,7 +2718,7 @@ def http_decode(decoder, tmp, device, card):
     """Full-width qwen2-0.5b over SSE, in process: ``build_frontend`` on
     the server's argv (``--task lm``, the golden plan tiled 6x from a file,
     int8 per-token pages of 16, the fused backend), the 16 decode prompts
-    as concurrent ``/v1/generate`` streams of 32 tokens (after a 2-stream
+    as concurrent ``/v1/generate`` streams of 16 tokens (after a 2-stream
     warm-up), each stream's tokens held against a direct ``ServeEngine``
     over the front-end's own params and plan, the ticks' launches
     counted."""
@@ -4647,7 +4686,7 @@ def check_kernels(paths, device, timed, max_err):
 
 
 def summarize(paths, timed, max_err, flash, long_decode, wide_page,
-              long_attention, wide, wide_heads):
+              long_attention, wide, wide_heads, mesh):
     """The per-kernel summary entries: sums over one forward of the span
     path, else one tick of the decode path, else one tick of the MoE path,
     and over one forward or tick of each path under ``by_path``; for the
@@ -4657,7 +4696,9 @@ def summarize(paths, timed, max_err, flash, long_decode, wide_page,
     (``long_context``) and at head dim 256 with pages of 128
     (``hd256_pages128``), for ``quant_flash_attention`` its calls at 512
     positions (``bert_512``), and for the three attention kernels their
-    calls at head dims over 256 (``wide_head_dims``)."""
+    calls at head dims over 256 (``wide_head_dims``). Every entry carries
+    its launches per rank a forward or tick on the mesh path
+    (``mesh_launches_per_rank``)."""
 
     def sums(path, name):
         out = {"launches": path["launches"][name],
@@ -4697,6 +4738,7 @@ def summarize(paths, timed, max_err, flash, long_decode, wide_page,
                             "causal prefill in float32 (by_case: each "
                             "case); launches: one a call of the flash path")
             _wide_heads(entry, wide_heads[name])
+            entry["mesh_launches_per_rank"] = mesh[name]
             summary.append(entry)
             continue
         by_path = {p["name"]: sums(p, name) for p in paths
@@ -4740,6 +4782,7 @@ def summarize(paths, timed, max_err, flash, long_decode, wide_page,
                         f"of the MoE path where neither does: the sum over "
                         f"its launches (by_path for each path); launches: "
                         f"the counted runs of every path")
+        entry["mesh_launches_per_rank"] = mesh[name]
         summary.append(entry)
     return measured(summary)
 
@@ -4891,6 +4934,585 @@ def phase_profile_decode(path):
           "top_device_kernels": top, "top_host_ops": top_host})
 
 
+# ---------------------------------------------------------------------------
+# mesh_path: multi-GPU serving on mesh ranks (slice 16)
+# ---------------------------------------------------------------------------
+
+MESH_TOPOLOGIES = ("2,1", "1,2")    # (data, model): 2-way DP, 2-way TP
+MESH_PROMPTS = 8                    # of decode_path's prompts
+MESH_MAX_TOKENS = 16
+MESH_EXACT_TOKENS = 8               # the all-int8 plan's decode check
+MESH_DEADLINE_S = 400.0
+# a meshed encode against main_path's (rel-Linf of the logits): tensor
+# parallel reorders its float layers' sums (row-parallel partial sums,
+# half-width GEMMs), and at full width one int8 code flipped at a tie
+# moves the logits by about a code's share of the range. The unmeshed port
+# itself moves main_path's logits by 7.4e-3 to 1.44e-2 between one call
+# of 8 rows and two of 4 (the same effect; ``unmeshed_rebatch_rel_linf``,
+# four groups of 8 requests, PERF.md), above the encoder's 5e-3: the
+# budget is 1.7 times the largest reading. Data parallel is held bit for
+# bit at the per-rank shapes instead
+MESH_BUDGET = 2.5e-2
+# tensor-parallel golden decode, teacher-forced on the unmeshed 8-slot
+# run's tokens, against that run's logits row by row (max rel-Linf): the
+# float layers' reordered sums flip int8 codes at ties, in the activations
+# and in the int8 pages, where they stay. The unmeshed port at 4 slots
+# differs from itself at 8 by the same effect, 4.40e-2 on the rows both saw
+# (``unmeshed_4_vs_8``; tensor parallel 4.36e-2, PERF.md): the budget is
+# about twice that
+MESH_DECODE_BUDGET = 1e-1
+# the same decode under an all-int8 plan (every GEMM and both attention
+# matmuls int8, static and dynamic scales): tensor parallel sums exact
+# int32 accumulators and codes at the whole tensor's scales, so only the
+# float unembedding's half-width GEMM reorders a sum: rows within this
+# rel-Linf and every argmax equal
+MESH_EXACT_TOL = 1e-5
+# launches per rank a forward (encode) or a tick (decode): every topology
+# runs the unmeshed path's kernels on the rank's rows or its block (the
+# row-parallel GEMMs in the accumulator mode, the per-token ones coded at
+# the whole row's scale: one launch each, as unmeshed)
+EXPECTED_MESH = {
+    ("mesh_encode_path", "2,1"): EXPECTED["main_path"],
+    ("mesh_encode_path", "1,2"): EXPECTED["main_path"],
+    ("mesh_decode_path", "2,1"): EXPECTED_DECODE,
+    ("mesh_decode_path", "1,2"): EXPECTED_DECODE,
+}
+
+
+def _mesh_kernel_checks(device):
+    """The kernels at the shapes 2-way TP gives them, against their plain
+    versions on the same inputs: ``quant_linear``'s accumulator mode on
+    the row-parallel GEMMs (BERT's M = 1024 rows of K 384 / 1536, qwen2's
+    8 of 448 / 2432; exact), its fused epilogue on qwen2's column-parallel
+    shards (N = 64 for wk / wv, 448 for wq, 2432 for wg / wu; rel-Linf
+    1e-6), ``dynamic_quant``'s scale-in mode on the per-token row-parallel
+    inputs (exact), ``fused_embed`` on the 384-column slice of BERT's
+    tables (exact) and ``decode_attention`` on a rank's one KV head and its
+    7 query heads over int8 per-token pages (max abs 2e-5, as the kernel
+    phase). Returns {name: (error, tolerance)}, the error a max abs
+    difference (the epilogue's a rel-Linf)."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import dynamic_quant as dq
+    from repro_torch.kernels import fused_embed as fe
+    from repro_torch.kernels import quant_linear as ql
+    g = torch.Generator(device=device).manual_seed(16)
+    err = collections.defaultdict(float)
+
+    def codes(*shape):
+        return torch.randint(-128, 128, shape, generator=g, device=device,
+                             dtype=torch.int8)
+    for M, K, N in ((1024, 384, 768), (1024, 1536, 768), (8, 448, 896),
+                    (8, 2432, 896)):
+        xq, wq = codes(M, K), codes(K, N)
+        acc = ql.quant_linear_acc(xq, wq)
+        ref = ql.quant_linear_acc(xq.cpu(), wq.cpu())
+        err["quant_linear acc"] = max(err["quant_linear acc"], float(
+            (acc.cpu() - ref).abs().max()))
+    for N, act in ((64, None), (448, None), (2432, "silu")):
+        xq, wq = codes(8, 896), codes(896, N)
+        ws = torch.rand(N, generator=g, device=device) * 1e-3
+        bias = torch.randn(N, generator=g, device=device)
+        args = (xq, wq, ws, torch.tensor(0.02, device=device))
+        y = ql.quant_linear(*args, bias=bias, act=act)
+        want = ql.quant_linear_plain(*args, bias=bias, act=act)
+        err["quant_linear shard"] = max(err["quant_linear shard"],
+                                        rel_linf(want, y))
+    for M, D in ((1024, 1536), (8, 2432)):
+        x = torch.randn((M, 2 * D), generator=g, device=device)
+        amax = x.abs().amax(dim=-1)
+        part = x[:, :D].contiguous()
+        q, s = dq.dynamic_quant(part, row_amax=amax)
+        q_ref, s_ref = dq.dynamic_quant_plain(part, amax)
+        err["dynamic_quant"] = max(err["dynamic_quant"], float(
+            (q.int() - q_ref.int()).abs().max()), float(
+            (s - s_ref).abs().max()))
+    tok = torch.randn((30522, 384), generator=g, device=device)
+    pos = torch.randn((512, 384), generator=g, device=device)
+    seg = torch.randn((2, 384), generator=g, device=device)
+    ids = torch.randint(0, 30522, (1024,), generator=g, device=device)
+    p_ids = torch.arange(1024, device=device) % 128
+    s_ids = torch.zeros(1024, dtype=torch.int64, device=device)
+    y = fe.fused_embed(ids, tok, pos, seg, s_ids, positions=p_ids)
+    y_ref = fe.fused_embed_plain(ids, tok, pos, seg, s_ids, positions=p_ids)
+    err["fused_embed"] = float((y - y_ref).abs().max())
+    # decode_path's 8 slots of up to 128 tokens over pages of 16, a rank's
+    # one KV head of qwen2's two
+    B, pps, ps, hd = DECODE_SLOTS, DECODE_MAX_LEN // PAGE_SIZE, PAGE_SIZE, 64
+    NP = B * pps
+    args = {"q": torch.randn((B, 1, 7, hd), generator=g, device=device),
+            "k_pages": codes(NP, ps, 1, hd), "v_pages": codes(NP, ps, 1, hd),
+            "page_table": torch.randperm(NP, generator=g, device=device)
+            .to(torch.int32).reshape(B, pps),
+            "lengths": torch.randint(1, pps * ps + 1, (B,), generator=g,
+                                     device=device, dtype=torch.int32),
+            "k_scale": torch.rand((NP, ps, 1), generator=g, device=device)
+            * 1e-2,
+            "v_scale": torch.rand((NP, ps, 1), generator=g, device=device)
+            * 1e-2, "per_head": False}
+    out = da.decode_attention(**args)
+    err["decode_attention"] = float(
+        (out - da.decode_attention_plain(**args)).abs().max())
+    tol = {"quant_linear shard": 1e-6, "decode_attention": 2e-5}
+    return {k: (v, tol.get(k, 0.0)) for k, v in err.items()}
+
+
+def _mesh_served(engine, counted):
+    """One served run on a mesh rank, counted: (launches, forwards or
+    ticks, host s, collective calls and s)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.distributed import comm
+    before = engine.runtime.stats["calls"]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    comm.reset_stats()
+    t = time.perf_counter()
+    out = counted()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return (out, kernels.launch_counts(),
+            engine.runtime.stats["calls"] - before, wall, dict(comm.STATS))
+
+
+def _rank_rows_exact(eng, calls, device):
+    """Each data-parallel call's rows this rank ran against an unmeshed
+    runtime encoding the same rows at the rank's bucket (the per-rank
+    shapes, so every float op runs as unmeshed): max abs difference."""
+    import numpy as np
+    from repro_torch.serve import Runtime
+    from repro_torch.serve.runtime import bucket_size
+    rt, diff = eng.runtime, 0.0
+    for inputs, lengths, out in calls:
+        B = len(lengths)
+        Bb = -(-bucket_size(B, rt.min_batch) // rt._dp) * rt._dp
+        lo, hi = rt.rows(Bb)
+        own = Runtime(rt.cfg, rt.plan, head=rt.head,
+                      token_level=rt.token_level, max_len=rt.max_len,
+                      min_batch=hi - lo, backend="fused", device=device)
+        n = min(hi, B)
+        if n <= lo:
+            continue
+        want = own.encode(eng.params, {k: v[lo:n] for k, v in inputs.items()},
+                          lengths[lo:n])
+        diff = max(diff, float(np.abs(want - out[lo:n]).max()))
+    return diff
+
+
+class RowLogits:
+    """Wraps an engine's decode step and keeps each live row's logits on
+    the device by (request uid, position), with the tokens each request
+    was fed: two runs compare wherever a request saw the same tokens,
+    whatever their slots and ticks."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.step, engine._decode = engine._decode, self
+        self.rows = {}
+
+    def __call__(self, params, caches, tokens, pos, active, pages=None):
+        import numpy as np
+        out, caches = self.step(params, caches, tokens, pos, active, pages)
+        for s in np.flatnonzero(active):
+            uid = self.engine.sched.active[s].uid
+            self.rows[(uid, int(pos[s]))] = out[s].float().clone()
+        return out, caches
+
+
+def _compare_rows(ref, got):
+    """``got``'s logit rows against ``ref``'s on the rows both computed from
+    the same tokens (``seq``: each uid's prompt and output): the rows
+    compared, their max rel-Linf, the sampled positions whose argmax
+    differs, and the tokens each request's argmax kept before its first
+    difference (what a free-running run generates before it diverges)."""
+    rows, worst, differ, kept = 0, 0.0, 0, 0
+    for uid, seq in got["seq"].items():
+        want = ref["seq"][uid]
+        n = 0
+        while n < min(len(seq), len(want)) and seq[n] == want[n]:
+            n += 1
+        first = ref["prompt_len"][uid] - 1       # the first sampled row
+        diverged = False
+        for pos in range(n):
+            a, b = ref["rows"].get((uid, pos)), got["rows"].get((uid, pos))
+            if a is None or b is None:
+                continue
+            rows += 1
+            worst = max(worst, rel_linf(a, b))
+            if pos >= first:
+                same = int(a.argmax()) == int(b.argmax())
+                differ += not same
+                diverged |= not same
+                kept += not diverged
+    return {"rows": rows, "ref_rows": sum(uid in got["seq"]
+                                          for uid, _ in ref["rows"]),
+            "max_rel": worst, "argmax_differ": differ, "tokens_kept": kept}
+
+
+def _mesh_rank(rank, device, job):
+    """One rank of ``mesh_path``: full-width BERT-base and qwen2-0.5b
+    calibrated on the mesh, quantized, and served at each topology, with
+    the unmeshed runs its gates compare against."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.plan import LayerMode, LayerPlan, PrecisionPlan
+    from repro_torch.distributed import comm
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.quant import ptq
+    from repro_torch.serve import EncoderServeEngine, ServeEngine
+
+    out = {"rank": rank, "device": str(device),
+           "backend": dist.get_backend(),
+           "gloo_cuda": comm.probe_gloo_cuda(device)}
+    meshes = {t: make_serving_mesh(t) for t in MESH_TOPOLOGIES}
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    model = setup_model(device)
+    cfg = model["cfg"]
+    # calibration on a mesh splits the batches over every rank, whatever
+    # the topology: one run, on the tensor-parallel mesh
+    out["stats"] = ptq.capture_stats(
+        model["params"], model["batches"], cfg, model["float_plan"],
+        precision=model["plan"], mesh=meshes["1,2"])
+    qparams, qplan = ptq.apply_plan(model["params"], cfg, model["plan"],
+                                    out["stats"],
+                                    float_plan=model["float_plan"])
+    del model["params"]
+    out["encode_setup_s"] = time.perf_counter() - t0
+    for t, mesh in meshes.items():
+        eng = EncoderServeEngine(cfg, qparams, qplan, backend="fused",
+                                 max_batch=8, device=device, mesh=mesh)
+        serve(eng, model["requests"])              # warm-up, not counted
+        calls, encode = [], eng.runtime.encode
+
+        def spy(params, inputs, lengths=None):
+            y = encode(params, inputs, lengths)
+            calls.append(({k: np.asarray(v) for k, v in inputs.items()},
+                          np.asarray(lengths), y))
+            return y
+        eng.runtime.encode = spy
+        (done, _), launches, fwd, wall, coll = _mesh_served(
+            eng, lambda: serve(eng, model["requests"]))
+        eng.runtime.encode = encode
+        rec = {"logits": np.stack([r.logits for r in done]),
+               "predictions": [int(r.prediction) for r in done],
+               "launches": launches, "forwards": fwd, "wall_s": wall,
+               "collectives": coll,
+               "wq_shard": tuple(eng.params["layers"][0]["attn"]["wq"]["w"]
+                                 .values.shape)}
+        if mesh.shape["data"] > 1:
+            rec["rank_rows_max_abs_diff"] = _rank_rows_exact(eng, calls,
+                                                             device)
+        out[f"encode {t}"] = rec
+    del qparams, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with contextlib.redirect_stdout(io.StringIO()):   # rank 0 of the parent
+        dec = setup_decoder(device)                    # prints its own
+    cfg = dec["cfg"]
+    prompts = dec["prompts"][:MESH_PROMPTS]
+    kw = dict(max_len=DECODE_MAX_LEN, page_size=PAGE_SIZE,
+              kv_cache="int8_per_token", backend="fused", device=device)
+
+    def quantized(plan, mesh):
+        t = time.perf_counter()
+        stats = ptq.capture_stats(dec["params"], dec["batches"], cfg,
+                                  dec["float_plan"], precision=plan,
+                                  mesh=mesh)
+        q = ptq.apply_plan(dec["params"], cfg, plan, stats,
+                           float_plan=dec["float_plan"])
+        return q, time.perf_counter() - t
+
+    def decode(tree, plan, mesh, slots, max_tokens, forced=None):
+        """One served run, counted and its rows kept; ``forced`` (a run's
+        record) feeds each request that run's tokens (teacher forcing: the
+        prompt and all but the last output, one token to generate)."""
+        eng = ServeEngine(cfg, *tree, batch_slots=slots, mesh=mesh,
+                          precision=plan, **kw)
+        serve_decode(eng, [prompts[0][:4]], max_tokens=1)  # warm-up
+        ticks0 = eng.stats["ticks"]
+        feed = (prompts if forced is None else
+                [forced["seq"][i][:-1] for i in range(len(prompts))])
+        rows = RowLogits(eng)
+        (tokens, _), launches, _, wall, coll = _mesh_served(
+            eng, lambda: serve_decode(eng, feed, max_tokens=(
+                max_tokens if forced is None else 1)))
+        return {"tokens": tokens, "rows": rows.rows,
+                "seq": {i: list(feed[i]) + tokens[i] for i in tokens},
+                "prompt_len": {i: len(prompts[i]) for i in tokens},
+                "launches": launches, "ticks": eng.stats["ticks"] - ticks0,
+                "wall_s": wall, "collectives": coll,
+                "pages_in_use": eng.kv_pages_in_use,
+                "slots": int(eng.caches[0]["pos"].shape[0]),
+                "kv_heads": int(eng.caches[1]["pages_k"].shape[2])}
+
+    def summary(r):
+        return {k: v for k, v in r.items()
+                if k not in ("rows", "seq", "prompt_len")}
+
+    golden = dec["plan"]
+    tree, out["decode_setup_s"] = quantized(golden, meshes["2,1"])
+    runs = {"unmeshed": decode(tree, golden, None, DECODE_SLOTS,
+                               MESH_MAX_TOKENS)}
+    # the unmeshed port at a rank's data-parallel slots
+    runs["unmeshed_half"] = decode(tree, golden, None, DECODE_SLOTS // 2,
+                                   MESH_MAX_TOKENS)
+    runs["2,1"] = decode(tree, golden, meshes["2,1"], DECODE_SLOTS,
+                         MESH_MAX_TOKENS)
+    runs["1,2"] = decode(tree, golden, meshes["1,2"], DECODE_SLOTS,
+                         MESH_MAX_TOKENS, forced=runs["unmeshed"])
+    u8 = runs["unmeshed"]
+    out["decode"] = {t: summary(r) for t, r in runs.items()}
+    out["decode"]["unmeshed"]["finite"] = all(
+        bool(torch.isfinite(v).all()) for v in u8["rows"].values())
+    out["compare"] = {
+        "unmeshed_4_vs_8": _compare_rows(u8, runs["unmeshed_half"]),
+        "2,1_vs_unmeshed_half": _compare_rows(runs["unmeshed_half"],
+                                              runs["2,1"]),
+        "2,1_vs_unmeshed": _compare_rows(u8, runs["2,1"]),
+        "1,2_vs_unmeshed": _compare_rows(u8, runs["1,2"])}
+    del runs, tree, u8
+    gc.collect()
+    # the all-int8 plan: the golden plan's static int8 layers beside fully
+    # quantized per-token ones (dynamic activation and attention scales)
+    dyn = LayerPlan.for_mode(LayerMode.FULLY_QUANT, dynamic_acts=True)
+    g = dec["plan"].layers
+    exact = PrecisionPlan(tuple(g[i] if i % 4 in (0, 3) else dyn
+                                for i in range(cfg.num_layers)),
+                          dec["plan"].float_dtype)
+    tree, out["exact_setup_s"] = quantized(exact, meshes["1,2"])
+    ux = decode(tree, exact, None, DECODE_SLOTS, MESH_EXACT_TOKENS)
+    tx = decode(tree, exact, meshes["1,2"], DECODE_SLOTS, MESH_EXACT_TOKENS,
+                forced=ux)
+    out["exact"] = {"plan": exact.describe(), "unmeshed": summary(ux),
+                    "1,2": summary(tx), "compare": _compare_rows(ux, tx)}
+    del tree, ux, tx
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    if rank == 0:
+        out["kernel_errors"] = _mesh_kernel_checks(device)
+    return out
+
+
+def _rebatch_noise(main, device):
+    """The unmeshed port's own batching noise on main_path's engine: for
+    each of four groups of 8 requests (by length), its logits in one call
+    of 8 against two calls of 4 (rel-Linf). Every float GEMM and reduction
+    of the card may round differently at another batch, and one int8 code
+    flipped at a tie moves the logits by about a code's share of the
+    range: the floor any comparison across shapes or summation orders
+    meets."""
+    import numpy as np
+    from repro_torch.serve import Runtime
+    rt = main["fused"].runtime
+    params = main["qparams"]
+    half = Runtime(rt.cfg, rt.plan, head=rt.head, max_len=rt.max_len,
+                   min_batch=4, backend="fused", device=device)
+    reqs = sorted(main["requests"], key=len)
+    noise = []
+    for g in range(0, len(reqs) - 7, 8):
+        group = reqs[g:g + 8]
+        S = max(len(r) for r in group)
+        toks = np.zeros((8, S), np.int32)
+        for i, r in enumerate(group):
+            toks[i, :len(r)] = r
+        lens = np.asarray([len(r) for r in group], np.int32)
+        whole = rt.encode(params, {"tokens": toks}, lens)
+        parts = np.concatenate([half.encode(params,
+                                            {"tokens": toks[i:i + 4]},
+                                            lens[i:i + 4]) for i in (0, 4)])
+        noise.append(float(np.abs(whole - parts).max()
+                           / np.abs(whole).max()))
+    return noise
+
+
+def phase_mesh(main, device, card, max_err):
+    """``mesh_path``: two ranks on the card over gloo (NCCL refuses two
+    ranks on one device), each serving full-width BERT-base (main_path's
+    model, weights, tiled golden plan and 32 requests, calibrated on the
+    mesh) and qwen2-0.5b (8 of decode_path's prompts, 16 greedy tokens,
+    int8 per-token pages of 16, 8 slots) at (data=2, model=1) and (data=1,
+    model=2). Gates, on every rank:
+
+    * the mesh stats equal main_path's exactly;
+    * data parallel: each rank's rows of every call equal an unmeshed
+      runtime encoding those rows at the rank's bucket, bit for bit, and
+      its decode tokens an unmeshed engine's with the rank's 4 slots (the
+      per-rank shapes: every op runs as unmeshed);
+    * tensor parallel (its int8 GEMMs sum exact int32 accumulators, its
+      float layers reorder float sums): the encode logits within
+      ``MESH_BUDGET`` of main_path's (data parallel's too); the golden
+      decode, teacher-forced on the unmeshed 8-slot run's tokens, every
+      logit row within ``MESH_DECODE_BUDGET`` of that run's; under an
+      all-int8 plan every row within ``MESH_EXACT_TOL`` and every argmax
+      equal;
+    * predictions equal main_path's, every decode token in the vocabulary,
+      no page in use after, and the launches a forward or tick as
+      ``EXPECTED_MESH``.
+
+    It also reports the unmeshed port's own noise beside each comparison
+    (:func:`_rebatch_noise`; its decode at 4 slots against 8), the tokens
+    tensor parallel keeps before its first argmax difference, each rank's
+    wall a forward or tick, its collectives and peak memory. Two ranks on
+    one card prove the sharded computation and the kernels at shard
+    widths; they measure no multi-GPU speed."""
+    import torch
+    from repro_torch.distributed import comm
+    t0 = time.perf_counter()
+    noise = _rebatch_noise(main, device)
+    ranks = comm.spawn(2, _mesh_rank, (None,), device="cuda",
+                       deadline_s=MESH_DEADLINE_S)
+    spawn_s = time.perf_counter() - t0
+    emit({"phase": "mesh_path", "part": "process_group",
+          "backend": ranks[0]["backend"], "ranks": len(ranks),
+          "devices": [r["device"] for r in ranks], "card": card,
+          "gloo_cuda_collectives": ranks[0]["gloo_cuda"],
+          "unmeshed_rebatch_rel_linf": noise})
+    for r in ranks:
+        bad = [op for op in comm.COLLECTIVES if r["gloo_cuda"].get(op)
+               is not True]
+        if r["backend"] == "gloo" and bad:
+            fail(f"mesh_path: gloo refused {bad} on CUDA tensors: "
+                 f"{r['gloo_cuda']}")
+    main_logits = main["logits"]
+    per_rank = collections.defaultdict(dict)
+    failures = []
+    for r in ranks:
+        rank = r["rank"]
+        if r["stats"] != main["stats"]:
+            failures.append(f"rank {rank}'s stats on the mesh differ from "
+                            f"main_path's")
+        for t in MESH_TOPOLOGIES:
+            e = r[f"encode {t}"]
+            logits = torch.from_numpy(e["logits"])
+            err = rel_linf(main_logits, logits)
+            fwd = max(e["forwards"], 1)
+            per = {k: v / fwd for k, v in e["launches"].items() if v}
+            rec = {"phase": "mesh_path", "part": "encode", "rank": rank,
+                   "topology": t, "model": "bert-base",
+                   "rel_linf_vs_main_path": err,
+                   "max_abs_diff_vs_main_path": float(
+                       (logits - main_logits).abs().max()),
+                   "predictions_equal": e["predictions"] == main["preds"],
+                   "forwards": e["forwards"], "launches": e["launches"],
+                   "launches_per_forward": per, "wall_s": e["wall_s"],
+                   "ms_per_forward": e["wall_s"] / fwd * 1e3,
+                   "collectives": e["collectives"],
+                   "wq_shard": e["wq_shard"], "card": card}
+            if "rank_rows_max_abs_diff" in e:
+                rec["rank_rows_max_abs_diff"] = e["rank_rows_max_abs_diff"]
+            emit(rec)
+            per_rank[("mesh_encode_path", t)][rank] = per
+            if e["predictions"] != main["preds"]:
+                failures.append(f"rank {rank} encode on {t}: predictions "
+                                f"differ from main_path's")
+            if e.get("rank_rows_max_abs_diff", 0.0) != 0.0:
+                failures.append(
+                    f"rank {rank} encode on {t}: its rows differ from the "
+                    f"unmeshed encode at its bucket by "
+                    f"{e['rank_rows_max_abs_diff']}")
+            if err > MESH_BUDGET:
+                failures.append(f"rank {rank} encode on {t}: rel-Linf {err} "
+                                f"vs main_path > {MESH_BUDGET}")
+            if per != EXPECTED_MESH[("mesh_encode_path", t)]:
+                failures.append(
+                    f"rank {rank} encode on {t} launched {per} a forward, "
+                    f"not {EXPECTED_MESH[('mesh_encode_path', t)]}")
+        dec, cmp_ = r["decode"], r["compare"]
+        if not dec["unmeshed"]["finite"]:
+            failures.append(f"rank {rank}: unmeshed decode logits are not "
+                            f"finite")
+        for t in MESH_TOPOLOGIES:
+            d = dec[t]
+            ticks = max(d["ticks"], 1)
+            per = {k: v / ticks for k, v in d["launches"].items() if v}
+            ref = dec["unmeshed_half" if t == "2,1" else "unmeshed"]
+            rec = {"phase": "mesh_path", "part": "decode", "rank": rank,
+                   "topology": t, "model": "qwen2-0.5b",
+                   "teacher_forced": t == "1,2",
+                   "vs_unmeshed": cmp_[f"{t}_vs_unmeshed"],
+                   "unmeshed_4_vs_8": cmp_["unmeshed_4_vs_8"],
+                   "ticks": d["ticks"], "launches": d["launches"],
+                   "launches_per_tick": per, "wall_s": d["wall_s"],
+                   "ms_per_tick": d["wall_s"] / ticks * 1e3,
+                   "unmeshed_ms_per_tick": ref["wall_s"]
+                   / max(ref["ticks"], 1) * 1e3,
+                   "collectives": d["collectives"],
+                   "pages_in_use_after": d["pages_in_use"],
+                   "slots_held": d["slots"], "kv_heads_held": d["kv_heads"],
+                   "card": card}
+            if t == "2,1":
+                rec["tokens_equal_unmeshed_4_slots"] = (d["tokens"]
+                                                        == ref["tokens"])
+                rec["vs_unmeshed_4_slots"] = cmp_["2,1_vs_unmeshed_half"]
+            emit(rec)
+            per_rank[("mesh_decode_path", t)][rank] = per
+            want = 1 if t == "1,2" else MESH_MAX_TOKENS
+            if sorted(d["tokens"]) != list(range(MESH_PROMPTS)) or any(
+                    len(o) != want or not all(0 <= x < 151936 for x in o)
+                    for o in d["tokens"].values()):
+                failures.append(f"rank {rank} decode on {t}: not {want} "
+                                f"in-vocabulary tokens a prompt")
+            if t == "2,1" and d["tokens"] != ref["tokens"]:
+                failures.append(f"rank {rank} decode on {t}: tokens differ "
+                                f"from the unmeshed run at its slots")
+            c = cmp_[f"{t}_vs_unmeshed"]
+            if t == "1,2" and (c["rows"] < c["ref_rows"]
+                               or c["max_rel"] > MESH_DECODE_BUDGET):
+                failures.append(
+                    f"rank {rank} decode on {t}: {c['rows']} rows within "
+                    f"rel-Linf {c['max_rel']} of the unmeshed run's "
+                    f"(budget {MESH_DECODE_BUDGET})")
+            if d["pages_in_use"] or ref["pages_in_use"]:
+                failures.append(f"rank {rank} decode on {t}: "
+                                f"{d['pages_in_use']} pages in use after")
+            if per != EXPECTED_MESH[("mesh_decode_path", t)]:
+                failures.append(
+                    f"rank {rank} decode on {t} launched {per} a tick, not "
+                    f"{EXPECTED_MESH[('mesh_decode_path', t)]}")
+        x = r["exact"]
+        c = x["compare"]
+        emit({"phase": "mesh_path", "part": "decode_exact", "rank": rank,
+              "topology": "1,2", "model": "qwen2-0.5b", "plan": x["plan"],
+              "teacher_forced": True, "vs_unmeshed": c,
+              "ms_per_tick": x["1,2"]["wall_s"]
+              / max(x["1,2"]["ticks"], 1) * 1e3,
+              "unmeshed_ms_per_tick": x["unmeshed"]["wall_s"]
+              / max(x["unmeshed"]["ticks"], 1) * 1e3,
+              "launches": x["1,2"]["launches"], "card": card})
+        if (c["rows"] < c["ref_rows"] or c["argmax_differ"]
+                or c["max_rel"] > MESH_EXACT_TOL
+                or x["1,2"]["pages_in_use"]):
+            failures.append(
+                f"rank {rank} all-int8 decode on 1,2: {c['rows']} rows, "
+                f"rel-Linf {c['max_rel']} (tolerance {MESH_EXACT_TOL}), "
+                f"{c['argmax_differ']} argmax differences")
+        for case, (e, tol) in r.get("kernel_errors", {}).items():
+            if e > tol:
+                failures.append(f"{case} at the mesh's shapes differs from "
+                                f"its plain version by {e} (> {tol})")
+            name = case.split()[0]
+            if case != "quant_linear shard":      # a rel-Linf
+                max_err[name] = max(max_err[name], e)
+    emit({"phase": "mesh_path", "part": "summary", "spawn_s": spawn_s,
+          "seconds": time.perf_counter() - t0,
+          "peak_bytes_per_rank": [r["peak_bytes"] for r in ranks],
+          "encode_setup_s": [r["encode_setup_s"] for r in ranks],
+          "decode_setup_s": [r["decode_setup_s"] for r in ranks],
+          "exact_setup_s": [r["exact_setup_s"] for r in ranks],
+          "kernel_errors": ranks[0].get("kernel_errors"), "card": card,
+          "note": "two ranks share one card over gloo: the sharded "
+                  "computation and the kernels at shard widths, no "
+                  "multi-GPU speed"})
+    if failures:
+        fail("mesh_path: " + "; ".join(failures))
+    return {name: {f"{path}_{'dp' if t == '2,1' else 'tp'}":
+                   int(per_rank[(path, t)][0].get(name, 0))
+                   for (path, t) in EXPECTED_MESH}
+            for name in KERNELS}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{ROOT} holds no src/repro_torch: run from a checkout of the "
@@ -4924,6 +5546,7 @@ def main() -> int:
     paths.append(phase_adaptive(model, decoder, device))
     paths += phase_http(model, decoder, device, card)
     timed, max_err = {}, collections.defaultdict(float)
+    mesh = phase_mesh(paths[0], device, card, max_err)
     check_kernels(paths, device, timed, max_err)
     long_decode = run_long_decode_case(device, Timer(device))
     wide_page = run_wide_page_decode_case(device, Timer(device))
@@ -4953,7 +5576,7 @@ def main() -> int:
     paths += phase_archs(device, timed, max_err)
     emit({"kernels": summarize(paths, timed, max_err, flash, long_decode,
                                wide_page, long_attention, wide,
-                               wide_heads)})
+                               wide_heads, mesh)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

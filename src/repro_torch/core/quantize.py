@@ -171,5 +171,13 @@ def int8_matmul(x_q: QuantizedTensor, w_q: QuantizedTensor,
     if x_q.zero_point is not None:
         # (q_x - z_x) @ q_w: weights are symmetric
         acc = acc - x_q.zero_point * w_q.values.to(torch.int32).sum(dim=0)
-    scale = x_q.scale * w_q.scale.reshape((1,) * (acc.ndim - 1) + (-1,))
+    return dequantize_acc(acc, x_q.scale, w_q, out_dtype)
+
+
+def dequantize_acc(acc: torch.Tensor, x_scale: torch.Tensor,
+                   w_q: QuantizedTensor,
+                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """An int32 accumulator of :func:`int8_matmul` dequantized as it does:
+    acc * (x_scale * w_scale), the weight's scale over the last axis."""
+    scale = x_scale * w_q.scale.reshape((1,) * (acc.ndim - 1) + (-1,))
     return (acc.to(torch.float32) * scale).to(out_dtype)

@@ -33,6 +33,16 @@ The PrecisionPlan decides *what* is quantized; the compute backend decides
   versions in both).
 
 Every op returns a result or ``None`` ("decline — use the reference path").
+
+On a tensor-parallel mesh every op sees one rank's local tensors (its
+block of a weight, its heads, its KV heads) and claims them as it claims
+whole ones: the kernels take any width their vector paths take (qwen2's
+``wk``/``wv`` shard, N = 64 at tp 2; ``decode_attention`` on a rank's one
+KV head and its group of 7 query heads). A row-parallel int8
+GEMM (K split over the ranks) runs :meth:`FusedBackend.linear_acc`: the
+``quant_linear`` kernel in its accumulator mode, codes at the whole row's
+per-token scale (``dynamic_quant``'s scale-in mode), the epilogue after the
+ranks' int32 sums.
 """
 from __future__ import annotations
 
@@ -53,7 +63,8 @@ from repro_torch.kernels.expert_gemm import (quant_expert_gemm,
                                              quant_expert_gemm_plain)
 from repro_torch.kernels.flash_attention import quant_flash_attention
 from repro_torch.kernels.fused_embed import fused_embed
-from repro_torch.kernels.quant_linear import ACTIVATIONS, quant_linear
+from repro_torch.kernels.quant_linear import (ACTIVATIONS, quant_linear,
+                                              quant_linear_acc)
 
 #: activation functions a fused GEMM epilogue can apply — exactly the
 #: kernel's own table
@@ -123,6 +134,14 @@ class ComputeBackend:
         Return the result, or None to use the caller's reference path."""
         return None
 
+    def linear_acc(self, x, p: dict, *, row_amax=None):
+        """The int32 accumulator of a row-parallel int8 GEMM (this rank's
+        columns of ``x`` against its rows of ``w``) and the activation
+        scale it was coded at: ``(acc (M, N), x_scale)``, or None to use
+        the caller's reference path. ``row_amax`` maps this rank's per-row
+        amax (M,) to the whole row's (a max over the model axis)."""
+        return None
+
     def addnorm(self, delta, residual, p: dict, kind: str, next_scale,
                 eps: float = 1e-6):
         """The residual boundary: (residual + delta, norm(...)) requantized
@@ -190,10 +209,15 @@ class FusedBackend(ComputeBackend):
 
     name = "fused"
 
+    @staticmethod
+    def _claims(w, act=None) -> bool:
+        # an int8 2-D block with an activation the epilogue applies
+        return (isinstance(w, QuantizedTensor) and w.values.ndim == 2
+                and act in FUSABLE_ACTS)
+
     def linear(self, x, p: dict, *, act: Optional[str] = None):
         w = p.get("w")
-        if (not isinstance(w, QuantizedTensor) or w.values.ndim != 2
-                or act not in FUSABLE_ACTS):
+        if not self._claims(w, act):
             return None          # float block: reference path
         K, N = w.values.shape
         lead = x.shape[:-1]
@@ -223,6 +247,24 @@ class FusedBackend(ComputeBackend):
             return QuantActivation(QuantizedTensor(y, out_xs, None),
                                    x.dtype)
         return y
+
+    def linear_acc(self, x, p: dict, *, row_amax=None):
+        w = p.get("w")
+        if not self._claims(w):
+            return None
+        K = w.values.shape[0]
+        if isinstance(x, QuantActivation):
+            x_q, x_scale = x.q.values.reshape(-1, K), x.q.scale
+        else:
+            x2 = x.reshape(-1, K)
+            xs = p.get("xs")
+            if xs is not None:                     # static per-tensor scale
+                x_q, x_scale = quantize(x2, xs), xs
+            else:                                  # the whole row's scale
+                amax = row_amax(torch.amax(x2.abs(), dim=-1)
+                                .to(torch.float32))
+                x_q, x_scale = dynamic_quant(x2.contiguous(), row_amax=amax)
+        return quant_linear_acc(x_q.contiguous(), w.values), x_scale
 
     def addnorm(self, delta, residual, p: dict, kind: str, next_scale,
                 eps: float = 1e-6):
@@ -325,6 +367,10 @@ class AutoBackend(FusedBackend):
 
     def linear(self, x, p: dict, *, act: Optional[str] = None):
         return super().linear(x, p, act=act) if _on_cuda(x) else None
+
+    def linear_acc(self, x, p: dict, *, row_amax=None):
+        return (super().linear_acc(x, p, row_amax=row_amax)
+                if _on_cuda(x) else None)
 
     def addnorm(self, delta, residual, p: dict, kind: str, next_scale,
                 eps: float = 1e-6):

@@ -136,7 +136,9 @@ __device__ __forceinline__ float row_amax(float amax, float* red, int lr,
 template <int VPT, bool VEC>
 __global__ void __launch_bounds__(kMaxThreads)
 dynamic_quant_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
-                     float* __restrict__ scale, int M, int D, int tpr) {
+                     float* __restrict__ scale,
+                     const float* __restrict__ amax_in, int M, int D,
+                     int tpr) {
   __shared__ float red[kMaxThreads / 32];
   const int lr = threadIdx.x / tpr;          // row within the block
   const int tr = threadIdx.x - lr * tpr;     // thread within the row
@@ -169,6 +171,9 @@ dynamic_quant_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
   }
   amax = row_amax(amax, red, lr, tpr);
   if (!live) return;
+  // the scale-in mode: the row's amax over the whole row, of which this x
+  // holds one rank's columns (a tensor-parallel mesh)
+  if (amax_in != nullptr) amax = amax_in[row];
   const float s = fmaxf(amax, 1e-8f) / 127.0f;
   int8_t* qr = q + row * D;
   if constexpr (VPT > 0) {
@@ -196,15 +201,15 @@ dynamic_quant_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
 }
 
 template <int VPT>
-void launch(const float* x, int8_t* q, float* scale, int M, int D,
-            const Plan& p, bool vec, cudaStream_t st) {
+void launch(const float* x, int8_t* q, float* scale, const float* amax_in,
+            int M, int D, const Plan& p, bool vec, cudaStream_t st) {
   const int blocks = (M + p.rpb - 1) / p.rpb;
   if (vec)
     dynamic_quant_kernel<VPT, true><<<blocks, p.tpr * p.rpb, 0, st>>>(
-        x, q, scale, M, D, p.tpr);
+        x, q, scale, amax_in, M, D, p.tpr);
   else
     dynamic_quant_kernel<VPT, false><<<blocks, p.tpr * p.rpb, 0, st>>>(
-        x, q, scale, M, D, p.tpr);
+        x, q, scale, amax_in, M, D, p.tpr);
 }
 
 }  // namespace
@@ -219,9 +224,12 @@ extern "C" void samp_dynamic_quant_plan(int M, int D, int* out) {
 }
 
 // x: (M, D) float32, q: (M, D) int8, scale: (M,) float32; all contiguous,
-// rows of any width.
-extern "C" int samp_dynamic_quant(const void* x, void* q, void* scale, int M,
-                                  int D, void* stream) {
+// rows of any width. amax_in: null, or (M,) float32 row amaxes that take the
+// place of the rows' own (the scale-in mode of a tensor-parallel mesh, where
+// x is one rank's columns and the scale is the whole row's).
+extern "C" int samp_dynamic_quant(const void* x, void* q, void* scale,
+                                  const void* amax_in, int M, int D,
+                                  void* stream) {
   if (M > 0 && D > 0) {
     const Plan p = plan(M, D);
     const bool vec = D % 4 == 0 && (uintptr_t)x % 16 == 0 &&
@@ -230,12 +238,13 @@ extern "C" int samp_dynamic_quant(const void* x, void* q, void* scale, int M,
     auto* qq = (int8_t*)q;
     auto* sc = (float*)scale;
     auto* st = (cudaStream_t)stream;
+    const auto* am = (const float*)amax_in;
     switch (p.vpt) {
-      case 1: launch<1>(xf, qq, sc, M, D, p, vec, st); break;
-      case 2: launch<2>(xf, qq, sc, M, D, p, vec, st); break;
-      case 4: launch<4>(xf, qq, sc, M, D, p, vec, st); break;
-      case 8: launch<8>(xf, qq, sc, M, D, p, vec, st); break;
-      default: launch<0>(xf, qq, sc, M, D, p, vec, st); break;
+      case 1: launch<1>(xf, qq, sc, am, M, D, p, vec, st); break;
+      case 2: launch<2>(xf, qq, sc, am, M, D, p, vec, st); break;
+      case 4: launch<4>(xf, qq, sc, am, M, D, p, vec, st); break;
+      case 8: launch<8>(xf, qq, sc, am, M, D, p, vec, st); break;
+      default: launch<0>(xf, qq, sc, am, M, D, p, vec, st); break;
     }
   }
   return (int)cudaGetLastError();

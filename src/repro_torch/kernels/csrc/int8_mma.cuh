@@ -123,6 +123,9 @@ struct Epilogue {
   Routing rt;
   int xs_per_expert;
   int e;
+  // non-null: write the int32 accumulator here (M, N) and no epilogue (the
+  // row-parallel GEMM of a tensor-parallel mesh sums it across ranks first)
+  int* out_acc;
 
   // this epilogue for expert e (blockIdx.z)
   __device__ __forceinline__ Epilogue bind(int expert) const {
@@ -144,6 +147,10 @@ struct Epilogue {
   __device__ __forceinline__ void store(int m, int n, int acc) const {
     if (m >= M || n >= N) return;
     const long long r = row(m);
+    if (out_acc != nullptr) {
+      out_acc[r * N + n] = acc;
+      return;
+    }
     const float y = value(x_scale[r * xs_stride], n, acc);
     if (out_q != nullptr) {
       const float c = fminf(fmaxf(rintf(y / *out_scale), -128.0f), 127.0f);
@@ -172,6 +179,10 @@ struct Epilogue {
       return;
     }
     const long long r = row(m);
+    if (out_acc != nullptr) {
+      *reinterpret_cast<int4*>(out_acc + r * N + n) = acc;
+      return;
+    }
     const float xs = x_scale[r * xs_stride];
     const float y0 = value(xs, n, acc.x), y1 = value(xs, n + 1, acc.y);
     const float y2 = value(xs, n + 2, acc.z), y3 = value(xs, n + 3, acc.w);

@@ -56,7 +56,28 @@ extern "C" int samp_quant_linear(const void* x_q, const void* w_q,
       (float*)out_f,         (int8_t*)out_q,
       M,                     N,
       act,                   Routing{0, 1},
-      0,                     0};
+      0,                     0,
+      nullptr};
+  const int vec = K % 16 == 0 && N % 16 == 0 &&
+                  ((uintptr_t)x_q | (uintptr_t)w_q) % 16 == 0;
+  return int8_gemm<quant_linear_kernel>(
+      (const int8_t*)x_q, (const int8_t*)w_q, ep, K, 1, splits, (int*)work,
+      vec, (cudaStream_t)stream);
+}
+
+// The accumulator mode: acc (M, N) int32 = x_q (M, K) @ w_q (K, N), with no
+// epilogue. A tensor-parallel mesh splits a row-parallel GEMM's K over its
+// ranks; each rank's partial accumulator is summed across them (integer
+// sums are exact) before the epilogue runs, so the sharded layer equals the
+// whole one bit for bit. splits and work as samp_quant_linear's.
+extern "C" int samp_quant_linear_acc(const void* x_q, const void* w_q,
+                                     void* acc, void* work, int M, int N,
+                                     int K, int splits, void* stream) {
+  if (M <= 0 || N <= 0) return (int)cudaGetLastError();
+  const Epilogue<false> ep{
+      nullptr, nullptr, 0, nullptr, nullptr, nullptr, nullptr,
+      M,       N,       0, Routing{0, 1},   0,       0,
+      (int*)acc};
   const int vec = K % 16 == 0 && N % 16 == 0 &&
                   ((uintptr_t)x_q | (uintptr_t)w_q) % 16 == 0;
   return int8_gemm<quant_linear_kernel>(

@@ -93,18 +93,66 @@ def quant_linear_plain(x_q: torch.Tensor, w_q: torch.Tensor,
                        out_scale: Union[float, torch.Tensor, None] = None
                        ) -> torch.Tensor:
     """The plain-PyTorch contract of :func:`quant_linear`."""
-    M = x_q.shape[0]
-    acc = int_matmul(x_q, w_q)
-    xs = _row_scales(x_scale, M, x_q.device)
+    return quant_linear_epilogue(int_matmul(x_q, w_q), w_scale, x_scale,
+                                 bias=bias, act=act, out_scale=out_scale)
+
+
+def quant_linear_epilogue(acc: torch.Tensor, w_scale: torch.Tensor,
+                          x_scale: Union[float, torch.Tensor], *,
+                          bias: Optional[torch.Tensor] = None,
+                          act: Optional[str] = None,
+                          out_scale: Union[float, torch.Tensor, None] = None
+                          ) -> torch.Tensor:
+    """The kernel's epilogue on an int32 accumulator (M, N), in its order:
+    acc * (x_scale * w_scale), + bias, the activation, the int8 requant at
+    ``out_scale``. A tensor-parallel mesh runs it after summing the ranks'
+    :func:`quant_linear_acc` accumulators."""
+    M = acc.shape[0]
+    xs = _row_scales(x_scale, M, acc.device)
     y = acc.to(torch.float32) * (xs * w_scale.to(torch.float32).reshape(1, -1))
     if bias is not None:
         y = y + bias.to(torch.float32).reshape(1, -1)
     y = ACTIVATIONS[act](y)
     if out_scale is not None:
         os_ = torch.as_tensor(out_scale, dtype=torch.float32,
-                              device=x_q.device)
+                              device=acc.device)
         return torch.clamp(torch.round(y / os_), -128, 127).to(torch.int8)
     return y
+
+
+def quant_linear_acc(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """The accumulator mode of :func:`quant_linear`: x_q (M, K) int8 @ w_q
+    (K, N) int8 as int32 (M, N), with no epilogue (the plain version's
+    :func:`~repro_torch.core.quantize.int_matmul` on the CPU). Every
+    integer sum is exact, so the ranks' partial accumulators of a K-split
+    GEMM sum to the whole one's."""
+    global launches
+    if x_q.device.type == "cpu":
+        return int_matmul(x_q, w_q)
+    if x_q.device.type != "cuda":
+        raise ValueError(f"quant_linear: no kernel for device {x_q.device}")
+    name = "quant_linear"
+    if x_q.ndim != 2 or w_q.ndim != 2 or x_q.shape[1] != w_q.shape[0]:
+        raise ValueError(f"{name}: shapes {tuple(x_q.shape)} @ "
+                         f"{tuple(w_q.shape)} do not form (M,K) @ (K,N)")
+    dev = x_q.device
+    M, K = x_q.shape
+    N = w_q.shape[1]
+    build.operand(name, "x_q", x_q, torch.int8, dev)
+    build.operand(name, "w_q", w_q, torch.int8, dev)
+    acc = torch.empty((M, N), dtype=torch.int32, device=dev)
+    splits = quant_linear_splits(M, N, K)
+    work = (torch.zeros(quant_linear_workspace(M, N, K), dtype=torch.int32,
+                        device=dev) if splits > 1 else None)
+    P, I = build.P, build.I
+    fn = build.function("samp_quant_linear_acc", (P, P, P, P, I, I, I, I, P))
+    with torch.cuda.device(dev):
+        rc = fn(x_q.data_ptr(), w_q.data_ptr(), acc.data_ptr(),
+                work.data_ptr() if work is not None else None,
+                M, N, K, splits, build.stream(dev))
+    build.check(rc, name)
+    launches += 1
+    return acc
 
 
 def quant_linear(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,

@@ -54,9 +54,11 @@ def add_serving_flags(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
                          "PyTorch ops, fused CUDA kernels, or auto (fused "
                          "on CUDA, reference on the CPU)")
     ap.add_argument("--mesh", default="1,1",
-                    help="serving mesh as 'dp,tp'; the port serves one "
-                         "device, so anything but 1,1 exits (meshes are "
-                         "ROADMAP queue 1 item 8)")
+                    help="serving mesh as 'dp,tp' (data-parallel x tensor-"
+                         "parallel ranks); 1,1 = unmeshed. launch.serve "
+                         "spawns dp*tp ranks, round-robin on the cards "
+                         "(gloo where they share one); the HTTP server "
+                         "serves unmeshed only (ROADMAP queue 1 item 8c)")
     ap.add_argument("--slots", type=int, default=4,
                     help="decode batch slots / encoder micro-batch size")
     ap.add_argument("--max-len", type=int, default=128)
@@ -81,19 +83,11 @@ def add_serving_flags(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
     return ap
 
 
-def check_mesh(spec: str) -> None:
+def check_mesh(spec: str) -> tuple[int, int]:
     """Validate ``--mesh`` as the JAX CLIs parse it (two integers >= 1);
-    the port serves unmeshed, so anything but ``1,1`` exits."""
-    try:
-        dp, tp = (int(p) for p in spec.split(","))
-    except ValueError:
-        raise ValueError(f"--mesh wants 'dp,tp' (two integers), got "
-                         f"{spec!r}") from None
-    if dp < 1 or tp < 1:
-        raise ValueError(f"--mesh axes must be >= 1, got {spec!r}")
-    if (dp, tp) != (1, 1):
-        raise SystemExit(f"--mesh {spec}: the port serves one device; "
-                         f"multi-GPU serving is ROADMAP queue 1 item 8")
+    returns ``(dp, tp)``."""
+    from repro_torch.launch.mesh import parse_mesh
+    return parse_mesh(spec)
 
 
 def serving_config(args):

@@ -23,6 +23,11 @@
     # the reduced config through the kernels' plain versions, on the CPU
     ... --device cpu
 
+    # mesh-sharded serving: dp-way data parallel x tp-way tensor parallel;
+    # dp * tp ranks, round-robin on the cards (gloo where they share one)
+    ... --mesh 2,1
+    ... --mesh 1,2
+
 Instantiates the full config on the card (``--device cuda``, the default)
 or the reduced one on the CPU (``--device cpu``, the JAX CLI's container
 path), PTQ-calibrates on synthetic batches, applies the requested
@@ -31,11 +36,16 @@ precision — a named mode policy (``--policy``), a saved declarative plan
 accuracy proxied by closeness to the float forward, latency from the H100
 roofline model) — and serves a batch of random requests through the
 continuous-batching decode engine (``--task lm``) or the dynamic
-micro-batching encoder engine.
+micro-batching encoder engine. ``--mesh dp,tp`` other than ``1,1`` spawns
+``dp * tp`` ranks (:func:`repro_torch.distributed.comm.spawn`) that each
+build the same model and serve the same requests SPMD; rank 0 prints.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
+import sys
 import time
 
 import numpy as np
@@ -47,8 +57,10 @@ from repro_torch.core.plan import (PlanSet, PrecisionPlan,
 from repro_torch.core.precision import make_policy
 from repro_torch.core.samp import SAMPEngine
 from repro_torch.data.pipeline import make_task
-from repro_torch.launch.cli import (add_serving_flags, parse_cluster_model,
-                                    resolve_task, serving_config)
+from repro_torch.distributed.sharding import mesh_fingerprint
+from repro_torch.launch.cli import (add_serving_flags, check_mesh,
+                                    parse_cluster_model, resolve_task,
+                                    serving_config)
 from repro_torch.models import transformer as T
 from repro_torch.serve import (EncoderRequest, EncoderServeEngine, Request,
                                ServeEngine)
@@ -102,12 +114,13 @@ def search_plan(cfg, eng: SAMPEngine, params, stats, strategy: str, *,
 
 def build_model(cfg, policy_name: str = "float", *, seed: int = 0,
                 head=None, log=print, plan_file=None, strategy=None,
-                max_latency=None, device="cuda"):
+                max_latency=None, device="cuda", mesh=None):
     """Float init + optional SAMP PTQ on ``device``. Precision comes from,
     in precedence order: a saved plan file, a search strategy, or the named
     mode policy. Returns ``(params, execution_plan, precision)`` — the
     PrecisionPlan rides along so engines can read per-layer KV-cache
-    schemes (``precision.kv_schemes``)."""
+    schemes (``precision.kv_schemes``). On a ``mesh`` every rank builds the
+    whole tree and calibrates data-parallel over the ranks."""
     eng = SAMPEngine(cfg, float_dtype="float32")
     params = T.init_params(cfg, eng.float_precision, seed=seed, head=head,
                            device=device)
@@ -122,7 +135,7 @@ def build_model(cfg, policy_name: str = "float", *, seed: int = 0,
                                       or precision.num_quant_kv):
         return params, eng.float_plan, precision
     batches = synthetic_calibration_batches(cfg, seed=seed)
-    stats = eng.calibrate(params, batches, precision=precision)
+    stats = eng.calibrate(params, batches, precision=precision, mesh=mesh)
     if strategy is not None and precision is None:
         precision = search_plan(cfg, eng, params, stats, strategy,
                                 seed=seed, max_latency=max_latency,
@@ -198,7 +211,7 @@ def _device_name(device) -> str:
             else "CPU")
 
 
-def serve_decode(cfg, args, device) -> None:
+def serve_decode(cfg, args, device, mesh=None) -> None:
     router = None
     if args.clusters is not None:
         model = parse_cluster_model(args.clusters)
@@ -210,12 +223,12 @@ def serve_decode(cfg, args, device) -> None:
         params, plan, precision = build_model(
             cfg, args.policy, seed=args.seed, plan_file=args.plan,
             strategy=args.strategy, max_latency=args.max_latency,
-            device=device)
+            device=device, mesh=mesh)
     server = ServeEngine(cfg, params, plan, batch_slots=args.slots,
                          max_len=args.max_len, seed=args.seed,
                          backend=args.backend, page_size=args.page_size,
                          kv_cache=args.kv_dtype, precision=precision,
-                         router=router, device=device)
+                         router=router, device=device, mesh=mesh)
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
         plen = int(rng.integers(2, 9))
@@ -230,7 +243,8 @@ def serve_decode(cfg, args, device) -> None:
     for req in sorted(done, key=lambda r: r.uid):
         print(f"  req{req.uid}: prompt={req.prompt} -> {req.output}")
     s = server.stats
-    print(f"[serve] backend={server.runtime.backend.name}: "
+    print(f"[serve] backend={server.runtime.backend.name} "
+          f"mesh={mesh_fingerprint(server.runtime.mesh)}: "
           f"{s['retired']} requests, {s['tokens']} tokens in "
           f"{s['ticks']} ticks, {dt:.2f}s "
           f"({s['tokens'] / max(dt, 1e-9):.1f} tok/s "
@@ -250,7 +264,7 @@ def encoder_head(cfg, task_name: str, max_len: int):
     return spec, (head_kind, max(task.n_classes, 1))
 
 
-def serve_encoder(cfg, args, device) -> None:
+def serve_encoder(cfg, args, device, mesh=None) -> None:
     spec, head = encoder_head(cfg, args.task, args.max_len)
     router = None
     if args.clusters is not None:
@@ -265,11 +279,11 @@ def serve_encoder(cfg, args, device) -> None:
                                       head=head, plan_file=args.plan,
                                       strategy=args.strategy,
                                       max_latency=args.max_latency,
-                                      device=device)
+                                      device=device, mesh=mesh)
     server = EncoderServeEngine(cfg, params, plan, target=spec,
                                 max_batch=args.slots, max_len=args.max_len,
                                 backend=args.backend, router=router,
-                                device=device)
+                                device=device, mesh=mesh)
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
         n = int(rng.integers(4, args.max_len // 2))
@@ -277,11 +291,15 @@ def serve_encoder(cfg, args, device) -> None:
             uid=i, tokens=rng.integers(1, cfg.vocab_size, size=n).tolist(),
             traffic_class=_traffic_class_for(router, i)))
     t0 = time.perf_counter()
-    server.run()                      # flush full + partial micro-batches
+    done = server.run()               # flush full + partial micro-batches
     dt = time.perf_counter() - t0
+    for req in sorted(done, key=lambda r: r.uid):
+        print(f"  req{req.uid}: {len(req.tokens)} tokens -> "
+              f"{np.asarray(req.prediction).tolist()}")
     s = server.stats
     print(f"[serve] task={args.task} target={spec.name} "
-          f"backend={server.runtime.backend.name}: {s['retired']} "
+          f"backend={server.runtime.backend.name} "
+          f"mesh={mesh_fingerprint(server.runtime.mesh)}: {s['retired']} "
           f"requests in {s['batches']} micro-batches, {dt:.2f}s "
           f"({s['retired'] / max(dt, 1e-9):.1f} req/s "
           f"{_device_name(device)}); "
@@ -292,6 +310,29 @@ def serve_encoder(cfg, args, device) -> None:
               f"({router.active_plans} active plan(s))")
 
 
+def _serve(args, device, mesh=None) -> None:
+    cfg, _ = serving_config(args)
+    args.task = resolve_task(cfg, args.task)
+    if args.task == "lm":
+        serve_decode(cfg, args, device, mesh)
+    else:
+        serve_encoder(cfg, args, device, mesh)
+
+
+def _serve_rank(rank: int, device, args) -> None:
+    """One rank of a meshed run: the same model, requests and engine calls
+    as every other rank; rank 0 prints."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    mesh = make_serving_mesh(args.mesh)
+    out = sys.stdout if rank == 0 else io.StringIO()
+    with contextlib.redirect_stdout(out):
+        print(f"[serve] mesh={mesh_fingerprint(mesh)}: "
+              f"{mesh.shape['data'] * mesh.shape['model']} ranks, process "
+              f"group {mesh.backend}, rank 0 on {device}", flush=True)
+        _serve(args, device, mesh)
+        sys.stdout.flush()
+
+
 def main(argv=None):
     # deployment flags come from the shared launch.cli surface so this
     # entrypoint and launch/server.py cannot drift
@@ -300,13 +341,15 @@ def main(argv=None):
     ap.add_argument("--max-tokens", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
     args = ap.parse_args(argv)
-
-    cfg, device = serving_config(args)
-    args.task = resolve_task(cfg, args.task)
-    if args.task == "lm":
-        serve_decode(cfg, args, device)
-    else:
-        serve_encoder(cfg, args, device)
+    dp, tp = check_mesh(args.mesh)
+    _, device = serving_config(args)
+    if (dp, tp) == (1, 1):
+        _serve(args, device)
+        return
+    from repro_torch.distributed import comm
+    comm.spawn(dp * tp, _serve_rank, (args,), device=device.type,
+               threads=(max(1, torch.get_num_threads() // (dp * tp))
+                        if device.type == "cpu" else None))
 
 
 if __name__ == "__main__":

@@ -31,15 +31,18 @@ in-flight requests, exit). On the card the CUDA kernels are built and
 loaded before the listener opens, so no request pays the compiler.
 ``--port 0`` binds an ephemeral port and prints it. See
 docs/http-serving.md for the endpoint contracts, backpressure semantics,
-and the metrics catalog.
+and the metrics catalog. ``--mesh`` other than ``1,1`` exits: on a mesh
+the engine driver would have to run every engine call on every rank
+(ROADMAP queue 1 item 8c); ``launch/serve.py`` serves meshes.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
-from repro_torch.launch.cli import (add_serving_flags, parse_cluster_model,
-                                    resolve_task, serving_config)
+from repro_torch.launch.cli import (add_serving_flags, check_mesh,
+                                    parse_cluster_model, resolve_task,
+                                    serving_config)
 from repro_torch.launch.serve import (build_model, build_routed_model,
                                       encoder_head)
 from repro_torch.serve import EncoderServeEngine, ServeEngine
@@ -53,6 +56,11 @@ def build_frontend(args, *, log=print) -> HTTPFrontend:
     decode-capable arch mounts BOTH engines over one param tree, so a
     single server answers /v1/encode and /v1/generate.
     """
+    if check_mesh(args.mesh) != (1, 1):
+        raise SystemExit(
+            f"--mesh {args.mesh}: the HTTP server serves unmeshed; on a mesh "
+            f"its engine driver would run every engine call on every rank "
+            f"(ROADMAP queue 1 item 8c). launch.serve serves meshes")
     cfg, device = serving_config(args)
     task_name = resolve_task(cfg, args.task)
     cluster_model = parse_cluster_model(args.clusters)

@@ -9,7 +9,7 @@ where there is no card) or ``cpu``. The reduced config by default,
 checkpoint in ``--ckpt`` (the JAX package's format, so a run either package
 started resumes in the other); survives kill-at-any-step. The port trains
 on one device: ``--mesh-model`` other than 1 exits (ROADMAP queue 1 item
-8). An audio config's frames come from ``np.random.default_rng(i)`` where
+8b). An audio config's frames come from ``np.random.default_rng(i)`` where
 the JAX CLI draws them with ``jax.random``: the same shapes, other values.
 """
 from __future__ import annotations
@@ -49,7 +49,7 @@ def main(argv=None):
     if args.mesh_model != 1:
         raise SystemExit(f"--mesh-model {args.mesh_model}: the port trains "
                          f"on one device; sharded training is ROADMAP "
-                         f"queue 1 item 8")
+                         f"queue 1 item 8b")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:

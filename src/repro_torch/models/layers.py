@@ -25,7 +25,22 @@ Conventions
   serving path and adds no ops;
 * decode caches are dicts of tensors that the cache writes update in place
   (the JAX package returns rebuilt arrays); the returned dict is a new dict
-  over the same tensors, with new ``pos`` bookkeeping.
+  over the same tensors, with new ``pos`` bookkeeping;
+* tensor parallelism (``mesh=`` a :class:`~repro_torch.launch.mesh.
+  ProcessMesh` whose ``model`` axis is over 1): every rank holds its block
+  of the params (:func:`repro_torch.distributed.sharding.shard_params`) and
+  runs the same code SPMD. Column-parallel GEMMs (q/k/v, the FFN's input
+  GEMMs) compute the rank's heads or hidden units from the replicated
+  input; attention runs on the rank's heads where the KV heads split
+  evenly, else on all heads after an all-gather; a row-parallel GEMM (the
+  attention output, the FFN output) sums the ranks' partial products
+  before its bias, activation and requantization (:func:`row_dense`: an
+  int8 block sums its int32 accumulators, exact, so it equals the
+  unsharded block bit for bit; a float block sums float partials). An
+  untied table embeds on the rank's d_model columns and all-gathers them;
+  a tied one is vocab-parallel (masked local rows, summed: exact) and
+  unembeds to vocab-parallel logits, all-gathered. These collectives sit
+  where the JAX package's ``constrain`` tags are.
 """
 from __future__ import annotations
 
@@ -36,14 +51,15 @@ from typing import Optional
 import torch
 
 from repro_torch.core.quantize import (UINT8_MAX, QuantizedTensor,
-                                       compute_scale_symmetric, divide,
-                                       int8_matmul,
-                                       int_matmul, quantize,
-                                       quantize_per_token, quantize_unsigned)
+                                       compute_scale_symmetric, dequantize_acc,
+                                       divide, int8_matmul, int_matmul,
+                                       quantize, quantize_per_token,
+                                       quantize_unsigned)
 from repro_torch.kernels.addnorm_quant import row_sum
 from repro_torch.kernels.backend import ACTIVATIONS as _ACT
 from repro_torch.kernels.backend import QuantActivation, get_backend
 from repro_torch.kernels.flash_attention import NEG_INF, softmax_sum
+from repro_torch.kernels.quant_linear import quant_linear_epilogue
 
 # ---------------------------------------------------------------------------
 # observer plumbing
@@ -114,37 +130,125 @@ def dense(x, p: dict, obs: Optional[dict] = None, site: str = "x",
         y = int8_matmul(_act_quantize(x, p.get("xs")), w, out_dtype=x.dtype)
     else:
         y = torch.matmul(x, w.to(x.dtype))
-    if "b" in p:
-        y = y + p["b"].to(y.dtype)
+    return _finish(y, p.get("b"), act, p.get("out_xs"))
+
+
+def _finish(y: torch.Tensor, bias, act: Optional[str], out_xs):
+    """The reference GEMM's tail: + bias, the activation, and under a
+    norm='int8' span the QDQ at the next consumer's scale."""
+    if bias is not None:
+        y = y + bias.to(y.dtype)
     y = _ACT[act](y) if act is not None else y
-    if "out_xs" in p:
+    if out_xs is not None:
         # norm='int8' span: the fused kernel requantizes this GEMM's output
         # in its epilogue; the reference path mirrors that as a QDQ at the
         # same calibrated scale, so the backend never changes the numerics
-        oxs = p["out_xs"]
-        y = QuantizedTensor(quantize(y, oxs), oxs, None).dequantize(y.dtype)
+        y = QuantizedTensor(quantize(y, out_xs), out_xs,
+                            None).dequantize(y.dtype)
     return y
+
+
+def _tp(mesh):
+    """``mesh`` when its model axis is over 1 (tensor parallelism), else
+    None."""
+    return (mesh if mesh is not None and mesh.shape.get("model", 1) > 1
+            else None)
+
+
+def row_dense(x, p: dict, k_full: int, mesh=None, backend=None,
+              act: Optional[str] = None):
+    """A row-parallel block GEMM (the attention output, the FFN output):
+    ``x`` (..., K/tp) is this rank's columns, ``p["w"]`` its K/tp rows of
+    the (``k_full``, N) weight, and the ranks' partial products are summed
+    over the mesh's model axis before the bias (gathered: the rules shard
+    every bias by its last axis), the activation and the requant. An int8
+    block codes ``x`` at its static scale or at the whole row's per-token
+    scale (a max over the ranks), and sums the int32 accumulators: the
+    fused backend's ``quant_linear`` in its accumulator mode with the
+    kernel's epilogue after the sum, or the reference ``int8_matmul``'s
+    dequantization, each equal to its unsharded path bit for bit. A float
+    block sums float partials. Without a tensor-parallel mesh, or for a
+    weight the rules left whole, it is :func:`dense`."""
+    w = p["w"]
+    N = w.shape[1]
+    tp = _tp(mesh)
+    if tp is None or w.shape[0] == k_full:
+        return dense(x, p, backend=backend, act=act)
+    bias = p.get("b")
+    if bias is not None and bias.shape[-1] != N:
+        bias = tp.all_gather(bias, "model", -1)
+    out_xs = p.get("out_xs")
+    if not isinstance(w, QuantizedTensor):
+        if isinstance(x, QuantActivation):
+            x = x.dequantize()
+        y = tp.all_reduce(torch.matmul(x, w.to(x.dtype)), "model")
+        return _finish(y, bias, act, out_xs)
+
+    def row_amax(a):
+        return tp.all_reduce(a, "model", "max")
+
+    got = (backend.linear_acc(x, p, row_amax=row_amax)
+           if backend is not None else None)
+    if got is not None:
+        acc, x_scale = got
+        lead = (x.q.values if isinstance(x, QuantActivation) else x).shape[:-1]
+        w_scale = w.scale.to(torch.float32).reshape(-1)
+        if w_scale.shape[0] != N:                  # int8_per_tensor weights
+            w_scale = w_scale.expand(N)
+        y = quant_linear_epilogue(tp.all_reduce(acc, "model"), w_scale,
+                                  x_scale, bias=bias, act=act,
+                                  out_scale=out_xs).reshape(*lead, N)
+        if out_xs is not None:
+            return QuantActivation(QuantizedTensor(y, out_xs, None),
+                                   x.dtype)
+        return y
+    if isinstance(x, QuantActivation):
+        x = x.dequantize()
+    xs = p.get("xs")
+    if xs is None:                   # per token, at the whole row's scale
+        xs = compute_scale_symmetric(
+            row_amax(torch.amax(x.abs(), dim=-1, keepdim=True)))
+    acc = tp.all_reduce(int_matmul(quantize(x, xs), w.values), "model")
+    return _finish(dequantize_acc(acc, xs, w, x.dtype), bias, act, out_xs)
+
+
+def mesh_max(mesh):
+    """The max over every axis of ``mesh`` (None unmeshed): a dynamic
+    per-tensor scale's amax on a rank covers only its rows and heads, and
+    this makes it the whole tensor's, as the unmeshed forward (and the JAX
+    package's global reduction) has it."""
+    if mesh is None or all(n == 1 for n in mesh.shape.values()):
+        return None
+
+    def whole(t: torch.Tensor) -> torch.Tensor:
+        for axis in mesh.axis_names:
+            t = mesh.all_reduce(t, axis, "max")
+        return t
+    return whole
 
 
 def quant_bmm(a: torch.Tensor, b: torch.Tensor,
               a_scale: Optional[torch.Tensor],
               b_scale: Optional[torch.Tensor], *,
               transpose_b: bool = False,
-              unsigned_a: bool = False) -> torch.Tensor:
+              unsigned_a: bool = False, whole_max=None) -> torch.Tensor:
     """Quantized batched matmul for the MHA score/value paths: both float
     operands are quantized at their static scales (dynamically when None),
     multiplied as int8 with exact int32 accumulation, and dequantized.
     Contracts the last dim of ``a`` with the last (``transpose_b``) or
-    second-to-last dim of ``b``; leading dims are batch."""
+    second-to-last dim of ``b``; leading dims are batch. ``whole_max``
+    (:func:`mesh_max`) takes a dynamic per-tensor amax over the mesh."""
+    def amax(t):
+        return t if whole_max is None else whole_max(t)
     if unsigned_a:
-        aq = quantize_unsigned(a, None if a_scale is None
+        aq = quantize_unsigned(a, amax(a.max()) if a_scale is None
                                else a_scale * UINT8_MAX)
     elif a_scale is None:
         aq = quantize_per_token(a)
     else:
         aq = QuantizedTensor(quantize(a, a_scale), a_scale, None)
     if b_scale is None:
-        b_scale = compute_scale_symmetric(b.abs().max())
+        b_scale = compute_scale_symmetric(amax(b.abs().max()))
     bq_vals = quantize(b, b_scale)
     bdim = b.ndim - 1 if transpose_b else b.ndim - 2
     rhs = bq_vals.transpose(-1, -2) if transpose_b else bq_vals
@@ -306,12 +410,14 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    quant: AttnQuant = AttnQuant(),
                    scales: Optional[dict] = None,
                    obs: Optional[dict] = None,
-                   chunk: Optional[int] = None) -> torch.Tensor:
+                   chunk: Optional[int] = None, mesh=None) -> torch.Tensor:
     """softmax(q k^T * scale) v with GQA and optional int8 score/value
     matmuls (the Fully-Quant MHA path). q: (B, Sq, Hq, d); k, v:
     (B, Sk, Hkv, d); positions (Sq,)/(Sk,) or per row (B, Sq)/(B, Sk).
     ``chunk`` processes queries in blocks of that many rows (a Python loop
-    standing in for the JAX package's ``lax.scan``)."""
+    standing in for the JAX package's ``lax.scan``). On a ``mesh`` the
+    int8 matmuls' dynamic per-tensor scales are the whole tensor's."""
+    whole_max = mesh_max(mesh)
     B, Sq, Hq, D = q.shape
     Dv = v.shape[-1]
     Hkv = k.shape[2]
@@ -337,7 +443,8 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         observe(obs, "q", qs)
         observe(obs, "k", kh)
         if quant.enabled:
-            s = quant_bmm(qs, kh, sc.get("q"), sc.get("k"), transpose_b=True)
+            s = quant_bmm(qs, kh, sc.get("q"), sc.get("k"), transpose_b=True,
+                          whole_max=whole_max)
         elif grouped:
             bq = qs.shape[2]
             qg = qs.reshape(B, Hkv, groups, bq, D)
@@ -361,7 +468,8 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               or quant.plan_scheme == "uint8"):
             return quant_bmm(p, vh, sc.get("p"), sc.get("v"),
                              unsigned_a=(quant.softmax_mode == "unsigned"
-                                         or quant.plan_scheme == "uint8"))
+                                         or quant.plan_scheme == "uint8"),
+                             whole_max=whole_max)
         if grouped:
             bq = p.shape[2]
             o = torch.matmul(p.reshape(B, Hkv, groups, bq, -1), vh[:, :, None])
@@ -589,13 +697,40 @@ def select_state(new: dict, old: dict, active: Optional[torch.Tensor]
     return {k: sel(n, old[k]) for k, n in new.items()}
 
 
+def local_kv_heads(cfg, mesh) -> int:
+    """The KV heads a rank holds (its projections, its cache): the model
+    axis splits them when it divides them, else every rank holds all of
+    them and attention runs on all heads after an all-gather."""
+    tp = _tp(mesh)
+    H = cfg.num_kv_heads
+    if tp is None or H % tp.size("model"):
+        return H
+    return H // tp.size("model")
+
+
+def _tp_heads(q, k, v, cfg, mesh):
+    """The heads a tensor-parallel rank attends over: its own (q, k, v
+    already column-sharded on whole heads, KV heads split evenly), or all
+    of them, the sharded projections all-gathered. Returns q, k, v as
+    (B, S, heads, d)."""
+    B, S = q.shape[:2]
+    hd = cfg.head_dim
+    if local_kv_heads(cfg, mesh) == cfg.num_kv_heads:
+        q, k, v = (t if t.shape[-1] == full
+                   else _tp(mesh).all_gather(t, "model", -1)
+                   for t, full in ((q, cfg.q_dim), (k, cfg.kv_dim),
+                                   (v, cfg.kv_dim)))
+    return tuple(t.reshape(B, S, t.shape[-1] // hd, hd) for t in (q, k, v))
+
+
 def attention_block(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
                     spec: MaskSpec, quant: AttnQuant = AttnQuant(),
                     obs: Optional[dict] = None,
                     kv_cache: Optional[dict] = None,
                     active: Optional[torch.Tensor] = None,
                     chunk: Optional[int] = None,
-                    pages: Optional[torch.Tensor] = None, backend=None):
+                    pages: Optional[torch.Tensor] = None, backend=None,
+                    mesh=None):
     """The GQA attention block: QKV projections (with bias where the config
     has it), rope, the core and the output projection. Returns the output,
     or ``(output, new_cache)`` when a ``kv_cache`` is given.
@@ -608,16 +743,24 @@ def attention_block(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
     ``decode_attention`` kernel (fused) or its plain version (reference)
     over int8 pages. A step it declines (float pages), and layers whose
     batched matmuls are int8, gather and dequantize the pages and run
-    :func:`attention_core`."""
+    :func:`attention_core`.
+
+    On a tensor-parallel ``mesh`` the q/k/v projections are
+    column-parallel, attention runs on the rank's heads (or on all heads,
+    :func:`_tp_heads`), the cache holds :func:`local_kv_heads`, and the
+    output projection is row-parallel (:func:`row_dense`)."""
     B, S, _ = x.shape
     observe(obs, "attn_in", x)
     observe_values(obs, "attn_in", x)
-    q = dense(x, p["wq"], backend=backend).reshape(
-        B, S, cfg.num_heads, cfg.head_dim)
-    k = dense(x, p["wk"], backend=backend).reshape(
-        B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = dense(x, p["wv"], backend=backend).reshape(
-        B, S, cfg.num_kv_heads, cfg.head_dim)
+    q = dense(x, p["wq"], backend=backend)
+    k = dense(x, p["wk"], backend=backend)
+    v = dense(x, p["wv"], backend=backend)
+    if _tp(mesh) is not None:
+        q, k, v = _tp_heads(q, k, v, cfg, mesh)
+    else:
+        q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+        k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+        v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     if cfg.position == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -667,11 +810,15 @@ def attention_block(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
               if f"{s}_scale" in p} or None
         o = attention_core(q, k, v, positions, k_pos, spec, scale=scale,
                            attn_softcap=cfg.attn_softcap, quant=quant,
-                           scales=sc, obs=obs, chunk=chunk)
-    o = o.reshape(B, S, cfg.q_dim)
+                           scales=sc, obs=obs, chunk=chunk, mesh=mesh)
+    o = o.reshape(B, S, -1)
+    k_wo = p["wo"]["w"].shape[0]
+    if o.shape[-1] != k_wo:
+        # attention ran on all heads: this rank's columns of wo's input
+        o = o.narrow(-1, _tp(mesh).coords["model"] * k_wo, k_wo)
     observe(obs, "attn_out", o)
     observe_values(obs, "attn_out", o)
-    out = dense(o, p["wo"], backend=backend)
+    out = row_dense(o, p["wo"], cfg.q_dim, mesh, backend)
     observe(obs, "attn_delta", out)
     observe_values(obs, "attn_delta", out)
     return out if kv_cache is None else (out, new_cache)
@@ -711,7 +858,7 @@ def mla_block(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
               obs: Optional[dict] = None, kv_cache: Optional[dict] = None,
               active: Optional[torch.Tensor] = None,
               chunk: Optional[int] = None,
-              pages: Optional[torch.Tensor] = None):
+              pages: Optional[torch.Tensor] = None, mesh=None):
     """deepseek-v2's MLA. Prefill expands per-head K and V from the latent
     and runs :func:`attention_core`; a one-token step over a cache runs the
     absorbed form: ``wkv_b`` folds into the query and output sides, and
@@ -782,7 +929,8 @@ def mla_block(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
         sc = {s_: p[f"{s_}_scale"] for s_ in ("q", "k", "p", "v")
               if f"{s_}_scale" in p} or None
         o = attention_core(qf, k, v, positions, positions, spec, scale=scale,
-                           quant=quant, scales=sc, obs=obs, chunk=chunk)
+                           quant=quant, scales=sc, obs=obs, chunk=chunk,
+                           mesh=mesh)
     o = o.reshape(B, S, H * vd)
     observe(obs, "attn_out", o)
     observe_values(obs, "attn_out", o)
@@ -808,19 +956,24 @@ def init_ffn(gen: torch.Generator, cfg, d_ff: Optional[int] = None, *,
 
 
 def ffn_block(x, p: dict, cfg, obs: Optional[dict] = None, prefix: str = "",
-              backend=None) -> torch.Tensor:
+              backend=None, mesh=None) -> torch.Tensor:
+    """The dense FFN; on a tensor-parallel ``mesh`` its input GEMMs are
+    column-parallel over the hidden units and its output GEMM
+    row-parallel."""
     observe(obs, prefix + "ffn_in", x)
     observe_values(obs, prefix + "ffn_in", x)
+    F = (cfg.d_ff if _tp(mesh) is not None
+         else (p["wg"] if cfg.ffn_kind == "glu" else p["wi"])["w"].shape[1])
     if cfg.ffn_kind == "glu":
         h = (dense(x, p["wg"], backend=backend, act="silu")
              * dense(x, p["wu"], backend=backend))
         observe(obs, prefix + "ffn_hidden", h)
         observe_values(obs, prefix + "ffn_hidden", h)
-        return dense(h, p["wd"], backend=backend)
+        return row_dense(h, p["wd"], F, mesh, backend)
     h = dense(x, p["wi"], backend=backend, act="gelu")
     observe(obs, prefix + "ffn_hidden", h)
     observe_values(obs, prefix + "ffn_hidden", h)
-    return dense(h, p["wo"], backend=backend)
+    return row_dense(h, p["wo"], F, mesh, backend)
 
 
 # ---------------------------------------------------------------------------
@@ -987,22 +1140,73 @@ def init_embeddings(gen: torch.Generator, cfg, *, device=None,
     return p
 
 
-def embed(tokens: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
-          segments: Optional[torch.Tensor] = None,
-          backend=None) -> torch.Tensor:
-    """Token (+segment) (+position) embedding — the paper's Tensor-fusion
-    target. A fused backend routes learned-position archs through the
-    ``fused_embed`` kernel; otherwise three gathers."""
-    if backend is not None:
-        y = backend.embed(tokens, p, cfg, positions=positions,
-                          segments=segments)
-        if y is not None:
-            return y
+def _embed_rows(tokens, p: dict, positions, segments) -> torch.Tensor:
+    """The reference gather: token + position + segment rows, float32."""
     x = p["tok"][tokens.long()].to(torch.float32)
     if "pos" in p:
         x = x + p["pos"][positions.long()].to(torch.float32)
     if "seg" in p and segments is not None:
         x = x + p["seg"][segments.long()].to(torch.float32)
+    return x
+
+
+def _tp_embed(tokens, p: dict, cfg, *, positions, segments, backend, tp):
+    """The tensor-parallel embedding. A table sharded on d_model (untied)
+    gathers the rank's columns, through the backend where it claims them
+    (``fused_embed`` on the slice: the sum is elementwise in d_model), and
+    all-gathers them. A vocab-parallel (tied) table gathers the rank's
+    rows, zeros the others and sums over the ranks (one term is nonzero:
+    exact). The scale and the embedding norm run on whole rows."""
+    D = cfg.d_model
+    tables = {k: p[k] for k in ("tok", "pos", "seg") if k in p}
+    scaled = False
+    if p["tok"].shape[1] != D:              # every table on d_model columns
+        x = (backend.embed(tokens, tables, cfg, positions=positions,
+                           segments=segments)
+             if backend is not None else None)
+        scaled = x is not None              # the backend scales its slice
+        if x is None:
+            x = _embed_rows(tokens, tables, positions, segments)
+        x = tp.all_gather(x, "model", -1)
+    else:
+        if any(t.shape[1] != D for t in tables.values()):
+            raise NotImplementedError(
+                "a vocab-parallel token table beside d_model-sharded "
+                "position or segment tables")
+        tok = tables.pop("tok")
+        Vl = tok.shape[0]
+        ids = tokens.long() - tp.coords["model"] * Vl
+        ok = (ids >= 0) & (ids < Vl)
+        rows = tok[torch.clamp(ids, 0, Vl - 1)].to(torch.float32)
+        x = tp.all_reduce(torch.where(ok[..., None], rows, 0.0), "model")
+        if "pos" in tables:
+            x = x + tables["pos"][positions.long()].to(torch.float32)
+        if "seg" in tables and segments is not None:
+            x = x + tables["seg"][segments.long()].to(torch.float32)
+    if cfg.emb_scale_by_sqrt_dim and not scaled:
+        x = x * math.sqrt(D)
+    if "emb_norm" in p:
+        x = layer_norm(x, p["emb_norm"])
+    return x
+
+
+def embed(tokens: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
+          segments: Optional[torch.Tensor] = None,
+          backend=None, mesh=None) -> torch.Tensor:
+    """Token (+segment) (+position) embedding — the paper's Tensor-fusion
+    target. A fused backend routes learned-position archs through the
+    ``fused_embed`` kernel; otherwise three gathers. On a tensor-parallel
+    ``mesh``, :func:`_tp_embed`."""
+    tp = _tp(mesh)
+    if tp is not None:
+        return _tp_embed(tokens, p, cfg, positions=positions,
+                         segments=segments, backend=backend, tp=tp)
+    if backend is not None:
+        y = backend.embed(tokens, p, cfg, positions=positions,
+                          segments=segments)
+        if y is not None:
+            return y
+    x = _embed_rows(tokens, p, positions, segments)
     if cfg.emb_scale_by_sqrt_dim:
         x = x * math.sqrt(cfg.d_model)
     if "emb_norm" in p:

@@ -135,7 +135,9 @@ def init_params(cfg: ArchConfig, policy=None, *, seed: int = 0,
     device = resolve_device(device)
     policy = policy or EncoderPolicy.full_float(cfg.num_layers)
     plan = build_plan(cfg, policy)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    # the meta device (abstract shapes) has no generator
+    gen = (torch.Generator(device=device).manual_seed(seed)
+           if device.type != "meta" else None)
     kw = dict(device=device, dtype=dtype)
     params: dict = {"embed": L.init_embeddings(gen, cfg, **kw)}
     kinds = cfg.layer_kinds()
@@ -195,10 +197,33 @@ def repack(params: dict, old_plan: tuple[Group, ...],
 # ---------------------------------------------------------------------------
 
 
+def check_mesh(cfg: ArchConfig, mesh) -> None:
+    """Raise for a mesh this slice does not serve: any mesh for an MoE
+    config (its expert capacity follows the token count of each data
+    shard), and tensor parallelism for MLA, the recurrent bodies and the
+    audio and vision front-ends (ROADMAP queue 1 item 8d)."""
+    if mesh is None:
+        return
+    why = None
+    if cfg.moe is not None:
+        why = "MoE expert dispatch"
+    elif mesh.shape.get("model", 1) > 1:
+        if cfg.mla is not None:
+            why = "MLA"
+        elif any(k.body != "attn" for k in cfg.layer_kinds()):
+            why = "the recurrent bodies"
+        elif cfg.frontend is not None:
+            why = f"the {cfg.frontend} front-end"
+    if why is not None:
+        raise NotImplementedError(
+            f"{cfg.name} on a {dict(mesh.shape)} mesh: {why} is not "
+            f"sharded yet (ROADMAP queue 1 item 8d)")
+
+
 def layer_forward(x, lp, cfg: ArchConfig, kind: BlockKind, mode: LayerMode,
                   scheme: QuantScheme, *, positions, obs, chunk,
                   quant_bmm=None, softmax=None, backend=None, cache=None,
-                  active=None, pages=None):
+                  active=None, pages=None, mesh=None):
     """One pre-LN attention layer: x + attn(norm1(x)), then
     x + ffn(norm2(x)); the fused backend collapses the add + norm2 +
     requantization into ``addnorm_quant`` when the ffn_in GEMM has a static
@@ -211,7 +236,8 @@ def layer_forward(x, lp, cfg: ArchConfig, kind: BlockKind, mode: LayerMode,
     ``backend``), and an mLSTM or sLSTM layer x + block(norm1(x)); their
     recurrent bodies run on the reference path, and ``cache`` is their
     recurrent state, which ``active`` gates. Returns x, or
-    ``(x, new_cache)`` with a ``cache``."""
+    ``(x, new_cache)`` with a ``cache``. ``mesh``: the tensor-parallel
+    forward of :mod:`repro_torch.models.layers`."""
     if kind.body != "attn":
         return _recurrent_layer(x, lp, cfg, kind, obs=obs, backend=backend,
                                 cache=cache, active=active)
@@ -228,20 +254,23 @@ def layer_forward(x, lp, cfg: ArchConfig, kind: BlockKind, mode: LayerMode,
     if cfg.mla is not None:
         a = L.mla_block(h, lp["attn"], cfg, positions=positions, spec=spec,
                         quant=quant, obs=obs, chunk=chunk, kv_cache=cache,
-                        active=active, pages=pages)
+                        active=active, pages=pages, mesh=mesh)
     else:
         a = L.attention_block(h, lp["attn"], cfg, positions=positions,
                               spec=spec, quant=quant, obs=obs, chunk=chunk,
                               backend=backend, kv_cache=cache, active=active,
-                              pages=pages)
+                              pages=pages, mesh=mesh)
     if cache is not None:
         a, new_cache = a
     ns = (ffn_input_scale(lp["ffn"], cfg.ffn_kind)
           if backend is not None and not kind.moe else None)
     x, h2 = L.residual_norm(a, x, lp["norm2"], cfg.norm_kind, next_scale=ns,
                             backend=backend)
-    ffn = L.moe_block if kind.moe else L.ffn_block
-    x = x + ffn(h2, lp["ffn"], cfg, obs=obs, backend=backend)
+    if kind.moe:
+        x = x + L.moe_block(h2, lp["ffn"], cfg, obs=obs, backend=backend)
+    else:
+        x = x + L.ffn_block(h2, lp["ffn"], cfg, obs=obs, backend=backend,
+                            mesh=mesh)
     return x if cache is None else (x, new_cache)
 
 
@@ -265,7 +294,7 @@ def _recurrent_layer(x, lp, cfg: ArchConfig, kind: BlockKind, *, obs,
 def run_groups(x, params, cfg: ArchConfig, plan: tuple[Group, ...],
                scheme: QuantScheme, *, positions, obs=None,
                chunk=DEFAULT_CHUNK, backend=None, caches=None, active=None,
-               pages=None, remat: bool = False):
+               pages=None, remat: bool = False, mesh=None):
     """Execute every layer of every group, in order. Observer capture
     (``obs`` not None) always runs the reference path and records each
     layer's sites as ``obs["layer{i}/{site}"]``. With ``caches`` (one per
@@ -274,7 +303,17 @@ def run_groups(x, params, cfg: ArchConfig, plan: tuple[Group, ...],
     ``remat``: recompute each layer in the backward pass (activation
     checkpointing at layer granularity: only the residual stream between
     layers is saved). Observer capture and decode caches run without it,
-    as the JAX package's observed layers do."""
+    as the JAX package's observed layers do.
+
+    ``mesh`` (the JAX package's ``constrain`` slot): a serving mesh whose
+    model axis runs the tensor-parallel forward over ``params``, this
+    rank's block (:func:`check_mesh`). Observers see whole tensors only:
+    calibration on a mesh splits batches, not layers
+    (:func:`repro_torch.quant.ptq.capture_stats`)."""
+    check_mesh(cfg, mesh)
+    if obs is not None and L._tp(mesh) is not None:
+        raise ValueError("observer capture runs unsharded params: "
+                         "calibrate with capture_stats(mesh=...)")
     if obs is not None:
         backend = None
     remat = remat and obs is None and caches is None
@@ -292,7 +331,7 @@ def run_groups(x, params, cfg: ArchConfig, plan: tuple[Group, ...],
                           quant_bmm=g.quant_bmm, softmax=g.softmax,
                           backend=backend,
                           cache=None if caches is None else caches[idx],
-                          active=active, pages=pages)
+                          active=active, pages=pages, mesh=mesh)
                 if remat:
                     x = checkpoint(layer_forward, x, layers[idx], cfg, kind,
                                    g.mode, scheme, use_reentrant=False, **kw)
@@ -313,7 +352,7 @@ def run_groups(x, params, cfg: ArchConfig, plan: tuple[Group, ...],
 
 
 def embed_inputs(params, batch: dict, cfg: ArchConfig, *, positions,
-                 backend=None) -> torch.Tensor:
+                 backend=None, mesh=None) -> torch.Tensor:
     """Map raw inputs to the first-layer activation per family: audio
     ``frames`` (B, T, frontend_dim) through ``frontend_proj``; tokens
     through the embedding, after a vision config's projected (and, for the
@@ -323,7 +362,7 @@ def embed_inputs(params, batch: dict, cfg: ArchConfig, *, positions,
     if cfg.frontend == "audio":
         return L.dense(batch["frames"].to(torch.float32), emb["frontend_proj"])
     x = L.embed(batch["tokens"], emb, cfg, positions=positions,
-                segments=batch.get("segments"), backend=backend)
+                segments=batch.get("segments"), backend=backend, mesh=mesh)
     if cfg.frontend == "vision" and "prefix_embeds" in batch:
         pfx = L.dense(batch["prefix_embeds"].to(torch.float32),
                       emb["frontend_proj"])
@@ -333,11 +372,16 @@ def embed_inputs(params, batch: dict, cfg: ArchConfig, *, positions,
     return x
 
 
-def unembed(x, params, cfg: ArchConfig) -> torch.Tensor:
+def unembed(x, params, cfg: ArchConfig, mesh=None) -> torch.Tensor:
+    """Logits over the vocab; on a tensor-parallel ``mesh`` a rank's
+    vocab-parallel logits (its rows of a tied table, its columns of
+    ``lm_head``) are all-gathered before the softcap."""
     if cfg.tie_embeddings:
         logits = torch.matmul(x, params["embed"]["tok"].t())
     else:
         logits = L.dense(x, params["lm_head"])
+    if logits.shape[-1] != cfg.vocab_size:
+        logits = mesh.all_gather(logits, "model", -1)
     return L.softcap(logits, cfg.final_softcap)
 
 
@@ -345,7 +389,7 @@ def forward(params, batch: dict, cfg: ArchConfig, plan: tuple[Group, ...],
             scheme: QuantScheme = QuantScheme(), *,
             obs: Optional[dict] = None, chunk: Optional[int] = DEFAULT_CHUNK,
             return_hidden: bool = False, backend=None, caches=None, pos=None,
-            active=None, pages=None, remat: bool = False):
+            active=None, pages=None, remat: bool = False, mesh=None):
     """Full-sequence (encode, prefill) or incremental (decode) forward of
     token tensors ``batch["tokens"]`` (B, S) (+ ``"segments"``; audio
     configs take ``"frames"`` (B, T, frontend_dim) instead, vision configs
@@ -359,7 +403,8 @@ def forward(params, batch: dict, cfg: ArchConfig, plan: tuple[Group, ...],
     synchronized batch) or a (B,) tensor (continuous batching: per-row
     positions, with ``active`` (B,) bool gating idle slots' cache writes);
     ``pages`` is the (B, pages_per_slot) page table of paged caches.
-    ``remat`` recomputes each layer in the backward pass
+    ``remat`` recomputes each layer in the backward pass, and ``mesh``
+    runs the tensor-parallel forward over this rank's block of ``params``
     (:func:`run_groups`)."""
     lead = batch["frames"] if cfg.frontend == "audio" else batch["tokens"]
     S = lead.shape[1]
@@ -371,15 +416,15 @@ def forward(params, batch: dict, cfg: ArchConfig, plan: tuple[Group, ...],
         positions = (positions[None] + pos[:, None] if pos.ndim == 1
                      else positions + pos)
     x = embed_inputs(params, batch, cfg, positions=positions,
-                     backend=None if obs is not None else backend)
+                     backend=None if obs is not None else backend, mesh=mesh)
     x = run_groups(x, params, cfg, plan, scheme, positions=positions,
                    obs=obs, chunk=chunk, backend=backend, caches=caches,
-                   active=active, pages=pages, remat=remat)
+                   active=active, pages=pages, remat=remat, mesh=mesh)
     if caches is not None:
         x, caches = x
     x = L.norm(x, params["final_norm"], cfg.norm_kind)
     if not (return_hidden or "head" in params):
-        x = unembed(x, params, cfg)
+        x = unembed(x, params, cfg, mesh)
     return x if caches is None else (x, caches)
 
 
@@ -438,14 +483,15 @@ def lm_loss(params, batch: dict, cfg: ArchConfig, plan,
 
 def _layer_cache(cfg: ArchConfig, kind: BlockKind, batch: int, max_len: int,
                  dtype, device, *, page_size: Optional[int] = None,
-                 num_pages: int = 0, kv_scheme: str = "float") -> dict:
+                 num_pages: int = 0, kv_scheme: str = "float",
+                 kv_heads: Optional[int] = None) -> dict:
     if kind.body == "rglru":
         return R.init_state(cfg, batch, dtype, device)
     if kind.body == "mlstm":
         return X.mlstm_state(cfg, batch, dtype, device)
     if kind.body == "slstm":
         return X.slstm_state(cfg, batch, dtype, device)
-    H, hd = cfg.num_kv_heads, cfg.head_dim
+    H, hd = kv_heads or cfg.num_kv_heads, cfg.head_dim
     kw = dict(device=device)
     # a local (sliding-window) layer keeps its dense ring of W positions
     # even when the engine pages: the ring is already W-bounded, and its
@@ -499,7 +545,8 @@ def init_caches(cfg: ArchConfig, plan: tuple[Group, ...], batch: int,
                 page_size: Optional[int] = None,
                 num_pages: Optional[int] = None,
                 kv_schemes: Optional[Sequence[str]] = None,
-                device: Union[str, torch.device] = "cuda") -> list:
+                device: Union[str, torch.device] = "cuda",
+                mesh=None) -> list:
     """Decode caches, one dict per layer. ``page_size`` switches the
     full-attention layers to the paged layout (see
     :mod:`repro_torch.models.layers`; local layers keep their ring of
@@ -508,8 +555,12 @@ def init_caches(cfg: ArchConfig, plan: tuple[Group, ...], batch: int,
     oversubscription); ``kv_schemes`` gives each layer's KV-cache scheme
     (``PrecisionPlan.kv_schemes``), default all float. A scheme may not
     change inside an execution group, as in the JAX package, whose scan
-    groups share one cache layout."""
+    groups share one cache layout. On a tensor-parallel ``mesh`` the
+    attention caches hold the rank's KV heads
+    (:func:`~repro_torch.models.layers.local_kv_heads`); ``batch`` is the
+    slots this rank holds."""
     device = resolve_device(device)
+    kv_heads = L.local_kv_heads(cfg, mesh)
     if page_size is not None and num_pages is None:
         num_pages = batch * pages_per_slot(max_len, page_size)
     kinds = cfg.layer_kinds()
@@ -526,7 +577,7 @@ def init_caches(cfg: ArchConfig, plan: tuple[Group, ...], batch: int,
             caches.append(_layer_cache(cfg, kinds[li], batch, max_len, dtype,
                                        device, page_size=page_size,
                                        num_pages=num_pages or 0,
-                                       kv_scheme=scheme))
+                                       kv_scheme=scheme, kv_heads=kv_heads))
     return caches
 
 
@@ -564,11 +615,11 @@ def kv_geometry(caches) -> tuple:
 
 def decode_step(params, tokens, caches, pos, cfg: ArchConfig, plan,
                 scheme: QuantScheme = QuantScheme(), *, active=None,
-                pages=None, backend=None):
+                pages=None, backend=None, mesh=None):
     """One serving step: tokens (B, 1) at absolute position(s) ``pos`` (an
     int: a synchronized batch; (B,): continuous batching, with ``active``
     gating idle slots). ``pages`` is the (B, pages_per_slot) page table of
     paged caches. Returns (logits (B, 1, V), new_caches)."""
     return forward(params, {"tokens": tokens}, cfg, plan, scheme,
                    caches=caches, pos=pos, active=active, chunk=None,
-                   pages=pages, backend=backend)
+                   pages=pages, backend=backend, mesh=mesh)

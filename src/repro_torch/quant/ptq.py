@@ -304,7 +304,7 @@ def capture_stats(params: dict, batches: Sequence[dict], cfg: ArchConfig,
                   calibrator: Optional[str] = None,
                   precision: Optional[PrecisionPlan] = None,
                   hist_sites: tuple[str, ...] = HIST_SITES,
-                  clusters: Optional[Sequence] = None,
+                  clusters: Optional[Sequence] = None, mesh=None,
                   **calib_kw) -> dict[str, dict[str, float]]:
     """Run calibration batches (dicts of model inputs: (B, S) token /
     segment arrays, audio ``frames``, vision ``prefix_embeds``)
@@ -320,12 +320,21 @@ def capture_stats(params: dict, batches: Sequence[dict], cfg: ArchConfig,
     and the stats come back as ``{cluster: {"layer{i}": {site: amax}}}``.
     Every observation is a max, so the split is exact: a cluster's amax is
     the amax over its own rows. A :class:`PlanSet` ``precision`` gives each
-    cluster its member's calibrator choices."""
+    cluster its member's calibrator choices.
+
+    ``mesh=`` (a serving mesh; ``params`` the whole float tree, which every
+    rank holds before PTQ) runs the calibration data-parallel over every
+    rank of the mesh: batch i on rank i mod world. Each rank's observations
+    (the per-site amaxes, and the raw values the histogram calibrators
+    take) are all-gathered, and every rank reduces all of them in batch
+    order: the scalar and vector sites by a max over the ranks, the
+    histograms batch by batch. Each batch runs at the shape it runs
+    unsharded, so the stats equal the unsharded stats exactly."""
     if clusters is not None:
         return _capture_stats_clustered(
             params, batches, cfg, plan, scheme, clusters,
             calibrator=calibrator, precision=precision,
-            hist_sites=hist_sites, **calib_kw)
+            hist_sites=hist_sites, mesh=mesh, **calib_kw)
     device = params["final_norm"]["scale"].device
 
     def site_calibrator(layer_idx: int, site: str) -> str:
@@ -352,36 +361,59 @@ def capture_stats(params: dict, batches: Sequence[dict], cfg: ArchConfig,
         accepted = inspect.signature(CALIBRATORS[name].__init__).parameters
         return {k: v for k, v in calib_kw.items() if k in accepted}
 
+    def hist_name(key: str):
+        """The histogram calibrator of a raw capture, None where the
+        scalar running max covers it."""
+        layer, site = key.split("/", 1)
+        if site not in hist_sites:
+            return None
+        name = site_calibrator(int(layer[len("layer"):]), site)
+        return None if name == "minmax" else name
+
+    def observe(batch):
+        obs: dict = {"__values__": True} if use_hist else {}
+        tensors = {k: torch.as_tensor(np.asarray(v), device=device)
+                   for k, v in batch.items()}
+        T.forward(params, tensors, cfg, plan, scheme, obs=obs)
+        raw = obs.pop("__raw__", {}) if use_hist else {}
+        obs.pop("__values__", None)
+        # per-head (H,) and per-expert (E,) sites as numpy, scalars as float
+        amax = {k: (v.cpu().numpy() if v.ndim else float(v))
+                for k, v in obs.items() if k.startswith("layer")}
+        return amax, {k: v for k, v in raw.items() if hist_name(k)}
+
     cals: dict[str, Calibrator] = {}
     scalar_amax: dict = {}          # float per scalar site, (H,) / (E,)
+
+    def reduce(amax: dict, raw: dict) -> None:
+        for key, v in amax.items():
+            if isinstance(v, np.ndarray):
+                prev = scalar_amax.get(key)
+                scalar_amax[key] = v if prev is None else np.maximum(prev, v)
+            else:
+                scalar_amax[key] = max(scalar_amax.get(key, 0.0), v)
+        for key, v in raw.items():
+            name = hist_name(key)
+            cals.setdefault(key, make_calibrator(
+                name, **calibrator_kw(name))).observe(v)
+
     with torch.inference_mode():
-        for batch in batches:
-            obs: dict = {"__values__": True} if use_hist else {}
-            tensors = {k: torch.as_tensor(np.asarray(v), device=device)
-                       for k, v in batch.items()}
-            T.forward(params, tensors, cfg, plan, scheme, obs=obs)
-            raw = obs.pop("__raw__", {}) if use_hist else {}
-            obs.pop("__values__", None)
-            for key, v in obs.items():
-                if not key.startswith("layer"):
-                    continue
-                if v.ndim:          # per-head (H,) and per-expert (E,) sites
-                    v = v.cpu().numpy()
-                    prev = scalar_amax.get(key)
-                    scalar_amax[key] = v if prev is None \
-                        else np.maximum(prev, v)
-                else:
-                    scalar_amax[key] = max(scalar_amax.get(key, 0.0),
-                                           float(v))
-            for key, v in raw.items():
-                layer, site = key.split("/", 1)
-                if site not in hist_sites:
-                    continue
-                name = site_calibrator(int(layer[len("layer"):]), site)
-                if name == "minmax":
-                    continue        # scalar running max already covers it
-                cals.setdefault(key, make_calibrator(
-                    name, **calibrator_kw(name))).observe(v)
+        if mesh is None:
+            for batch in batches:
+                reduce(*observe(batch))
+        else:
+            import torch.distributed as dist
+            world, rank = dist.get_world_size(), dist.get_rank()
+            mine = []
+            for i in range(rank, len(batches), world):
+                amax, raw = observe(batches[i])
+                mine.append((i, amax, {k: v.cpu().numpy()
+                                       for k, v in raw.items()}))
+            every = [None] * world
+            dist.all_gather_object(every, mine)
+            for _, amax, raw in sorted((e for part in every for e in part),
+                                       key=lambda e: e[0]):
+                reduce(amax, raw)
 
     out: dict[str, dict[str, float]] = {}
     for key, amax in scalar_amax.items():

@@ -7,7 +7,10 @@ flushed micro-batch to its (batch, length) bucket and masks the padding;
 the target head comes from :mod:`repro_torch.toolkit.targets`. With a
 ``router`` (:class:`~repro_torch.adaptive.PlanRouter`) admission stamps
 each request's traffic cluster, and each cluster-pure micro-batch runs its
-cluster's params through that cluster's runtime sibling.
+cluster's params through that cluster's runtime sibling. With a ``mesh``
+every rank of it runs the same engine on the same requests (SPMD): the
+runtime splits each micro-batch over the data axis and the layers over the
+model axis, and every rank retires every request with the whole logits.
 """
 from __future__ import annotations
 
@@ -27,7 +30,10 @@ from repro_torch.toolkit.targets import TargetSpec, get_target
 class EncoderServeEngine:
     """Dynamic micro-batching server for encoder workloads. ``device``
     defaults to ``"cuda"`` (an error where CUDA is absent); ``params`` must
-    already live there."""
+    already live there. ``mesh`` serves on a
+    :class:`~repro_torch.launch.mesh.ProcessMesh`; the engine keeps only
+    the rank's block of ``params``. ``backend`` and ``mesh`` are ignored
+    when a runtime is passed (its own govern)."""
 
     def __init__(self, cfg: ArchConfig, params, plan, *,
                  target: Union[str, TargetSpec] = "cls",
@@ -35,7 +41,7 @@ class EncoderServeEngine:
                  max_batch: int = 8, max_wait: float = 0.0,
                  max_len: int = 256, runtime: Optional[Runtime] = None,
                  backend="reference", router=None,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", mesh=None):
         if isinstance(target, str):
             target = get_target(target)
         if "head" not in params:
@@ -43,7 +49,6 @@ class EncoderServeEngine:
                 f"target {target.name!r} needs head params; build them with "
                 f"init_params(head=...)")
         self.cfg = cfg
-        self.params = params
         self.plan = plan
         self.target = target
         self.max_len = max_len
@@ -51,7 +56,8 @@ class EncoderServeEngine:
             cfg, plan, scheme=scheme,
             head=lambda p, h: target.apply(p, h, cfg),
             token_level=target.token_level, max_len=max_len,
-            backend=backend, device=device)
+            backend=backend, device=device, mesh=mesh)
+        self.params = self.runtime.local_params(params)
         self.batcher = MicroBatcher(max_batch=max_batch, max_wait=max_wait,
                                     max_len=max_len)
         self.router = router

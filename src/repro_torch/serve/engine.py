@@ -1,5 +1,5 @@
 """Token-level continuous-batching decode engine (port of
-``repro.serve.engine``, without meshes).
+``repro.serve.engine``).
 
 * scheduling — a :class:`~repro_torch.serve.scheduler.SlotScheduler`: a
   fixed number of batch slots, FIFO admission, per-slot token cursors,
@@ -20,7 +20,13 @@ replays from its prompt. With a ``router``
 traffic cluster at admission, the slot scheduler keeps the live batch to
 one cluster, and each tick runs that cluster's params through its own
 cached decode step; the KV caches are shared across clusters, so every
-member plan must name the same KV-cache schemes.
+member plan must name the same KV-cache schemes. With a ``mesh`` every rank
+of it runs the same engine (SPMD): the same scheduler, page table and
+requests on every rank, the caches holding the rank's slots (the data axis
+splits them where it divides them) and KV heads (the model axis), and the
+page pool whole on every rank of the data axis, since page ids are global.
+Every rank samples from the whole logits, so every rank serves the same
+tokens.
 """
 from __future__ import annotations
 
@@ -70,7 +76,10 @@ class ServeEngine:
     sizes the shared page pool (default: slots * pages_per_slot, no
     oversubscription). ``backend`` is ignored when a runtime is passed.
     ``router`` makes decode input-adaptive (see the module docstring);
-    ``precision`` then defaults to the default member's plan."""
+    ``precision`` then defaults to the default member's plan. ``mesh``
+    serves on a :class:`~repro_torch.launch.mesh.ProcessMesh` (ignored,
+    like ``backend``, when a runtime is passed); the engine keeps only the
+    rank's block of ``params``."""
 
     def __init__(self, cfg: ArchConfig, params, plan, *,
                  scheme: T.QuantScheme = T.QuantScheme(),
@@ -80,7 +89,7 @@ class ServeEngine:
                  kv_cache: Optional[str] = None,
                  pool_pages: Optional[int] = None, precision=None,
                  router=None,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", mesh=None):
         if not cfg.supports_decode:
             raise ValueError(f"{cfg.name} is encoder-only; no decode — "
                              f"serve it through EncoderServeEngine")
@@ -94,7 +103,6 @@ class ServeEngine:
                 precision = router.planset.plan_for(router.planset.default)
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = params
         self.plan = plan
         self.slots = batch_slots
         self.max_len = max_len
@@ -125,22 +133,28 @@ class ServeEngine:
         self.runtime = runtime or Runtime(cfg, plan, scheme=scheme,
                                           precision=precision,
                                           backend=backend,
-                                          device=self.device)
+                                          device=self.device, mesh=mesh)
+        self.params = self.runtime.local_params(params)
         self.router = router
         if router is not None and not router.bound:
             router.bind(self.runtime)
+        # the slots [lo, hi) this rank holds (all of them unmeshed)
+        self._lo, hi = self.runtime.rows(batch_slots)
+        mesh = self.runtime.mesh
         with torch.inference_mode():
-            self.caches = T.init_caches(cfg, plan, batch_slots, max_len,
-                                        device=self.device, **cache_kw)
+            self.caches = T.init_caches(cfg, plan, hi - self._lo, max_len,
+                                        device=self.device, mesh=mesh,
+                                        **cache_kw)
             # a fresh one-slot cache: what an admitted slot's rows reset to
             # (0, -1 for k_pos, ones for an sLSTM's normalizer)
             self._fresh1 = T.init_caches(
-                cfg, plan, 1, max_len, device=self.device,
+                cfg, plan, 1, max_len, device=self.device, mesh=mesh,
                 **({**cache_kw, "num_pages": 1} if cache_kw else {}))
         # the decode step, resolved once; a routed engine resolves one per
         # cluster on first use, each under its sibling's cache key
         self._decode = (None if router is not None
-                        else self.runtime.decode_fn(params, self.caches))
+                        else self.runtime.decode_fn(self.params,
+                                                    self.caches))
         self._decode_by_cluster: dict = {}
         self.rng = np.random.default_rng(seed)
         self._stats = {"ticks": 0, "tokens": 0, "retired": 0, "stalls": 0,
@@ -168,7 +182,11 @@ class ServeEngine:
         to 0 and its ``k_pos`` to -1, ``pos`` to 0, a recurrent state to its
         start (an sLSTM's ``n`` to ones). The page pool has no slot axis: a
         slot's pages are its page-table row, owned by the scheduler, and
-        stale page contents are invalidated by :meth:`_drain_freed`."""
+        stale page contents are invalidated by :meth:`_drain_freed`. On a
+        mesh only the rank that holds slot ``s`` has rows to reset."""
+        s -= self._lo
+        if not 0 <= s < T.cache_slots(self.caches):
+            return
         with torch.inference_mode():
             for c, fresh in zip(self.caches, self._fresh1):
                 for key, leaf in c.items():

@@ -1,9 +1,8 @@
 """The runtime every inference path goes through (port of
-``repro.serve.runtime``, without meshes): bucketed encodes and the decode
-step.
+``repro.serve.runtime``): bucketed encodes and the decode step.
 
-A :class:`Runtime` is bound to one ``(cfg, plan, scheme, head, backend)``
-deployment on one device:
+A :class:`Runtime` is bound to one ``(cfg, plan, scheme, head, backend,
+mesh)`` deployment:
 
 * request shapes are rounded up to power-of-two (batch, length) buckets, so
   a mixed-length stream runs a bounded set of shapes, except for MoE
@@ -16,11 +15,19 @@ deployment on one device:
   clamped to 0 for the embedding gather, so a padded forward matches the
   natural-shape forward on the real rows and positions;
 * the built forward callables are cached per (backend name, plan
-  fingerprint, cluster, batch bucket, length bucket): the JAX package's
-  executable key without the mesh part. ``cluster`` is the traffic-cluster
-  id of a routed deployment (None unrouted), so K clusters hold K entries
-  per bucket even where their plans coincide: their calibrated scales
-  differ;
+  fingerprint, mesh fingerprint, cluster, batch bucket, length bucket): the
+  JAX package's executable key. ``cluster`` is the traffic-cluster id of a
+  routed deployment (None unrouted), so K clusters hold K entries per
+  bucket even where their plans coincide: their calibrated scales differ;
+* ``mesh`` (a :class:`~repro_torch.launch.mesh.ProcessMesh`) serves SPMD:
+  every rank of the mesh makes the same calls. The rules of
+  :mod:`repro_torch.distributed.sharding` (``fsdp=False``) slice the params
+  to the rank's block (:meth:`Runtime.local_params`, once a tree), the
+  model axis runs the tensor-parallel forward, and the data axis splits
+  the batch: buckets round up to dp multiples, each rank runs its rows (a
+  decode step its slots) and the outputs are all-gathered, so every rank
+  returns the whole output. The backend claims a rank's local tensors as
+  it claims whole ones;
 * the decode step (:meth:`Runtime.decode_fn`) is cached per (backend name,
   plan fingerprint, cluster, slot count, ``kv_geometry``), so float and
   int8 caches never share an entry;
@@ -42,6 +49,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import full_float32, resolve_device
+from repro_torch.distributed.sharding import (Rules, ShardedParams,
+                                              mesh_fingerprint, shard_params)
 from repro_torch.kernels.backend import get_backend
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -78,7 +87,7 @@ class Runtime:
                  chunk: Optional[int] = T.DEFAULT_CHUNK,
                  backend="reference",
                  device: Union[str, torch.device] = "cuda",
-                 cluster: Optional[int] = None):
+                 cluster: Optional[int] = None, mesh=None):
         self.device = resolve_device(device)
         # TF32 off, float32 matmuls at "highest": the JAX reference computes
         # in full float32, and int_matmul's float32 products must stay exact
@@ -93,31 +102,80 @@ class Runtime:
         self.min_len = min_len
         self.max_len = max_len
         self.chunk = chunk
+        # inference replicates params over 'data' and shards them over
+        # 'model'
+        T.check_mesh(cfg, mesh)
+        self.mesh = mesh
+        self.rules = (Rules(cfg, mesh, fsdp=False) if mesh is not None
+                      else None)
         self.backend = get_backend(backend)
+        self._local: Optional[tuple] = None
         self.bucketed = cfg.moe is None
         # cache key half that names the scheme: the backend (one plan runs
         # different code per backend), the plan's stable fingerprint (or a
-        # structural hash of (execution plan, scheme) without one) and the
-        # traffic cluster of a routed deployment
+        # structural hash of (execution plan, scheme) without one), the
+        # mesh topology (other shards, other collectives) and the traffic
+        # cluster of a routed deployment
         self.cluster = cluster
         self._plan_key = (self.backend.name,
                           precision.fingerprint() if precision is not None
                           else hash((plan, scheme)),
+                          mesh_fingerprint(mesh),
                           cluster)
         self._exe: dict[tuple, Callable] = {}
         self._stats = {"calls": 0, "traces": 0, "real_tokens": 0,
                        "padded_tokens": 0}
 
     @property
+    def _dp(self) -> int:
+        """Batch-sharding factor of the bound mesh (1 when unmeshed)."""
+        return self.rules.dp_size if self.rules is not None else 1
+
+    def rows(self, B: int) -> tuple[int, int]:
+        """The rows [lo, hi) of a B-row batch (or B slots) this rank runs:
+        its block of the data axis where dp divides B, else all of them."""
+        if self._dp == 1 or B % self._dp:
+            return 0, B
+        n = B // self._dp
+        d = int(self.mesh.coords["data"])
+        return d * n, (d + 1) * n
+
+    def local_params(self, params):
+        """This rank's block of ``params`` under the mesh's rules (the
+        params themselves unmeshed). A tree the runtime sliced before is
+        not sliced again, and a block already sliced for this topology
+        (``ShardedParams``) passes through."""
+        if self.mesh is None:
+            return params
+        if isinstance(params, ShardedParams):
+            want = (mesh_fingerprint(self.mesh), int(self.mesh.rank))
+            if params.topology != want:
+                raise ValueError(f"params sliced for {params.topology}, "
+                                 f"the runtime serves {want}")
+            return params
+        if self._local is None or self._local[0] is not params:
+            self._local = (params, shard_params(params, self.rules,
+                                                self.mesh))
+        return self._local[1]
+
+    def _gather_rows(self, out: torch.Tensor, B: int) -> torch.Tensor:
+        """Every rank's rows of a batch it split: the whole output."""
+        if self.rows(B) == (0, B):
+            return out
+        return self.mesh.all_gather(out, "data", 0)
+
+    @property
     def identity(self) -> dict:
         """The deployment identity every cache key leads with, as strings
         (the ``samp_build_info`` labels of an HTTP front-end): backend,
-        plan fingerprint (or the structural hash), and the cluster of a
-        routed sibling."""
+        plan fingerprint (or the structural hash), mesh topology
+        (``"unmeshed"`` without one), and the cluster of a routed
+        sibling."""
         fp = self._plan_key[1]
         out = {"backend": self.backend.name,
                "plan": fp if isinstance(fp, str)
-               else f"structural:{fp & 0xFFFFFFFFFFFFFFFF:016x}"}
+               else f"structural:{fp & 0xFFFFFFFFFFFFFFFF:016x}",
+               "mesh": mesh_fingerprint(self.mesh)}
         if self.cluster is not None:
             out["cluster"] = str(self.cluster)
         return out
@@ -129,20 +187,23 @@ class Runtime:
                                     if k[0] == "encode"}))
 
     def share(self, plan, *, scheme: Optional[T.QuantScheme] = None,
-              precision=None, backend=None,
+              precision=None, backend=None, mesh="inherit",
               cluster: Optional[int] = None) -> "Runtime":
         """A sibling Runtime bound to a different (plan, scheme, precision,
-        backend, cluster) that SHARES this runtime's callable cache and
-        counters. Cache keys lead with (backend name, precision
-        fingerprint, cluster), so two pipelines under different plans, one
-        plan on two backends, or the K clusters of a routed deployment
-        share one runtime without key collisions."""
+        backend, mesh, cluster) that SHARES this runtime's callable cache
+        and counters. Cache keys lead with (backend name, precision
+        fingerprint, mesh fingerprint, cluster), so two pipelines under
+        different plans, one plan on two backends or two topologies, or the
+        K clusters of a routed deployment share one runtime without key
+        collisions. ``mesh`` defaults to this runtime's; None gives an
+        unmeshed sibling."""
         rt = Runtime(self.cfg, plan, scheme=scheme or self.scheme,
                      precision=precision, head=self.head,
                      token_level=self.token_level, min_batch=self.min_batch,
                      min_len=self.min_len, max_len=self.max_len,
                      chunk=self.chunk, backend=backend or self.backend,
-                     device=self.device, cluster=cluster)
+                     device=self.device, cluster=cluster,
+                     mesh=self.mesh if mesh == "inherit" else mesh)
         rt._exe = self._exe
         rt._stats = self._stats
         return rt
@@ -150,7 +211,8 @@ class Runtime:
     def _build_encode(self) -> Callable:
         self._stats["traces"] += 1
         cfg, plan, scheme = self.cfg, self.plan, self.scheme
-        head, chunk, backend = self.head, self.chunk, self.backend
+        head, chunk, backend, mesh = (self.head, self.chunk, self.backend,
+                                      self.mesh)
 
         def fn(params, inputs: dict, lengths: torch.Tensor) -> torch.Tensor:
             S = inputs["frames" if cfg.frontend == "audio"
@@ -166,10 +228,10 @@ class Runtime:
             positions = torch.where(valid, idx[None], -1)
             x = T.embed_inputs(params, inputs, cfg,
                                positions=torch.clamp(positions, min=0),
-                               backend=backend)
+                               backend=backend, mesh=mesh)
             x = T.run_groups(x, params, cfg, plan, scheme,
                              positions=positions, chunk=chunk,
-                             backend=backend)
+                             backend=backend, mesh=mesh)
             x = L.norm(x, params["final_norm"], cfg.norm_kind)
             return head(params, x) if head is not None else x
         return fn
@@ -182,7 +244,9 @@ class Runtime:
         vision config may add ``"prefix_embeds"`` (B, P, frontend_dim).
         ``lengths`` (B,) gives each row's true token or frame count (default
         S; a prefix counts whole). Returns the head's output for the real
-        rows as numpy (a token-level output cut to P + S positions)."""
+        rows as numpy (a token-level output cut to P + S positions). On a
+        mesh, ``params`` is the whole tree (or this rank's block) and every
+        rank returns the whole output."""
         arrs = {k: np.asarray(v) for k, v in inputs.items()}
         lead = arrs.get("tokens", arrs.get("frames"))
         B, S = lead.shape[0], lead.shape[1]
@@ -190,6 +254,10 @@ class Runtime:
             lengths = np.full((B,), S, np.int32)
         lengths = np.asarray(lengths, np.int32)
         Bb = bucket_size(B, self.min_batch) if self.bucketed else B
+        if self.bucketed and Bb % self._dp:
+            # meshed serving: the batch splits evenly over the data axis,
+            # so buckets round up to dp multiples
+            Bb = -(-Bb // self._dp) * self._dp
         Sb = (bucket_size(S, self.min_len, self.max_len)
               if self.bucketed and "tokens" in arrs else S)
         padded = {}
@@ -207,12 +275,13 @@ class Runtime:
         fn = self._exe.get(key)
         if fn is None:
             fn = self._exe[key] = self._build_encode()
+        lo, hi = self.rows(Bb)
         with torch.inference_mode():
-            out = fn(params,
-                     {k: torch.from_numpy(v).to(self.device)
+            out = fn(self.local_params(params),
+                     {k: torch.from_numpy(v[lo:hi]).to(self.device)
                       for k, v in padded.items()},
-                     torch.from_numpy(full_len).to(self.device))
-            out = out[:B].to("cpu").numpy()
+                     torch.from_numpy(full_len[lo:hi]).to(self.device))
+            out = self._gather_rows(out, Bb)[:B].to("cpu").numpy()
         self._stats["calls"] += 1
         self._stats["real_tokens"] += int(lengths.sum())
         self._stats["padded_tokens"] += Bb * Sb - int(lengths.sum())
@@ -226,13 +295,14 @@ class Runtime:
     # -- decode / token-level path -------------------------------------------
     def _build_decode(self) -> Callable:
         self._stats["traces"] += 1
-        cfg, plan, scheme, backend = (self.cfg, self.plan, self.scheme,
-                                      self.backend)
+        cfg, plan, scheme, backend, mesh = (self.cfg, self.plan, self.scheme,
+                                            self.backend, self.mesh)
 
         def fn(params, caches, tokens, pos, active, pages):
             logits, caches = T.decode_step(params, tokens, caches, pos, cfg,
                                            plan, scheme, active=active,
-                                           pages=pages, backend=backend)
+                                           pages=pages, backend=backend,
+                                           mesh=mesh)
             return logits[:, -1, :], caches
         return fn
 
@@ -241,7 +311,9 @@ class Runtime:
         once; the returned callable is the per-tick hot path. It takes the
         tick's numpy operands (tokens (B, 1), pos (B,), active (B,), and the
         page table for paged caches, else None) and returns (logits (B, V)
-        on the device, new caches)."""
+        on the device, new caches). On a mesh the operands are the whole
+        batch's, ``caches`` hold this rank's slots (:meth:`rows`) and the
+        logits come back for every slot."""
         key = ("decode", self._plan_key, T.cache_slots(caches),
                T.kv_geometry(caches))
         fn = self._exe.get(key)
@@ -251,14 +323,21 @@ class Runtime:
 
         def step(params, caches, tokens, pos, active, pages=None):
             self._stats["calls"] += 1
+            B = len(tokens)
+            lo, hi = self.rows(B)
+            if T.cache_slots(caches) != hi - lo:
+                raise ValueError(f"caches hold {T.cache_slots(caches)} "
+                                 f"slots; this rank runs {hi - lo} of {B}")
+
+            def rows(a, dtype):
+                return torch.from_numpy(np.asarray(a, dtype)[lo:hi]).to(dev)
             with torch.inference_mode():
-                return fn(params, caches,
-                          torch.from_numpy(np.asarray(tokens, np.int32))
-                          .to(dev),
-                          torch.from_numpy(np.asarray(pos, np.int32)).to(dev),
-                          torch.from_numpy(np.asarray(active, bool)).to(dev),
-                          None if pages is None else torch.from_numpy(
-                              np.asarray(pages, np.int32)).to(dev))
+                logits, caches = fn(
+                    self.local_params(params), caches,
+                    rows(tokens, np.int32), rows(pos, np.int32),
+                    rows(active, bool),
+                    None if pages is None else rows(pages, np.int32))
+                return self._gather_rows(logits, B), caches
         return step
 
     def decode(self, params, caches, tokens, pos, active, pages=None):

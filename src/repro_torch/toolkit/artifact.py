@@ -102,10 +102,11 @@ class Artifact:
                             cluster_model=self.cluster_model,
                             scheme=self.scheme, backend=backend)
 
-    def pipeline(self, backend="reference"):
+    def pipeline(self, backend="reference", mesh=None):
         """Rebuild the (quantized) Pipeline this artifact was saved from, on
-        the compute backend ``backend`` (a deployment-time choice: the
-        bundle persists the plan, not how it executes)."""
+        the compute backend ``backend`` and the serving mesh ``mesh``
+        (deployment-time choices: the bundle persists the plan, not how or
+        where it executes)."""
         from repro_torch.toolkit.pipeline import Pipeline
         task = self.task or TaskSpec(name="lm", kind="lm", n_classes=0,
                                      vocab_size=self.cfg.vocab_size,
@@ -113,7 +114,7 @@ class Artifact:
         float_pipe = Pipeline(self.cfg, task, get_target(self.target_name),
                               n_out=self.n_out, scheme=self.scheme,
                               tokenizer=self.tokenizer, backend=backend,
-                              device=self.device)
+                              device=self.device, mesh=mesh)
         return float_pipe.with_policy(self.params, self.plan, self.precision)
 
 

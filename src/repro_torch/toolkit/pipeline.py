@@ -17,8 +17,10 @@ quantized params under a new execution plan (the post-PTQ pipeline).
 
 The port serves in the params' dtype (float32), so there is no
 ``compute_dtype``; the plan's ``float_dtype`` is part of its fingerprint,
-and the compute dtype of fine-tuning (``SAMP.finetune``). Serving meshes
-arrive with their slice.
+and the compute dtype of fine-tuning (``SAMP.finetune``). ``mesh=`` (a
+:class:`~repro_torch.launch.mesh.ProcessMesh`) serves the pipeline's
+predictions SPMD through its runtime; :meth:`Pipeline.forward` composes the
+stages over whole params.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from repro_torch.core.precision import EncoderPolicy
 from repro_torch.data.pipeline import (TaskSpec, eval_accuracy, get_batch,
                                        make_task)
 from repro_torch.data.tokenizer import WordPieceTokenizer
+from repro_torch.distributed.sharding import mesh_fingerprint
 from repro_torch.kernels.backend import get_backend
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -144,10 +147,13 @@ class Pipeline:
                  params: Optional[dict] = None,
                  tokenizer: Optional[WordPieceTokenizer] = None,
                  backend="reference",
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", mesh=None):
         self.cfg = cfg
         self.task = task
         self.backend = get_backend(backend)
+        # the serving mesh the runtime places the predictions on (None =
+        # one device); part of the runtime's cache key
+        self.mesh = mesh
         self.device = resolve_device(device)
         # the precision description is always a PrecisionPlan internally;
         # EncoderPolicies coerce through the lossless shim
@@ -174,11 +180,13 @@ class Pipeline:
               scheme: T.QuantScheme = T.QuantScheme(),
               tokenizer: Optional[WordPieceTokenizer] = None,
               backend="reference",
-              device: Union[str, torch.device] = "cuda") -> "Pipeline":
+              device: Union[str, torch.device] = "cuda",
+              mesh=None) -> "Pipeline":
         """ArchConfig + task spec -> float Pipeline (params uninitialized;
         call ``init_params`` or bind carried-over params). ``backend``
         picks the compute backend quantized blocks execute on (reference |
-        fused | auto — see repro_torch.kernels.backend)."""
+        fused | auto — see repro_torch.kernels.backend); ``mesh`` the
+        serving mesh its runtime predicts on."""
         if isinstance(task, str):
             task = make_task(task, vocab_size=cfg.vocab_size,
                              seq_len=seq_len)
@@ -186,7 +194,7 @@ class Pipeline:
         policy = PrecisionPlan.full_float(cfg.num_layers, float_dtype)
         return cls(cfg, task, spec, n_out=n_out, policy=policy,
                    scheme=scheme, tokenizer=tokenizer, backend=backend,
-                   device=device)
+                   device=device, mesh=mesh)
 
     # -- construction --------------------------------------------------------
     @property
@@ -211,7 +219,7 @@ class Pipeline:
                 precision=self.precision,
                 head=lambda p, h: spec.apply(p, h, cfg),
                 token_level=spec.token_level, backend=self.backend,
-                device=self.device)
+                device=self.device, mesh=self.mesh)
         return self._runtime
 
     def init_params(self, gen: torch.Generator,
@@ -243,7 +251,8 @@ class Pipeline:
                         n_out=self.target.n_out, policy=policy, plan=plan,
                         scheme=self.scheme, params=params,
                         tokenizer=self.tokenizer.tokenizer,
-                        backend=self.backend, device=self.device)
+                        backend=self.backend, device=self.device,
+                        mesh=self.mesh)
         pipe._runtime = self.runtime.share(plan, scheme=self.scheme,
                                            precision=pipe.precision,
                                            backend=pipe.backend)
@@ -324,4 +333,5 @@ class Pipeline:
         return (f"Pipeline[{self.cfg.name}] task={self.task.name} "
                 f"target={self.target.spec.name} "
                 f"policy={self.policy.describe()} "
-                f"backend={self.backend.name} device={self.device}")
+                f"backend={self.backend.name} device={self.device} "
+                f"mesh={mesh_fingerprint(self.mesh)}")

@@ -33,6 +33,7 @@ from repro_torch.core.plan import (PlanSet, PrecisionPlan, as_plan,
 from repro_torch.core.precision import EncoderPolicy
 from repro_torch.core.samp import SAMPEngine, SAMPResult, SweepPoint
 from repro_torch.data.pipeline import get_batch
+from repro_torch.distributed.sharding import mesh_fingerprint
 from repro_torch.kernels.backend import get_backend
 from repro_torch.models import transformer as T
 from repro_torch.toolkit import artifact as A
@@ -122,34 +123,37 @@ class SAMP:
                     latency: Union[str, LatencyBackend] = "roofline",
                     latency_batch: int = 32, tokenizer=None,
                     backend="reference",
-                    device: Union[str, torch.device] = "cuda") -> "SAMP":
+                    device: Union[str, torch.device] = "cuda",
+                    mesh=None) -> "SAMP":
         """Build the float pipeline for ``arch`` (a registry name or an
         explicit ArchConfig) on ``task`` and wrap it in the facade.
         ``backend`` names the compute backend quantized blocks execute on
         (reference | fused | auto — repro_torch.kernels.backend) and
         ``device`` where everything runs (``"cuda"``, an error without a
         card, or ``"cpu"``); both follow the pipeline through
-        ``apply``/``autotune`` into serving."""
+        ``apply``/``autotune`` into serving, as does ``mesh``, the serving
+        mesh its predictions run on."""
         cfg = arch if isinstance(arch, ArchConfig) else get_config(arch)
         if task is None:
             task = get_target(target).default_task if target else "tnews"
         pipe = Pipeline.build(cfg, task, target=target, n_out=n_out,
                               seq_len=seq_len, float_dtype=float_dtype,
                               scheme=scheme, tokenizer=tokenizer,
-                              backend=backend, device=device)
+                              backend=backend, device=device, mesh=mesh)
         return cls(pipe, latency=latency, latency_batch=latency_batch)
 
     @classmethod
     def load(cls, directory: str, *,
              latency: Union[str, LatencyBackend] = "roofline",
              backend="reference",
-             device: Union[str, torch.device] = "cuda") -> "SAMP":
+             device: Union[str, torch.device] = "cuda",
+             mesh=None) -> "SAMP":
         """Reload a saved artifact: the quantized pipeline is ready to
         predict/serve immediately — no calibration batches needed. The
-        compute backend and the device are deployment choices, not part of
-        the artifact: pick them at load time."""
+        compute backend, the device and the serving mesh are deployment
+        choices, not part of the artifact: pick them at load time."""
         art = A.load_artifact(directory, device=device)
-        qpipe = art.pipeline(backend=backend)
+        qpipe = art.pipeline(backend=backend, mesh=mesh)
         samp = cls(qpipe, latency=latency)
         samp.stats = art.stats
         samp.quantized = qpipe
@@ -269,6 +273,8 @@ class SAMP:
             kw["clusters"] = batch_clusters(clusters, batches,
                                             batch_classes=batch_classes)
             self.cluster_model = clusters
+        # on a serving mesh the batches split over its ranks
+        kw.setdefault("mesh", self.pipeline.mesh)
         self.stats = self.engine.calibrate(params, batches,
                                            calibrator=calibrator,
                                            precision=precision, **kw)
@@ -532,17 +538,18 @@ class SAMP:
         micro-batching encoder engine, which shares the pipeline's runtime,
         so predict() and serving hit one callable cache. ``batch_slots``
         sets the slot count (decode) / the micro-batch flush size
-        (encoder). ``backend=`` overrides the pipeline's compute backend
-        for this server. Decode engines additionally take ``page_size=``
-        and ``kv_cache=``; a PrecisionPlan's per-layer ``kv_cache`` schemes
-        apply automatically. A deployed PlanSet serves routed
-        (``router=None`` opts out)."""
+        (encoder). ``backend=`` / ``mesh=`` override the pipeline's compute
+        backend / serving mesh for this server (both engine types). Decode
+        engines additionally take ``page_size=`` and ``kv_cache=``; a
+        PrecisionPlan's per-layer ``kv_cache`` schemes apply automatically.
+        A deployed PlanSet serves routed (``router=None`` opts out)."""
         # imported here: the serving engines import the toolkit's targets
         from repro_torch.serve import EncoderServeEngine, ServeEngine
         pipe = self.current
         if pipe.params is None:
             raise ValueError("pipeline has no params to serve")
         backend = kw.pop("backend", None)
+        mesh = kw.pop("mesh", pipe.mesh)
         router = kw.pop("router", self.router)
         if pipe.cfg.supports_decode and pipe.target.spec.name == "lm":
             kw.setdefault("precision", pipe.precision)
@@ -550,16 +557,21 @@ class SAMP:
                                scheme=pipe.scheme, batch_slots=batch_slots,
                                max_len=max_len,
                                backend=(pipe.backend if backend is None
-                                        else backend),
+                                        else backend), mesh=mesh,
                                router=router, device=pipe.device, **kw)
         enc_kw = dict(target=pipe.target.spec, scheme=pipe.scheme,
                       max_batch=kw.pop("max_batch", batch_slots),
                       max_len=max_len, router=router)
-        if backend is not None \
-                and get_backend(backend).name != pipe.backend.name:
-            # explicit override: a fresh runtime on the requested backend
+        if (backend is not None
+                and get_backend(backend).name != pipe.backend.name) \
+                or mesh_fingerprint(mesh) != mesh_fingerprint(pipe.mesh):
+            # explicit override: a fresh runtime on the requested backend or
+            # topology (an equal mesh built separately compares equal by
+            # fingerprint and keeps the pipeline's runtime)
             return EncoderServeEngine(pipe.cfg, pipe.params, pipe.plan,
-                                      backend=backend, device=pipe.device,
+                                      backend=(pipe.backend if backend is
+                                               None else backend),
+                                      device=pipe.device, mesh=mesh,
                                       **enc_kw, **kw)
         return EncoderServeEngine(pipe.cfg, pipe.params, pipe.plan,
                                   runtime=pipe.runtime, **enc_kw, **kw)

@@ -14,7 +14,7 @@ through :mod:`repro_torch.checkpoint.store`. The data pipeline is
 counter-indexed, so resume = load the newest checkpoint + fast-forward the
 step counter.
 
-Sharded training (``mesh=``) is ROADMAP queue 1 item 8. With no mesh,
+Sharded training (``mesh=``) is ROADMAP queue 1 item 8b. With no mesh,
 ``compress_pod_grads`` keeps a zero error state, carried and checkpointed,
 and compresses nothing: what the JAX package does on one device.
 """
@@ -107,7 +107,7 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError(
                 "Trainer(mesh=...): the port trains on one device; sharded "
-                "training is ROADMAP queue 1 item 8 (multi-GPU)")
+                "training is ROADMAP queue 1 item 8b (multi-GPU)")
         self.cfg = cfg
         self.policy = policy
         self.plan = T.build_plan(cfg, policy)

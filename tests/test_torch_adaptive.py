@@ -533,7 +533,7 @@ def test_routed_engine_k_callables_and_zero_steady_state_builds(m):
     assert dict(router.requests_by_cluster) == {0: 2, 1: 4, 2: 2}
     assert [router.entry(c).runtime.identity for c in range(3)] == [
         {"backend": "reference", "plan": _ffn_plan(cfg).fingerprint(),
-         "cluster": str(c)} for c in range(3)]
+         "mesh": "unmeshed", "cluster": str(c)} for c in range(3)]
     assert "cluster" not in engine.runtime.identity
     # the counters the JAX server exports as samp_cluster_requests_total
     # and samp_active_plans

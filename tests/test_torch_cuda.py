@@ -207,6 +207,96 @@ def test_quant_linear_splits_mirror_the_library(dev):
             assert fn(M, N, K) == quant_linear.quant_linear_splits(M, N, K)
 
 
+# the row-parallel GEMMs of a 2-way tensor-parallel mesh: BERT-base's attn
+# and FFN outputs (K 384 / 1536 of 768 / 3072), qwen2-0.5b's (448 / 2432 of
+# 896 / 4864), and the unsplit shapes they sum to
+TP_ROW_SHAPES = [(384, 768), (1536, 768), (448, 896), (2432, 896),
+                 (768, 768), (4864, 896)]
+
+
+@pytest.mark.parametrize("M", [1, 8, 33, 1024])
+@pytest.mark.parametrize("K,N", TP_ROW_SHAPES)
+@pytest.mark.parametrize("act", [None, "gelu"])
+def test_quant_linear_accumulator_mode(dev, M, K, N, act):
+    """The accumulator mode returns the exact int32 product (split over K
+    or not), its plain version's bit for bit; the two K halves' sums add
+    to the whole product's; and the epilogue after the sum equals the
+    kernel's own output, float and requantized: bit for bit with a bias and
+    no activation (the row-parallel GEMMs of the served models), within
+    the plain version's budget under GELU (tanhf against torch.tanh)."""
+    xq, wq, ws, xs = _ql_operands(dev, M, K, N, True, 11 * M + K)
+    before = quant_linear.launches
+    acc = quant_linear.quant_linear_acc(xq, wq)
+    assert quant_linear.launches == before + 1
+    assert acc.dtype == torch.int32 and acc.equal(
+        quant_linear.quant_linear_acc(xq.cpu(), wq.cpu()).to(dev))
+    h = K // 2
+    halves = (quant_linear.quant_linear_acc(xq[:, :h].contiguous(), wq[:h])
+              + quant_linear.quant_linear_acc(xq[:, h:].contiguous(), wq[h:]))
+    assert halves.equal(acc)
+    b = torch.randn(N, generator=torch.Generator(device=dev).manual_seed(K),
+                    device=dev)
+    y = quant_linear.quant_linear(xq, wq, ws, xs, bias=b, act=act)
+    y_ep = quant_linear.quant_linear_epilogue(acc, ws, xs, bias=b, act=act)
+    os_ = torch.tensor(float(y.abs().max()) / 100.0, device=dev)
+    q = quant_linear.quant_linear(xq, wq, ws, xs, bias=b, act=act,
+                                  out_scale=os_)
+    q_ep = quant_linear.quant_linear_epilogue(acc, ws, xs, bias=b, act=act,
+                                              out_scale=os_)
+    if act is None:
+        assert y_ep.equal(y) and q_ep.equal(q)
+    else:
+        assert _rel(y, y_ep) <= 1e-6
+        assert int((q.int() - q_ep.int()).abs().max()) <= 1
+
+
+# the column-parallel GEMMs of a 2-way tensor-parallel mesh, whole: each
+# rank runs half of N (qwen2-0.5b's wk / wv at 64, wq at 448, wg / wu at
+# 2432; BERT-base's q / k / v at 384, wi at 1536)
+TP_COL_SHAPES = [(896, 128), (896, 896), (896, 4864), (768, 768),
+                 (768, 3072)]
+
+
+@pytest.mark.parametrize("M", [1, 8, 1024])
+@pytest.mark.parametrize("K,N", TP_COL_SHAPES)
+def test_quant_linear_column_shards(dev, M, K, N):
+    """A rank's half of a column-parallel weight, at any width (no tile
+    minimum), gives the whole GEMM's columns bit for bit: the integer sums
+    are exact and the epilogue is per column."""
+    xq, wq, ws, xs = _ql_operands(dev, M, K, N, False, 5 * M + N)
+    b = torch.randn(N, generator=torch.Generator(device=dev).manual_seed(N),
+                    device=dev)
+    y = quant_linear.quant_linear(xq, wq, ws, xs, bias=b)
+    h = N // 2
+    for lo, hi in ((0, h), (h, N)):
+        part = quant_linear.quant_linear(
+            xq, wq[:, lo:hi].contiguous(), ws[lo:hi].contiguous(), xs,
+            bias=b[lo:hi].contiguous())
+        assert part.equal(y[:, lo:hi])
+
+
+@pytest.mark.parametrize("M,D", [(1, 768), (8, 896), (1024, 3072),
+                                 (8, 4864), (5, 5000), (3, 40000)])
+def test_dynamic_quant_scale_in_mode(dev, M, D):
+    """Each rank's columns of a row coded at the whole row's amax (the
+    row_amax operand) give the whole row's codes and scales bit for bit,
+    at every block plan: one row a block, several, and streamed."""
+    g = torch.Generator(device=dev).manual_seed(M + 3 * D)
+    x = torch.randn((M, D), generator=g, device=dev) * 3
+    x[-1] = 0.0
+    q, s = dynamic_quant.dynamic_quant(x)
+    amax = x.abs().amax(dim=-1)
+    h = D // 2
+    for part in (x[:, :h], x[:, h:]):
+        part = part.contiguous()
+        qp, sp = dynamic_quant.dynamic_quant(part, row_amax=amax)
+        assert sp.equal(s)
+        assert qp.equal(dynamic_quant.dynamic_quant_plain(part, amax)[0])
+    qa, _ = dynamic_quant.dynamic_quant(x[:, :h].contiguous(), row_amax=amax)
+    qb, _ = dynamic_quant.dynamic_quant(x[:, h:].contiguous(), row_amax=amax)
+    assert torch.cat([qa, qb], dim=1).equal(q)
+
+
 @pytest.mark.parametrize("M,D", [(1, 768), (33, 3072), (7, 100), (5, 5000)])
 def test_dynamic_quant(dev, M, D):
     g = torch.Generator(device=dev).manual_seed(D)
@@ -658,6 +748,7 @@ def _decode_case(dev, B, Hkv, g, hd, ps, pps, mode, seed=0):
 
 
 DECODE_SHAPES = [(8, 2, 7, 64, 16, 8), (3, 2, 2, 16, 8, 3),
+                 (8, 1, 7, 64, 16, 8),        # a qwen2 rank at tp 2
                  (4, 1, 4, 128, 32, 2), (5, 4, 1, 32, 4, 5),
                  (2, 2, 3, 64, 16, 1),
                  (2, 4, 2, 256, 16, 3),       # gemma2's head dim

@@ -304,7 +304,8 @@ def test_concurrent_encode_matches_pipeline_and_metrics(bert_golden):
     assert 'samp_build_info{backend="reference",engine="encoder"' in metrics
     assert "samp_requests_admitted_total 2" in metrics
     assert "cached callables the runtime built" in metrics
-    assert "mesh" not in metrics
+    # the deployment identity names the topology, as the JAX package's
+    assert 'mesh="unmeshed"' in metrics
 
 
 def test_burst_over_capacity_yields_429_and_rejection_counter(bert_golden):

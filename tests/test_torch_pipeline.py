@@ -394,9 +394,12 @@ def test_with_policy_shares_the_runtime(golden):
     pipe.predict_logits(b)
     sib.predict_logits(b)
     keys = {k[1] for k in pipe.runtime._exe}
-    # (backend, plan fingerprint, cluster): None for an unrouted runtime
-    assert ("reference", pipe.precision.fingerprint(), None) in keys
-    assert ("reference", sib.precision.fingerprint(), None) in keys
+    # (backend, plan fingerprint, mesh fingerprint, cluster): "unmeshed"
+    # without a mesh, None for an unrouted runtime
+    assert ("reference", pipe.precision.fingerprint(), "unmeshed",
+            None) in keys
+    assert ("reference", sib.precision.fingerprint(), "unmeshed",
+            None) in keys
     assert pipe.runtime.stats["executables"] >= before + 1
     # an EncoderPolicy coerces through the lossless shim, as in JAX
     pol = P.make_policy(pipe.cfg, "ffn2", "float32")

@@ -158,8 +158,9 @@ def test_runtime_caches_per_bucket_and_counts(s):
     assert st["padded_tokens"] == ((4 * 16 - 21) + (2 * 16 - 18) + (32 - 20)
                                    + (4 * 8 - 9) + (4 * 16 - 30))
     key = next(iter(rt._exe))
-    # (backend, plan fingerprint, cluster): None for an unrouted runtime
-    assert key[1] == ("fused", s["plan"].fingerprint(), None)
+    # (backend, plan fingerprint, mesh fingerprint, cluster): "unmeshed"
+    # without a mesh, None for an unrouted runtime
+    assert key[1] == ("fused", s["plan"].fingerprint(), "unmeshed", None)
 
 
 def test_runtime_masks_padding(s):
