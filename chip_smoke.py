@@ -206,9 +206,9 @@ line per phase:
 
 The models of those four paths are then freed, and the MoE slice runs:
 
-* ``setup_moe``: full-width mixtral-8x22b cut to 4 layers (random float32
-  weights from seed 0, 41.7 GB), the golden v4 plan (fingerprint held to
-  the JAX package's), 2 calibration batches of 4 x 128 and 16 requests
+* ``setup_moe``: full-width mixtral-8x22b cut to 2 layers (random float32
+  weights from seed 0, 21.9 GB; 4 until slice 17), the golden v4 plan's
+  first two layers (the plan's fingerprint held to the JAX package's), 2 calibration batches of 4 x 128 and 16 requests
   (prompts uniform in 8-64 tokens over the 32768-token vocab, numpy seed 0;
   16 greedy tokens each);
 * ``moe_decode_path``: calibrated, quantized (the float tree then dropped),
@@ -217,7 +217,8 @@ The models of those four paths are then freed, and the MoE slice runs:
   unused) on the fused backend, counted, and on the reference backend, with
   the decode paths' checks: identical tokens, logits within rel-Linf 5e-3,
   the launches per tick the plan implies (``quant_expert_gemm`` on the
-  routed expert stacks of layers 0, 1 and 3), 0 pages in use, and the
+  routed expert stacks of layers 0 and 1: static and per-token scales),
+  0 pages in use, and the
   phase's peak device memory; then its kernels (``quant_expert_gemm`` at
   the served capacity C = 3 and at C = 160, a (4, 128) forward's) and a
   profiled window of its ticks. It also counts the (slot, expert) routings
@@ -225,6 +226,30 @@ The models of those four paths are then freed, and the MoE slice runs:
   backends (idle slots route too and take capacity, as in the JAX engine),
   in two further runs outside the timed ones that must serve the same
   tokens.
+
+Then ``arch_mesh_path`` (slice 17): two ranks on this card over gloo, as
+``mesh_path``, serve one model at a time at full width, each rank building
+and calibrating the whole float tree (unmeshed and on the mesh: stats
+equal) and quantizing it under the model's plan (the MoE archs also under
+an all-int8 expert plan): mixtral-8x22b cut to 2 layers (golden v4's first two) and
+deepseek-v2-236b cut to 2 (layer 0 dense, layer 1 the 160-expert MoE) at
+(data=2, model=1), expert parallel (a rank's experts over every group's
+rows by ``all_to_all``), and at (data=1, model=2), each expert's hidden
+units split (``wd`` through ``quant_expert_gemm``'s accumulator mode) and
+deepseek-v2's MLA heads; hubert-xlarge (4 layers, the span: one encode of
+8 x 64 frames), paligemma-3b (4), recurrentgemma-9b (3: two RG-LRU, one
+local attention) and xlstm-125m (2) at (data=1, model=2). The decoders
+serve 8 prompts of 4-8 tokens, 16 greedy tokens, 8 slots, pages of 16.
+Data parallel is held bit for bit against an unmeshed engine with the
+rank's 4 slots serving the rank's requests (its token group); tensor
+parallel, teacher-forced on the unmeshed 8-slot run, within
+``MESH_DECODE_BUDGET`` (deepseek-v2 ``MESH_MOE_DECODE_BUDGET``, hubert's
+encode ``MESH_BUDGET``) under the served plan and within
+``MESH_EXACT_TOL`` with every argmax equal under the all-int8 plan; launches a tick as the unmeshed runs', the accumulator mode
+once a MoE layer a tensor-parallel tick, no page in use after. It prints
+each rank's peak memory, wall a tick, collectives and the routings expert
+capacity dropped beside the unmeshed run's, and times the accumulator mode
+at its mesh shapes against its plain version.
 
 Then the attention archs of slice 13, one model at a time (``setup_arch``:
 full width, seeded float32 weights, 2 calibration batches of 4 x 128; each
@@ -237,41 +262,42 @@ with the decode paths' checks (identical tokens, logits within rel-Linf
 5e-3 at every tick both engines saw, the plan's launches a tick exactly,
 0 pages in use after):
 
-* ``gemma2_decode_path``: gemma2-2b cut from 26 to 13 layers, the
-  golden plan tiled over them, int8 per-token pages of 128 tokens on the 6
-  global layers beside the 7 local layers' dense rings: ``decode_attention`` at head
+* ``gemma2_decode_path``: gemma2-2b cut from 26 to 7 layers, the
+  golden plan tiled over them, int8 per-token pages of 128 tokens on the 3
+  global layers beside the 4 local layers' dense rings: ``decode_attention`` at head
   dim 256 with pages of 128 and softcap 50 on the float-qkv global
   layers, the final softcap 30;
-* ``granite_decode_path``: granite-20b cut from 52 to 8 layers (golden x
-  2), MQA: ``decode_attention`` with a group of 48, split over two blocks;
-* ``deepseek_coder_decode_path``: deepseek-coder-33b cut from 62 to 8
+* ``granite_decode_path``: granite-20b cut from 52 to 4 layers (the
+  golden plan), MQA: ``decode_attention`` with a group of 48, split over two blocks;
+* ``deepseek_coder_decode_path``: deepseek-coder-33b cut from 62 to 4
   layers, a group of 7;
-* ``hubert_encode_path``: hubert-xlarge, all 48 layers, the span (golden x
-  12 through ``int8_dataflow_variant``): 16 seeded frame sequences (T
+* ``hubert_encode_path``: hubert-xlarge cut from 48 to 24 layers (since
+  slice 17), the span (golden x 6 through ``int8_dataflow_variant``): 16
+  seeded frame sequences (T
   uniform in 16-128, 512 features) through ``Runtime.encode`` with their
   lengths, 8 a call, frame logits within rel-Linf 5e-3 and the predicted
   codes identical: ``quant_flash_attention`` at head dim 80;
 * ``paligemma_path`` and ``paligemma_decode_path``: paligemma-3b cut from
-  18 to 9 layers: one ``Runtime.encode`` of 8 rows of 256 seeded prefix embeddings
+  18 to 4 layers: one ``Runtime.encode`` of 8 rows of 256 seeded prefix embeddings
   (1152 wide) beside 8-32 tokens (hidden states and the text positions'
   logits within 5e-3, their argmax identical), then the text decode of
   the prompts over int8 per-token pages of 16;
-* ``mla_decode_path``: deepseek-v2-236b cut from 60 to 3 layers (layer 0
-  dense, layers 1-2 MoE: 160 experts, top 6, 2 shared), ``quant_ffn_only``
+* ``mla_decode_path``: deepseek-v2-236b cut from 60 to 2 layers (layer 0
+  dense, layer 1 MoE: 160 experts, top 6, 2 shared), ``quant_ffn_only``
   with the experts family: MLA's absorbed decode over float latent pages
   on the reference path, ``quant_expert_gemm`` at 160 experts (C = 1 a
   tick), and the routings expert capacity dropped on both backends.
 
 Then the recurrent archs of slice 14, the same way:
 
-* ``recurrentgemma_decode_path``: recurrentgemma-9b cut from 38 to 19
-  layers (13 RG-LRU, 6 local attention), the golden plan tiled
+* ``recurrentgemma_decode_path``: recurrentgemma-9b cut from 38 to 10
+  layers (7 RG-LRU, 3 local attention), the golden plan tiled
   over them: the RG-LRU mix on the reference path, its FFN's GEMMs through
   ``quant_linear`` and ``dynamic_quant``, ``addnorm_quant`` at the local
   layers' residual boundary, no ``decode_attention`` (the local layers
   keep rings);
-* ``xlstm_decode_path`` and ``xlstm_encode_path``: xlstm-125m, all 12
-  layers (mLSTM and sLSTM blocks): the decode of the prompts, and one
+* ``xlstm_decode_path`` and ``xlstm_encode_path``: xlstm-125m cut from
+  12 to 6 layers (3 mLSTM, 3 sLSTM blocks): the decode of the prompts, and one
   ``Runtime.encode`` of 4 x 512 seeded tokens (two mLSTM chunks: logits
   within 5e-3, argmax identical). No kernel launches on either: each
   count is held to 0.
@@ -356,14 +382,18 @@ EXPECTED_DECODE_SUB = {
     "decode_path": {"decode_attention with p_scale": 0},
     "decode_head_path": {"decode_attention with p_scale": 12}}
 
-MOE_LAYERS = 4                   # the golden v4 plan's depth (of 56)
+# the golden v4 plan's first two layers (of its 4; of mixtral's 56): one
+# expert stack at static per-expert scales, one at per-token scales. 4
+# until slice 17, cut to keep the script at its time beside arch_mesh_path
+MOE_LAYERS = 2
 # the JAX package's fingerprint of tests/data/golden_plan_v4.json
 MOE_FINGERPRINT = ("1975482e7c32269fe19291e8b571accb"
                    "fec0a6647da894a507e6531f228bc9ac")
 MOE_FORWARD = (4, 128)           # the calibration batches' shape
-# launches per tick the golden v4 plan implies on mixtral, with sub-counts
+# launches per tick the golden v4 plan's first two layers imply on
+# mixtral, with sub-counts
 EXPECTED_MOE = {"quant_linear": 4, "dynamic_quant": 3,
-                "quant_expert_gemm": 9}
+                "quant_expert_gemm": 6}
 EXPECTED_MOE_SUB = {"quant_linear with out_scale": 1,
                     "quant_expert_gemm with per-token scales": 3}
 
@@ -435,23 +465,27 @@ HTTP_CLI_ENCODES = 8
 # before the next: (arch, its paths). Decode: 8 prompts of 8-64 tokens, 16
 # greedy tokens each, 8 slots, max_len 128, int8 per-token pages of 16
 # (gemma2-2b: of 128; deepseek-v2's latent pages are float). Cuts of depth
-# (the float tree must fit beside PTQ on one 80 GB card): granite-20b 52 ->
-# 8, deepseek-coder-33b 62 -> 8, deepseek-v2-236b 60 -> 3 (layer 0 dense,
-# layers 1-2 MoE)
+# (the float tree must fit beside PTQ on one 80 GB card, and the script in
+# its time): :data:`ARCH_CUTS`
 ARCH_PHASES = (("gemma2-2b", ("gemma2_decode_path",)),
                ("granite-20b", ("granite_decode_path",)),
                ("deepseek-coder-33b", ("deepseek_coder_decode_path",)),
                ("hubert-xlarge", ("hubert_encode_path",)),
                ("paligemma-3b", ("paligemma_path", "paligemma_decode_path")),
                ("deepseek-v2-236b", ("mla_decode_path",)),
-               # slice 14, the recurrent archs, at full depth
+               # slice 14, the recurrent archs
                ("recurrentgemma-9b", ("recurrentgemma_decode_path",)),
                ("xlstm-125m", ("xlstm_decode_path", "xlstm_encode_path")))
-ARCH_CUTS = {"granite-20b": 8, "deepseek-coder-33b": 8,
-             "deepseek-v2-236b": 3,
-             # the three slowest of these paths, halved to keep the
-             # script inside its time limit beside mesh_path
-             "gemma2-2b": 13, "recurrentgemma-9b": 19, "paligemma-3b": 9}
+ARCH_CUTS = {"granite-20b": 4, "deepseek-coder-33b": 4,
+             "deepseek-v2-236b": 2,
+             # halved again beside arch_mesh_path (slice 17) to keep the
+             # script at its time: granite and deepseek-coder from 8,
+             # deepseek-v2 from 3 (layer 0 dense, layer 1 MoE), gemma2 from
+             # 13 (26), recurrentgemma from 19 (38; 7 RG-LRU, 3 local
+             # attention), paligemma from 9 (18) to 4, xlstm from 12,
+             # hubert from 48
+             "gemma2-2b": 7, "recurrentgemma-9b": 10, "paligemma-3b": 4,
+             "xlstm-125m": 6, "hubert-xlarge": 24}
 # xlstm_encode_path: one Runtime.encode of 4 x 512 seeded tokens, two mLSTM
 # chunks of 256, so the chunk hand-off runs on the card
 XLSTM_ENCODE = (4, 512)
@@ -473,33 +507,33 @@ PALIGEMMA_TOKENS = 32            # up to 32 tokens
 # golden plan's four layers cost 17 quant_linear, 2 addnorm_quant, 3
 # dynamic_quant and 2 decode_attention (layers 1 and 2, float qkv over int8
 # pages) a tick; gemma2's local layers (even) keep rings, so only its
-# global layers 1, 5 and 9 (of 13) run the decode kernel; hubert's span runs
+# global layers 1 and 5 (of 7) run the decode kernel; hubert's span runs
 # per four layers 14 / 2 / 2 and 2 quant_flash_attention; deepseek-v2's MLA
 # body stays on the reference path: layer 0's FFN (3 + 1 addnorm) and each
 # MoE layer's shared experts (3) and routed stacks (3 quant_expert_gemm).
-# recurrentgemma's 13 RG-LRU layers run only their FFN's GEMMs (the mix is
-# on the reference path, the residual boundary unfused) and its 6 local
+# recurrentgemma's 7 RG-LRU layers run only their FFN's GEMMs (the mix is
+# on the reference path, the residual boundary unfused) and its 3 local
 # attention layers keep rings (no decode_attention); xlstm's blocks run no
 # kernel at all, so both of its paths launch none
 EXPECTED_ARCHS = {
-    "gemma2_decode_path": {"quant_linear": 58, "addnorm_quant": 7,
-                           "dynamic_quant": 9, "decode_attention": 3},
-    "granite_decode_path": {"quant_linear": 34, "addnorm_quant": 4,
-                            "dynamic_quant": 6, "decode_attention": 4},
-    "deepseek_coder_decode_path": {"quant_linear": 34, "addnorm_quant": 4,
-                                   "dynamic_quant": 6,
-                                   "decode_attention": 4},
-    "hubert_encode_path": {"quant_linear": 168, "addnorm_quant": 24,
-                           "dynamic_quant": 24,
-                           "quant_flash_attention": 24},
-    "paligemma_path": {"quant_linear": 41, "addnorm_quant": 5,
-                       "dynamic_quant": 6},
-    "paligemma_decode_path": {"quant_linear": 41, "addnorm_quant": 5,
-                              "dynamic_quant": 6, "decode_attention": 4},
-    "mla_decode_path": {"quant_linear": 9, "addnorm_quant": 1,
-                        "quant_expert_gemm": 6},
-    "recurrentgemma_decode_path": {"quant_linear": 50, "addnorm_quant": 2,
-                                   "dynamic_quant": 15},
+    "gemma2_decode_path": {"quant_linear": 27, "addnorm_quant": 3,
+                           "dynamic_quant": 6, "decode_attention": 2},
+    "granite_decode_path": {"quant_linear": 17, "addnorm_quant": 2,
+                            "dynamic_quant": 3, "decode_attention": 2},
+    "deepseek_coder_decode_path": {"quant_linear": 17, "addnorm_quant": 2,
+                                   "dynamic_quant": 3,
+                                   "decode_attention": 2},
+    "hubert_encode_path": {"quant_linear": 84, "addnorm_quant": 12,
+                           "dynamic_quant": 12,
+                           "quant_flash_attention": 12},
+    "paligemma_path": {"quant_linear": 17, "addnorm_quant": 2,
+                       "dynamic_quant": 3},
+    "paligemma_decode_path": {"quant_linear": 17, "addnorm_quant": 2,
+                              "dynamic_quant": 3, "decode_attention": 2},
+    "mla_decode_path": {"quant_linear": 6, "addnorm_quant": 1,
+                        "quant_expert_gemm": 3},
+    "recurrentgemma_decode_path": {"quant_linear": 28, "addnorm_quant": 1,
+                                   "dynamic_quant": 9},
     "xlstm_decode_path": {},
     "xlstm_encode_path": {},
 }
@@ -2961,9 +2995,9 @@ def phase_http(model, decoder, device, card):
 
 
 def setup_moe(device):
-    """Full-width mixtral-8x22b cut to the golden v4 plan's 4 layers, with
-    seeded float weights on the card, its calibration batches and the
-    decode requests. Resets the card's peak-memory counter: the phase's peak
+    """Full-width mixtral-8x22b cut to :data:`MOE_LAYERS` layers under the
+    golden v4 plan's first layers, with seeded float weights on the card,
+    its calibration batches and the decode requests. Resets the card's peak-memory counter: the phase's peak
     covers the float model, calibration, PTQ and serving."""
     import numpy as np
     import torch
@@ -2974,12 +3008,11 @@ def setup_moe(device):
 
     full = get_config("mixtral-8x22b")
     cfg = full.replace(num_layers=MOE_LAYERS)
-    plan = PrecisionPlan.load(str(GOLDEN_V4))
-    if plan.num_layers != cfg.num_layers:
-        fail(f"golden v4 plan has {plan.num_layers} layers, not {MOE_LAYERS}")
-    if plan.fingerprint() != MOE_FINGERPRINT:
-        fail(f"golden v4 plan fingerprint {plan.fingerprint()} is not the "
+    v4 = PrecisionPlan.load(str(GOLDEN_V4))
+    if v4.fingerprint() != MOE_FINGERPRINT:
+        fail(f"golden v4 plan fingerprint {v4.fingerprint()} is not the "
              f"JAX package's {MOE_FINGERPRINT}")
+    plan = PrecisionPlan(v4.layers[:MOE_LAYERS], v4.float_dtype)
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     float_policy = PrecisionPlan.full_float(cfg.num_layers, "float32")
@@ -3476,8 +3509,8 @@ def encode_pair(cfg, qparams, qplan, device, batches, *, head):
 
 
 def phase_hubert(model, device):
-    """hubert-xlarge, all 48 layers, under the span (the tiled golden plan's
-    ``int8_dataflow_variant``): :data:`HUBERT_SEQS` seeded frame sequences
+    """hubert-xlarge (:data:`ARCH_CUTS`), under the span (the tiled golden
+    plan's ``int8_dataflow_variant``): :data:`HUBERT_SEQS` seeded frame sequences
     (T uniform in 16-128, 512 features, numpy seed 1) through
     ``Runtime.encode`` with their ``lengths``, :data:`HUBERT_BATCH` a call,
     on both backends: frame logits (``lm_head`` over the 504-code
@@ -3607,7 +3640,7 @@ def phase_paligemma(model, device):
 
 
 def phase_xlstm(model, device):
-    """xlstm-125m, all 12 layers, under the tiled golden plan (its MHA
+    """xlstm-125m (:data:`ARCH_CUTS`), under the tiled golden plan (its MHA
     blocks have no GEMM to quantize: the blocks' projections are FFN-group
     GEMMs): the decode of the prompts (``serve_arch_decode``; the recurrent
     states take no pages), then one ``Runtime.encode`` of
@@ -4686,7 +4719,7 @@ def check_kernels(paths, device, timed, max_err):
 
 
 def summarize(paths, timed, max_err, flash, long_decode, wide_page,
-              long_attention, wide, wide_heads, mesh):
+              long_attention, wide, wide_heads, mesh, arch_mesh):
     """The per-kernel summary entries: sums over one forward of the span
     path, else one tick of the decode path, else one tick of the MoE path,
     and over one forward or tick of each path under ``by_path``; for the
@@ -4697,8 +4730,19 @@ def summarize(paths, timed, max_err, flash, long_decode, wide_page,
     (``hd256_pages128``), for ``quant_flash_attention`` its calls at 512
     positions (``bert_512``), and for the three attention kernels their
     calls at head dims over 256 (``wide_head_dims``). Every entry carries
-    its launches per rank a forward or tick on the mesh path
-    (``mesh_launches_per_rank``)."""
+    its launches per rank a forward or tick on the mesh paths
+    (``mesh_launches_per_rank``: ``mesh_path``'s, and ``arch_mesh_path``'s
+    by model and topology), and ``quant_expert_gemm`` its accumulator mode
+    (``accumulator_mode``: its launches a tensor-parallel tick and its
+    calls at the mesh shapes)."""
+    arch_launches, acc_ticks, acc_cases = arch_mesh
+
+    def mesh_launches(name):
+        out = dict(mesh[name])
+        for arch, runs in arch_launches.items():
+            for t, per in runs.items():
+                out[f"arch_mesh_path {arch} {t}"] = per.get(name, 0.0)
+        return out
 
     def sums(path, name):
         out = {"launches": path["launches"][name],
@@ -4738,7 +4782,7 @@ def summarize(paths, timed, max_err, flash, long_decode, wide_page,
                             "causal prefill in float32 (by_case: each "
                             "case); launches: one a call of the flash path")
             _wide_heads(entry, wide_heads[name])
-            entry["mesh_launches_per_rank"] = mesh[name]
+            entry["mesh_launches_per_rank"] = mesh_launches(name)
             summary.append(entry)
             continue
         by_path = {p["name"]: sums(p, name) for p in paths
@@ -4782,7 +4826,14 @@ def summarize(paths, timed, max_err, flash, long_decode, wide_page,
                         f"of the MoE path where neither does: the sum over "
                         f"its launches (by_path for each path); launches: "
                         f"the counted runs of every path")
-        entry["mesh_launches_per_rank"] = mesh[name]
+        entry["mesh_launches_per_rank"] = mesh_launches(name)
+        if name == "quant_expert_gemm":
+            entry["accumulator_mode"] = {
+                "launches_per_tp_tick": {k: v for k, v in acc_ticks.items()
+                                         if v},
+                "cases": [{k: r[k] for k in (
+                    "model", "G", "E", "C", "D", "F", "per_token_scales",
+                    "max_abs_err") + TIMES if k in r} for r in acc_cases]}
         summary.append(entry)
     return measured(summary)
 
@@ -5513,6 +5564,527 @@ def phase_mesh(main, device, card, max_err):
             for name in KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# arch_mesh_path: the MoE, MLA, recurrent and front-end archs on mesh ranks
+# (slice 17)
+# ---------------------------------------------------------------------------
+
+# (arch, layers, topologies): each rank builds and calibrates the whole
+# float tree at full width, so the depth is the deepest cut that leaves 10
+# GB of the card free with both ranks' peaks summed (mixtral: about 10.1 GB
+# of float32 a layer plus 1.6 GB of tables, 3 layers would not; deepseek-v2:
+# layer 0 dense, layer 1 the 160-expert MoE, 15 GB of experts and 4.2 GB
+# of tables)
+ARCH_MESH = (("mixtral-8x22b", 2, ("2,1", "1,2")),
+             ("deepseek-v2-236b", 2, ("2,1", "1,2")),
+             ("hubert-xlarge", 4, ("1,2",)),
+             ("paligemma-3b", 4, ("1,2",)),
+             ("recurrentgemma-9b", 3, ("1,2",)),
+             ("xlstm-125m", 2, ("1,2",)))
+# the models served under the all-int8 expert plan too, tensor parallel
+# held there within MESH_EXACT_TOL: the MoE archs. The others are held to
+# their served plan's budget alone (hubert's float frontend_proj, split by
+# columns, rounds a 512 x 640 product unlike the columns of a 512 x 1280
+# one on an H100 (PERF.md); xlstm's sLSTM runs a float per-head matvec
+# over a rank's 2 heads)
+ARCH_MESH_EXACT = ("mixtral-8x22b", "deepseek-v2-236b")
+ARCH_MESH_PROMPTS = 8
+ARCH_MESH_TOKENS = 16
+ARCH_MESH_PROMPT_LEN = (4, 9)       # prompt lengths, uniform
+ARCH_MESH_FRAMES = (8, 64)          # hubert: one encode of 8 x 64 frames
+ARCH_MESH_DEADLINE_S = 600.0
+
+
+# the served plan's tensor-parallel decode on deepseek-v2 against the
+# unmeshed run, teacher-forced (max row rel-Linf): its float MLA splits
+# wq_a / wq_b by columns and sums wo's float partials in another order,
+# and at its expert capacity of 1 a code flipped at a tie, or a router
+# logit at a near-tie, reroutes a token, which moves its rows by a
+# routing's worth. The unmeshed port moves those rows by 0.186 when its
+# token group changes (4 slots against 8 on an H100, PERF.md: the MoE
+# analogue of the batching noise behind MESH_DECODE_BUDGET); the budget is
+# twice that. The other models keep MESH_DECODE_BUDGET
+MESH_MOE_DECODE_BUDGET = {"deepseek-v2-236b": 0.37}
+
+
+def arch_mesh_plans(arch, cfg):
+    """``{name: plan}`` of an ``arch_mesh_path`` model: ``plan``, the one it
+    serves (golden v4's first layers on mixtral, the slice-13 paths' plans,
+    :func:`arch_plan`: deepseek-v2's experts family, hubert's span, the
+    golden plan tiled), and on :data:`ARCH_MESH_EXACT` ``exact``, every
+    layer fully quantized at per-token scales (the attention's int8 matmuls
+    too) with per-token expert stacks, under which tensor parallelism sums
+    only exact int32 accumulators."""
+    from repro_torch.core.plan import LayerMode, LayerPlan, PrecisionPlan
+    from repro_torch.core.samp import moe_family_variant
+    if arch == "mixtral-8x22b":
+        v4 = PrecisionPlan.load(str(GOLDEN_V4))
+        plan = PrecisionPlan(v4.layers[:cfg.num_layers], v4.float_dtype)
+    else:
+        plan = arch_plan({"deepseek-v2-236b": "mla_decode_path",
+                          "hubert-xlarge": "hubert_encode_path"}.get(arch, ""),
+                         cfg)
+    if arch not in ARCH_MESH_EXACT:
+        return {"plan": plan}
+    dyn = LayerPlan.for_mode(LayerMode.FULLY_QUANT, dynamic_acts=True)
+    exact = PrecisionPlan((dyn,) * cfg.num_layers, "float32")
+    if cfg.moe is not None:
+        exact = moe_family_variant(exact, dynamic_acts=True)
+    return {"plan": plan, "exact": exact}
+
+
+class DropCount:
+    """The (token, expert) routings expert capacity dropped over a run, a
+    rank's groups only (every slot, idle ones included): a spy around
+    ``models.layers._dispatch_one``, removed on exit."""
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        self.L, self.orig, self.n = L, L._dispatch_one, 0
+
+        def dispatch(*args):
+            out = self.orig(*args)
+            self.n = self.n + L.dropped_routings(out[3], out[1])
+            return out
+        L._dispatch_one = dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self.L._dispatch_one = self.orig
+
+
+def _arch_mesh_model(arch, layers, topologies, rank, meshes, device):
+    """One model of ``arch_mesh_path`` on a rank: for each plan, built,
+    calibrated unmeshed and on the mesh, quantized, the float tree dropped,
+    then served unmeshed and at each topology; returns what the parent
+    checks."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.calibration import synthetic_calibration_batches
+    from repro_torch.core.plan import PrecisionPlan
+    from repro_torch.kernels import expert_gemm as EG
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import ptq
+    from repro_torch.serve import Runtime, ServeEngine
+
+    torch.cuda.reset_peak_memory_stats(device)
+    cfg = get_config(arch).replace(num_layers=layers)
+    fp = PrecisionPlan.full_float(layers, "float32")
+    float_plan = T.build_plan(cfg, fp)
+    B, S = MOE_FORWARD
+    batches = synthetic_calibration_batches(cfg, num_batches=2, batch_size=B,
+                                            seq_len=S, seed=0)
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(*ARCH_MESH_PROMPT_LEN, ARCH_MESH_PROMPTS)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in lengths]
+    plans = arch_mesh_plans(arch, cfg)
+    out = {"layers": layers, "setup_s": 0.0, "stats_equal": True,
+           "plans": {k: v.describe() for k, v in plans.items()}}
+    trees = {}
+
+    def quantized(name):
+        """The seeded float tree, built, calibrated unmeshed and on the
+        mesh, quantized under ``plans[name]`` and dropped: one plan's int8
+        tree at a time beside it (the same weights each time)."""
+        t0 = time.perf_counter()
+        # the engines of the plan served before hold their blocks in
+        # reference cycles (an engine and its decode spy): collect them
+        # before the float tree is rebuilt
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = T.init_params(cfg, fp, seed=0, device=device)
+        stats = ptq.capture_stats(params, batches, cfg, float_plan,
+                                  precision=plans[name])
+        out["stats_equal"] &= stats == ptq.capture_stats(
+            params, batches, cfg, float_plan, precision=plans[name],
+            mesh=meshes["1,2"])
+        trees[name] = ptq.apply_plan(params, cfg, plans[name], stats,
+                                     float_plan=float_plan)
+        torch.cuda.synchronize()
+        out["ptq_peak_bytes"] = torch.cuda.max_memory_allocated(device)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["setup_s"] += time.perf_counter() - t0
+
+    if not cfg.supports_decode:                  # hubert: one encode
+        fr = np.random.default_rng(1).standard_normal(
+            ARCH_MESH_FRAMES + (cfg.frontend_dim,), dtype=np.float32)
+        quantized("plan")
+        # the front-end alone: the rank's half of frontend_proj's columns,
+        # all-gathered, against the whole GEMM
+        with torch.inference_mode():
+            tree = trees["plan"][0]
+            rt = Runtime(cfg, trees["plan"][1], device=device,
+                         mesh=meshes["1,2"])
+            x = torch.from_numpy(fr).to(device)
+            pos = torch.arange(fr.shape[1], device=device)
+            whole = T.embed_inputs(tree, {"frames": x}, cfg, positions=pos)
+            split = T.embed_inputs(rt.local_params(tree), {"frames": x}, cfg,
+                                   positions=pos, mesh=meshes["1,2"])
+            out["frontend_max_abs_diff"] = float((whole - split).abs().max())
+        for name in plans:
+            runs = {}
+            for t, mesh in (("unmeshed", None), ("1,2", meshes["1,2"])):
+                rt = Runtime(cfg, trees[name][1], precision=plans[name],
+                             head=lambda p, x, m=mesh: T.unembed(x, p, cfg,
+                                                                 m),
+                             token_level=True, backend="fused",
+                             device=device, mesh=mesh)
+                rt.encode(trees[name][0], {"frames": fr})       # warm-up
+                counted = _counted_encode(rt, trees[name][0], fr)
+                runs[t] = counted
+            u, m = runs["unmeshed"], runs["1,2"]
+            out[f"encode {name}"] = {
+                "rel_linf": rel_linf(torch.from_numpy(u.pop("logits")),
+                                     torch.from_numpy(m["logits"])),
+                "argmax_differ": int((u.pop("argmax")
+                                      != m["argmax"]).sum()),
+                "finite": bool(np.isfinite(m.pop("logits")).all()),
+                "unmeshed": u, "1,2": {k: v for k, v in m.items()
+                                       if k != "argmax"}}
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+        return out
+
+    kw = dict(max_len=DECODE_MAX_LEN, page_size=PAGE_SIZE, backend="fused",
+              device=device)
+    warm = []
+
+    def decode(name, mesh, slots, feed_prompts, forced=None):
+        tree, pl = trees[name], plans[name]
+        eng = ServeEngine(cfg, *tree, batch_slots=slots, mesh=mesh,
+                          precision=pl, **kw)
+        if not warm:           # the model's first engine: one warm-up pass
+            serve_decode(eng, [feed_prompts[0][:4]], max_tokens=1)
+            warm.append(True)
+        ticks0 = eng.stats["ticks"]
+        feed = (feed_prompts if forced is None else
+                [forced["seq"][i][:-1] for i in range(len(feed_prompts))])
+        rows = RowLogits(eng)
+        with DropCount() as drops:
+            (tokens, _), launches, _, wall, coll = _mesh_served(
+                eng, lambda: serve_decode(eng, feed, max_tokens=(
+                    ARCH_MESH_TOKENS if forced is None else 1)))
+        launches["quant_expert_gemm accumulator mode"] = EG.acc_launches
+        ticks = eng.stats["ticks"] - ticks0
+        return {"tokens": tokens, "rows": rows.rows,
+                "seq": {i: list(feed[i]) + tokens[i] for i in tokens},
+                "prompt_len": {i: len(feed_prompts[i]) for i in tokens},
+                "launches": launches, "ticks": ticks,
+                "per_tick": {k: v / max(ticks, 1)
+                             for k, v in launches.items() if v},
+                "wall_s": wall, "ms_per_tick": wall / max(ticks, 1) * 1e3,
+                "collectives": coll, "dropped_routings": int(drops.n),
+                "pages_in_use": eng.kv_pages_in_use,
+                "slots": T.cache_slots(eng.caches)}
+
+    def summary(r):
+        return {k: v for k, v in r.items()
+                if k not in ("rows", "seq", "prompt_len")}
+
+    def exact_rows(ref, got, uids):
+        diff = 0.0
+        for key, row in got["rows"].items():
+            if key[0] in uids:
+                want = ref["rows"].get(key)
+                if want is None:
+                    return float("inf")
+                diff = max(diff, float((want - row).abs().max()))
+        return diff
+
+    quantized("plan")
+    u8 = decode("plan", None, DECODE_SLOTS, prompts)
+    out["decode"] = {"unmeshed": summary(u8)}
+    out["compare"] = {}
+    if "2,1" in topologies:
+        half = DECODE_SLOTS // 2
+        mine = list(range(rank * half, (rank + 1) * half))
+        u4 = decode("plan", None, half, [prompts[i] for i in mine])
+        # the 4-slot run numbered its requests 0..3: renumber as the
+        # 8-slot runs number them
+        u4["rows"] = {(mine[u], p): v for (u, p), v in u4["rows"].items()}
+        u4["tokens"] = {mine[u]: v for u, v in u4["tokens"].items()}
+        dp = decode("plan", meshes["2,1"], DECODE_SLOTS, prompts)
+        out["decode"]["unmeshed_rank_slots"] = summary(u4)
+        out["decode"]["2,1"] = summary(dp)
+        out["compare"]["2,1_vs_unmeshed_rank_slots"] = {
+            "rank_uids": mine,
+            "tokens_equal": all(dp["tokens"][u] == u4["tokens"][u]
+                                for u in mine),
+            "rows_max_abs_diff": exact_rows(u4, dp, mine)}
+        out["compare"]["2,1_vs_unmeshed"] = _compare_rows(u8, dp)
+        del u4, dp
+    tp = decode("plan", meshes["1,2"], DECODE_SLOTS, prompts, forced=u8)
+    out["decode"]["1,2"] = summary(tp)
+    out["compare"]["1,2_vs_unmeshed"] = _compare_rows(u8, tp)
+    out["finite"] = all(bool(torch.isfinite(v).all())
+                        for v in u8["rows"].values())
+    del tp, u8, trees["plan"]
+    if "exact" in plans:
+        quantized("exact")
+        x8 = decode("exact", None, DECODE_SLOTS, prompts)
+        xt = decode("exact", meshes["1,2"], DECODE_SLOTS, prompts,
+                    forced=x8)
+        out["decode"]["exact unmeshed"] = summary(x8)
+        out["decode"]["exact 1,2"] = summary(xt)
+        out["compare"]["exact_1,2_vs_unmeshed"] = _compare_rows(x8, xt)
+        del x8, xt
+    trees.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    return out
+
+
+def _counted_encode(rt, params, frames):
+    """One counted ``Runtime.encode`` of ``frames``: logits, argmax,
+    launches, wall and collectives."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.distributed import comm
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    comm.reset_stats()
+    t = time.perf_counter()
+    y = rt.encode(params, {"frames": frames})
+    torch.cuda.synchronize()
+    return {"logits": y, "argmax": y.argmax(-1),
+            "launches": kernels.launch_counts(),
+            "wall_s": time.perf_counter() - t,
+            "collectives": dict(comm.STATS)}
+
+
+def _arch_mesh_rank(rank, device, job):
+    """One rank of ``arch_mesh_path``: each model of :data:`ARCH_MESH` in
+    turn, freed before the next."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import comm
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    out = {"rank": rank, "device": str(device),
+           "backend": dist.get_backend(),
+           "gloo_cuda": comm.probe_gloo_cuda(device), "models": {}}
+    meshes = {t: make_serving_mesh(t) for t in MESH_TOPOLOGIES}
+    for arch, layers, topologies in ARCH_MESH:
+        out["models"][arch] = _arch_mesh_model(arch, layers, topologies,
+                                               rank, meshes, device)
+    return out
+
+
+def _acc_mode_cases(device, timer):
+    """``quant_expert_gemm``'s accumulator mode at the shapes per-expert
+    tensor parallelism gives it in ``arch_mesh_path`` (a rank's half of
+    ``wd``'s hidden units at decode's capacity: mixtral-8x22b 8 experts of
+    8192 x 6144 at C = 3, deepseek-v2 160 of 768 x 5120 at C = 1; static
+    per-expert and per-token codes) against its plain version (the int32
+    product, exact), each timed at static codes: the kernel (events and
+    profiler), the plain version, and the bound (the codes and the int8 stack read once,
+    the int32 sums written once; the int8 products)."""
+    import torch
+    from repro_torch.core.quantize import QuantizedTensor, int_matmul
+    from repro_torch.kernels import expert_gemm as EG
+    from repro_torch.kernels.backend import FusedBackend
+    recs = []
+    g = torch.Generator(device=device).manual_seed(17)
+    for model, (G, E, C, D, F) in (("mixtral-8x22b", (1, 8, 3, 8192, 6144)),
+                                   ("deepseek-v2-236b",
+                                    (1, 160, 1, 768, 5120))):
+        wq = torch.randint(-127, 128, (E, D, F), generator=g, device=device,
+                           dtype=torch.int8)
+        ws = torch.rand((E, 1, F), generator=g, device=device) * 1e-3
+        w = QuantizedTensor(wq, ws, None)
+        xe = torch.randn((G, E, C, 2 * D), generator=g, device=device)
+        half = xe[..., :D].contiguous()
+        whole = xe.abs().amax(dim=-1)
+        for token in (False, True):
+            xs = None if token else (whole.amax(dim=(0, 2)) / 127.0
+                                     ).reshape(E, 1, 1)
+
+            def call():
+                return FusedBackend().expert_gemm_acc(
+                    half, w, xs, row_amax=lambda a: torch.maximum(a, whole))
+            acc, x_scale = call()
+            codes, _ = EG.expert_codes_plain(half, E, xs, None if xs
+                                             is not None else whole)
+            want = int_matmul(codes, wq)
+            err = float((acc - want).abs().max())
+            rows = G * E * C
+            t_bytes, t_ops = bound(rows * D + E * D * F + 4.0 * rows * F,
+                                   int8_ops=2.0 * rows * D * F)
+            rec = {"phase": "kernel", "kernel": "quant_expert_gemm",
+                   "mode": "accumulator", "path": "arch_mesh_path",
+                   "model": model, "G": G, "E": E, "C": C, "D": D, "F": F,
+                   "per_token_scales": token, "max_abs_err": err,
+                   "exact": bool(acc.equal(want)),
+                   "tolerance": "exact (int32 sums)",
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "library_ms": None}
+            if not token:    # the same launch at either scale's codes
+                rec.update(
+                    ms=timer.ms(lambda: EG.quant_expert_gemm_acc(codes, wq)),
+                    device_ms=timer.device_ms(
+                        lambda: EG.quant_expert_gemm_acc(codes, wq),
+                        "quant_expert_gemm"),
+                    plain_ms=timer.ms(lambda: int_matmul(codes, wq)))
+            emit(rec)
+            recs.append(rec)
+            if not rec["exact"]:
+                fail(f"quant_expert_gemm's accumulator mode differs from its "
+                     f"plain version: {rec}")
+    return recs
+
+
+def phase_arch_mesh(device, card, max_err):
+    """``arch_mesh_path``: two ranks on the card over gloo serve, one model
+    at a time, each model of :data:`ARCH_MESH` at full width (depth cut),
+    calibrated unmeshed and on the mesh, quantized under its plan and under
+    the all-int8 plan (:func:`arch_mesh_plans`), then served unmeshed and at
+    each of its topologies: 8 prompts (4-8 tokens) of 16 greedy tokens on
+    8 slots, pages of 16 (hubert: one encode of 8 x 64 frames). Gates, on
+    every rank:
+
+    * the mesh stats equal the unmeshed stats exactly;
+    * data parallel (mixtral-8x22b, 4 experts a rank; deepseek-v2, 80): the
+      rank's requests' tokens equal, and their logit rows equal bit for bit,
+      an unmeshed engine's with the rank's 4 slots serving them (``groups``
+      1 is then the rank's own group: the per-rank shapes, the int8 expert
+      stacks exact whatever rows they see);
+    * tensor parallel, teacher-forced on the unmeshed 8-slot run's tokens:
+      every logit row within ``MESH_DECODE_BUDGET`` of that run's under the
+      served plan (deepseek-v2 within ``MESH_MOE_DECODE_BUDGET``, hubert's
+      encode within ``MESH_BUDGET``), and under the all-int8 plan
+      (:data:`ARCH_MESH_EXACT`) within ``MESH_EXACT_TOL`` with every argmax
+      equal;
+    * every run's launches a tick or forward equal its unmeshed run's (the
+      rank's shapes for data parallel), the accumulator mode launched on
+      every MoE layer a tensor-parallel tick, no page in use after, finite
+      logits.
+
+    It reports each rank's peak memory, wall a tick, collectives and the
+    routings expert capacity dropped beside the unmeshed run's (the groups
+    change which tokens drop), and times the accumulator mode at its mesh
+    shapes (:func:`_acc_mode_cases`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import comm
+    t0 = time.perf_counter()
+    ranks = comm.spawn(2, _arch_mesh_rank, (None,), device="cuda",
+                       deadline_s=ARCH_MESH_DEADLINE_S)
+    spawn_s = time.perf_counter() - t0
+    failures = []
+    for r in ranks:
+        if r["backend"] == "gloo" and r["gloo_cuda"].get("all_to_all") \
+                is not True:
+            failures.append(f"rank {r['rank']}: gloo refused all_to_all on "
+                            f"CUDA tensors: {r['gloo_cuda']}")
+    launches = collections.defaultdict(dict)
+    acc_ticks = {}
+    for r in ranks:
+        rank = r["rank"]
+        for arch, layers, topologies in ARCH_MESH:
+            m = r["models"][arch]
+            head = {"phase": "arch_mesh_path", "rank": rank, "model": arch,
+                    "card": card}
+            emit(dict(head, part="setup", layers=layers, plans=m["plans"],
+                      setup_s=m["setup_s"],
+                      stats_equal_unmeshed=m["stats_equal"],
+                      ptq_peak_bytes=m["ptq_peak_bytes"],
+                      peak_bytes=m["peak_bytes"],
+                      **({"frontend_max_abs_diff": m[
+                          "frontend_max_abs_diff"]}
+                         if "frontend_max_abs_diff" in m else {})))
+            if not m["stats_equal"]:
+                failures.append(f"rank {rank} {arch}: stats on the mesh "
+                                f"differ from the unmeshed stats")
+            if "decode" not in m:
+                for name in m["plans"]:
+                    e = m[f"encode {name}"]
+                    emit(dict(head, part=f"encode {name}", topology="1,2",
+                              **e))
+                    if e["rel_linf"] > MESH_BUDGET or not e["finite"]:
+                        failures.append(
+                            f"rank {rank} {arch} encode {name} on 1,2: "
+                            f"rel-Linf {e['rel_linf']} (budget "
+                            f"{MESH_BUDGET}), finite {e['finite']}")
+                    per = {k: v for k, v in e["1,2"]["launches"].items()
+                           if v}
+                    if per != {k: v for k, v in
+                               e["unmeshed"]["launches"].items() if v}:
+                        failures.append(f"rank {rank} {arch} encode {name}:"
+                                        f" launches {per} differ from the "
+                                        f"unmeshed encode's")
+                    launches[arch][f"1,2 {name}"] = per
+                continue
+            d, c = m["decode"], m["compare"]
+            emit(dict(head, part="decode", decode=d, compare=c,
+                      finite=m["finite"]))
+            if not m["finite"]:
+                failures.append(f"rank {rank} {arch}: decode logits are not "
+                                f"finite")
+            pairs = [("1,2", "unmeshed")]
+            if "exact" in m["plans"]:
+                pairs.append(("exact 1,2", "exact unmeshed"))
+            if "2,1" in topologies:
+                pairs.append(("2,1", "unmeshed_rank_slots"))
+                x = c["2,1_vs_unmeshed_rank_slots"]
+                if not x["tokens_equal"] or x["rows_max_abs_diff"] != 0.0:
+                    failures.append(
+                        f"rank {rank} {arch} on 2,1: its requests' tokens "
+                        f"equal {x['tokens_equal']}, rows differ by "
+                        f"{x['rows_max_abs_diff']} from the unmeshed run "
+                        f"at its 4 slots")
+            for t, ref in pairs:
+                got, want = d[t]["per_tick"], d[ref]["per_tick"]
+                acc = got.pop("quant_expert_gemm accumulator mode", 0)
+                want.pop("quant_expert_gemm accumulator mode", None)
+                launches[arch][t] = got
+                acc_ticks[f"{arch} {t}"] = acc
+                if got != want:
+                    failures.append(f"rank {rank} {arch} on {t}: {got} "
+                                    f"launches a tick, unmeshed {want}")
+                moe_layers = sum(k.moe for k in get_config(arch).replace(
+                    num_layers=layers).layer_kinds())
+                if t.endswith("1,2") and acc != moe_layers:
+                    failures.append(f"rank {rank} {arch} on {t}: "
+                                    f"{acc} accumulator-mode launches a "
+                                    f"tick, not {moe_layers}")
+                if d[t]["pages_in_use"] or d[ref]["pages_in_use"]:
+                    failures.append(f"rank {rank} {arch} on {t}: pages in "
+                                    f"use after")
+            tp = c["1,2_vs_unmeshed"]
+            budget = MESH_MOE_DECODE_BUDGET.get(arch, MESH_DECODE_BUDGET)
+            if tp["rows"] < tp["ref_rows"] or tp["max_rel"] > budget:
+                failures.append(f"rank {rank} {arch} on 1,2: {tp['rows']} "
+                                f"rows within rel-Linf {tp['max_rel']} "
+                                f"(budget {budget})")
+            x = c.get("exact_1,2_vs_unmeshed")
+            if x is not None and (x["rows"] < x["ref_rows"]
+                                  or x["argmax_differ"]
+                                  or x["max_rel"] > MESH_EXACT_TOL):
+                failures.append(f"rank {rank} {arch} all-int8 on 1,2: "
+                                f"{x['rows']} rows, rel-Linf {x['max_rel']}"
+                                f", {x['argmax_differ']} argmax "
+                                f"differences")
+    acc = _acc_mode_cases(device, Timer(device))
+    max_err["quant_expert_gemm"] = max(
+        [max_err["quant_expert_gemm"]] + [r["max_abs_err"] for r in acc])
+    emit({"phase": "arch_mesh_path", "part": "summary", "spawn_s": spawn_s,
+          "seconds": time.perf_counter() - t0,
+          "peak_bytes_per_rank": {a: [r["models"][a]["peak_bytes"]
+                                      for r in ranks]
+                                  for a, _, _ in ARCH_MESH},
+          "card": card,
+          "note": "two ranks share one card over gloo: the sharded "
+                  "computation and the kernels at shard widths, no "
+                  "multi-GPU speed"})
+    if failures:
+        fail("arch_mesh_path: " + "; ".join(failures))
+    return launches, acc_ticks, acc
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{ROOT} holds no src/repro_torch: run from a checkout of the "
@@ -5527,26 +6099,42 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
     device = torch.device("cuda", 0)
+    laps, t_last = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = laps.get(name, 0.0) + now - t_last[0]
+        t_last[0] = now
     phase_build()
+    lap("build")
     flash = phase_flash(device)
+    lap("flash_path")
     from repro_torch.core.samp import int8_dataflow_variant
     model = setup_model(device)
     paths = [phase_serve("main_path", model, model["plan"], device),
              phase_serve("span_path", model,
                          int8_dataflow_variant(model["plan"]), device)]
+    lap("main_path, span_path")
     phase_pipeline(model, paths[0], device)
+    lap("pipeline_path")
     autotune = phase_autotune(model, device)
+    lap("autotune_path")
     train = phase_train(model, device, card)
+    lap("train_path")
     decoder = setup_decoder(device)
     paths += [phase_decode("decode_path", decoder, decoder["plan"], device,
                            kv_cache="int8_per_token"),
               phase_decode("decode_head_path", decoder,
                            decode_head_plan(decoder["plan"]), device),
               autotune, train]
+    lap("decode_path, decode_head_path")
     paths.append(phase_adaptive(model, decoder, device))
+    lap("adaptive_path")
     paths += phase_http(model, decoder, device, card)
+    lap("http_path")
     timed, max_err = {}, collections.defaultdict(float)
     mesh = phase_mesh(paths[0], device, card, max_err)
+    lap("mesh_path")
     check_kernels(paths, device, timed, max_err)
     long_decode = run_long_decode_case(device, Timer(device))
     wide_page = run_wide_page_decode_case(device, Timer(device))
@@ -5555,6 +6143,7 @@ def main() -> int:
     wide_heads = run_wide_head_cases(device, Timer(device, reps=5))
     phase_profile(model, paths, device)
     phase_profile_decode(paths[2])
+    lap("kernel, profile")
     # free the earlier paths' models and engines before the 42 GB MoE model;
     # their summaries keep only counts and timings
     del model, decoder
@@ -5573,10 +6162,16 @@ def main() -> int:
         moe.pop(k, None)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("moe_decode_path")
+    arch_mesh = phase_arch_mesh(device, card, max_err)
+    lap("arch_mesh_path")
     paths += phase_archs(device, timed, max_err)
+    lap("slice-13 and -14 paths")
+    emit({"phase": "timing", "seconds": laps,
+          "total_s": sum(laps.values()), "card": card})
     emit({"kernels": summarize(paths, timed, max_err, flash, long_decode,
                                wide_page, long_attention, wide,
-                               wide_heads, mesh)})
+                               wide_heads, mesh, arch_mesh)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

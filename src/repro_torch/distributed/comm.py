@@ -7,10 +7,13 @@
   Where every rank has a card of its own the group is NCCL; where ranks
   share a card (NCCL refuses two ranks on one device), and on the CPU, it is
   gloo.
-* :func:`all_reduce` (sum or max, float32 and int32) and
-  :func:`all_gather` over a group: the only collectives the port runs.
-  gloo runs both on CUDA tensors itself (:func:`probe_gloo_cuda` checks
-  that on the card in every run of ``chip_smoke.py``'s ``mesh_path``).
+* :func:`all_reduce` (sum or max, float32 and int32),
+  :func:`all_gather` and :func:`all_to_all` over a group: the only
+  collectives the port runs. gloo runs them on CUDA tensors itself
+  (:func:`probe_gloo_cuda` checks that on the card in every run of
+  ``chip_smoke.py``'s ``mesh_path``). :func:`all_to_all` carries the
+  expert exchange of an MoE layer: ``all_to_all_single``, which gloo takes
+  on CPU and on CUDA tensors (its list form, ``all_to_all``, it refuses).
 * :func:`spawn` starts ``world`` ranks with the ``spawn`` start method, runs
   ``fn`` on each and returns their results in rank order. It joins with a
   deadline: a rank that raises, dies or hangs past it fails the run with
@@ -37,7 +40,7 @@ import torch.distributed as dist
 #: the collectives the port runs, which a gloo group must take on CUDA
 #: tensors (:func:`probe_gloo_cuda`)
 COLLECTIVES = ("all_reduce", "all_reduce_max", "all_reduce_int32",
-               "all_gather")
+               "all_gather", "all_to_all")
 
 #: collectives this process ran since :func:`reset_stats`: calls, bytes
 #: in, host seconds
@@ -101,6 +104,18 @@ def all_gather(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
+def all_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Block i of ``t`` (its dim 0 cut into as many equal blocks as the
+    group has ranks) to group rank i: returns the blocks the ranks sent
+    this one, in group-rank order along dim 0."""
+    t0 = time.perf_counter()
+    src = t.contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    _count(src, t0)
+    return out
+
+
 def _count(t: torch.Tensor, t0: float) -> None:
     STATS["calls"] += 1
     STATS["bytes"] += t.numel() * t.element_size()
@@ -123,6 +138,8 @@ def probe_gloo_cuda(device: torch.device, group=None) -> dict:
         "all_gather": lambda: dist.all_gather(
             [torch.empty_like(x) for _ in range(dist.get_world_size(group))],
             x, group=group),
+        "all_to_all": lambda: dist.all_to_all_single(
+            torch.empty_like(x), x, group=group),
         "broadcast": lambda: dist.broadcast(x.clone(), 0, group=group),
     }
     for name, call in tries.items():

@@ -6,7 +6,8 @@ anything else), the plain version (``*_plain``) and a launch counter that
 only the kernel launch increments (``flash_attention`` holds two kernels and
 two counters, ``launches`` for the quantized one and ``float_launches`` for
 the float one; ``expert_gemm`` also counts its launches with per-token
-scales, ``per_token_launches``). :func:`launch_counts` and
+scales, ``per_token_launches``, and of its accumulator mode,
+``acc_launches``). :func:`launch_counts` and
 :func:`reset_launches` read and zero the counters, so a run can show that a
 path went through the kernels. :mod:`repro_torch.kernels.ops` is the public
 entry point to each.
@@ -39,6 +40,7 @@ def reset_launches() -> None:
     for mod, attr in KERNEL_COUNTERS.values():
         setattr(mod, attr, 0)
     expert_gemm.per_token_launches = 0
+    expert_gemm.acc_launches = 0
 
 
 from repro_torch.kernels import ops  # noqa: E402  (imports the modules above)

@@ -42,7 +42,9 @@ KV head and its group of 7 query heads). A row-parallel int8
 GEMM (K split over the ranks) runs :meth:`FusedBackend.linear_acc`: the
 ``quant_linear`` kernel in its accumulator mode, codes at the whole row's
 per-token scale (``dynamic_quant``'s scale-in mode), the epilogue after the
-ranks' int32 sums.
+ranks' int32 sums; a row-parallel int8 expert stack (``wd`` under
+per-expert tensor parallelism) runs :meth:`FusedBackend.expert_gemm_acc`,
+``quant_expert_gemm``'s accumulator mode, the same way.
 """
 from __future__ import annotations
 
@@ -52,14 +54,16 @@ from typing import Any, Optional, Union
 
 import torch
 
-from repro_torch.core.quantize import QuantizedTensor, quantize
+from repro_torch.core.quantize import QuantizedTensor, int_matmul, quantize
 from repro_torch.kernels.addnorm_quant import addnorm_quant
 from repro_torch.kernels.decode_attention import (decode_attention as
                                                   paged_decode_attention)
 from repro_torch.kernels.decode_attention import (decode_attention_plain,
                                                   paged_operands)
 from repro_torch.kernels.dynamic_quant import dynamic_quant
-from repro_torch.kernels.expert_gemm import (quant_expert_gemm,
+from repro_torch.kernels.expert_gemm import (expert_codes_plain,
+                                             quant_expert_gemm,
+                                             quant_expert_gemm_acc,
                                              quant_expert_gemm_plain)
 from repro_torch.kernels.flash_attention import quant_flash_attention
 from repro_torch.kernels.fused_embed import fused_embed
@@ -198,6 +202,22 @@ class ComputeBackend:
         """The int8 expert GEMM: the ``quant_expert_gemm`` kernel's plain
         version here, its wrapper in the fused backends."""
         return quant_expert_gemm_plain(xe, w_q, w_scale, xs)
+
+    def expert_gemm_acc(self, xe, w, xs=None, *, row_amax=None):
+        """The int32 accumulator of a row-parallel int8 expert stack (this
+        rank's columns of ``xe`` (G, E, C, D/tp) against its rows of ``w``)
+        and the activation scales it was coded at, broadcastable to
+        (G, E, C, 1): ``(acc (G, E, C, F), x_scale)``, or None for a float
+        stack. ``row_amax`` maps this rank's per-row amax (G, E, C) to the
+        whole row's (a max over the model axis). Every backend claims an
+        int8 stack: the plain version here."""
+        if not isinstance(w, QuantizedTensor):
+            return None
+        E = w.values.shape[0]
+        amax = (None if xs is not None else
+                row_amax(torch.amax(xe.abs(), dim=-1).to(torch.float32)))
+        codes, x_scale = expert_codes_plain(xe, E, xs, amax)
+        return int_matmul(codes, w.values), x_scale
 
     def __repr__(self) -> str:
         return f"<{type(self).__name__} {self.name!r}>"
@@ -350,6 +370,32 @@ class FusedBackend(ComputeBackend):
         # the whole routed buffer first (per-token: one dynamic_quant
         # launch), and on the CPU runs the plain version
         return quant_expert_gemm(xe.contiguous(), w_q, w_scale, xs)
+
+    def expert_gemm_acc(self, xe, w, xs=None, *, row_amax=None):
+        # the kernel's accumulator mode over the codes of the whole routed
+        # buffer: static codes as the wrapper takes them, per-token ones in
+        # one dynamic_quant launch at the whole rows' scales
+        if not isinstance(w, QuantizedTensor):
+            return None
+        if xe.device.type == "cpu":
+            return super().expert_gemm_acc(xe, w, xs, row_amax=row_amax)
+        E, D = w.values.shape[0], xe.shape[-1]
+        x4 = xe.reshape((-1,) + tuple(xe.shape[-3:]))
+        if xs is not None:
+            x_scale = torch.broadcast_to(
+                torch.as_tensor(xs, dtype=torch.float32,
+                                device=xe.device).reshape(-1), (E,))
+            x_scale = x_scale.reshape(1, E, 1, 1)
+            codes = quantize(x4, x_scale)
+        else:
+            amax = row_amax(torch.amax(x4.abs(), dim=-1)
+                            .to(torch.float32))
+            codes, x_scale = dynamic_quant(x4.reshape(-1, D).contiguous(),
+                                           row_amax=amax.reshape(-1))
+            codes = codes.reshape(x4.shape)
+            x_scale = x_scale.reshape(x4.shape[:-1] + (1,))
+        return (quant_expert_gemm_acc(codes.contiguous(), w.values,
+                                      per_token=xs is None), x_scale)
 
 
 def _on_cuda(t) -> bool:

@@ -132,7 +132,7 @@ struct Epilogue {
     Epilogue b = *this;
     if constexpr (ROUTED) {
       b.e = expert;
-      b.w_scale += (long long)expert * N;
+      if (w_scale != nullptr) b.w_scale += (long long)expert * N;
       if (xs_per_expert) b.x_scale += expert;
     }
     return b;

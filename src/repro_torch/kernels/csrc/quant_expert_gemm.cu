@@ -72,3 +72,25 @@ extern "C" int samp_quant_expert_gemm(const void* x_q, const void* w_q,
       (const int8_t*)x_q, (const int8_t*)w_q, ep, D, E, splits, (int*)work,
       vec, (cudaStream_t)stream);
 }
+
+// The accumulator mode: acc (G, E, C, F) int32 = x_q (G, E, C, D) @ w_q[e]
+// for each expert, with no epilogue. Per-expert tensor parallelism splits
+// a row-parallel stack's D (the hidden units of wd) over its ranks; each
+// rank's partial accumulator is summed across them (integer sums are
+// exact) before the dequantizing epilogue runs, so the sharded stack equals
+// the whole one bit for bit. splits and work as samp_quant_expert_gemm's.
+extern "C" int samp_quant_expert_gemm_acc(const void* x_q, const void* w_q,
+                                          void* acc, void* work, int G, int E,
+                                          int C, int D, int F, int splits,
+                                          void* stream) {
+  if (G <= 0 || E <= 0 || C <= 0 || F <= 0) return (int)cudaGetLastError();
+  const Epilogue<true> ep{
+      nullptr, nullptr, 0, nullptr, nullptr, nullptr, nullptr,
+      G * C,   F,       0, Routing{C, E},   0,       0,
+      (int*)acc};
+  const int vec = D % 16 == 0 && F % 16 == 0 &&
+                  ((uintptr_t)x_q | (uintptr_t)w_q) % 16 == 0;
+  return int8_gemm<quant_expert_gemm_kernel>(
+      (const int8_t*)x_q, (const int8_t*)w_q, ep, D, E, splits, (int*)work,
+      vec, (cudaStream_t)stream);
+}

@@ -16,6 +16,12 @@ The buffer is quantized whole before it is sliced per expert: quantizing
 expert slices apart lets a compiler round them differently, and the router
 turns a flipped code into a different top-k (``ops.py:100-106`` in the JAX
 package). The output is float32 (G, E, C, F).
+
+:func:`quant_expert_gemm_acc` is its accumulator mode: the int32 sums of
+given codes, no epilogue. Per-expert tensor parallelism splits a
+row-parallel stack's D (``wd``'s hidden units) over its ranks, sums the
+ranks' accumulators and then runs :func:`quant_expert_gemm_epilogue`, so
+the sharded stack equals the whole one bit for bit.
 """
 from __future__ import annotations
 
@@ -23,7 +29,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.quantize import int_matmul, quantize, quantize_per_token
+from repro_torch.core.quantize import (compute_scale_symmetric, int_matmul,
+                                       quantize, quantize_per_token)
 from repro_torch.kernels import build
 from repro_torch.kernels.dynamic_quant import dynamic_quant
 from repro_torch.kernels.quant_linear import (quant_linear_splits,
@@ -33,6 +40,8 @@ from repro_torch.kernels.quant_linear import (quant_linear_splits,
 launches = 0
 #: of those, the launches with per-token activation scales
 per_token_launches = 0
+#: of those, the launches of the accumulator mode
+acc_launches = 0
 
 
 def _weight_scales(w_scale: torch.Tensor, E: int, F: int) -> torch.Tensor:
@@ -51,25 +60,89 @@ def _expert_scales(xs, E: int, device) -> torch.Tensor:
     return torch.broadcast_to(xs.reshape(-1), (E,))
 
 
+def expert_codes_plain(xe: torch.Tensor, E: int,
+                       xs: Optional[torch.Tensor] = None, row_amax=None):
+    """The int8 codes of a routed buffer (..., E, C, D) and the activation
+    scales they were taken at, broadcastable to (G, E, C, 1): the static
+    ``xs`` (a scalar, (E,) or (E, 1, 1)), else one scale a row, from the
+    row's amax or from ``row_amax`` (..., E, C), the whole row's where
+    ``xe`` holds one rank's columns of it."""
+    x4 = xe.reshape((-1,) + tuple(xe.shape[-3:]))          # (G, E, C, D)
+    if xs is not None:
+        xs_e = _expert_scales(xs, E, xe.device).reshape(1, E, 1, 1)
+        return quantize(x4, xs_e), xs_e
+    if row_amax is None:
+        q = quantize_per_token(x4)
+        return q.values, q.scale                             # (G, E, C, 1)
+    scale = compute_scale_symmetric(row_amax.reshape(x4.shape[:-1] + (1,)))
+    return quantize(x4, scale), scale
+
+
+def quant_expert_gemm_epilogue(acc: torch.Tensor, w_scale: torch.Tensor,
+                               x_scale: torch.Tensor) -> torch.Tensor:
+    """The kernel's epilogue on an int32 accumulator (G, E, C, F), in its
+    order: acc * (x_scale * w_scale[e]); ``x_scale`` broadcastable to
+    (G, E, C, 1)."""
+    E, F = acc.shape[-3], acc.shape[-1]
+    ws = _weight_scales(w_scale, E, F).to(acc.device).reshape(1, E, 1, F)
+    return acc.to(torch.float32) * (x_scale.to(torch.float32) * ws)
+
+
 def quant_expert_gemm_plain(xe: torch.Tensor, w_q: torch.Tensor,
                             w_scale: torch.Tensor,
                             xs: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
     """The plain-PyTorch contract of :func:`quant_expert_gemm`, in the
     kernel's order of the dequantization: acc * (x_scale * w_scale)."""
-    E, D, F = w_q.shape
-    lead = xe.shape[:-3]
-    x4 = xe.reshape((-1,) + tuple(xe.shape[-3:]))          # (G, E, C, D)
-    if xs is not None:
-        xs_e = _expert_scales(xs, E, xe.device).reshape(1, E, 1, 1)
-        codes = quantize(x4, xs_e)
-    else:
-        q = quantize_per_token(x4)
-        codes, xs_e = q.values, q.scale                      # (G, E, C, 1)
-    acc = int_matmul(codes, w_q)                             # (G, E, C, F)
-    ws = _weight_scales(w_scale, E, F).to(xe.device).reshape(1, E, 1, F)
-    y = acc.to(torch.float32) * (xs_e * ws)
-    return y.reshape(lead + tuple(y.shape[-3:]))
+    E = w_q.shape[0]
+    codes, xs_e = expert_codes_plain(xe, E, xs)
+    y = quant_expert_gemm_epilogue(int_matmul(codes, w_q), w_scale, xs_e)
+    return y.reshape(xe.shape[:-3] + tuple(y.shape[-3:]))
+
+
+def quant_expert_gemm_acc(codes: torch.Tensor, w_q: torch.Tensor, *,
+                          per_token: bool = False) -> torch.Tensor:
+    """The accumulator mode of :func:`quant_expert_gemm`: int8 codes
+    (G, E, C, D) against w_q (E, D, F) int8 as int32 (G, E, C, F), with no
+    epilogue (:func:`~repro_torch.core.quantize.int_matmul` on the CPU).
+    One launch for every expert of the stack, counted with the kernel's
+    other launches (``per_token``: the codes were taken at per-token
+    scales, which only the counters read)."""
+    global launches, per_token_launches, acc_launches
+    if codes.device.type == "cpu":
+        return int_matmul(codes, w_q)
+    if codes.device.type != "cuda":
+        raise ValueError(f"quant_expert_gemm: no kernel for device "
+                         f"{codes.device}")
+    name = "quant_expert_gemm"
+    if codes.ndim != 4 or w_q.ndim != 3:
+        raise ValueError(f"{name}: codes {tuple(codes.shape)} and w_q "
+                         f"{tuple(w_q.shape)} do not form (G, E, C, D) @ "
+                         f"(E, D, F)")
+    G, E, C, D = codes.shape
+    F = w_q.shape[2]
+    if tuple(w_q.shape[:2]) != (E, D):
+        raise ValueError(f"{name}: codes {tuple(codes.shape)} do not route "
+                         f"into the stack {tuple(w_q.shape)}")
+    dev = codes.device
+    build.operand(name, "codes", codes, torch.int8, dev)
+    build.operand(name, "w_q", w_q, torch.int8, dev)
+    acc = torch.empty((G, E, C, F), dtype=torch.int32, device=dev)
+    splits = quant_linear_splits(G * C, F, D, E)
+    work = (torch.zeros(quant_linear_workspace(G * C, F, D, E),
+                        dtype=torch.int32, device=dev) if splits > 1 else None)
+    P, I = build.P, build.I
+    fn = build.function("samp_quant_expert_gemm_acc",
+                        (P, P, P, P, I, I, I, I, I, I, P))
+    with torch.cuda.device(dev):
+        rc = fn(codes.data_ptr(), w_q.data_ptr(), acc.data_ptr(),
+                work.data_ptr() if work is not None else None,
+                G, E, C, D, F, splits, build.stream(dev))
+    build.check(rc, name)
+    launches += 1
+    per_token_launches += per_token
+    acc_launches += 1
+    return acc
 
 
 def quant_expert_gemm(xe: torch.Tensor, w_q: torch.Tensor,

@@ -6,7 +6,8 @@ row-major over named axes (``("data", "model")``, with a leading ``pod`` on
 the multi-pod mesh), as ``jax.make_mesh`` lays out devices. It exposes what
 the sharding rules and the runtime read: ``shape`` (axis -> size),
 ``axis_names``, this rank's ``coords`` and one process group an axis, over
-which :meth:`ProcessMesh.all_reduce` and :meth:`ProcessMesh.all_gather` run.
+which :meth:`ProcessMesh.all_reduce`, :meth:`ProcessMesh.all_gather` and
+:meth:`ProcessMesh.all_to_all` run.
 
 Where the JAX package raises when ``dp * tp`` exceeds the visible devices,
 ranks here go round-robin on the cards (``cuda:(rank % device_count)``):
@@ -94,6 +95,13 @@ class ProcessMesh:
         if self.size(axis) == 1:
             return t
         return comm.all_gather(t, self._groups[axis], dim)
+
+    def all_to_all(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """Block i of ``t``'s dim 0 to rank i along ``axis``; the blocks
+        received, in axis order (``t`` itself at size 1)."""
+        if self.size(axis) == 1:
+            return t
+        return comm.all_to_all(t, self._groups[axis])
 
     def __repr__(self) -> str:
         dims = ",".join(f"{a}={n}" for a, n in self.shape.items())

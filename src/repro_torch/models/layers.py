@@ -39,8 +39,13 @@ Conventions
   unsharded block bit for bit; a float block sums float partials). An
   untied table embeds on the rank's d_model columns and all-gathers them;
   a tied one is vocab-parallel (masked local rows, summed: exact) and
-  unembeds to vocab-parallel logits, all-gathered. These collectives sit
-  where the JAX package's ``constrain`` tags are.
+  unembeds to vocab-parallel logits, all-gathered. An MoE layer routes the
+  JAX package's token groups, one a data shard, its experts split over
+  ``data`` (exchanged by all-to-all) and each expert's hidden units over
+  ``model`` (:func:`moe_block`); MLA, the recurrent bodies and the
+  front-end projections split their heads or channels over ``model``,
+  all-gathering a projection whose split falls off head boundaries. These
+  collectives sit where the JAX package's ``constrain`` tags are.
 """
 from __future__ import annotations
 
@@ -58,6 +63,7 @@ from repro_torch.core.quantize import (UINT8_MAX, QuantizedTensor,
 from repro_torch.kernels.addnorm_quant import row_sum
 from repro_torch.kernels.backend import ACTIVATIONS as _ACT
 from repro_torch.kernels.backend import QuantActivation, get_backend
+from repro_torch.kernels.expert_gemm import quant_expert_gemm_epilogue
 from repro_torch.kernels.flash_attention import NEG_INF, softmax_sum
 from repro_torch.kernels.quant_linear import quant_linear_epilogue
 
@@ -153,6 +159,32 @@ def _tp(mesh):
     None."""
     return (mesh if mesh is not None and mesh.shape.get("model", 1) > 1
             else None)
+
+
+def tp_whole(t: torch.Tensor, full: int, mesh) -> torch.Tensor:
+    """``t`` (..., n) at its whole width ``full``: a column-parallel
+    output the model axis split (n < full) is all-gathered."""
+    if t.shape[-1] == full:
+        return t
+    return _tp(mesh).all_gather(t, "model", -1)
+
+
+def tp_cols(t: torch.Tensor, n: int, mesh) -> torch.Tensor:
+    """This rank's block of ``n`` columns of a whole-width ``t`` (the input
+    of a row-parallel GEMM); ``t`` itself where it is n wide."""
+    if t.shape[-1] == n:
+        return t
+    return t.narrow(-1, _tp(mesh).coords["model"] * n, n)
+
+
+def tp_block(H: int, mesh) -> int:
+    """The heads (or channels) a tensor-parallel rank computes: its block
+    of ``H`` where the model axis divides them, else all of them (a
+    projection split off head boundaries is all-gathered, never padded)."""
+    tp = _tp(mesh)
+    if tp is None or H % tp.size("model"):
+        return H
+    return H // tp.size("model")
 
 
 def row_dense(x, p: dict, k_full: int, mesh=None, backend=None,
@@ -867,19 +899,36 @@ def mla_block(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
     paged pool holds them as ``pages_ckv``/``pages_krope``, float, under the
     standard layers' page table). Every GEMM takes the reference path, as
     in the JAX package, whose fused backend leaves the MLA body to it.
-    Returns the output, or ``(output, new_cache)`` with a ``kv_cache``."""
+    Returns the output, or ``(output, new_cache)`` with a ``kv_cache``.
+
+    On a tensor-parallel ``mesh`` the heads split over ``model``: ``wq_b``
+    (or ``wq``) and ``wkv_b`` are column-parallel on their head-major
+    outputs, ``wo`` row-parallel (:func:`row_dense`). ``wq_a`` is
+    column-parallel, so ``q_lat`` is all-gathered before ``q_norm``, whose
+    RMS runs over all ``q_lora_rank`` columns; ``wkv_a`` is whole, so every
+    rank computes, and caches, the whole latent. Where the heads do not split
+    evenly, the rank all-gathers the query and ``wkv_b`` and attends over
+    every head."""
     m = cfg.mla
     B, S, _ = x.shape
     H, nope, rd, vd = cfg.num_heads, m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim
     r = m.kv_lora_rank
+    tp = _tp(mesh)
     observe(obs, "attn_in", x)
     if m.q_lora_rank:
-        q_lat = rms_norm(dense(x, p["wq_a"]), p["q_norm"])
+        q_lat = tp_whole(dense(x, p["wq_a"]), m.q_lora_rank, mesh)
+        q_lat = rms_norm(q_lat, p["q_norm"])
         observe(obs, "q_lat", q_lat)
         q = dense(q_lat, p["wq_b"])
     else:
         q = dense(x, p["wq"])
-    q = q.reshape(B, S, H, nope + rd)
+    wkv_b = p["wkv_b"]["w"]
+    wkv_b = (wkv_b.dequantize(x.dtype) if isinstance(wkv_b, QuantizedTensor)
+             else wkv_b.to(x.dtype))
+    Hl = tp_block(H, mesh)
+    q = tp_whole(q, Hl * (nope + rd), mesh)
+    wkv_b = tp_whole(wkv_b, Hl * (nope + vd), mesh)
+    q = q.reshape(B, S, Hl, nope + rd)
     q_nope = q[..., :nope]
     q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
     kv = dense(x, p["wkv_a"])
@@ -888,9 +937,7 @@ def mla_block(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
     k_rope = apply_rope(kv[..., r:], positions, cfg.rope_theta,
                         heads_axis=False)                 # (B, S, rd) shared
     scale = 1.0 / math.sqrt(nope + rd)
-    wkv_b = p["wkv_b"]["w"]
-    wkv_b = (wkv_b.dequantize(x.dtype) if isinstance(wkv_b, QuantizedTensor)
-             else wkv_b.to(x.dtype)).reshape(r, H, nope + vd)
+    wkv_b = wkv_b.reshape(r, Hl, nope + vd)
     wk, wv = wkv_b[..., :nope], wkv_b[..., nope:]       # (r, H, nope|vd)
     new_cache = None
     if is_paged(kv_cache):
@@ -913,28 +960,40 @@ def mla_block(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
             k_pos = new_cache["k_pos"]
         q_pos = positions if positions.ndim == 2 else positions[None]
         mask = band_mask(q_pos, k_pos, spec)             # (B|1, S, T)
-        q_abs = torch.einsum("bshn,rhn->bshr", q_nope, wk)
-        s = (torch.einsum("bshr,btr->bhst", q_abs, ckv_all)
-             + torch.einsum("bshr,btr->bhst", q_rope, krope_all)) * scale
+
+        def head_product(eq, a, b):
+            # each per-head product summed in float64 and rounded once: a
+            # batched GEMM's summation order follows the head count (the
+            # card rounds 64 heads a rank unlike 128), and this makes the
+            # rank's heads equal the unsharded ones bit for bit
+            return torch.einsum(eq, a.to(torch.float64),
+                                b.to(torch.float64)).to(x.dtype)
+        q_abs = head_product("bshn,rhn->bshr", q_nope, wk)
+        s = (head_product("bshr,btr->bhst", q_abs, ckv_all)
+             + head_product("bshr,btr->bhst", q_rope, krope_all)) * scale
         s = torch.where(mask[:, None], s.to(torch.float32), NEG_INF)
         prob = _softmax(s).to(x.dtype)
-        o_lat = torch.einsum("bhst,btr->bshr", prob, ckv_all)
-        o = torch.einsum("bshr,rhv->bshv", o_lat, wv)    # (B, S, H, vd)
+        o_lat = head_product("bhst,btr->bshr", prob, ckv_all)
+        o = head_product("bshr,rhv->bshv", o_lat, wv)    # (B, S, H, vd)
     else:
         k_nope = torch.einsum("btr,rhn->bthn", ckv, wk)
         v = torch.einsum("btr,rhv->bthv", ckv, wv)
         k = torch.cat([k_nope, torch.broadcast_to(k_rope[:, :, None, :],
-                                                  (B, S, H, rd))], dim=-1)
+                                                  (B, S, Hl, rd))], dim=-1)
         qf = torch.cat([q_nope, q_rope], dim=-1)
         sc = {s_: p[f"{s_}_scale"] for s_ in ("q", "k", "p", "v")
               if f"{s_}_scale" in p} or None
         o = attention_core(qf, k, v, positions, positions, spec, scale=scale,
                            quant=quant, scales=sc, obs=obs, chunk=chunk,
                            mesh=mesh)
-    o = o.reshape(B, S, H * vd)
+    o = o.reshape(B, S, Hl * vd)
+    k_wo = p["wo"]["w"].shape[0]
+    if o.shape[-1] != k_wo:
+        # attention ran on every head: this rank's columns of wo's input
+        o = o.narrow(-1, tp.coords["model"] * k_wo, k_wo)
     observe(obs, "attn_out", o)
     observe_values(obs, "attn_out", o)
-    out = dense(o, p["wo"])
+    out = row_dense(o, p["wo"], H * vd, mesh)
     return out if kv_cache is None else (out, new_cache)
 
 
@@ -1081,39 +1140,111 @@ def _combine_one(ye: torch.Tensor, st, sg, keep, slot, Tl: int, D: int,
     return y
 
 
-def moe_block(x: torch.Tensor, p: dict, cfg, obs: Optional[dict] = None,
-              backend=None) -> torch.Tensor:
-    """Top-k MoE with capacity-bounded sort-based dispatch: the float32
-    router picks each token's top-k experts, tokens route into per-expert
-    buffers of capacity C = ceil(capacity_factor * T * K / E), three expert
-    GEMMs run the GLU over (G, E, C, D), and the outputs scatter back with
-    the gates. Overflowing tokens are dropped (Switch semantics). The JAX
-    package's token groups follow the data shards; without a mesh there is
-    one group (G = 1). Every row of ``x`` routes, so idle decode slots take
-    capacity as they do in the JAX engine."""
-    mo = cfg.moe
-    B, S, D = x.shape
-    T_ = B * S
-    E, K = mo.num_experts, mo.top_k
-    C = max(1, int(math.ceil(mo.capacity_factor * T_ * K / E)))
-    observe(obs, "ffn_in", x)
-    xt = x.reshape(T_, D)
-    logits = torch.matmul(xt.to(torch.float32), p["router"]["w"])
-    xe, st, sg, keep, slot = _dispatch_one(xt, logits, E, K, C)
-    xe = xe[None]                                    # (G, E, C, D)
-    observe_per_expert(obs, "expert_in", xe)
+def moe_groups(T: int, groups: int) -> int:
+    """The JAX package's token-group rule: ``groups`` groups of
+    T / groups tokens where they divide the T tokens, else one."""
+    return groups if groups > 1 and T % groups == 0 else 1
+
+
+def _experts_held(p: dict) -> int:
+    """The experts a rank holds of an expert stack."""
+    w = p["wg"]["w"]
+    return (w.values if isinstance(w, QuantizedTensor) else w).shape[0]
+
+
+def _expert_out(h: torch.Tensor, p: dict, F: int, mesh, backend):
+    """The expert stack's output GEMM, ``wd``: h (G, E, C, F/tp) against
+    the rank's F/tp rows of it. Without tensor parallelism the plain
+    :func:`_expert_gemm`; with it, a float stack sums the ranks' float
+    partials, and an int8 one their int32 accumulators (the backend's
+    ``expert_gemm_acc``: codes at the static scale or at the whole row's
+    per-token scale), then dequantizes as the unsharded GEMM does, so it
+    equals that GEMM bit for bit."""
+    w, xs = p["w"], p.get("xs")
+    tp = _tp(mesh)
+    rows = (w.values if isinstance(w, QuantizedTensor) else w).shape[1]
+    if tp is None or rows == F:
+        return _expert_gemm(h, w, xs, None, "ffn_hidden", backend)
+    if not isinstance(w, QuantizedTensor):
+        return tp.all_reduce(torch.matmul(h, w.to(h.dtype)), "model")
+    acc, x_scale = get_backend(backend).expert_gemm_acc(
+        h, w, xs, row_amax=lambda a: tp.all_reduce(a, "model", "max"))
+    return quant_expert_gemm_epilogue(tp.all_reduce(acc, "model"), w.scale,
+                                      x_scale).to(h.dtype)
+
+
+def _experts(xe: torch.Tensor, p: dict, F: int, obs, backend, mesh):
+    """The GLU of the expert stack a rank holds over routed rows
+    (G, E, C, D) -> (G, E, C, D)."""
     h = (_ACT["silu"](_expert_gemm(xe, p["wg"]["w"], p["wg"].get("xs"),
                                    obs, "ffn_in_e", backend))
          * _expert_gemm(xe, p["wu"]["w"], p["wu"].get("xs"), None,
                         "ffn_in_e", backend))
     observe(obs, "ffn_hidden", h)
     observe_per_expert(obs, "expert_hidden", h)
-    ye = _expert_gemm(h, p["wd"]["w"], p["wd"].get("xs"), None, "ffn_hidden",
-                      backend)
-    y = _combine_one(ye[0], st, sg, keep, slot, T_, D, x.dtype)
+    return _expert_out(h, p["wd"], F, mesh, backend)
+
+
+def moe_block(x: torch.Tensor, p: dict, cfg, obs: Optional[dict] = None,
+              backend=None, *, groups: int = 1, mesh=None,
+              data_shard: bool = False) -> torch.Tensor:
+    """Top-k MoE with capacity-bounded sort-based dispatch: the float32
+    router picks each token's top-k experts, tokens route into per-expert
+    buffers of capacity C = ceil(capacity_factor * Tl * K / E) per token
+    group of Tl tokens, three expert GEMMs run the GLU over (G, E, C, D),
+    and the outputs scatter back with the gates. Overflowing tokens are
+    dropped (Switch semantics), per group. Every row of ``x`` routes, so
+    idle decode slots take capacity as they do in the JAX engine.
+
+    Token groups are the JAX package's: ``groups`` (the data axis of a
+    mesh) where it divides the T tokens (:func:`moe_groups`), else one;
+    each group is dispatched and combined on its own. On a mesh:
+
+    * ``data_shard``: ``x`` is this rank's block of the batch, which is one
+      whole group (the rank's); else every rank holds every row and routes
+      every group;
+    * experts over ``data`` (the rules give a rank E / dp of them where dp
+      divides E): a rank runs its experts over every group's rows. With
+      ``data_shard`` the groups' buffers reach the experts' ranks, and the
+      outputs come back, by :meth:`ProcessMesh.all_to_all`; else each rank
+      slices its experts' rows and the outputs are all-gathered;
+    * each expert over ``model``: ``wg``/``wu`` column-parallel over the
+      hidden units, ``wd`` row-parallel (:func:`_expert_out`). The router
+      stays float32 and whole."""
+    mo = cfg.moe
+    B, S, D = x.shape
+    T_ = B * S
+    E, K = mo.num_experts, mo.top_k
+    G = 1 if data_shard else moe_groups(T_, groups)
+    Tl = T_ // G
+    C = max(1, int(math.ceil(mo.capacity_factor * Tl * K / E)))
+    observe(obs, "ffn_in", x)
+    xg = x.reshape(G, Tl, D)
+    routed = [_dispatch_one(xg[g], torch.matmul(xg[g].to(torch.float32),
+                                                p["router"]["w"]), E, K, C)
+              for g in range(G)]
+    xe = torch.stack([r[0] for r in routed])         # (G, E, C, D)
+    observe_per_expert(obs, "expert_in", xe)
+    El = _experts_held(p)
+    F = mo.d_ff_expert
+    if El == E:
+        ye = _experts(xe, p, F, obs, backend, mesh)
+    elif data_shard:
+        # (E, C, D) in dp blocks of El experts: block j to rank j; back
+        # come the dp groups' rows for this rank's experts
+        dp = E // El
+        xin = mesh.all_to_all(xe[0], "data").reshape(dp, El, C, D)
+        yout = _experts(xin, p, F, obs, backend, mesh)
+        ye = mesh.all_to_all(yout.reshape(E, C, D), "data")[None]
+    else:
+        e0 = mesh.coords["data"] * El
+        ye = mesh.all_gather(_experts(xe[:, e0:e0 + El].contiguous(), p,
+                                      F, obs, backend, mesh), "data", 1)
+    y = torch.cat([_combine_one(ye[g], *routed[g][1:], Tl, D, x.dtype)
+                   for g in range(G)])
     if "shared" in p:
         y = y + ffn_block(x, p["shared"], cfg, obs=obs, prefix="shared_",
-                          backend=backend).reshape(T_, D)
+                          backend=backend, mesh=mesh).reshape(T_, D)
     return y.reshape(B, S, D)
 
 

@@ -71,39 +71,66 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     return b
 
 
+def local_width(cfg, mesh) -> int:
+    """The recurrence channels a rank holds: its block of R where the
+    model axis divides them (``wx``, ``wg``, ``wa`` and ``wi`` are then
+    column-parallel over R), else all R."""
+    return L.tp_block(cfg.rnn_width or cfg.d_model, mesh)
+
+
 def rglru_mix(x: torch.Tensor, p: dict, cfg, *, obs: Optional[dict] = None,
               state: Optional[dict] = None,
-              active: Optional[torch.Tensor] = None):
+              active: Optional[torch.Tensor] = None, mesh=None):
     """The temporal-mixing half of a recurrent layer (the norms, the
     residual and the FFN are the layer driver's). x: (B, S, D) after norm1.
     ``state`` (decode): {"h": (B, R) float32, "conv": (B, W-1, R)}.
-    Returns (out (B, S, D), new_state or None)."""
+    Returns (out (B, S, D), new_state or None).
+
+    On a tensor-parallel ``mesh`` a rank runs its block of the R channels
+    (:func:`local_width`): ``xr`` and the gate come from its columns of
+    ``wx`` and ``wg``, the conv and ``lam`` (which the rules leave whole)
+    are sliced to its channels, ``xc`` is all-gathered for ``wa`` and
+    ``wi`` (whole input, the rank's output columns), the recurrence is
+    elementwise on the rank's channels, and ``wo`` is row-parallel; its
+    state holds the rank's channels."""
+    R = cfg.rnn_width or cfg.d_model
     L.observe(obs, "rec_in", x)
-    xr = L.dense(x, p["wx"])                                 # (B, S, R)
+    xr = L.dense(x, p["wx"])                                 # (B, S, Rl)
     gate = ACTIVATIONS["gelu"](L.dense(x, p["wg"]))
+    Rl = xr.shape[-1]
+    conv, lam = p["conv"], p["lam"]
+    if Rl != R:
+        c0 = mesh.coords["model"] * Rl
+        conv = {"w": conv["w"][:, c0:c0 + Rl],
+                "b": L.tp_cols(conv["b"], Rl, mesh)}
+        lam = lam[c0:c0 + Rl]
     conv_state = state["conv"] if state is not None else None
-    xc, new_conv = L.causal_conv1d(xr, p["conv"], conv_state)
+    xc, new_conv = L.causal_conv1d(xr, conv, conv_state)
     L.observe(obs, "rec_gate_in", xc)
+    xc_all = L.tp_whole(xc, R, mesh)
     f32 = torch.float32
-    r = torch.sigmoid(L.dense(xc, p["wa"]).to(f32))
-    i = torch.sigmoid(L.dense(xc, p["wi"]).to(f32))
-    log_a = -_RGLRU_C * softplus(p["lam"].to(f32)) * r      # (B, S, R)
+    r = torch.sigmoid(L.dense(xc_all, p["wa"]).to(f32))
+    i = torch.sigmoid(L.dense(xc_all, p["wi"]).to(f32))
+    log_a = -_RGLRU_C * softplus(lam.to(f32)) * r           # (B, S, Rl)
     a = torch.exp(log_a)
     gated_x = i * xc.to(f32)
     b = torch.sqrt(torch.clamp(1.0 - torch.square(a), min=1e-6)) * gated_x
     h0 = state["h"] if state is not None else None
-    h = rglru_scan(a, b, h0)                                 # (B, S, R)
+    h = rglru_scan(a, b, h0)                                 # (B, S, Rl)
     new_state = None
     if state is not None:
         new_state = L.select_state({"h": h[:, -1, :], "conv": new_conv},
                                    state, active)
     y = h.to(x.dtype) * gate
     L.observe(obs, "rec_out", y)
-    return L.dense(y, p["wo"]), new_state
+    return L.row_dense(y, p["wo"], R, mesh), new_state
 
 
-def init_state(cfg, batch: int, dtype=torch.float32, device=None) -> dict:
-    R = cfg.rnn_width or cfg.d_model
+def init_state(cfg, batch: int, dtype=torch.float32, device=None,
+               mesh=None) -> dict:
+    """A fresh decode state: the rank's channels on a tensor-parallel
+    ``mesh``."""
+    R = local_width(cfg, mesh)
     return {"h": torch.zeros((batch, R), dtype=torch.float32, device=device),
             "conv": torch.zeros((batch, cfg.conv_width - 1, R), dtype=dtype,
                                 device=device)}

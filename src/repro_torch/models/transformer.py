@@ -197,33 +197,11 @@ def repack(params: dict, old_plan: tuple[Group, ...],
 # ---------------------------------------------------------------------------
 
 
-def check_mesh(cfg: ArchConfig, mesh) -> None:
-    """Raise for a mesh this slice does not serve: any mesh for an MoE
-    config (its expert capacity follows the token count of each data
-    shard), and tensor parallelism for MLA, the recurrent bodies and the
-    audio and vision front-ends (ROADMAP queue 1 item 8d)."""
-    if mesh is None:
-        return
-    why = None
-    if cfg.moe is not None:
-        why = "MoE expert dispatch"
-    elif mesh.shape.get("model", 1) > 1:
-        if cfg.mla is not None:
-            why = "MLA"
-        elif any(k.body != "attn" for k in cfg.layer_kinds()):
-            why = "the recurrent bodies"
-        elif cfg.frontend is not None:
-            why = f"the {cfg.frontend} front-end"
-    if why is not None:
-        raise NotImplementedError(
-            f"{cfg.name} on a {dict(mesh.shape)} mesh: {why} is not "
-            f"sharded yet (ROADMAP queue 1 item 8d)")
-
-
 def layer_forward(x, lp, cfg: ArchConfig, kind: BlockKind, mode: LayerMode,
                   scheme: QuantScheme, *, positions, obs, chunk,
                   quant_bmm=None, softmax=None, backend=None, cache=None,
-                  active=None, pages=None, mesh=None):
+                  active=None, pages=None, mesh=None, moe_groups=1,
+                  data_shard=False):
     """One pre-LN attention layer: x + attn(norm1(x)), then
     x + ffn(norm2(x)); the fused backend collapses the add + norm2 +
     requantization into ``addnorm_quant`` when the ffn_in GEMM has a static
@@ -237,10 +215,12 @@ def layer_forward(x, lp, cfg: ArchConfig, kind: BlockKind, mode: LayerMode,
     recurrent bodies run on the reference path, and ``cache`` is their
     recurrent state, which ``active`` gates. Returns x, or
     ``(x, new_cache)`` with a ``cache``. ``mesh``: the tensor-parallel
-    forward of :mod:`repro_torch.models.layers`."""
+    forward of :mod:`repro_torch.models.layers` and the recurrent bodies;
+    ``moe_groups`` and ``data_shard``: an MoE layer's token groups
+    (:func:`~repro_torch.models.layers.moe_block`)."""
     if kind.body != "attn":
         return _recurrent_layer(x, lp, cfg, kind, obs=obs, backend=backend,
-                                cache=cache, active=active)
+                                cache=cache, active=active, mesh=mesh)
     quant = L.AttnQuant(enabled=(mode.quant_mha if quant_bmm is None
                                  else quant_bmm),
                         softmax_mode=scheme.softmax_mode,
@@ -267,7 +247,9 @@ def layer_forward(x, lp, cfg: ArchConfig, kind: BlockKind, mode: LayerMode,
     x, h2 = L.residual_norm(a, x, lp["norm2"], cfg.norm_kind, next_scale=ns,
                             backend=backend)
     if kind.moe:
-        x = x + L.moe_block(h2, lp["ffn"], cfg, obs=obs, backend=backend)
+        x = x + L.moe_block(h2, lp["ffn"], cfg, obs=obs, backend=backend,
+                            groups=moe_groups, mesh=mesh,
+                            data_shard=data_shard)
     else:
         x = x + L.ffn_block(h2, lp["ffn"], cfg, obs=obs, backend=backend,
                             mesh=mesh)
@@ -275,18 +257,19 @@ def layer_forward(x, lp, cfg: ArchConfig, kind: BlockKind, mode: LayerMode,
 
 
 def _recurrent_layer(x, lp, cfg: ArchConfig, kind: BlockKind, *, obs,
-                     backend, cache, active):
+                     backend, cache, active, mesh):
     h = L.norm(x, lp["norm1"], cfg.norm_kind)
     if kind.body == "rglru":
         a, new_cache = R.rglru_mix(h, lp["rec"], cfg, obs=obs, state=cache,
-                                   active=active)
+                                   active=active, mesh=mesh)
         x = x + a
         h2 = L.norm(x, lp["norm2"], cfg.norm_kind)
-        x = x + L.ffn_block(h2, lp["ffn"], cfg, obs=obs, backend=backend)
+        x = x + L.ffn_block(h2, lp["ffn"], cfg, obs=obs, backend=backend,
+                            mesh=mesh)
     else:
         blk = X.mlstm_block if kind.body == "mlstm" else X.slstm_block
         a, new_cache = blk(h, lp["blk"], cfg, obs=obs, state=cache,
-                           active=active)
+                           active=active, mesh=mesh)
         x = x + a
     return x if cache is None else (x, new_cache)
 
@@ -294,7 +277,8 @@ def _recurrent_layer(x, lp, cfg: ArchConfig, kind: BlockKind, *, obs,
 def run_groups(x, params, cfg: ArchConfig, plan: tuple[Group, ...],
                scheme: QuantScheme, *, positions, obs=None,
                chunk=DEFAULT_CHUNK, backend=None, caches=None, active=None,
-               pages=None, remat: bool = False, mesh=None):
+               pages=None, remat: bool = False, mesh=None, moe_groups=1,
+               data_shard=False):
     """Execute every layer of every group, in order. Observer capture
     (``obs`` not None) always runs the reference path and records each
     layer's sites as ``obs["layer{i}/{site}"]``. With ``caches`` (one per
@@ -307,10 +291,14 @@ def run_groups(x, params, cfg: ArchConfig, plan: tuple[Group, ...],
 
     ``mesh`` (the JAX package's ``constrain`` slot): a serving mesh whose
     model axis runs the tensor-parallel forward over ``params``, this
-    rank's block (:func:`check_mesh`). Observers see whole tensors only:
+    rank's block, and whose data axis holds the MoE layers' experts
+    (:func:`~repro_torch.models.layers.moe_block`). ``moe_groups`` is the
+    MoE layers' token-group count over the rows ``x`` holds, and
+    ``data_shard`` says that those rows are this rank's block of a batch
+    the data axis split (one group). Observers see whole tensors only:
     calibration on a mesh splits batches, not layers
-    (:func:`repro_torch.quant.ptq.capture_stats`)."""
-    check_mesh(cfg, mesh)
+    (:func:`repro_torch.quant.ptq.capture_stats`), so it runs whole
+    batches, one token group each, as the JAX package's observers do."""
     if obs is not None and L._tp(mesh) is not None:
         raise ValueError("observer capture runs unsharded params: "
                          "calibrate with capture_stats(mesh=...)")
@@ -331,7 +319,8 @@ def run_groups(x, params, cfg: ArchConfig, plan: tuple[Group, ...],
                           quant_bmm=g.quant_bmm, softmax=g.softmax,
                           backend=backend,
                           cache=None if caches is None else caches[idx],
-                          active=active, pages=pages, mesh=mesh)
+                          active=active, pages=pages, mesh=mesh,
+                          moe_groups=moe_groups, data_shard=data_shard)
                 if remat:
                     x = checkpoint(layer_forward, x, layers[idx], cfg, kind,
                                    g.mode, scheme, use_reentrant=False, **kw)
@@ -359,13 +348,23 @@ def embed_inputs(params, batch: dict, cfg: ArchConfig, *, positions,
     gemma family, sqrt(d)-scaled) ``prefix_embeds`` (B, P, frontend_dim)
     when the batch has them."""
     emb = params["embed"]
+
+    def frontend(feats):
+        # frontend_proj's weight is column-parallel over d_model on a mesh
+        # (its bias whole): the rank's columns, all-gathered as the
+        # embedding tables' are
+        p = emb["frontend_proj"]
+        n = p["w"].shape[-1]
+        if "b" in p:
+            p = {**p, "b": L.tp_cols(p["b"], n, mesh)}
+        return L.tp_whole(L.dense(feats.to(torch.float32), p), cfg.d_model,
+                          mesh)
     if cfg.frontend == "audio":
-        return L.dense(batch["frames"].to(torch.float32), emb["frontend_proj"])
+        return frontend(batch["frames"])
     x = L.embed(batch["tokens"], emb, cfg, positions=positions,
                 segments=batch.get("segments"), backend=backend, mesh=mesh)
     if cfg.frontend == "vision" and "prefix_embeds" in batch:
-        pfx = L.dense(batch["prefix_embeds"].to(torch.float32),
-                      emb["frontend_proj"])
+        pfx = frontend(batch["prefix_embeds"])
         if cfg.emb_scale_by_sqrt_dim:
             pfx = pfx * math.sqrt(cfg.d_model)
         x = torch.cat([pfx, x], dim=1)
@@ -389,7 +388,8 @@ def forward(params, batch: dict, cfg: ArchConfig, plan: tuple[Group, ...],
             scheme: QuantScheme = QuantScheme(), *,
             obs: Optional[dict] = None, chunk: Optional[int] = DEFAULT_CHUNK,
             return_hidden: bool = False, backend=None, caches=None, pos=None,
-            active=None, pages=None, remat: bool = False, mesh=None):
+            active=None, pages=None, remat: bool = False, mesh=None,
+            moe_groups: int = 1, data_shard: bool = False):
     """Full-sequence (encode, prefill) or incremental (decode) forward of
     token tensors ``batch["tokens"]`` (B, S) (+ ``"segments"``; audio
     configs take ``"frames"`` (B, T, frontend_dim) instead, vision configs
@@ -404,7 +404,8 @@ def forward(params, batch: dict, cfg: ArchConfig, plan: tuple[Group, ...],
     positions, with ``active`` (B,) bool gating idle slots' cache writes);
     ``pages`` is the (B, pages_per_slot) page table of paged caches.
     ``remat`` recomputes each layer in the backward pass, and ``mesh``
-    runs the tensor-parallel forward over this rank's block of ``params``
+    runs the tensor-parallel forward over this rank's block of ``params``,
+    with the MoE token groups ``moe_groups`` and ``data_shard``
     (:func:`run_groups`)."""
     lead = batch["frames"] if cfg.frontend == "audio" else batch["tokens"]
     S = lead.shape[1]
@@ -419,7 +420,8 @@ def forward(params, batch: dict, cfg: ArchConfig, plan: tuple[Group, ...],
                      backend=None if obs is not None else backend, mesh=mesh)
     x = run_groups(x, params, cfg, plan, scheme, positions=positions,
                    obs=obs, chunk=chunk, backend=backend, caches=caches,
-                   active=active, pages=pages, remat=remat, mesh=mesh)
+                   active=active, pages=pages, remat=remat, mesh=mesh,
+                   moe_groups=moe_groups, data_shard=data_shard)
     if caches is not None:
         x, caches = x
     x = L.norm(x, params["final_norm"], cfg.norm_kind)
@@ -484,13 +486,13 @@ def lm_loss(params, batch: dict, cfg: ArchConfig, plan,
 def _layer_cache(cfg: ArchConfig, kind: BlockKind, batch: int, max_len: int,
                  dtype, device, *, page_size: Optional[int] = None,
                  num_pages: int = 0, kv_scheme: str = "float",
-                 kv_heads: Optional[int] = None) -> dict:
+                 kv_heads: Optional[int] = None, mesh=None) -> dict:
     if kind.body == "rglru":
-        return R.init_state(cfg, batch, dtype, device)
+        return R.init_state(cfg, batch, dtype, device, mesh)
     if kind.body == "mlstm":
-        return X.mlstm_state(cfg, batch, dtype, device)
+        return X.mlstm_state(cfg, batch, dtype, device, mesh)
     if kind.body == "slstm":
-        return X.slstm_state(cfg, batch, dtype, device)
+        return X.slstm_state(cfg, batch, dtype, device, mesh)
     H, hd = kv_heads or cfg.num_kv_heads, cfg.head_dim
     kw = dict(device=device)
     # a local (sliding-window) layer keeps its dense ring of W positions
@@ -557,8 +559,9 @@ def init_caches(cfg: ArchConfig, plan: tuple[Group, ...], batch: int,
     change inside an execution group, as in the JAX package, whose scan
     groups share one cache layout. On a tensor-parallel ``mesh`` the
     attention caches hold the rank's KV heads
-    (:func:`~repro_torch.models.layers.local_kv_heads`); ``batch`` is the
-    slots this rank holds."""
+    (:func:`~repro_torch.models.layers.local_kv_heads`), an MLA cache the
+    whole latent, and a recurrent state the rank's channels or heads;
+    ``batch`` is the slots this rank holds."""
     device = resolve_device(device)
     kv_heads = L.local_kv_heads(cfg, mesh)
     if page_size is not None and num_pages is None:
@@ -577,7 +580,8 @@ def init_caches(cfg: ArchConfig, plan: tuple[Group, ...], batch: int,
             caches.append(_layer_cache(cfg, kinds[li], batch, max_len, dtype,
                                        device, page_size=page_size,
                                        num_pages=num_pages or 0,
-                                       kv_scheme=scheme, kv_heads=kv_heads))
+                                       kv_scheme=scheme, kv_heads=kv_heads,
+                                       mesh=mesh))
     return caches
 
 
@@ -615,11 +619,13 @@ def kv_geometry(caches) -> tuple:
 
 def decode_step(params, tokens, caches, pos, cfg: ArchConfig, plan,
                 scheme: QuantScheme = QuantScheme(), *, active=None,
-                pages=None, backend=None, mesh=None):
+                pages=None, backend=None, mesh=None, moe_groups=1,
+                data_shard=False):
     """One serving step: tokens (B, 1) at absolute position(s) ``pos`` (an
     int: a synchronized batch; (B,): continuous batching, with ``active``
     gating idle slots). ``pages`` is the (B, pages_per_slot) page table of
     paged caches. Returns (logits (B, 1, V), new_caches)."""
     return forward(params, {"tokens": tokens}, cfg, plan, scheme,
                    caches=caches, pos=pos, active=active, chunk=None,
-                   pages=pages, backend=backend, mesh=mesh)
+                   pages=pages, backend=backend, mesh=mesh,
+                   moe_groups=moe_groups, data_shard=data_shard)

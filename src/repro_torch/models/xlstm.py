@@ -114,32 +114,59 @@ def _mlstm_step(state, q, k, v, log_i, log_f):
     return (C, n, m_t), h
 
 
+def _whole_conv(p: dict, C: int, mesh) -> dict:
+    """A block's conv with its whole bias: the rules leave the taps whole
+    and shard the bias over ``model``."""
+    return {"w": p["w"], "b": L.tp_whole(p["b"], C, mesh)}
+
+
+def _row_out(h: torch.Tensor, p: dict, mesh) -> torch.Tensor:
+    """The block's output GEMM (``down``, ``proj``), row-parallel on a
+    tensor-parallel mesh: the rank's columns of the whole-width ``h``."""
+    K = h.shape[-1]
+    return L.row_dense(L.tp_cols(h, p["w"].shape[0], mesh), p, K, mesh)
+
+
 def mlstm_block(x: torch.Tensor, p: dict, cfg, *,
                 obs: Optional[dict] = None, state: Optional[dict] = None,
-                active: Optional[torch.Tensor] = None):
+                active: Optional[torch.Tensor] = None, mesh=None):
     """The mLSTM block (the layer driver adds the residual). x: (B, S, D)
     after norm1. A full sequence needs S <= 256 or a multiple of 256 (the
-    chunk). Returns (out, new_state or None)."""
+    chunk). Returns (out, new_state or None).
+
+    On a tensor-parallel ``mesh`` a rank runs its block of the heads
+    (:func:`local_heads`): ``wq``, ``wk`` and ``wv`` are column-parallel on
+    head boundaries. ``up`` (its split falls between ``xm`` and ``z``, not
+    on heads) and ``wif`` (input gates of every head, then forget gates)
+    are computed whole, their columns all-gathered; the conv runs whole.
+    The rank's cells run on its heads; their outputs are all-gathered for
+    ``out_norm``, whose RMS runs over the whole row, and ``down`` is
+    row-parallel. The state holds the rank's heads."""
     B, S, D = x.shape
     Dp = int(cfg.proj_factor * D)
     H = cfg.num_heads
     dh = Dp // H
+    Hl = local_heads(cfg, mesh)
+    h0 = mesh.coords["model"] * Hl if Hl != H else 0
     f32 = torch.float32
     L.observe(obs, "blk_in", x)
-    up = L.dense(x, p["up"])
+    up = L.tp_whole(L.dense(x, p["up"]), 2 * Dp, mesh)
     xm, z = up[..., :Dp], up[..., Dp:]
     L.observe(obs, "xm", xm)
     conv_state = state["conv"] if state is not None else None
-    xc, new_conv = L.causal_conv1d(xm, p["conv"], conv_state)
+    xc, new_conv = L.causal_conv1d(xm, _whole_conv(p["conv"], Dp, mesh),
+                                   conv_state)
     xc = _silu(xc)
     L.observe(obs, "qkv_in", xc)
-    q = L.dense(xc, p["wq"]).reshape(B, S, H, dh).to(f32)
-    k = divide(L.dense(xc, p["wk"]).reshape(B, S, H, dh).to(f32),
-               math.sqrt(dh))
-    v = L.dense(xm, p["wv"]).reshape(B, S, H, dh).to(f32)
-    gates = L.dense(xc, p["wif"]).to(f32)                # (B, S, 2H)
-    log_i = gates[..., :H]
-    log_f = F.logsigmoid(gates[..., H:])
+
+    def heads(t):
+        return L.tp_whole(t, Hl * dh, mesh).reshape(B, S, Hl, dh).to(f32)
+    q = heads(L.dense(xc, p["wq"]))
+    k = divide(heads(L.dense(xc, p["wk"])), math.sqrt(dh))
+    v = heads(L.dense(xm, p["wv"]))
+    gates = L.tp_whole(L.dense(xc, p["wif"]), 2 * H, mesh).to(f32)
+    log_i = gates[..., h0:h0 + Hl]                       # (B, S, Hl)
+    log_f = F.logsigmoid(gates[..., H + h0:H + h0 + Hl])
 
     if state is not None and S == 1:
         (C, n, m), h = _mlstm_step((state["C"], state["n"], state["m"]),
@@ -156,9 +183,10 @@ def mlstm_block(x: torch.Tensor, p: dict, cfg, *,
         if state is not None:
             carry = (state["C"], state["n"], state["m"])
         else:
-            carry = (torch.zeros((B, H, dh, dh), dtype=f32, device=x.device),
-                     torch.zeros((B, H, dh), dtype=f32, device=x.device),
-                     torch.zeros((B, H), dtype=f32, device=x.device))
+            carry = (torch.zeros((B, Hl, dh, dh), dtype=f32,
+                                 device=x.device),
+                     torch.zeros((B, Hl, dh), dtype=f32, device=x.device),
+                     torch.zeros((B, Hl), dtype=f32, device=x.device))
         hs = []
         for c0 in range(0, S, Lc):
             sl = slice(c0, c0 + Lc)
@@ -169,10 +197,11 @@ def mlstm_block(x: torch.Tensor, p: dict, cfg, *,
         C, n, m = carry
         new_state = (None if state is None else L.select_state(
             {"C": C, "n": n, "m": m, "conv": new_conv}, state, active))
-    h = L.rms_norm(h.to(x.dtype).reshape(B, S, Dp), p["out_norm"])
+    h = L.tp_whole(h.to(x.dtype).reshape(B, S, Hl * dh), Dp, mesh)
+    h = L.rms_norm(h, p["out_norm"])
     y = h * _silu(z)
     L.observe(obs, "blk_hidden", y)
-    return L.dense(y, p["down"]), new_state
+    return _row_out(y, p["down"], mesh), new_state
 
 
 # ---------------------------------------------------------------------------
@@ -220,36 +249,47 @@ def _slstm_cell(state, pz, pi, pf, po, r: torch.Tensor):
 
 def slstm_block(x: torch.Tensor, p: dict, cfg, *,
                 obs: Optional[dict] = None, state: Optional[dict] = None,
-                active: Optional[torch.Tensor] = None):
+                active: Optional[torch.Tensor] = None, mesh=None):
     """The sLSTM block: the gate GEMMs for every step at once, then the
-    cell step by step. Returns (out, new_state or None)."""
+    cell step by step. Returns (out, new_state or None).
+
+    On a tensor-parallel ``mesh`` a rank runs its block of the heads
+    (:func:`local_heads`): ``wz``, ``wi``, ``wf`` and ``wo`` are
+    column-parallel on head boundaries, the recurrent ``r`` (whole under
+    the rules) is sliced to the rank's heads, the conv runs whole, the
+    cells' outputs are all-gathered for ``out_norm`` (an RMS over the whole
+    row) and ``proj`` is row-parallel. The state holds the rank's heads."""
     B, S, D = x.shape
     H = cfg.num_heads
     dh = D // H
+    Hl = local_heads(cfg, mesh)
+    h0 = mesh.coords["model"] * Hl if Hl != H else 0
     f32 = torch.float32
     conv_state = state["conv"] if state is not None else None
-    xc, new_conv = L.causal_conv1d(x, p["conv"], conv_state)
+    xc, new_conv = L.causal_conv1d(x, _whole_conv(p["conv"], D, mesh),
+                                   conv_state)
     xc = _silu(xc)
     L.observe(obs, "blk_in", x)
     L.observe(obs, "blk_conv_in", xc)
     # z and o read the raw input, i and f the conv path
     pre = [L.dense(x, p["wz"]), L.dense(xc, p["wi"]),
            L.dense(xc, p["wf"]), L.dense(x, p["wo"])]
-    pre = [t.reshape(B, S, H, dh).to(f32) for t in pre]
+    pre = [L.tp_whole(t, Hl * dh, mesh).reshape(B, S, Hl, dh).to(f32)
+           for t in pre]
     if state is not None:
         st = (state["c"], state["n"], state["h"], state["m"])
     else:
-        zeros = torch.zeros((B, H, dh), dtype=f32, device=x.device)
+        zeros = torch.zeros((B, Hl, dh), dtype=f32, device=x.device)
         st = (zeros, torch.ones_like(zeros), zeros, zeros)
-    r = p["r"].to(f32)
+    r = p["r"][:, h0:h0 + Hl].to(f32)
     hs = []
     for t in range(S):
         st = _slstm_cell(st, *(g[:, t] for g in pre), r)
         hs.append(st[2])
-    h = torch.stack(hs, dim=1).reshape(B, S, D).to(x.dtype)
-    h = L.rms_norm(h, p["out_norm"])
+    h = torch.stack(hs, dim=1).reshape(B, S, Hl * dh).to(x.dtype)
+    h = L.rms_norm(L.tp_whole(h, D, mesh), p["out_norm"])
     L.observe(obs, "blk_hidden", h)
-    out = L.dense(h, p["proj"])
+    out = _row_out(h, p["proj"], mesh)
     new_state = None
     if state is not None:
         c, n, h_last, m = st
@@ -264,10 +304,19 @@ def slstm_block(x: torch.Tensor, p: dict, cfg, *,
 # ---------------------------------------------------------------------------
 
 
-def mlstm_state(cfg, batch: int, dtype=torch.float32, device=None) -> dict:
+def local_heads(cfg, mesh) -> int:
+    """The heads a tensor-parallel rank runs: its block where the model
+    axis divides them, else all of them."""
+    return L.tp_block(cfg.num_heads, mesh)
+
+
+def mlstm_state(cfg, batch: int, dtype=torch.float32, device=None,
+                mesh=None) -> dict:
+    """The mLSTM's decode state: the rank's heads on a tensor-parallel
+    ``mesh``, the whole conv window."""
     Dp = int(cfg.proj_factor * cfg.d_model)
-    H = cfg.num_heads
-    dh = Dp // H
+    H = local_heads(cfg, mesh)
+    dh = Dp // cfg.num_heads
     kw = dict(dtype=torch.float32, device=device)
     return {"C": torch.zeros((batch, H, dh, dh), **kw),
             "n": torch.zeros((batch, H, dh), **kw),
@@ -276,9 +325,11 @@ def mlstm_state(cfg, batch: int, dtype=torch.float32, device=None) -> dict:
                                 device=device)}
 
 
-def slstm_state(cfg, batch: int, dtype=torch.float32, device=None) -> dict:
-    """The sLSTM's decode state; its normalizer n starts at ones."""
-    H, dh = cfg.num_heads, cfg.d_model // cfg.num_heads
+def slstm_state(cfg, batch: int, dtype=torch.float32, device=None,
+                mesh=None) -> dict:
+    """The sLSTM's decode state (the rank's heads on a tensor-parallel
+    ``mesh``); its normalizer n starts at ones."""
+    H, dh = local_heads(cfg, mesh), cfg.d_model // cfg.num_heads
     kw = dict(dtype=torch.float32, device=device)
     return {"c": torch.zeros((batch, H, dh), **kw),
             "n": torch.ones((batch, H, dh), **kw),

@@ -26,8 +26,10 @@ mesh)`` deployment:
   model axis runs the tensor-parallel forward, and the data axis splits
   the batch: buckets round up to dp multiples, each rank runs its rows (a
   decode step its slots) and the outputs are all-gathered, so every rank
-  returns the whole output. The backend claims a rank's local tensors as
-  it claims whole ones;
+  returns the whole output. An MoE layer's token groups are the JAX
+  package's over the whole batch (:meth:`Runtime.moe_args`), and its
+  experts split over the data axis. The backend claims a rank's local
+  tensors as it claims whole ones;
 * the decode step (:meth:`Runtime.decode_fn`) is cached per (backend name,
   plan fingerprint, cluster, slot count, ``kv_geometry``), so float and
   int8 caches never share an entry;
@@ -87,7 +89,8 @@ class Runtime:
                  chunk: Optional[int] = T.DEFAULT_CHUNK,
                  backend="reference",
                  device: Union[str, torch.device] = "cuda",
-                 cluster: Optional[int] = None, mesh=None):
+                 cluster: Optional[int] = None, mesh=None,
+                 moe_groups: int = 1):
         self.device = resolve_device(device)
         # TF32 off, float32 matmuls at "highest": the JAX reference computes
         # in full float32, and int_matmul's float32 products must stay exact
@@ -102,9 +105,8 @@ class Runtime:
         self.min_len = min_len
         self.max_len = max_len
         self.chunk = chunk
-        # inference replicates params over 'data' and shards them over
-        # 'model'
-        T.check_mesh(cfg, mesh)
+        # inference replicates params over 'data' (an MoE stack's experts
+        # excepted) and shards them over 'model'
         self.mesh = mesh
         self.rules = (Rules(cfg, mesh, fsdp=False) if mesh is not None
                       else None)
@@ -117,11 +119,17 @@ class Runtime:
         # mesh topology (other shards, other collectives) and the traffic
         # cluster of a routed deployment
         self.cluster = cluster
+        if mesh is not None and moe_groups != 1:
+            raise ValueError("moe_groups is the unmeshed runtime's: a mesh "
+                             "takes its token groups from its data axis")
+        self.moe_groups = moe_groups
+        # an unmeshed runtime's MoE token groups (1: the key as without)
         self._plan_key = (self.backend.name,
                           precision.fingerprint() if precision is not None
                           else hash((plan, scheme)),
                           mesh_fingerprint(mesh),
-                          cluster)
+                          cluster) + ((moe_groups,) if moe_groups != 1
+                                      else ())
         self._exe: dict[tuple, Callable] = {}
         self._stats = {"calls": 0, "traces": 0, "real_tokens": 0,
                        "padded_tokens": 0}
@@ -157,6 +165,17 @@ class Runtime:
             self._local = (params, shard_params(params, self.rules,
                                                 self.mesh))
         return self._local[1]
+
+    def moe_args(self, B: int) -> dict:
+        """An MoE layer's token groups for a batch of B rows (or slots),
+        as the JAX package groups them over the whole batch: the rank's
+        rows are its own group where the data axis split them
+        (``data_shard``), else every rank routes the dp groups (or the
+        unmeshed runtime its ``moe_groups``) over all of them."""
+        if self.mesh is None:
+            return {"moe_groups": self.moe_groups, "data_shard": False}
+        return {"moe_groups": self._dp,
+                "data_shard": self.rows(B) != (0, B)}
 
     def _gather_rows(self, out: torch.Tensor, B: int) -> torch.Tensor:
         """Every rank's rows of a batch it split: the whole output."""
@@ -203,7 +222,9 @@ class Runtime:
                      min_len=self.min_len, max_len=self.max_len,
                      chunk=self.chunk, backend=backend or self.backend,
                      device=self.device, cluster=cluster,
-                     mesh=self.mesh if mesh == "inherit" else mesh)
+                     mesh=self.mesh if mesh == "inherit" else mesh,
+                     moe_groups=(self.moe_groups if mesh == "inherit"
+                                 else 1))
         rt._exe = self._exe
         rt._stats = self._stats
         return rt
@@ -214,7 +235,8 @@ class Runtime:
         head, chunk, backend, mesh = (self.head, self.chunk, self.backend,
                                       self.mesh)
 
-        def fn(params, inputs: dict, lengths: torch.Tensor) -> torch.Tensor:
+        def fn(params, inputs: dict, lengths: torch.Tensor,
+               moe: dict) -> torch.Tensor:
             S = inputs["frames" if cfg.frontend == "audio"
                        else "tokens"].shape[1]
             P = (inputs["prefix_embeds"].shape[1]
@@ -231,7 +253,7 @@ class Runtime:
                                backend=backend, mesh=mesh)
             x = T.run_groups(x, params, cfg, plan, scheme,
                              positions=positions, chunk=chunk,
-                             backend=backend, mesh=mesh)
+                             backend=backend, mesh=mesh, **moe)
             x = L.norm(x, params["final_norm"], cfg.norm_kind)
             return head(params, x) if head is not None else x
         return fn
@@ -280,7 +302,8 @@ class Runtime:
             out = fn(self.local_params(params),
                      {k: torch.from_numpy(v[lo:hi]).to(self.device)
                       for k, v in padded.items()},
-                     torch.from_numpy(full_len[lo:hi]).to(self.device))
+                     torch.from_numpy(full_len[lo:hi]).to(self.device),
+                     self.moe_args(Bb))
             out = self._gather_rows(out, Bb)[:B].to("cpu").numpy()
         self._stats["calls"] += 1
         self._stats["real_tokens"] += int(lengths.sum())
@@ -298,11 +321,11 @@ class Runtime:
         cfg, plan, scheme, backend, mesh = (self.cfg, self.plan, self.scheme,
                                             self.backend, self.mesh)
 
-        def fn(params, caches, tokens, pos, active, pages):
+        def fn(params, caches, tokens, pos, active, pages, moe):
             logits, caches = T.decode_step(params, tokens, caches, pos, cfg,
                                            plan, scheme, active=active,
                                            pages=pages, backend=backend,
-                                           mesh=mesh)
+                                           mesh=mesh, **moe)
             return logits[:, -1, :], caches
         return fn
 
@@ -336,7 +359,8 @@ class Runtime:
                     self.local_params(params), caches,
                     rows(tokens, np.int32), rows(pos, np.int32),
                     rows(active, bool),
-                    None if pages is None else rows(pages, np.int32))
+                    None if pages is None else rows(pages, np.int32),
+                    self.moe_args(B))
                 return self._gather_rows(logits, B), caches
         return step
 

@@ -976,6 +976,49 @@ def test_quant_expert_gemm_weight_stream(dev, C, D, F, mode):
         assert sc.equal(ref.scale.reshape(-1, 1))
 
 
+# the row-parallel expert stacks of a 2-way tensor-parallel mesh (wd's
+# hidden units halved): mixtral-8x22b's 8 experts of 8192 of 16384 rows
+# at decode's capacity 3 and a forward's 160, deepseek-v2's 160 of 768 of
+# 1536 at capacity 1, and a ragged stack split over D; G = 2 groups too
+EXPERT_ACC_SHAPES = [(1, 8, 3, 8192, 6144), (1, 8, 160, 8192, 6144),
+                     (1, 160, 1, 768, 5120), (2, 4, 5, 1030, 72)]
+
+
+@pytest.mark.parametrize("shape", EXPERT_ACC_SHAPES)
+@pytest.mark.parametrize("mode", ["per_expert", "per_token"])
+def test_quant_expert_gemm_accumulator_mode(dev, shape, mode):
+    """The accumulator mode (one launch for the stack, counted as the
+    kernel's) returns the exact int32 sums, its plain version's bit for
+    bit; the two halves of D add to the whole; the epilogue after the sum
+    equals the kernel's own output bit for bit, the per-token codes taken
+    at the whole rows' scales (``dynamic_quant``'s scale-in mode)."""
+    G, E, C, D, F = shape
+    xe, wq, ws, xs = _expert_case(dev, G, E, C, D, F, mode)
+    be = backend.FusedBackend()
+    from repro_torch.core.quantize import QuantizedTensor
+    w = QuantizedTensor(wq, ws, None)
+    whole_amax = xe.abs().amax(dim=-1)
+    kernels.reset_launches()
+    acc, x_scale = be.expert_gemm_acc(
+        xe, w, xs, row_amax=lambda a: torch.maximum(a, whole_amax))
+    assert kernels.launch_counts()["quant_expert_gemm"] == 1
+    assert expert_gemm.acc_launches == 1
+    assert expert_gemm.per_token_launches == (xs is None)
+    codes, _ = expert_gemm.expert_codes_plain(xe, E, xs)
+    assert acc.dtype == torch.int32 and acc.equal(
+        expert_gemm.quant_expert_gemm_acc(codes.cpu(), wq.cpu()).to(dev))
+    h = D // 2
+    halves = [be.expert_gemm_acc(
+        xe[..., s].contiguous(),
+        QuantizedTensor(wq[:, s].contiguous(), ws, None), xs,
+        row_amax=lambda a: torch.maximum(a, whole_amax))
+        for s in (slice(0, h), slice(h, None))]
+    assert (halves[0][0] + halves[1][0]).equal(acc)
+    assert halves[0][1].equal(x_scale)
+    y = expert_gemm.quant_expert_gemm_epilogue(acc, ws, x_scale)
+    assert y.equal(expert_gemm.quant_expert_gemm(xe, wq, ws, xs))
+
+
 def test_quant_expert_gemm_splits_mirror_the_library(dev):
     fn = build.function("samp_quant_expert_gemm_splits", (build.I,) * 4)
     for rows in (1, 3, 8, 32, 33, 160):

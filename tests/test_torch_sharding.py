@@ -502,26 +502,29 @@ def _meta_layout(params, plan) -> dict:
     return out
 
 
-@pytest.mark.parametrize("arch,shape,refused", [
-    ("mixtral-8x22b", {"data": 2, "model": 1}, True),
-    ("deepseek-v2-236b", {"data": 1, "model": 2}, True),
-    ("xlstm-125m", {"data": 1, "model": 2}, True),
-    ("recurrentgemma-9b", {"data": 1, "model": 2}, True),
-    ("hubert-xlarge", {"data": 1, "model": 2}, True),
-    ("paligemma-3b", {"data": 1, "model": 2}, True),
-    ("xlstm-125m", {"data": 2, "model": 1}, False),
-    ("qwen2-0.5b", {"data": 1, "model": 2}, False),
-    ("granite-20b", {"data": 2, "model": 2}, False),
+@pytest.mark.parametrize("arch,shape", [
+    ("mixtral-8x22b", {"data": 2, "model": 1}),
+    ("deepseek-v2-236b", {"data": 1, "model": 2}),
+    ("xlstm-125m", {"data": 1, "model": 2}),
+    ("recurrentgemma-9b", {"data": 1, "model": 2}),
+    ("hubert-xlarge", {"data": 1, "model": 2}),
+    ("paligemma-3b", {"data": 1, "model": 2}),
+    ("xlstm-125m", {"data": 2, "model": 1}),
+    ("qwen2-0.5b", {"data": 1, "model": 2}),
+    ("granite-20b", {"data": 2, "model": 2}),
 ])
-def test_meshes_outside_the_slice_raise_naming_item_8d(arch, shape, refused):
-    """Any mesh for an MoE config (expert capacity follows a shard's token
-    count), tensor parallelism for MLA, the recurrent bodies and the
-    front-ends: refused at the runtime, naming ROADMAP item 8d."""
+def test_meshes_of_every_arch_build_a_runtime(arch, shape):
+    """Since item 8d every config serves on a mesh: the MoE configs on
+    either axis (an MoE layer's token groups follow the data axis, one a
+    rank where it splits a batch), tensor parallelism for MLA, the
+    recurrent bodies and the front-ends. The runtime takes the mesh and
+    keys on it."""
     cfg = get_config(arch).reduced()
     plan = T.build_plan(cfg, make_policy(cfg, "float"))
     mesh = FakeMesh(shape)
-    if refused:
-        with pytest.raises(NotImplementedError, match="item 8d"):
-            Runtime(cfg, plan, mesh=mesh, device="cpu")
-    else:
-        assert Runtime(cfg, plan, mesh=mesh, device="cpu").mesh is mesh
+    rt = Runtime(cfg, plan, mesh=mesh, device="cpu")
+    assert rt.mesh is mesh
+    assert rt.identity["mesh"] == S.mesh_fingerprint(mesh)
+    dp = shape["data"]
+    assert rt.moe_args(4) == {"moe_groups": dp, "data_shard": dp > 1}
+    assert rt.moe_args(3) == {"moe_groups": dp, "data_shard": False}
