@@ -71,16 +71,21 @@ line per phase:
   ``TRAIN_LR``, batches of 32): every step's loss finite, the last 10
   steps' mean at least 0.1 below the first 10's, float dev accuracy (4
   batches of 32) above 2/15; ``torch.profiler`` over 3 more steps. Then
-  ``Trainer.fit`` for 10 steps with checkpoints, again uninterrupted (the
-  run-to-run spread), and cut at step 5 and resumed by a fresh Trainer
-  (``resumed from step 5``, params within the spread + 1e-6), with one
+  ``Trainer.fit`` for 6 steps with checkpoints (10 before slice 18), again
+  uninterrupted (the run-to-run spread), and cut at step 3 (5) and
+  resumed by a fresh Trainer (``resumed from step 3``, params within the
+  spread + 1e-6), with one
   checkpoint's save and load seconds. The trained weights go through
   ``main_path`` (calibrated on its batches, the tiled golden plan, its 32
   requests on both backends, 42 / 6 / 6 / 1 launches a forward) and the
-  int8 dev accuracy is read beside the float one. Last, ``python -m
-  repro_torch.launch.train --arch qwen2-0.5b --full --steps 10 --batch 8
-  --seq 256 --ckpt <tmp>`` as a subprocess, then with ``--steps 15``,
-  which must resume from step 10; both exit 0. It prints the median step
+  int8 dev accuracy is read beside the float one. Its training CLI
+  (``phase_train_clis``, which runs beside the kernels' build, before
+  ``flash_path``: it launches no kernel): ``python -m
+  repro_torch.launch.train --arch qwen2-0.5b --full --steps 3 --batch 8
+  --seq 256 --ckpt <tmp>`` as a subprocess, then with ``--steps 5``, which
+  must resume from step 3 (10 and 15 steps before slice 18); both exit 0.
+  Beside it, on two ranks, ``mesh_train_path``'s CLI (below). It prints
+  the median step
   ms (host clock after the loss is read), training tokens/s, peak device
   memory and the phase's seconds; the served path joins the kernel
   summary (``by_path``);
@@ -180,6 +185,32 @@ line per phase:
   plain versions. It records each rank's wall a forward or tick, its
   collectives and its peak memory, beside the unmeshed port's own
   batching noise; two ranks on one card measure no multi-GPU speed;
+* ``mesh_train_path``: training on mesh ranks (``Trainer(mesh=...)``):
+  two ranks on this card over gloo train full-width BERT-base (tnews
+  ``cls``, float32, seed 0, batches of 32 x 128, lr 1e-4) from one init on
+  the same global batches at (data=2, model=1) (FSDP, data parallel, 6
+  steps, checkpoints at 3 and 6), (data=1, model=2) (tensor parallel, 6
+  steps) and (pod=2, data=1, model=1) with ``compress_pod_grads`` (2
+  steps), beside the unmeshed port on rank 0 at one batch of 32 and at
+  two of 16 (its own noise). Data parallel's first loss and every
+  gathered gradient bit for bit the unmeshed port's at ``grad_accum = 2``,
+  every step's loss within ``MESH_TRAIN_NOISE_FACTOR`` times the loss
+  noise of it and the params after 6 steps within
+  ``MESH_TRAIN_DP_PARAMS`` (1e-5); tensor parallel's step-1 gradient,
+  every step's loss and the params after 6 steps against the one-batch
+  run's, each within ``MESH_TRAIN_NOISE_FACTOR`` times that noise; both
+  pod steps bit for bit the port's plain version (error state g -
+  q·scale, update, step 2's loss); ZeRO-3 bytes a rank; the
+  tensor-parallel mesh resumes the data-parallel run's step-3 checkpoint
+  bit for bit. The step-6 checkpoint is served like ``main_path``
+  (identical predictions, 5e-3, 42 / 6 / 6 / 1). Its CLI, ``python -m
+  repro_torch.launch.train --arch qwen2-0.5b --full --mesh-model 2
+  --ranks 2 --batch 4 --seq 64``, runs 3 steps, then resumes to 5, side
+  by side with ``train_path``'s CLI and both beside the kernels' build
+  (they launch no kernel; start-up and the 6 GB checkpoints take most of
+  them). It records
+  each rank's step ms, collectives (calls, bytes, host s) and peak memory
+  a topology;
 * ``kernel``: each kernel against its plain version at every shape a path
   gave it, and at the (8, 128) bucket (the decode paths: 8 slots, the
   longest tick) its time, its plain version's and a PyTorch library call's
@@ -425,8 +456,10 @@ TRAIN_BATCH = 32
 TRAIN_SEQ = 128
 TRAIN_EVAL = (4, 32)             # dev batches x batch size
 TRAIN_LOSS_DROP = 0.1            # mean of the last 10 below the first 10
-TRAIN_RESUME = (10, 5)           # steps, and the step the run is cut at
-TRAIN_CLI = ("qwen2-0.5b", 10, 15, 8, 256)  # arch, steps, resumed, B, S
+TRAIN_RESUME = (6, 3)            # steps, and the step the run is cut at
+                                 # ((10, 5) before slice 18: the time limit)
+# arch, steps, resumed, B, S (10 and 15 before slice 18: the time limit)
+TRAIN_CLI = ("qwen2-0.5b", 3, 5, 8, 256)
 TRAIN_CLI_S = 600.0
 # adaptive_path: BERT-base routed over three length clusters (<= 16, <= 64,
 # <= 128 tokens: the buckets 16, 64 and 128), the quant_ffn_only member's
@@ -1540,52 +1573,119 @@ def train_resume(cfg, device, card):
     return rec
 
 
-def train_cli(card):
-    """``python -m repro_torch.launch.train`` as a user runs it, on the full
-    qwen2-0.5b: ``TRAIN_CLI``'s steps into a checkpoint directory, then
-    again to more steps, which must resume."""
+def _cli_runs(args, counts, prefix, clis):
+    """``python -m repro_torch.launch.train`` with ``args``, once for each
+    step count in ``counts`` on one checkpoint directory (each run after
+    the first must resume): a record a run. Each run is a process group of
+    its own in ``clis["procs"]`` (its mesh ranks are its children), so
+    :func:`stop_train_clis` can end it."""
     import os
     import shutil
+    import signal
     import tempfile
 
-    arch, steps, more, B, S = TRAIN_CLI
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    tmp = Path(tempfile.mkdtemp(prefix="samp_train_cli_"))
+    tmp = Path(tempfile.mkdtemp(prefix=prefix))
     runs = []
     try:
-        for n in (steps, more):
+        for n in counts:
             t = time.perf_counter()
-            cli = subprocess.run(
-                [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-                 arch, "--full", "--steps", str(n), "--batch", str(B),
-                 "--seq", str(S), "--ckpt", str(tmp / "run")],
-                capture_output=True, text=True, timeout=TRAIN_CLI_S,
-                cwd=ROOT, env=env)
-            lines = cli.stdout.splitlines()
+            with clis["lock"]:
+                if clis["stop"].is_set():
+                    break
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.train",
+                     *args, "--steps", str(n), "--ckpt", str(tmp / "run")],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True, cwd=ROOT, env=env, start_new_session=True)
+                clis["procs"].append(proc)
+            try:
+                stdout, stderr = proc.communicate(timeout=TRAIN_CLI_S)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+                raise
+            lines = stdout.splitlines()
             losses, _ = _train_losses(lines)
-            runs.append({"steps": n, "exit_code": cli.returncode,
+            runs.append({"steps": n, "exit_code": proc.returncode,
                          "s": time.perf_counter() - t,
                          "resumed": [ln for ln in lines if "resumed" in ln],
                          "done": [ln for ln in lines
                                   if ln.startswith("[train] done")],
                          "logged_losses": losses,
                          "checkpoint_bytes": _bundle_bytes(tmp / "run"),
-                         "stderr_tail": cli.stderr[-1500:]
-                         if cli.returncode else ""})
+                         "stderr_tail": stderr[-1500:]
+                         if proc.returncode else ""})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    rec = {"phase": "train_path", "part": "cli", "card": card, "arch": arch,
-           "batch": B, "seq": S, "runs": runs}
-    emit(rec)
+    return runs
+
+
+def _check_cli(phase, runs, steps, more):
     first, second = runs
     if first["exit_code"] != 0 or not first["done"] or first["resumed"]:
-        fail(f"train_path: launch.train ({steps} steps) exited "
+        fail(f"{phase}: launch.train ({steps} steps) exited "
              f"{first['exit_code']}: {first}")
     if second["exit_code"] != 0 or not second["done"] or \
             second["resumed"] != [f"[trainer] resumed from step {steps}"]:
-        fail(f"train_path: launch.train ({more} steps) did not resume from "
+        fail(f"{phase}: launch.train ({more} steps) did not resume from "
              f"step {steps}: {second}")
-    return rec
+
+
+def start_train_clis():
+    """Start :func:`phase_train_clis`'s two CLIs, each in a thread of its
+    own: neither launches a kernel, so both run beside the kernels' build,
+    which leaves the card idle. Returns their handle."""
+    import concurrent.futures
+    import threading
+
+    arch, steps, more, B, S = TRAIN_CLI
+    m_arch, m_steps, m_more, m_B, m_S = MESH_TRAIN_CLI
+    clis = {"lock": threading.Lock(), "stop": threading.Event(),
+            "procs": [], "pool": concurrent.futures.ThreadPoolExecutor(2)}
+    clis["plain"] = clis["pool"].submit(
+        _cli_runs, ["--arch", arch, "--full", "--batch", str(B), "--seq",
+                    str(S)], (steps, more), "samp_train_cli_", clis)
+    clis["meshed"] = clis["pool"].submit(
+        _cli_runs, ["--arch", m_arch, "--full", "--mesh-model", "2",
+                    "--ranks", "2", "--batch", str(m_B), "--seq", str(m_S)],
+        (m_steps, m_more), "samp_mesh_train_cli_", clis)
+    return clis
+
+
+def stop_train_clis(clis):
+    """End every CLI run still going (after a failure beside them) and
+    wait for their threads."""
+    import os
+    import signal
+
+    with clis["lock"]:
+        clis["stop"].set()
+        for proc in clis["procs"]:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+    clis["pool"].shutdown(wait=True)
+
+
+def phase_train_clis(card, clis):
+    """The training CLI as a user runs it on the full qwen2-0.5b, twice on
+    one checkpoint directory (the second run must resume): unmeshed for
+    ``train_path`` (``TRAIN_CLI``) and on two ranks sharing the card for
+    ``mesh_train_path`` (``MESH_TRAIN_CLI``: ``--mesh-model 2 --ranks
+    2``), started by :func:`start_train_clis`. The two run side by side,
+    since start-up and 6 GB checkpoints take most of their time: each
+    run's seconds overlap the other's and the build's."""
+    arch, steps, more, B, S = TRAIN_CLI
+    m_arch, m_steps, m_more, m_B, m_S = MESH_TRAIN_CLI
+    runs, m_runs = clis["plain"].result(), clis["meshed"].result()
+    emit({"phase": "train_path", "part": "cli", "card": card, "arch": arch,
+          "batch": B, "seq": S, "side_by_side": "mesh_train_path, build",
+          "runs": runs})
+    emit({"phase": "mesh_train_path", "part": "cli", "card": card,
+          "arch": m_arch, "batch": m_B, "seq": m_S,
+          "side_by_side": "train_path, build", "runs": m_runs})
+    _check_cli("train_path", runs, steps, more)
+    _check_cli("mesh_train_path", m_runs, m_steps, m_more)
 
 
 def phase_train(model, device, card):
@@ -1599,7 +1699,8 @@ def phase_train(model, device, card):
     ``main_path``'s batches, quantized under the tiled golden plan and
     served like ``main_path`` (:func:`phase_serve`: identical predictions,
     rel-Linf 5e-3, 42 / 6 / 6 / 1 launches a forward), and the int8 dev
-    accuracy. (d) :func:`train_cli`. Returns the served path."""
+    accuracy. Its CLI runs in :func:`phase_train_clis`. Returns the served
+    path."""
     import statistics as stats
     import torch
     from repro_torch.quant import ptq
@@ -1655,7 +1756,6 @@ def phase_train(model, device, card):
     qpipe = samp.pipeline.with_policy(path["qparams"], path["qplan"],
                                       model["plan"])
     int8_acc = qpipe.eval(batches=n_eval, batch_size=eval_bs)
-    cli = train_cli(card)
     emit({"phase": "train_path", "part": "summary", "card": card,
           "float_dev_accuracy": float_acc, "int8_dev_accuracy": int8_acc,
           "plan": model["plan"].describe(),
@@ -1663,7 +1763,6 @@ def phase_train(model, device, card):
           "peak_memory_gb": rec["peak_memory_gb"],
           "checkpoint_save_s": resume["checkpoint_save_s"],
           "checkpoint_load_s": resume["checkpoint_load_s"],
-          "cli_s": [r["s"] for r in cli["runs"]],
           "phase_s": time.perf_counter() - phase_t0})
     del samp, qpipe
     path.pop("fused")               # not profiled: main_path's shapes
@@ -6085,6 +6184,458 @@ def phase_arch_mesh(device, card, max_err):
     return launches, acc_ticks, acc
 
 
+# ---------------------------------------------------------------------------
+# mesh_train_path: training on two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_STEPS = 6
+MESH_TRAIN_CKPT = 3                 # the DP run's checkpoint the TP resumes
+MESH_TRAIN_TOPOLOGIES = {"dp": {"data": 2, "model": 1},
+                         "tp": {"data": 1, "model": 2},
+                         "pod": {"pod": 2, "data": 1, "model": 1}}
+MESH_TRAIN_DEADLINE_S = 600.0
+# tensor parallel against the unmeshed port is held to this many times the
+# port's own noise, its run at one batch of 32 against two of 16 from the
+# same init, measured first in the same run: TP reorders the same float
+# sums (row-parallel partials, the copy_to sums) as the batch split does.
+# Each gradient leaf (rel-Linf) against the gradient noise (TP 5.54e-6,
+# noise 6.11e-6 on the H100), every step's loss (relative) against the
+# largest of the steps' loss noise (TP 1.5e-7, noise 2.6e-7), the params
+# after the steps (max abs) against the params' noise
+MESH_TRAIN_NOISE_FACTOR = 4.0
+# data parallel's params after the steps (max abs) against the unmeshed
+# run at grad_accum = 2, whose micro-batches are the ranks' rows: the
+# gradients are equal, and only the sharded norm's order of sums parts
+# the two (2.09e-7 - 2.91e-7 measured on the H100: a float32 ulp near 2);
+# its losses are held as tensor parallel's are
+MESH_TRAIN_DP_PARAMS = 1e-5
+MESH_TRAIN_CLI = ("qwen2-0.5b", 3, 5, 4, 64)  # arch, steps, resumed, B, S
+EXPECTED["mesh_train_path"] = EXPECTED["main_path"]
+
+
+def _tree_diff(a, b) -> tuple[float, float]:
+    """(max abs difference, max rel-Linf) over the leaves of two trees of
+    the same names (tensors or numpy)."""
+    import torch
+    from repro_torch.interop import flatten_names
+    fb = dict(flatten_names(b))
+    worst_abs = worst_rel = 0.0
+    for n, x in flatten_names(a):
+        x, y = torch.as_tensor(x), torch.as_tensor(fb[n]).to(x.device)
+        worst_abs = max(worst_abs, float((x - y).abs().max()))
+        worst_rel = max(worst_rel, rel_linf(y, x))
+    return worst_abs, worst_rel
+
+
+def _tree_equal(a, b) -> bool:
+    import torch
+    from repro_torch.interop import flatten_names
+    fb = dict(flatten_names(b))
+    return all(torch.equal(torch.as_tensor(x),
+                           torch.as_tensor(fb[n]).to(torch.as_tensor(x)
+                                                     .device))
+               for n, x in flatten_names(a))
+
+
+def _mesh_train_rank(rank, device, job):
+    """One rank of ``mesh_train_path``: full-width BERT-base (tnews
+    ``cls``, float32, seed 0, batches of 32 x 128) at (data=2, model=1),
+    (data=1, model=2) and (pod=2, data=1, model=1) with
+    ``compress_pod_grads``, from one init and the same global batches; rank
+    0 also runs the unmeshed port and holds the gates' comparisons."""
+    import os
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import PrecisionPlan
+    from repro_torch.data.pipeline import get_batch, make_task
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.compression import \
+        compress_allreduce_pytree
+    from repro_torch.interop import flatten_names, tree_from_names
+    from repro_torch.launch.mesh import ProcessMesh
+    from repro_torch.train import AdamW, TrainConfig, Trainer, TrainState
+    from repro_torch.train.optimizer import zeros_f32
+
+    cfg = get_config("bert-base")
+    task = make_task("tnews", vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ)
+    batches = [get_batch(task, i, TRAIN_BATCH)
+               for i in range(MESH_TRAIN_STEPS)]
+    policy = PrecisionPlan.full_float(cfg.num_layers, "float32")
+
+    def trainer(mesh=None, **tk):
+        tc = dict(steps=MESH_TRAIN_STEPS, log_every=1, remat=False,
+                  compute_dtype="float32")
+        tc.update(tk)
+        return Trainer(cfg, policy, mesh=mesh, optimizer=AdamW(lr=TRAIN_LR),
+                       tcfg=TrainConfig(**tc), head=("cls", task.n_classes),
+                       device=device)
+
+    def steps(tr, state, n, first=0):
+        step, losses = tr.make_step(), []
+        for i in range(first, first + n):
+            p, o, e, m = step(state.params, state.opt_state,
+                              state.err_state, batches[i])
+            state = TrainState(p, o, e, tr.layout)
+            losses.append(float(m["loss"]))
+        return state, losses
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size()
+                   for _, t in flatten_names(tree))
+
+    out = {"rank": rank, "device": str(device),
+           "backend": dist.get_backend(), "seconds": {}}
+    clock = [time.perf_counter()]
+
+    def part(name):
+        """Seconds since the last part ended, this rank's wall clock."""
+        now = time.perf_counter()
+        out["seconds"][name] = now - clock[0]
+        clock[0] = now
+    ref = {}
+    if rank == 0:
+        # the unmeshed port on the card: one batch of 32 against two of 16
+        # (its noise, and the data-parallel reference), the steps of each
+        un, acc = trainer(), trainer(grad_accum=2)
+        s0 = un.init_state(0)
+        ref["loss"], ref["grads"] = un.loss_and_grads(s0.params, batches[0])
+        ref["accum loss"], ref["accum grads"] = acc.loss_and_grads(
+            s0.params, batches[0])
+        ref["noise"] = _tree_diff(ref["accum grads"], ref["grads"])[1]
+        ref["norm"] = float(torch.sqrt(sum(
+            torch.sum(torch.square(g)) for _, g in flatten_names(
+                ref["accum grads"]))))
+        # the plain int8 error feedback of the reduced gradient, and its
+        # update: what the pod's two steps must give (the pod's gradient
+        # is the two-of-16 one at the same params, bit for bit)
+        q, ref["pod err"] = compress_allreduce_pytree(
+            ref["accum grads"], zeros_f32(ref["accum grads"]))
+        ref["pod params"], opt = acc.optimizer.update(q, s0.opt_state,
+                                                      s0.params)
+        ref["pod loss 2"], g = acc.loss_and_grads(ref["pod params"],
+                                                  batches[1])
+        q, ref["pod err 2"] = compress_allreduce_pytree(g, ref["pod err"])
+        ref["pod params 2"], _ = acc.optimizer.update(q, opt,
+                                                      ref["pod params"])
+        end, ref["losses"] = steps(un, s0, MESH_TRAIN_STEPS)
+        ref["params"] = end.params
+        end, ref["accum losses"] = steps(acc, s0, MESH_TRAIN_STEPS)
+        ref["accum params"] = end.params
+        ref["loss noise"] = max(abs(a - b) / abs(b) for a, b in zip(
+            ref["losses"], ref["accum losses"]))
+        ref["param noise"] = _tree_diff(ref["accum params"],
+                                        ref["params"])[0]
+        del s0, end, q, g, opt
+        out["unmeshed"] = {k: (float(ref[k]) if torch.is_tensor(ref[k])
+                               else ref[k])
+                           for k in ("loss", "accum loss", "noise", "losses",
+                                     "accum losses", "loss noise",
+                                     "param noise")}
+    dist.barrier()
+    part("unmeshed")
+    meshes = {k: ProcessMesh(v) for k, v in MESH_TRAIN_TOPOLOGIES.items()}
+
+    def timed(name, mesh, run):
+        """``run()`` on ``mesh`` with the collectives and peak memory
+        counted; its record."""
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        comm.reset_stats()
+        t = time.perf_counter()
+        got = run()
+        torch.cuda.synchronize(device)
+        rec = {"s": time.perf_counter() - t, "collectives": dict(comm.STATS),
+               "peak_memory_gb": torch.cuda.max_memory_allocated(device)
+               / 1e9}
+        out[name] = rec
+        return got, rec
+
+    # (data=2, model=1): FSDP + DP, checkpoints at 3 and 6
+    ckpt = job["ckpt"]
+    tr = trainer(meshes["dp"], checkpoint_dir=ckpt,
+                 checkpoint_every=MESH_TRAIN_CKPT)
+    st = tr.init_state(0)
+    lay = tr.layout
+    loss, grads = tr.loss_and_grads(st.params, batches[0])
+    norm = float(lay.global_norm(grads))
+    whole = lay.whole(grads)
+    fsdp = [n for n, d in lay.fsdp_dim.items() if d is not None]
+    want_bytes = sum(math.prod(s) * 4 // (2 if n in fsdp else 1)
+                     for n, s in lay.shapes.items())
+    logs, losses = [], []
+    make_step = tr.make_step
+
+    def recording_step():
+        """``fit``'s step, each step's loss kept unrounded (its log line
+        has 4 decimals)."""
+        step = make_step()
+
+        def run(*args):
+            got = step(*args)
+            losses.append(float(got[3]["loss"]))
+            return got
+        return run
+    tr.make_step = recording_step
+    end, rec = timed("dp", meshes["dp"], lambda: tr.fit(
+        st, lambda i: batches[i], log=logs.append))
+    rec.update(step_ms=[d * 1e3 for d in tr._step_times], losses=losses,
+               logged_steps=len(_train_losses(logs)[0]),
+               param_bytes=nbytes(st.params), mu_bytes=nbytes(
+                   st.opt_state.mu), nu_bytes=nbytes(st.opt_state.nu),
+               want_bytes=want_bytes, fsdp_leaves=len(fsdp),
+               leaves=len(lay.shapes), norm=norm, loss0=float(loss))
+    end_whole = lay.whole(end.params)
+    if rank == 0:
+        rec["grads_equal_accum"] = _tree_equal(whole, ref["accum grads"])
+        rec["grads_vs_accum"] = _tree_diff(whole, ref["accum grads"])
+        rec["loss_equal_accum"] = float(loss) == float(ref["accum loss"])
+        rec["norm_rel_vs_accum"] = abs(norm - ref["norm"]) / ref["norm"]
+        rec["params_vs_accum"] = _tree_diff(end_whole, ref["accum params"])
+        rec["losses_vs_accum"] = [
+            abs(a - b) / abs(b) for a, b in zip(losses,
+                                               ref["accum losses"])]
+    del st, grads, whole, end_whole
+    dist.barrier()
+    part("dp")
+
+    # (data=1, model=2): TP from the same init; its gradient and the steps
+    tr = trainer(meshes["tp"])
+    st = tr.init_state(0)
+    loss, grads = tr.loss_and_grads(st.params, batches[0])
+    whole = tr.layout.whole(grads)
+    (end, losses), rec = timed("tp", meshes["tp"], lambda: steps(
+        tr, st, MESH_TRAIN_STEPS))
+    rec.update(step_ms=None, losses=losses, loss0=float(loss))
+    end_whole = tr.layout.whole(end.params)
+    if rank == 0:
+        rec["grads_vs_unmeshed"] = _tree_diff(whole, ref["grads"])[1]
+        rec["loss_vs_unmeshed"] = abs(float(loss) - float(ref["loss"])) \
+            / abs(float(ref["loss"]))
+        rec["params_vs_unmeshed"] = _tree_diff(end_whole, ref["params"])
+        rec["losses_vs_unmeshed"] = [
+            abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+    rec["step_s"] = rec["s"] / MESH_TRAIN_STEPS
+    del st, grads, whole, end, end_whole
+    part("tp")
+
+    # resume: the TP mesh picks up the DP run's mid-run checkpoint, alone
+    # in a directory of its own (hard links)
+    src = os.path.join(job["tmp"], "resume")
+    if rank == 0:
+        os.makedirs(src)
+        shutil.copytree(os.path.join(ckpt, f"step_{MESH_TRAIN_CKPT:08d}"),
+                        os.path.join(src, f"step_{MESH_TRAIN_CKPT:08d}"),
+                        copy_function=os.link)
+    dist.barrier()
+    tr = trainer(meshes["tp"], steps=MESH_TRAIN_CKPT + 1, checkpoint_dir=src,
+                 checkpoint_every=100)
+    fresh = tr.init_state(1)
+    logs = []
+    t = time.perf_counter()
+    end = tr.fit(fresh, lambda i: batches[i], log=logs.append)
+    resume_s = time.perf_counter() - t
+    # the restore as fit does it (the leaves by name, cut to the rank's
+    # blocks), gathered back against the leaves written
+    written = store.load_leaves(src, MESH_TRAIN_CKPT)
+    back = TrainState.from_tree(tree_from_names(written), tr.plan, device,
+                                layout=tr.layout)
+    restored = dict(flatten_names(back.as_tree(tr.plan)))
+    exact = restored.keys() == written.keys() and all(
+        (restored[k] == written[k]).all() for k in written)
+    out["resume"] = {"logs": [m for m in logs if "resumed" in m],
+                     "restore_bit_exact": bool(exact),
+                     "resume_and_step_s": resume_s,
+                     "step": int(end.opt_state.step)}
+    del back, fresh, end, restored, written
+    dist.barrier()
+    part("resume")
+
+    # (pod=2): the int8 pod all-reduce with error feedback, two steps: the
+    # first from a zero error state, the second carrying the first's
+    tr = trainer(meshes["pod"], compress_pod_grads=True)
+    st = tr.init_state(0)
+    (first, _), rec = timed("pod", meshes["pod"], lambda: steps(tr, st, 1))
+    if rank == 0:
+        rec["err_equal_plain"] = _tree_equal(first.err_state,
+                                             ref["pod err"])
+        rec["params_equal_plain"] = _tree_equal(first.params,
+                                                ref["pod params"])
+        rec["err_nonzero"] = any(bool(e.abs().max() > 0) for _, e in
+                                 flatten_names(first.err_state))
+    (end, losses), more = timed("pod step 2", meshes["pod"], lambda: steps(
+        tr, first, 1, first=1))
+    rec.update(loss2=losses[0], step_s=more["s"],
+               err_bytes=nbytes(end.err_state))
+    if rank == 0:
+        rec["loss2_equal_plain"] = losses[0] == float(ref["pod loss 2"])
+        rec["err2_equal_plain"] = _tree_equal(end.err_state,
+                                              ref["pod err 2"])
+        rec["params2_equal_plain"] = _tree_equal(end.params,
+                                                 ref["pod params 2"])
+    part("pod")
+    return out
+
+
+def phase_mesh_train(model, device, card):
+    """``mesh_train_path``: ``Trainer(mesh=...)`` on two ranks sharing the
+    card over gloo (:func:`_mesh_train_rank`), then the DP run's trained
+    tree served like ``main_path``; its CLI runs in
+    :func:`phase_train_clis`. Gates:
+
+    The unmeshed port on rank 0 runs the same steps at one batch of 32
+    and at two of 16 (``grad_accum = 2``) first; their differences are the
+    port's own noise: of the step-1 gradient (rel-Linf), of each step's
+    loss (relative; the largest) and of the params after the steps (max
+    abs). Gates:
+
+    * DP (data=2, model=1): the first step's loss and every gathered
+      gradient bit for bit the ``grad_accum = 2`` run's (its micro-batches
+      are the ranks' rows); the sharded norm reorders each FSDP leaf's
+      sum of squares, so every step's loss is held within
+      ``MESH_TRAIN_NOISE_FACTOR`` times the loss noise of that run's and
+      the params after ``MESH_TRAIN_STEPS`` steps within
+      ``MESH_TRAIN_DP_PARAMS``; each rank holds 1/2 of the FSDP-sharded
+      leaves and the whole of the others, in params and both moments;
+    * TP (data=1, model=2): every gathered step-1 gradient leaf, every
+      step's loss and the params after the steps against the one-batch
+      run's, each within ``MESH_TRAIN_NOISE_FACTOR`` times its noise;
+    * pod (pod=2, compress_pod_grads): two steps, each bit for bit the
+      port's plain version on the ``grad_accum = 2`` gradient: the error
+      state g - q·scale (step 2 from step 1's), the update of q·scale and
+      step 2's loss;
+    * resume: the TP mesh restores the DP run's ``MESH_TRAIN_CKPT``
+      checkpoint bit for bit, logs that it resumed from it and takes one
+      step;
+    * the DP run's last checkpoint, as served by ``main_path``: fused vs
+      reference ≤ 5e-3, identical predictions, 42 / 6 / 6 / 1 a forward.
+
+    It records each rank's step ms, collectives (calls, bytes, host s) and
+    peak memory a topology. Two ranks on one card prove the sharded
+    training; they measure no multi-GPU speed."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import store
+    from repro_torch.distributed import comm
+    from repro_torch.interop import params_from_numpy, tree_from_names
+
+    phase_t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="samp_mesh_train_"))
+    try:
+        job = {"ckpt": str(tmp / "dp"), "tmp": str(tmp)}
+        ranks = comm.spawn(2, _mesh_train_rank, (job,), device="cuda",
+                           deadline_s=MESH_TRAIN_DEADLINE_S)
+        leaves = store.load_leaves(job["ckpt"], MESH_TRAIN_STEPS)
+        trained = params_from_numpy(
+            tree_from_names({k[len("params/"):]: v for k, v in
+                             leaves.items() if k.startswith("params/")}),
+            model["float_plan"], device)
+        ckpt_bytes = _bundle_bytes(tmp / "dp")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    spawn_s = time.perf_counter() - phase_t0
+    r0 = ranks[0]
+    for r in ranks:
+        emit({"phase": "mesh_train_path", "part": "rank", "card": card,
+              **{k: v for k, v in r.items()}})
+    failures = []
+    dp, tp, pod, res = r0["dp"], r0["tp"], r0["pod"], r0["resume"]
+    if not (dp["grads_equal_accum"] and dp["loss_equal_accum"]):
+        failures.append(f"DP: step 1's loss equal {dp['loss_equal_accum']}, "
+                        f"gradients equal {dp['grads_equal_accum']} "
+                        f"(max abs, rel {dp['grads_vs_accum']}) to the "
+                        f"unmeshed port's at grad_accum = 2")
+    un = r0["unmeshed"]
+    loss_budget = MESH_TRAIN_NOISE_FACTOR * un["loss noise"]
+    if len(dp["losses"]) != MESH_TRAIN_STEPS or \
+            dp["logged_steps"] != MESH_TRAIN_STEPS or \
+            max(dp["losses_vs_accum"]) > loss_budget:
+        failures.append(f"DP: {len(dp['losses'])} losses, "
+                        f"{dp['logged_steps']} logged, of "
+                        f"{MESH_TRAIN_STEPS}; relative to the grad_accum = "
+                        f"2 run's {dp['losses_vs_accum']} (budget "
+                        f"{loss_budget})")
+    if dp["params_vs_accum"][0] > MESH_TRAIN_DP_PARAMS:
+        failures.append(f"DP: params {dp['params_vs_accum']} > "
+                        f"{MESH_TRAIN_DP_PARAMS}")
+    for r in ranks:
+        d = r["dp"]
+        if not d["param_bytes"] == d["mu_bytes"] == d["nu_bytes"] \
+                == d["want_bytes"]:
+            failures.append(f"rank {r['rank']}: ZeRO-3 bytes params "
+                            f"{d['param_bytes']}, mu {d['mu_bytes']}, nu "
+                            f"{d['nu_bytes']}, want {d['want_bytes']}")
+    grad_budget = MESH_TRAIN_NOISE_FACTOR * un["noise"]
+    if tp["grads_vs_unmeshed"] > grad_budget:
+        failures.append(f"TP: gradients {tp['grads_vs_unmeshed']} > "
+                        f"{grad_budget} ({MESH_TRAIN_NOISE_FACTOR} x the "
+                        f"unmeshed noise {un['noise']})")
+    if len(tp["losses"]) != MESH_TRAIN_STEPS or \
+            max(tp["losses_vs_unmeshed"]) > loss_budget:
+        failures.append(f"TP: losses relative to the unmeshed run's "
+                        f"{tp['losses_vs_unmeshed']} > {loss_budget}")
+    param_budget = MESH_TRAIN_NOISE_FACTOR * un["param noise"]
+    if tp["params_vs_unmeshed"][0] > param_budget:
+        failures.append(f"TP: params {tp['params_vs_unmeshed']} > "
+                        f"{param_budget} ({MESH_TRAIN_NOISE_FACTOR} x the "
+                        f"unmeshed noise {un['param noise']})")
+    pod_exact = {k: pod[k] for k in (
+        "err_equal_plain", "params_equal_plain", "err_nonzero",
+        "loss2_equal_plain", "err2_equal_plain", "params2_equal_plain")}
+    if not all(pod_exact.values()):
+        failures.append(f"pod: against the plain version {pod_exact}")
+    if res["logs"] != [f"[trainer] resumed from step {MESH_TRAIN_CKPT}"] or \
+            not res["restore_bit_exact"] or \
+            res["step"] != MESH_TRAIN_CKPT + 1:
+        failures.append(f"resume: {res}")
+    if any(not all(map(math.isfinite, r[k]["losses"])) for r in ranks
+           for k in ("dp", "tp")):
+        failures.append("a meshed loss is not finite")
+    summary = {
+        "phase": "mesh_train_path", "part": "summary", "card": card,
+        "model": "bert-base", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "steps": MESH_TRAIN_STEPS, "lr": TRAIN_LR,
+        "backend": r0["backend"],
+        "unmeshed_noise": {k: un[k] for k in ("noise", "loss noise",
+                                              "param noise")},
+        "grad_budget": grad_budget, "loss_budget": loss_budget,
+        "tp_param_budget": param_budget,
+        "dp_param_budget": MESH_TRAIN_DP_PARAMS,
+        "dp_grads_bit_exact": dp["grads_equal_accum"],
+        "dp_norm_rel_vs_accum": dp["norm_rel_vs_accum"],
+        "dp_losses_vs_accum": dp["losses_vs_accum"],
+        "dp_params_vs_accum": dp["params_vs_accum"],
+        "tp_grads_rel_linf": tp["grads_vs_unmeshed"],
+        "tp_loss_rel": tp["loss_vs_unmeshed"],
+        "tp_losses_vs_unmeshed": tp["losses_vs_unmeshed"],
+        "tp_params_vs_unmeshed": tp["params_vs_unmeshed"],
+        "pod_exact": pod_exact,
+        "resume": res,
+        "step_ms_a_rank": {t: [r[t].get("step_ms") or
+                               [r[t]["s"] / MESH_TRAIN_STEPS * 1e3]
+                               for r in ranks] for t in ("dp", "tp")},
+        "pod_step_s": [r["pod"]["step_s"] for r in ranks],
+        "collectives_a_rank": {t: [r[t]["collectives"] for r in ranks]
+                               for t in ("dp", "tp", "pod", "pod step 2")},
+        "peak_memory_gb_a_rank": {t: [r[t]["peak_memory_gb"]
+                                      for r in ranks]
+                                  for t in ("dp", "tp", "pod")},
+        "rank_seconds": [r["seconds"] for r in ranks],
+        "checkpoint_bytes": ckpt_bytes, "spawn_s": spawn_s}
+    emit(summary)
+    if failures:
+        fail("mesh_train_path: " + "; ".join(failures))
+    path = phase_serve("mesh_train_path", dict(model, params=trained),
+                       model["plan"], device)
+    del trained
+    emit({"phase": "mesh_train_path", "part": "timing", "card": card,
+          "phase_s": time.perf_counter() - phase_t0})
+    path.pop("fused")               # not profiled: main_path's shapes
+    return path
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{ROOT} holds no src/repro_torch: run from a checkout of the "
@@ -6105,8 +6656,14 @@ def main() -> int:
         now = time.perf_counter()
         laps[name] = laps.get(name, 0.0) + now - t_last[0]
         t_last[0] = now
-    phase_build()
-    lap("build")
+    clis = start_train_clis()
+    try:
+        phase_build()
+        lap("build, beside the training CLIs")
+        phase_train_clis(card, clis)
+        lap("the training CLIs past the build")
+    finally:
+        stop_train_clis(clis)
     flash = phase_flash(device)
     lap("flash_path")
     from repro_torch.core.samp import int8_dataflow_variant
@@ -6135,6 +6692,8 @@ def main() -> int:
     timed, max_err = {}, collections.defaultdict(float)
     mesh = phase_mesh(paths[0], device, card, max_err)
     lap("mesh_path")
+    paths.append(phase_mesh_train(model, device, card))
+    lap("mesh_train_path")
     check_kernels(paths, device, timed, max_err)
     long_decode = run_long_decode_case(device, Timer(device))
     wide_page = run_wide_page_decode_case(device, Timer(device))

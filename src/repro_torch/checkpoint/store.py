@@ -22,8 +22,11 @@ and dtype.
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
+import struct
+import zipfile
 from typing import Any, Optional
 
 import numpy as np
@@ -88,13 +91,48 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+def _read_npz(path: str) -> dict[str, np.ndarray]:
+    """The arrays of an ``.npz`` by key, as ``np.load`` gives them. Where
+    every member is stored uncompressed (as :func:`save` writes them), each
+    is read with one ``np.fromfile`` at its offset in the file: ``np.load``
+    copies a member through the zip reader a 256 KiB piece at a time."""
+    with zipfile.ZipFile(path) as z:
+        infos = z.infolist()
+    if any(i.compress_type != zipfile.ZIP_STORED for i in infos):
+        with np.load(path) as data:
+            return {k: data[k] for k in data.files}
+    out = {}
+    with open(path, "rb") as f:
+        for info in infos:
+            f.seek(info.header_offset)
+            local = f.read(30)
+            if local[:4] != b"PK\x03\x04":
+                raise ValueError(f"{path}: {info.filename} has no local "
+                                 f"header")
+            name_len, extra_len = struct.unpack("<HH", local[26:30])
+            f.seek(info.header_offset + 30 + name_len + extra_len)
+            version = np.lib.format.read_magic(f)
+            read_header = (np.lib.format.read_array_header_1_0
+                           if version == (1, 0) else
+                           np.lib.format.read_array_header_2_0)
+            shape, fortran, dtype = read_header(f)
+            count = math.prod(shape)
+            arr = np.fromfile(f, dtype=dtype, count=count)
+            if arr.size != count:
+                raise ValueError(f"{path}: {info.filename} holds "
+                                 f"{arr.size} of {count} values")
+            out[info.filename.removesuffix(".npy")] = (
+                arr.reshape(shape[::-1]).T if fortran else arr.reshape(shape))
+    return out
+
+
 def load_leaves(directory: str, step: int) -> dict[str, np.ndarray]:
     """Every leaf of checkpoint ``step`` by name, as saved."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, MANIFEST)) as f:
         names = json.load(f)["names"]
-    with np.load(os.path.join(path, "leaves.npz")) as data:
-        return {n: data[f"a{i}"] for i, n in enumerate(names)}
+    data = _read_npz(os.path.join(path, "leaves.npz"))
+    return {n: data[f"a{i}"] for i, n in enumerate(names)}
 
 
 def restore(directory: str, step: int, template: Any) -> Any:

@@ -8,12 +8,16 @@
   share a card (NCCL refuses two ranks on one device), and on the CPU, it is
   gloo.
 * :func:`all_reduce` (sum or max, float32 and int32),
-  :func:`all_gather` and :func:`all_to_all` over a group: the only
-  collectives the port runs. gloo runs them on CUDA tensors itself
+  :func:`all_gather`, :func:`all_to_all` and :func:`reduce_scatter` over a
+  group: the only collectives the port runs. gloo runs them on CUDA tensors itself
   (:func:`probe_gloo_cuda` checks that on the card in every run of
   ``chip_smoke.py``'s ``mesh_path``). :func:`all_to_all` carries the
   expert exchange of an MoE layer: ``all_to_all_single``, which gloo takes
   on CPU and on CUDA tensors (its list form, ``all_to_all``, it refuses).
+  :func:`reduce_scatter` carries the backward of an FSDP gather in
+  training: ``reduce_scatter_tensor``, which gloo takes on CPU tensors and,
+  on the H100 with torch 2.11, on CUDA tensors (``probe_gloo_cuda``), so
+  no all-reduce-then-narrow stands in for it.
 * :func:`spawn` starts ``world`` ranks with the ``spawn`` start method, runs
   ``fn`` on each and returns their results in rank order. It joins with a
   deadline: a rank that raises, dies or hangs past it fails the run with
@@ -32,6 +36,7 @@ import shutil
 import tempfile
 import time
 import traceback
+import warnings
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -40,7 +45,7 @@ import torch.distributed as dist
 #: the collectives the port runs, which a gloo group must take on CUDA
 #: tensors (:func:`probe_gloo_cuda`)
 COLLECTIVES = ("all_reduce", "all_reduce_max", "all_reduce_int32",
-               "all_gather", "all_to_all")
+               "all_gather", "all_to_all", "reduce_scatter_tensor")
 
 #: collectives this process ran since :func:`reset_stats`: calls, bytes
 #: in, host seconds
@@ -116,6 +121,31 @@ def all_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
     return out
 
 
+def reduce_scatter(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """The elementwise sum of ``t`` over ``group``, cut along ``dim`` into
+    as many equal blocks as the group has ranks: this rank's block."""
+    t0 = time.perf_counter()
+    n = dist.get_world_size(group)
+    src = t.movedim(dim, 0).contiguous()
+    out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
+                      dtype=src.dtype, device=src.device)
+    with warnings.catch_warnings():
+        # torch 2.13 warns that it is renamed reduce_scatter_single; this
+        # name is the one torch 2.11 and 2.13 both take
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.reduce_scatter_tensor(out, src, group=group)
+    _count(src, t0)
+    return out.movedim(0, dim)
+
+
+def barrier(group=None) -> None:
+    """Wait for every rank of ``group``."""
+    t0 = time.perf_counter()
+    dist.barrier(group=group)
+    STATS["calls"] += 1
+    STATS["seconds"] += time.perf_counter() - t0
+
+
 def _count(t: torch.Tensor, t0: float) -> None:
     STATS["calls"] += 1
     STATS["bytes"] += t.numel() * t.element_size()
@@ -140,6 +170,9 @@ def probe_gloo_cuda(device: torch.device, group=None) -> dict:
             x, group=group),
         "all_to_all": lambda: dist.all_to_all_single(
             torch.empty_like(x), x, group=group),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(x.numel() // dist.get_world_size(group),
+                        device=device), x.clone(), group=group),
         "broadcast": lambda: dist.broadcast(x.clone(), 0, group=group),
     }
     for name, call in tries.items():

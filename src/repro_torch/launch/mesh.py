@@ -6,8 +6,10 @@ row-major over named axes (``("data", "model")``, with a leading ``pod`` on
 the multi-pod mesh), as ``jax.make_mesh`` lays out devices. It exposes what
 the sharding rules and the runtime read: ``shape`` (axis -> size),
 ``axis_names``, this rank's ``coords`` and one process group an axis, over
-which :meth:`ProcessMesh.all_reduce`, :meth:`ProcessMesh.all_gather` and
-:meth:`ProcessMesh.all_to_all` run.
+which :meth:`ProcessMesh.all_reduce`, :meth:`ProcessMesh.all_gather`,
+:meth:`ProcessMesh.all_to_all` and :meth:`ProcessMesh.reduce_scatter`
+run (outside autograd: :mod:`repro_torch.distributed.autograd` wraps them
+for training).
 
 Where the JAX package raises when ``dp * tp`` exceeds the visible devices,
 ranks here go round-robin on the cards (``cuda:(rank % device_count)``):
@@ -102,6 +104,23 @@ class ProcessMesh:
         if self.size(axis) == 1:
             return t
         return comm.all_to_all(t, self._groups[axis])
+
+    def reduce_scatter(self, t: torch.Tensor, axis: str,
+                       dim: int) -> torch.Tensor:
+        """The sum of ``t`` over ``axis``, this rank's block of it along
+        ``dim`` (``t`` itself at size 1)."""
+        if self.size(axis) == 1:
+            return t
+        return comm.reduce_scatter(t, self._groups[axis], dim)
+
+    def index(self, axes) -> tuple[int, int]:
+        """(size, this rank's index) of the axes ``axes`` taken together
+        in row-major order (the dp axes ``(pod, data)``, say)."""
+        size, index = 1, 0
+        for a in axes:
+            n = self.size(a)
+            size, index = size * n, index * n + self.coords.get(a, 0)
+        return size, index
 
     def __repr__(self) -> str:
         dims = ",".join(f"{a}={n}" for a, n in self.shape.items())

@@ -4,17 +4,25 @@
         --steps 200 --batch 8 --seq 256 --ckpt /tmp/run1
 
 The JAX CLI's flags, plus ``--device``: ``cuda`` (the default; an error
-where there is no card) or ``cpu``. The reduced config by default,
-``--full`` the production config. Resumes automatically from the newest
-checkpoint in ``--ckpt`` (the JAX package's format, so a run either package
-started resumes in the other); survives kill-at-any-step. The port trains
-on one device: ``--mesh-model`` other than 1 exits (ROADMAP queue 1 item
-8b). An audio config's frames come from ``np.random.default_rng(i)`` where
-the JAX CLI draws them with ``jax.random``: the same shapes, other values.
+where there is no card) or ``cpu``, and ``--ranks``. The reduced config by
+default, ``--full`` the production config. Resumes automatically from the
+newest checkpoint in ``--ckpt`` (the JAX package's format, so a run either
+package started, on any topology, resumes in the other); survives
+kill-at-any-step. As the JAX CLI builds a mesh only over more than one
+device, a run over more than one rank trains on ``make_host_mesh(model=
+--mesh-model)``: ``--ranks N`` ranks started by
+:func:`repro_torch.distributed.comm.spawn` (by default one a visible card,
+one on ``--device cpu``), round-robin on the cards, so one card runs two
+over gloo. ``--compress-pod-grads`` needs a ``pod`` axis, which the host
+mesh never has: as in the JAX CLI it then carries a zero error state and
+compresses nothing. An audio config's frames come from
+``np.random.default_rng(i)`` where the JAX CLI draws them with
+``jax.random``: the same shapes, other values.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 import torch
@@ -23,6 +31,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.device import resolve_device
 from repro_torch.core.precision import EncoderPolicy
 from repro_torch.data.pipeline import get_batch, make_task
+from repro_torch.distributed import comm
 from repro_torch.train import AdamW, TrainConfig, Trainer, cosine_schedule
 
 
@@ -44,16 +53,38 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda trains on the card (an error where there is "
                          "none); cpu through plain PyTorch on the host")
+    ap.add_argument("--ranks", type=int, default=None,
+                    help="ranks to train on (default: one a visible card; "
+                         "one on --device cpu); over 1, a (data, model) "
+                         "mesh with model = --mesh-model")
     args = ap.parse_args(argv)
 
-    if args.mesh_model != 1:
-        raise SystemExit(f"--mesh-model {args.mesh_model}: the port trains "
-                         f"on one device; sharded training is ROADMAP "
-                         f"queue 1 item 8b")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"--device {args.device}: {e}") from None
+    ranks = args.ranks or (torch.cuda.device_count()
+                           if device.type == "cuda" else 1)
+    if ranks > 1:
+        threads = (max(1, (os.cpu_count() or 1) // ranks)
+                   if device.type == "cpu" else None)
+        comm.spawn(ranks, _train_rank, (args,), device=device.type,
+                   deadline_s=float("inf"), threads=threads)
+    else:
+        train(args, device)
+
+
+def _train_rank(rank: int, device, args) -> None:
+    from repro_torch.launch.mesh import make_host_mesh
+    train(args, device, make_host_mesh(model=args.mesh_model))
+
+
+def _log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def train(args, device, mesh=None) -> None:
+    """One rank's run of the parsed ``args`` (on ``mesh`` when given)."""
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
@@ -64,7 +95,8 @@ def main(argv=None):
                        compress_pod_grads=args.compress_pod_grads)
     opt = AdamW(lr=cosine_schedule(args.lr, warmup=min(20, args.steps // 10),
                                    total=args.steps))
-    trainer = Trainer(cfg, policy, optimizer=opt, tcfg=tcfg, device=device)
+    trainer = Trainer(cfg, policy, mesh=mesh, optimizer=opt, tcfg=tcfg,
+                      device=device)
     state = trainer.init_state(args.seed, dtype=getattr(torch, args.dtype))
     task = make_task("lm", vocab_size=cfg.vocab_size, seq_len=args.seq)
 
@@ -78,9 +110,11 @@ def main(argv=None):
                     "labels": b["tokens"] % cfg.vocab_size}
         return b
 
-    trainer.fit(state, next_batch)
-    print(f"[train] done: {args.steps} steps of {args.arch}"
-          f"{' (reduced)' if not args.full else ''}", flush=True)
+    trainer.fit(state, next_batch, log=_log)
+    if trainer.rank == 0:
+        where = f" on {mesh!r}" if mesh is not None else ""
+        _log(f"[train] done: {args.steps} steps of {args.arch}"
+             f"{' (reduced)' if not args.full else ''}{where}")
 
 
 if __name__ == "__main__":

@@ -45,7 +45,11 @@ Conventions
   ``model`` (:func:`moe_block`); MLA, the recurrent bodies and the
   front-end projections split their heads or channels over ``model``,
   all-gathering a projection whose split falls off head boundaries. These
-  collectives sit where the JAX package's ``constrain`` tags are.
+  collectives sit where the JAX package's ``constrain`` tags are. Each
+  goes through :mod:`repro_torch.distributed.autograd`, so the same
+  forward trains on a mesh: a replicated activation enters a column-parallel
+  GEMM (:func:`tp_dense`) or a narrow to the rank's block (:func:`tp_cols`)
+  through ``copy_to``, whose backward sums the ranks' partial gradients.
 """
 from __future__ import annotations
 
@@ -60,6 +64,7 @@ from repro_torch.core.quantize import (UINT8_MAX, QuantizedTensor,
                                        divide, int8_matmul, int_matmul,
                                        quantize, quantize_per_token,
                                        quantize_unsigned)
+from repro_torch.distributed import autograd as dist_ag
 from repro_torch.kernels.addnorm_quant import row_sum
 from repro_torch.kernels.backend import ACTIVATIONS as _ACT
 from repro_torch.kernels.backend import QuantActivation, get_backend
@@ -166,15 +171,37 @@ def tp_whole(t: torch.Tensor, full: int, mesh) -> torch.Tensor:
     output the model axis split (n < full) is all-gathered."""
     if t.shape[-1] == full:
         return t
-    return _tp(mesh).all_gather(t, "model", -1)
+    return dist_ag.gather(t, _tp(mesh), "model", -1)
 
 
-def tp_cols(t: torch.Tensor, n: int, mesh) -> torch.Tensor:
-    """This rank's block of ``n`` columns of a whole-width ``t`` (the input
-    of a row-parallel GEMM); ``t`` itself where it is n wide."""
-    if t.shape[-1] == n:
+def tp_cols(t: torch.Tensor, n: int, mesh, dim: int = -1) -> torch.Tensor:
+    """This rank's block of ``n`` entries along ``dim`` of a whole ``t``
+    (the input of a row-parallel GEMM, a whole parameter a rank uses a
+    block of); ``t`` itself where it is n wide. Under autograd the narrow
+    follows a ``copy_to``, so the ranks' gradients of ``t`` are summed."""
+    if t.shape[dim] == n:
         return t
-    return t.narrow(-1, _tp(mesh).coords["model"] * n, n)
+    tp = _tp(mesh)
+    return dist_ag.copy_to(t, tp, "model").narrow(dim, tp.coords["model"] * n,
+                                                  n)
+
+
+def tp_in(x, mesh):
+    """The replicated ``x`` as column-parallel GEMMs take it: through
+    ``copy_to`` on a tensor-parallel mesh. GEMMs that share one input
+    share one, so its backward sums their partials in one collective."""
+    return dist_ag.copy_to(x, mesh, "model") if _tp(mesh) is not None else x
+
+
+def tp_dense(x, p: dict, full: int, mesh, x_tp=None, **kw):
+    """:func:`dense` of a column-parallel GEMM whose whole output is
+    ``full`` wide: where the rules split the weight's columns (the rank's
+    are fewer), the replicated ``x`` enters through ``copy_to`` (``x_tp``,
+    :func:`tp_in` of ``x``, where it is made already)."""
+    w = p["w"]
+    if _tp(mesh) is not None and w.shape[-1] != full:
+        x = tp_in(x, mesh) if x_tp is None else x_tp
+    return dense(x, p, **kw)
 
 
 def tp_block(H: int, mesh) -> int:
@@ -208,12 +235,12 @@ def row_dense(x, p: dict, k_full: int, mesh=None, backend=None,
         return dense(x, p, backend=backend, act=act)
     bias = p.get("b")
     if bias is not None and bias.shape[-1] != N:
-        bias = tp.all_gather(bias, "model", -1)
+        bias = dist_ag.gather(bias, tp, "model", -1)
     out_xs = p.get("out_xs")
     if not isinstance(w, QuantizedTensor):
         if isinstance(x, QuantActivation):
             x = x.dequantize()
-        y = tp.all_reduce(torch.matmul(x, w.to(x.dtype)), "model")
+        y = dist_ag.reduce_from(torch.matmul(x, w.to(x.dtype)), tp, "model")
         return _finish(y, bias, act, out_xs)
 
     def row_amax(a):
@@ -748,8 +775,7 @@ def _tp_heads(q, k, v, cfg, mesh):
     B, S = q.shape[:2]
     hd = cfg.head_dim
     if local_kv_heads(cfg, mesh) == cfg.num_kv_heads:
-        q, k, v = (t if t.shape[-1] == full
-                   else _tp(mesh).all_gather(t, "model", -1)
+        q, k, v = (tp_whole(t, full, mesh)
                    for t, full in ((q, cfg.q_dim), (k, cfg.kv_dim),
                                    (v, cfg.kv_dim)))
     return tuple(t.reshape(B, S, t.shape[-1] // hd, hd) for t in (q, k, v))
@@ -784,9 +810,10 @@ def attention_block(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
     B, S, _ = x.shape
     observe(obs, "attn_in", x)
     observe_values(obs, "attn_in", x)
-    q = dense(x, p["wq"], backend=backend)
-    k = dense(x, p["wk"], backend=backend)
-    v = dense(x, p["wv"], backend=backend)
+    xt = tp_in(x, mesh)
+    q = tp_dense(x, p["wq"], cfg.q_dim, mesh, xt, backend=backend)
+    k = tp_dense(x, p["wk"], cfg.kv_dim, mesh, xt, backend=backend)
+    v = tp_dense(x, p["wv"], cfg.kv_dim, mesh, xt, backend=backend)
     if _tp(mesh) is not None:
         q, k, v = _tp_heads(q, k, v, cfg, mesh)
     else:
@@ -844,10 +871,8 @@ def attention_block(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
                            attn_softcap=cfg.attn_softcap, quant=quant,
                            scales=sc, obs=obs, chunk=chunk, mesh=mesh)
     o = o.reshape(B, S, -1)
-    k_wo = p["wo"]["w"].shape[0]
-    if o.shape[-1] != k_wo:
-        # attention ran on all heads: this rank's columns of wo's input
-        o = o.narrow(-1, _tp(mesh).coords["model"] * k_wo, k_wo)
+    # attention ran on all heads: this rank's columns of wo's input
+    o = tp_cols(o, p["wo"]["w"].shape[0], mesh)
     observe(obs, "attn_out", o)
     observe_values(obs, "attn_out", o)
     out = row_dense(o, p["wo"], cfg.q_dim, mesh, backend)
@@ -916,12 +941,13 @@ def mla_block(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
     tp = _tp(mesh)
     observe(obs, "attn_in", x)
     if m.q_lora_rank:
-        q_lat = tp_whole(dense(x, p["wq_a"]), m.q_lora_rank, mesh)
+        q_lat = tp_whole(tp_dense(x, p["wq_a"], m.q_lora_rank, mesh),
+                         m.q_lora_rank, mesh)
         q_lat = rms_norm(q_lat, p["q_norm"])
         observe(obs, "q_lat", q_lat)
-        q = dense(q_lat, p["wq_b"])
+        q = tp_dense(q_lat, p["wq_b"], H * (nope + rd), mesh)
     else:
-        q = dense(x, p["wq"])
+        q = tp_dense(x, p["wq"], H * (nope + rd), mesh)
     wkv_b = p["wkv_b"]["w"]
     wkv_b = (wkv_b.dequantize(x.dtype) if isinstance(wkv_b, QuantizedTensor)
              else wkv_b.to(x.dtype))
@@ -976,6 +1002,10 @@ def mla_block(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
         o_lat = head_product("bhst,btr->bshr", prob, ckv_all)
         o = head_product("bshr,rhv->bshv", o_lat, wv)    # (B, S, H, vd)
     else:
+        if Hl != H:
+            # the latent enters the rank's heads
+            ckv = dist_ag.copy_to(ckv, tp, "model")
+            k_rope = dist_ag.copy_to(k_rope, tp, "model")
         k_nope = torch.einsum("btr,rhn->bthn", ckv, wk)
         v = torch.einsum("btr,rhv->bthv", ckv, wv)
         k = torch.cat([k_nope, torch.broadcast_to(k_rope[:, :, None, :],
@@ -987,10 +1017,8 @@ def mla_block(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
                            quant=quant, scales=sc, obs=obs, chunk=chunk,
                            mesh=mesh)
     o = o.reshape(B, S, Hl * vd)
-    k_wo = p["wo"]["w"].shape[0]
-    if o.shape[-1] != k_wo:
-        # attention ran on every head: this rank's columns of wo's input
-        o = o.narrow(-1, tp.coords["model"] * k_wo, k_wo)
+    # attention ran on every head: this rank's columns of wo's input
+    o = tp_cols(o, p["wo"]["w"].shape[0], mesh)
     observe(obs, "attn_out", o)
     observe_values(obs, "attn_out", o)
     out = row_dense(o, p["wo"], H * vd, mesh)
@@ -1015,21 +1043,22 @@ def init_ffn(gen: torch.Generator, cfg, d_ff: Optional[int] = None, *,
 
 
 def ffn_block(x, p: dict, cfg, obs: Optional[dict] = None, prefix: str = "",
-              backend=None, mesh=None) -> torch.Tensor:
-    """The dense FFN; on a tensor-parallel ``mesh`` its input GEMMs are
-    column-parallel over the hidden units and its output GEMM
-    row-parallel."""
+              backend=None, mesh=None, d_ff: Optional[int] = None
+              ) -> torch.Tensor:
+    """The dense FFN of ``d_ff`` hidden units (``cfg.d_ff`` by default);
+    on a tensor-parallel ``mesh`` its input GEMMs are column-parallel over
+    the hidden units and its output GEMM row-parallel."""
     observe(obs, prefix + "ffn_in", x)
     observe_values(obs, prefix + "ffn_in", x)
-    F = (cfg.d_ff if _tp(mesh) is not None
-         else (p["wg"] if cfg.ffn_kind == "glu" else p["wi"])["w"].shape[1])
+    F = d_ff or cfg.d_ff
     if cfg.ffn_kind == "glu":
-        h = (dense(x, p["wg"], backend=backend, act="silu")
-             * dense(x, p["wu"], backend=backend))
+        xt = tp_in(x, mesh)
+        h = (tp_dense(x, p["wg"], F, mesh, xt, backend=backend, act="silu")
+             * tp_dense(x, p["wu"], F, mesh, xt, backend=backend))
         observe(obs, prefix + "ffn_hidden", h)
         observe_values(obs, prefix + "ffn_hidden", h)
         return row_dense(h, p["wd"], F, mesh, backend)
-    h = dense(x, p["wi"], backend=backend, act="gelu")
+    h = tp_dense(x, p["wi"], F, mesh, backend=backend, act="gelu")
     observe(obs, prefix + "ffn_hidden", h)
     observe_values(obs, prefix + "ffn_hidden", h)
     return row_dense(h, p["wo"], F, mesh, backend)
@@ -1166,7 +1195,8 @@ def _expert_out(h: torch.Tensor, p: dict, F: int, mesh, backend):
     if tp is None or rows == F:
         return _expert_gemm(h, w, xs, None, "ffn_hidden", backend)
     if not isinstance(w, QuantizedTensor):
-        return tp.all_reduce(torch.matmul(h, w.to(h.dtype)), "model")
+        return dist_ag.reduce_from(torch.matmul(h, w.to(h.dtype)), tp,
+                                   "model")
     acc, x_scale = get_backend(backend).expert_gemm_acc(
         h, w, xs, row_amax=lambda a: tp.all_reduce(a, "model", "max"))
     return quant_expert_gemm_epilogue(tp.all_reduce(acc, "model"), w.scale,
@@ -1176,6 +1206,10 @@ def _expert_out(h: torch.Tensor, p: dict, F: int, mesh, backend):
 def _experts(xe: torch.Tensor, p: dict, F: int, obs, backend, mesh):
     """The GLU of the expert stack a rank holds over routed rows
     (G, E, C, D) -> (G, E, C, D)."""
+    w = p["wg"]["w"]
+    if _tp(mesh) is not None and w.shape[-1] != F:
+        # the rows enter the rank's hidden units of every expert
+        xe = dist_ag.copy_to(xe, mesh, "model")
     h = (_ACT["silu"](_expert_gemm(xe, p["wg"]["w"], p["wg"].get("xs"),
                                    obs, "ffn_in_e", backend))
          * _expert_gemm(xe, p["wu"]["w"], p["wu"].get("xs"), None,
@@ -1233,18 +1267,20 @@ def moe_block(x: torch.Tensor, p: dict, cfg, obs: Optional[dict] = None,
         # (E, C, D) in dp blocks of El experts: block j to rank j; back
         # come the dp groups' rows for this rank's experts
         dp = E // El
-        xin = mesh.all_to_all(xe[0], "data").reshape(dp, El, C, D)
+        xin = dist_ag.all_to_all(xe[0], mesh, "data").reshape(dp, El, C, D)
         yout = _experts(xin, p, F, obs, backend, mesh)
-        ye = mesh.all_to_all(yout.reshape(E, C, D), "data")[None]
+        ye = dist_ag.all_to_all(yout.reshape(E, C, D), mesh, "data")[None]
     else:
         e0 = mesh.coords["data"] * El
-        ye = mesh.all_gather(_experts(xe[:, e0:e0 + El].contiguous(), p,
-                                      F, obs, backend, mesh), "data", 1)
+        xe = dist_ag.copy_to(xe, mesh, "data")
+        ye = dist_ag.gather(_experts(xe[:, e0:e0 + El].contiguous(), p,
+                                     F, obs, backend, mesh), mesh, "data", 1)
     y = torch.cat([_combine_one(ye[g], *routed[g][1:], Tl, D, x.dtype)
                    for g in range(G)])
     if "shared" in p:
         y = y + ffn_block(x, p["shared"], cfg, obs=obs, prefix="shared_",
-                          backend=backend, mesh=mesh).reshape(T_, D)
+                          backend=backend, mesh=mesh,
+                          d_ff=F * mo.num_shared).reshape(T_, D)
     return y.reshape(B, S, D)
 
 
@@ -1298,7 +1334,7 @@ def _tp_embed(tokens, p: dict, cfg, *, positions, segments, backend, tp):
         scaled = x is not None              # the backend scales its slice
         if x is None:
             x = _embed_rows(tokens, tables, positions, segments)
-        x = tp.all_gather(x, "model", -1)
+        x = dist_ag.gather(x, tp, "model", -1)
     else:
         if any(t.shape[1] != D for t in tables.values()):
             raise NotImplementedError(
@@ -1309,7 +1345,8 @@ def _tp_embed(tokens, p: dict, cfg, *, positions, segments, backend, tp):
         ids = tokens.long() - tp.coords["model"] * Vl
         ok = (ids >= 0) & (ids < Vl)
         rows = tok[torch.clamp(ids, 0, Vl - 1)].to(torch.float32)
-        x = tp.all_reduce(torch.where(ok[..., None], rows, 0.0), "model")
+        x = dist_ag.reduce_from(torch.where(ok[..., None], rows, 0.0), tp,
+                                "model")
         if "pos" in tables:
             x = x + tables["pos"][positions.long()].to(torch.float32)
         if "seg" in tables and segments is not None:

@@ -95,22 +95,23 @@ def rglru_mix(x: torch.Tensor, p: dict, cfg, *, obs: Optional[dict] = None,
     state holds the rank's channels."""
     R = cfg.rnn_width or cfg.d_model
     L.observe(obs, "rec_in", x)
-    xr = L.dense(x, p["wx"])                                 # (B, S, Rl)
-    gate = ACTIVATIONS["gelu"](L.dense(x, p["wg"]))
+    xt = L.tp_in(x, mesh)
+    xr = L.tp_dense(x, p["wx"], R, mesh, xt)                 # (B, S, Rl)
+    gate = ACTIVATIONS["gelu"](L.tp_dense(x, p["wg"], R, mesh, xt))
     Rl = xr.shape[-1]
     conv, lam = p["conv"], p["lam"]
     if Rl != R:
-        c0 = mesh.coords["model"] * Rl
-        conv = {"w": conv["w"][:, c0:c0 + Rl],
+        conv = {"w": L.tp_cols(conv["w"], Rl, mesh),
                 "b": L.tp_cols(conv["b"], Rl, mesh)}
-        lam = lam[c0:c0 + Rl]
+        lam = L.tp_cols(lam, Rl, mesh)
     conv_state = state["conv"] if state is not None else None
     xc, new_conv = L.causal_conv1d(xr, conv, conv_state)
     L.observe(obs, "rec_gate_in", xc)
     xc_all = L.tp_whole(xc, R, mesh)
     f32 = torch.float32
-    r = torch.sigmoid(L.dense(xc_all, p["wa"]).to(f32))
-    i = torch.sigmoid(L.dense(xc_all, p["wi"]).to(f32))
+    xct = L.tp_in(xc_all, mesh)
+    r = torch.sigmoid(L.tp_dense(xc_all, p["wa"], R, mesh, xct).to(f32))
+    i = torch.sigmoid(L.tp_dense(xc_all, p["wi"], R, mesh, xct).to(f32))
     log_a = -_RGLRU_C * softplus(lam.to(f32)) * r           # (B, S, Rl)
     a = torch.exp(log_a)
     gated_x = i * xc.to(f32)

@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig, BlockKind
 from repro_torch.core.device import resolve_device
 from repro_torch.core.precision import EncoderPolicy, LayerMode
+from repro_torch.distributed import autograd as dist_ag
 from repro_torch.kernels.backend import ffn_input_scale
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as R
@@ -357,8 +358,8 @@ def embed_inputs(params, batch: dict, cfg: ArchConfig, *, positions,
         n = p["w"].shape[-1]
         if "b" in p:
             p = {**p, "b": L.tp_cols(p["b"], n, mesh)}
-        return L.tp_whole(L.dense(feats.to(torch.float32), p), cfg.d_model,
-                          mesh)
+        return L.tp_whole(L.tp_dense(feats.to(torch.float32), p, cfg.d_model,
+                                     mesh), cfg.d_model, mesh)
     if cfg.frontend == "audio":
         return frontend(batch["frames"])
     x = L.embed(batch["tokens"], emb, cfg, positions=positions,
@@ -376,11 +377,13 @@ def unembed(x, params, cfg: ArchConfig, mesh=None) -> torch.Tensor:
     vocab-parallel logits (its rows of a tied table, its columns of
     ``lm_head``) are all-gathered before the softcap."""
     if cfg.tie_embeddings:
-        logits = torch.matmul(x, params["embed"]["tok"].t())
+        tok = params["embed"]["tok"]
+        if tok.shape[0] != cfg.vocab_size:
+            x = dist_ag.copy_to(x, mesh, "model")
+        logits = torch.matmul(x, tok.t())
     else:
-        logits = L.dense(x, params["lm_head"])
-    if logits.shape[-1] != cfg.vocab_size:
-        logits = mesh.all_gather(logits, "model", -1)
+        logits = L.tp_dense(x, params["lm_head"], cfg.vocab_size, mesh)
+    logits = L.tp_whole(logits, cfg.vocab_size, mesh)
     return L.softcap(logits, cfg.final_softcap)
 
 
@@ -456,19 +459,21 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def lm_loss(params, batch: dict, cfg: ArchConfig, plan,
             scheme: QuantScheme = QuantScheme(), *, remat: bool = False,
-            chunk: Optional[int] = DEFAULT_CHUNK) -> torch.Tensor:
+            chunk: Optional[int] = DEFAULT_CHUNK, **kw) -> torch.Tensor:
     """Next-token CE for decoder LMs; frame CE for audio (``labels`` (B, T));
     the text region only for vision; head CE for params with a task head
     (``ner`` when ``labels`` is (B, S), else ``cls``). The forward runs
-    without a compute backend: training is float, as in the JAX package."""
+    without a compute backend: training is float, as in the JAX package.
+    ``kw`` goes to :func:`forward` (a training mesh's ``mesh``,
+    ``moe_groups`` and ``data_shard``)."""
     if "head" in params:
         hidden = forward(params, batch, cfg, plan, scheme, remat=remat,
-                         chunk=chunk)
+                         chunk=chunk, **kw)
         kind = "ner" if batch["labels"].ndim == 2 else "cls"
         return cross_entropy(apply_head(hidden, params, kind),
                              batch["labels"])
     logits = forward(params, batch, cfg, plan, scheme, remat=remat,
-                     chunk=chunk)
+                     chunk=chunk, **kw)
     if cfg.frontend == "audio":
         return cross_entropy(logits, batch["labels"])
     if cfg.frontend == "vision":

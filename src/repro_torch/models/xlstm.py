@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.quantize import divide
+from repro_torch.distributed import autograd as dist_ag
 from repro_torch.kernels.backend import ACTIVATIONS
 from repro_torch.models import layers as L
 
@@ -150,7 +151,7 @@ def mlstm_block(x: torch.Tensor, p: dict, cfg, *,
     h0 = mesh.coords["model"] * Hl if Hl != H else 0
     f32 = torch.float32
     L.observe(obs, "blk_in", x)
-    up = L.tp_whole(L.dense(x, p["up"]), 2 * Dp, mesh)
+    up = L.tp_whole(L.tp_dense(x, p["up"], 2 * Dp, mesh), 2 * Dp, mesh)
     xm, z = up[..., :Dp], up[..., Dp:]
     L.observe(obs, "xm", xm)
     conv_state = state["conv"] if state is not None else None
@@ -161,10 +162,15 @@ def mlstm_block(x: torch.Tensor, p: dict, cfg, *,
 
     def heads(t):
         return L.tp_whole(t, Hl * dh, mesh).reshape(B, S, Hl, dh).to(f32)
-    q = heads(L.dense(xc, p["wq"]))
-    k = divide(heads(L.dense(xc, p["wk"])), math.sqrt(dh))
-    v = heads(L.dense(xm, p["wv"]))
-    gates = L.tp_whole(L.dense(xc, p["wif"]), 2 * H, mesh).to(f32)
+    xct = L.tp_in(xc, mesh)
+    q = heads(L.tp_dense(xc, p["wq"], Dp, mesh, xct))
+    k = divide(heads(L.tp_dense(xc, p["wk"], Dp, mesh, xct)), math.sqrt(dh))
+    v = heads(L.tp_dense(xm, p["wv"], Dp, mesh))
+    gates = L.tp_whole(L.tp_dense(xc, p["wif"], 2 * H, mesh, xct), 2 * H,
+                       mesh).to(f32)
+    if Hl != H:
+        # the whole gates enter the rank's heads
+        gates = dist_ag.copy_to(gates, mesh, "model")
     log_i = gates[..., h0:h0 + Hl]                       # (B, S, Hl)
     log_f = F.logsigmoid(gates[..., H + h0:H + h0 + Hl])
 
@@ -272,8 +278,10 @@ def slstm_block(x: torch.Tensor, p: dict, cfg, *,
     L.observe(obs, "blk_in", x)
     L.observe(obs, "blk_conv_in", xc)
     # z and o read the raw input, i and f the conv path
-    pre = [L.dense(x, p["wz"]), L.dense(xc, p["wi"]),
-           L.dense(xc, p["wf"]), L.dense(x, p["wo"])]
+    xt, xct = L.tp_in(x, mesh), L.tp_in(xc, mesh)
+    pre = [L.tp_dense(t, p[k], D, mesh, tt)
+           for t, tt, k in ((x, xt, "wz"), (xc, xct, "wi"), (xc, xct, "wf"),
+                            (x, xt, "wo"))]
     pre = [L.tp_whole(t, Hl * dh, mesh).reshape(B, S, Hl, dh).to(f32)
            for t in pre]
     if state is not None:
@@ -281,7 +289,7 @@ def slstm_block(x: torch.Tensor, p: dict, cfg, *,
     else:
         zeros = torch.zeros((B, Hl, dh), dtype=f32, device=x.device)
         st = (zeros, torch.ones_like(zeros), zeros, zeros)
-    r = p["r"][:, h0:h0 + Hl].to(f32)
+    r = L.tp_cols(p["r"], Hl, mesh, dim=1).to(f32)
     hs = []
     for t in range(S):
         st = _slstm_cell(st, *(g[:, t] for g in pre), r)

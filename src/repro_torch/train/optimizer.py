@@ -50,13 +50,16 @@ class AdamW:
     def _lr(self, step):
         return self.lr(step) if callable(self.lr) else self.lr
 
-    def update(self, grads, state: AdamWState, params):
+    def update(self, grads, state: AdamWState, params, *,
+               grad_norm: Optional[torch.Tensor] = None):
         """One step: ``(new_params, new_state)``; the inputs are not
-        modified. ``grads`` mirrors ``params``."""
+        modified. ``grads`` mirrors ``params``. The clip uses ``grad_norm``
+        where given (a mesh's :meth:`~repro_torch.train.trainer.MeshLayout.
+        global_norm` of sharded grads), else :func:`global_norm`."""
         step = state.step + 1
         g32 = map_leaves(grads, lambda _n, g: g.to(torch.float32))
         if self.clip_norm is not None:
-            gnorm = global_norm(grads)
+            gnorm = global_norm(grads) if grad_norm is None else grad_norm
             # a true division: ``float / tensor`` multiplies by a reciprocal
             clip = torch.full((), self.clip_norm, dtype=torch.float32,
                               device=gnorm.device)
@@ -81,10 +84,27 @@ class AdamW:
         return map_leaves(params, upd), AdamWState(step, mu, nu)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's float32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for _, g in flatten_names(tree)))
+def global_norm(tree, *, mesh=None,
+                axes: Optional[dict] = None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's float32 sum of squares. On a
+    ``mesh``, ``tree`` holds this rank's blocks and ``axes`` names, leaf by
+    leaf, the mesh axes that shard it: each leaf's sum is summed over
+    exactly those (one collective an axis set), so a replicated leaf counts
+    once; the leaves are then added in the unmeshed order."""
+    flat = flatten_names(tree)
+    sq = [torch.sum(torch.square(g.to(torch.float32))) for _, g in flat]
+    if mesh is not None:
+        by_axes: dict = {}
+        for i, (n, _) in enumerate(flat):
+            if axes[n]:
+                by_axes.setdefault(axes[n], []).append(i)
+        for ax, idx in by_axes.items():
+            v = torch.stack([sq[i] for i in idx])
+            for a in ax:
+                v = mesh.all_reduce(v, a)
+            for j, i in enumerate(idx):
+                sq[i] = v[j]
+    return torch.sqrt(sum(sq))
 
 
 # --- schedules ---------------------------------------------------------------

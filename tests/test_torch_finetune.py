@@ -150,7 +150,6 @@ def test_train_cli_audio_frames(capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mesh-model", "2"], "item 8"),
     (["--device", "cuda"], "CUDA is not available"),
 ])
 def test_train_cli_refusals(argv, match, monkeypatch):

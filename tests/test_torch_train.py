@@ -5,6 +5,8 @@ that either package resumes.
 
 Both packages get the same numpy inputs; JAX parameters are carried into
 the port with ``interop.params_from_numpy``."""
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +30,7 @@ from repro_torch.checkpoint import store
 from repro_torch.configs import get_config
 from repro_torch.core.precision import EncoderPolicy
 from repro_torch.interop import (flatten_names, params_from_numpy,
-                                 params_to_numpy)
+                                 params_to_numpy, tree_from_names)
 from repro_torch.train import (AdamW, TrainConfig, Trainer, TrainState,
                                cosine_schedule, linear_schedule)
 from repro_torch.train.optimizer import global_norm
@@ -323,13 +325,6 @@ def test_unused_leaf_gets_zero_grad_and_decay():
                                                   rel=1e-5)
 
 
-def test_trainer_refuses_a_mesh():
-    cfg = get_config("qwen2-0.5b").reduced()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Trainer(cfg, EncoderPolicy.full_float(cfg.num_layers),
-                mesh=object(), device="cpu")
-
-
 @pytest.mark.parametrize("arch,task,head", [
     ("qwen2-0.5b", "lm", None), ("bert-base", "tnews", ("cls", 15))])
 def test_bfloat16_loss_matches_jax(arch, task, head):
@@ -424,3 +419,45 @@ def test_port_checkpoint_restores_into_jax_template(tmp_path):
                                 tr.plan, "cpu")
     for k, v in _names(back.params).items():
         np.testing.assert_array_equal(v.numpy(), _names(s.params)[k].numpy())
+
+
+@pytest.mark.parametrize("writer", ["savez", "savez_compressed"])
+def test_load_leaves_reads_what_np_load_reads(tmp_path, writer):
+    """``store.load_leaves`` reads each stored member of ``leaves.npz`` at
+    its offset, and a compressed file through ``np.load``: either way the
+    leaves ``np.load`` gives, dtype, shape and memory order included."""
+    rng = np.random.default_rng(0)
+    leaves = {"a0": rng.standard_normal((3, 5)).astype(np.float32),
+              "a1": np.asfortranarray(rng.standard_normal((4, 6))),
+              "a2": np.array(7, dtype=np.int32),
+              "a3": np.zeros((0, 4), np.float32),
+              "a4": rng.standard_normal((2, 3, 4)).astype(np.float16)}
+    path = tmp_path / "step_00000001"
+    path.mkdir()
+    getattr(np, writer)(path / "leaves.npz", **leaves)
+    names = ["x", "y/w", "opt/step", "empty", "z"]
+    (path / store.MANIFEST).write_text(
+        json.dumps({"step": 1, "names": names}))
+    got = store.load_leaves(str(tmp_path), 1)
+    with np.load(path / "leaves.npz") as want:
+        for i, n in enumerate(names):
+            w = want[f"a{i}"]
+            assert got[n].dtype == w.dtype and got[n].shape == w.shape, n
+            assert got[n].flags.f_contiguous == w.flags.f_contiguous, n
+            np.testing.assert_array_equal(got[n], w, err_msg=n)
+
+
+def test_resume_refuses_a_leaf_of_another_shape(tmp_path):
+    """A checkpoint whose leaf has another shape than the trainer's is
+    refused at resume, naming the leaf."""
+    ckpt = tmp_path / "ck"
+    _, tr, nb = _qwen(steps=2, ckpt=str(ckpt))
+    tr.fit(tr.init_state(0), nb, log=lambda *_: None)
+    leaves = store.load_leaves(str(ckpt), 2)
+    name = next(n for n in leaves if n.startswith("params/final_norm"))
+    leaves[name] = np.concatenate([leaves[name], leaves[name]], axis=-1)
+    bad = tmp_path / "bad"
+    store.save(str(bad), 2, tree_from_names(leaves))
+    _, tr, nb = _qwen(steps=3, ckpt=str(bad))
+    with pytest.raises(ValueError, match="checkpoint leaves"):
+        tr.fit(tr.init_state(0), nb, log=lambda *_: None)

@@ -387,3 +387,254 @@ def run_tp_archs(rank: int, device, job: dict) -> dict:
     (data=1, model=2)."""
     return {"rank": rank, "archs": _tp_archs(job),
             "jax modules": _jax_loaded()}
+
+
+# ---------------------------------------------------------------------------
+# training on a mesh (tests/test_torch_train_mesh.py)
+# ---------------------------------------------------------------------------
+
+
+def train_batch(cfg, B: int, S: int, seed: int) -> dict:
+    """A numpy batch the loss of ``cfg`` takes: tokens (+ vision prefix
+    embeddings), or audio frames with frame labels."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "audio":
+        return {"frames": rng.standard_normal(
+                    (B, S, cfg.frontend_dim)).astype(np.float32),
+                "labels": rng.integers(0, cfg.vocab_size, (B, S))}
+    b = {"tokens": rng.integers(1, cfg.vocab_size, (B, S))}
+    if cfg.frontend == "vision":
+        b["prefix_embeds"] = rng.standard_normal(
+            (B, cfg.num_prefix_embeds, cfg.frontend_dim)).astype(np.float32)
+    return b
+
+
+def _numpy_tree(tree) -> dict:
+    from repro_torch.interop import flatten_names
+    return {n: t.detach().cpu().numpy() for n, t in flatten_names(tree)}
+
+
+def _trainer(cfg, mesh=None, **kw):
+    from repro_torch.core.plan import PrecisionPlan
+    from repro_torch.train import AdamW, TrainConfig, Trainer
+    tk = dict(remat=False, compute_dtype="float32", log_every=1)
+    tk.update(kw.pop("tcfg", {}))
+    return Trainer(cfg, PrecisionPlan.full_float(cfg.num_layers, "float32"),
+                   mesh=mesh, optimizer=AdamW(lr=kw.pop("lr", 1e-3)),
+                   tcfg=TrainConfig(**tk), device="cpu", **kw)
+
+
+def _autograd_cases(mesh_dp, mesh_tp) -> dict:
+    """Each differentiable collective's forward and backward on this rank:
+    seeded x and upstream gradient y (the same on both ranks where the
+    collective takes, or gives, a tensor every rank holds whole), the
+    output and x's gradient."""
+    import torch
+    from repro_torch.distributed import autograd as ag
+    rank = mesh_tp.rank
+    # name: (mesh, f, x replicated, y replicated)
+    cases = {"copy_to": (mesh_tp, lambda x, m: ag.copy_to(x, m, "model"),
+                         True, False),
+             "reduce_from": (mesh_tp,
+                             lambda x, m: ag.reduce_from(x, m, "model"),
+                             False, True),
+             "gather": (mesh_tp, lambda x, m: ag.gather(x, m, "model", -1),
+                        False, True),
+             "all_to_all": (mesh_dp,
+                            lambda x, m: ag.all_to_all(x, m, "data"),
+                            False, False),
+             "fsdp_gather": (mesh_dp,
+                             lambda x, m: ag.fsdp_gather(x, m, "data", 0),
+                             False, False)}
+    out = {}
+    for name, (mesh, f, x_rep, y_rep) in cases.items():
+        gx = torch.Generator().manual_seed(17 + (0 if x_rep else rank))
+        gy = torch.Generator().manual_seed(29 + (0 if y_rep else rank))
+        x = torch.randn((4, 6), generator=gx, requires_grad=True)
+        with torch.enable_grad():
+            y_out = f(x, mesh)
+        y = torch.randn(y_out.shape, generator=gy)
+        (grad,) = torch.autograd.grad(y_out, x, y)
+        out[name] = {k: v.detach().numpy() for k, v in
+                     (("x", x), ("y", y), ("out", y_out), ("grad", grad))}
+    return out
+
+
+def _arch_grads(job, meshes) -> dict:
+    """One step's loss and gathered gradients of every reduced config on
+    each topology, beside the unmeshed port's (rank 0): at the mesh's MoE
+    token groups, and at ``grad_accum = dp`` (one micro-batch a rank's
+    rows, one group each)."""
+    import torch
+    from repro_torch.configs import get_config
+    out = {}
+    for arch in job["archs"]:
+        cfg = get_config(arch).reduced()
+        batch = train_batch(cfg, *job["batch"], seed=0)
+        for t, mesh in meshes.items():
+            dp = mesh.size("data")
+            tr = _trainer(cfg, mesh)
+            state = tr.init_state(0)
+            loss, grads = tr.loss_and_grads(state.params, batch)
+            whole = tr.layout.whole(grads)
+            rec = {"loss": float(loss),
+                   "norm": float(tr.layout.global_norm(grads))}
+            if mesh.rank == 0:
+                from repro_torch.train.optimizer import global_norm
+                rec["grads"] = _numpy_tree(whole)
+                rec["whole norm"] = float(global_norm(whole))
+                ref = _trainer(cfg, moe_groups=dp if cfg.moe else 1)
+                p = ref.init_state(0).params
+                rl, rg = ref.loss_and_grads(p, batch)
+                rec["unmeshed"] = (float(rl), _numpy_tree(rg))
+                if dp > 1:
+                    acc = _trainer(cfg, tcfg={"grad_accum": dp})
+                    al, ag_ = acc.loss_and_grads(p, batch)
+                    rec["accum"] = (float(al), _numpy_tree(ag_))
+            out[f"{arch} {t}"] = rec
+            torch.distributed.barrier()
+    return out
+
+
+def _jax_steps(job, meshes) -> dict:
+    """``steps`` meshed steps from the JAX package's initial params (carried
+    in as numpy) on each topology: losses, grad norms, gathered params."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import get_batch, make_task
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.train import TrainState
+    out = {}
+    for name, spec in job["jax"].items():
+        cfg = get_config(spec["arch"]).reduced()
+        task = make_task(spec["task"], vocab_size=cfg.vocab_size, seq_len=16)
+        for t, mesh in meshes.items():
+            tr = _trainer(cfg, mesh, head=spec["head"],
+                          tcfg={"remat": spec["remat"]})
+            params = params_from_numpy(spec["params"], tr.plan, "cpu")
+            state = tr.shard(TrainState(params, tr.optimizer.init(params)))
+            step = tr.make_step()
+            losses, norms = [], []
+            for i in range(spec["steps"]):
+                p, o, e, m = step(state.params, state.opt_state,
+                                  state.err_state, get_batch(task, i, 8))
+                state = TrainState(p, o, e, tr.layout)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+            tree = state.as_tree(tr.plan)
+            out[f"{name} {t}"] = {"losses": losses, "norms": norms,
+                                  "params": tree["params"],
+                                  "step": int(tree["opt"]["step"])}
+    return out
+
+
+def _zero3(meshes) -> dict:
+    """qwen2's bytes a rank holds at (data=2, model=1): params, moments,
+    error state, and each leaf's local and whole shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.interop import flatten_names
+    cfg = get_config("qwen2-0.5b").reduced()
+    tr = _trainer(cfg, meshes["2,1"], tcfg={"compress_pod_grads": True})
+    s = tr.init_state(0)
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size()
+                   for _, t in flatten_names(tree))
+    whole = _trainer(cfg).init_state(0).params
+    return {"params": nbytes(s.params), "mu": nbytes(s.opt_state.mu),
+            "nu": nbytes(s.opt_state.nu), "err": nbytes(s.err_state),
+            "local": {n: tuple(t.shape) for n, t in flatten_names(s.params)},
+            "whole": {n: tuple(t.shape) for n, t in flatten_names(whole)},
+            "fsdp": {n: d for n, d in tr.layout.fsdp_dim.items()}}
+
+
+def _pod(job) -> dict:
+    """The int8 pod all-reduce on (pod=2, data=1, model=1): the job's
+    tensors (the same on both ranks) through ``compress_allreduce`` and the
+    pytree form; then a compressed training step of qwen2 against the
+    unmeshed port at ``grad_accum = 2``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import compression
+    from repro_torch.launch.mesh import ProcessMesh
+    mesh = ProcessMesh({"pod": 2, "data": 1, "model": 1})
+    out = {}
+    for key, (g, err) in job["pod"].items():
+        r, e = compression.compress_allreduce(
+            torch.from_numpy(g), torch.from_numpy(err), mesh=mesh)
+        out[key] = (r.numpy(), e.numpy())
+    cfg = get_config("qwen2-0.5b").reduced()
+    batch = train_batch(cfg, *job["batch"], seed=1)
+    tr = _trainer(cfg, mesh, tcfg={"compress_pod_grads": True})
+    s = tr.init_state(0)
+    loss, grads = tr.loss_and_grads(s.params, batch)
+    p, o, e, m = tr.make_step()(s.params, s.opt_state, s.err_state, batch)
+    out["step"] = {"loss": float(m["loss"]), "grads": _numpy_tree(grads),
+                   "err": _numpy_tree(e), "params": _numpy_tree(p)}
+    acc = _trainer(cfg, tcfg={"grad_accum": 2, "compress_pod_grads": True})
+    a = acc.init_state(0)
+    al, ag_ = acc.loss_and_grads(a.params, batch)
+    # the unmeshed update of the plain version's q * scale
+    q, err = compression.compress_allreduce_pytree(ag_, a.err_state)
+    p2, _ = acc.optimizer.update(q, a.opt_state, a.params)
+    out["unmeshed"] = {"loss": float(al), "grads": _numpy_tree(ag_),
+                       "err": _numpy_tree(err), "params": _numpy_tree(p2)}
+    return out
+
+
+def _checkpoints(job, meshes) -> dict:
+    """Checkpoints across topologies, in the job's directories: a run at
+    (2, 1) checkpoints at 2 steps; (1, 2) resumes it to 3; (1, 2) resumes
+    the JAX package's checkpoint to 3. Each restore, gathered, and the
+    logs."""
+    import torch
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import get_batch, make_task
+    from repro_torch.train import TrainState
+    cfg = get_config("qwen2-0.5b").reduced()
+    task = make_task("lm", vocab_size=cfg.vocab_size, seq_len=16)
+
+    def batches(i):
+        return get_batch(task, i, 8)
+    out = {}
+    ck = job["ckpt"]
+    tr = _trainer(cfg, meshes["2,1"], tcfg={
+        "steps": 2, "checkpoint_dir": ck["mesh"], "checkpoint_every": 2})
+    logs = []
+    s = tr.fit(tr.init_state(0), batches, log=logs.append)
+    out["written"] = s.as_tree(tr.plan)
+    out["write logs"] = logs
+    for key, src in (("mesh to mesh", ck["mesh"]), ("jax to mesh",
+                                                    ck["jax"])):
+        tr = _trainer(cfg, meshes["1,2"], tcfg={
+            "steps": 3, "checkpoint_dir": src, "checkpoint_every": 100})
+        fresh = tr.init_state(1)
+        back = TrainState.from_tree(
+            store.restore(src, 2, fresh.as_tree(tr.plan)), tr.plan, "cpu",
+            layout=tr.layout)
+        logs = []
+        end = tr.fit(fresh, batches, log=logs.append)
+        out[key] = {"restored": back.as_tree(tr.plan), "logs": logs,
+                    "step": int(end.opt_state.step)}
+        torch.distributed.barrier()
+    return out
+
+
+def run_train_mesh(rank: int, device, job: dict) -> dict:
+    """Train on this rank: every job of ``tests/test_torch_train_mesh.py``
+    on 2 gloo ranks."""
+    from repro_torch.distributed import comm
+    from repro_torch.launch.mesh import make_serving_mesh
+    meshes = {t: make_serving_mesh(t) for t in TOPOLOGIES}
+    comm.reset_stats()
+    out = {"rank": rank,
+           "autograd": _autograd_cases(meshes["2,1"], meshes["1,2"]),
+           "archs": _arch_grads(job, meshes),
+           "jax": _jax_steps(job, meshes),
+           "zero3": _zero3(meshes),
+           "pod": _pod(job),
+           "ckpt": _checkpoints(job, meshes),
+           "stats": dict(comm.STATS)}
+    out["jax modules"] = _jax_loaded()
+    return out
