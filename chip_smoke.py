@@ -185,6 +185,29 @@ line per phase:
   plain versions. It records each rank's wall a forward or tick, its
   collectives and its peak memory, beside the unmeshed port's own
   batching noise; two ranks on one card measure no multi-GPU speed;
+* ``http_mesh_path``: the HTTP front-end on mesh ranks (slice 19), inside
+  ``mesh_path``'s two ranks on the engines they built. At each topology
+  rank 0 mounts the meshed BERT-base encoder in ``HTTPFrontend``, whose
+  driver publishes each pass's engine operations over the gloo control
+  group (``comm.broadcast_object``), and rank 1 replays them
+  (``driver.follow``); ``mesh_path``'s 32 requests arrive over HTTP.
+  Every rank's served logits equal (0.0) the direct meshed engine fed the
+  micro-batches rank 0's batcher made (rank 1's batches equal rank 0's),
+  predictions identical, 42 / 6 / 6 / 1 launches a forward a rank; then a
+  drain with one request in flight (200; a new one 503; both ranks
+  return). The same for qwen2-0.5b: the 8 prompts as SSE streams of 16
+  tokens equal to the direct meshed ``ServeEngine``'s (data parallel's
+  is ``mesh_path``'s own free run), one ``done`` a stream, 0 pages in use,
+  102 / 12 / 18 / 12 launches a tick a rank. The CLI, ``python -m
+  repro_torch.launch.server --arch bert-base --plan <the tiled golden
+  plan> --backend fused --mesh 2,1 --port 0``, starts after the build and
+  runs beside the phases up to ``mesh_path`` (``start_http_mesh_cli``);
+  afterwards it must answer ``/healthz`` and one ``/v1/encode`` (its
+  ``samp_build_info`` naming the mesh), exit 0 within ``HTTP_EXIT_S`` of
+  SIGTERM after ``drained; bye``, and leave no rank. It records each
+  rank's HTTP and direct requests/s, p50 / p95, SSE and direct tokens/s,
+  the control channel's calls, bytes and host seconds, and the CLI's
+  start-up seconds;
 * ``mesh_train_path``: training on mesh ranks (``Trainer(mesh=...)``):
   two ranks on this card over gloo train full-width BERT-base (tnews
   ``cls``, float32, seed 0, batches of 32 x 128, lr 1e-4) from one init on
@@ -302,8 +325,8 @@ with the decode paths' checks (identical tokens, logits within rel-Linf
   golden plan), MQA: ``decode_attention`` with a group of 48, split over two blocks;
 * ``deepseek_coder_decode_path``: deepseek-coder-33b cut from 62 to 4
   layers, a group of 7;
-* ``hubert_encode_path``: hubert-xlarge cut from 48 to 24 layers (since
-  slice 17), the span (golden x 6 through ``int8_dataflow_variant``): 16
+* ``hubert_encode_path``: hubert-xlarge cut from 48 to 12 layers (24 in
+  slices 17-18), the span (golden x 3 through ``int8_dataflow_variant``): 16
   seeded frame sequences (T
   uniform in 16-128, 512 features) through ``Runtime.encode`` with their
   lengths, 8 a call, frame logits within rel-Linf 5e-3 and the predicted
@@ -450,7 +473,7 @@ AUTOTUNE_EVAL = (2, 64)          # dev batches x batch size a candidate
 AUTOTUNE_LATENCY = (32, 128)     # the facade's latency batch x positions
 # train_path: SAMP.finetune of full-width BERT-base on tnews (float32, 128
 # positions), its gates, the resume check's run length, the CLI's two runs
-TRAIN_STEPS = 100
+TRAIN_STEPS = 60                 # 100 until slice 19 (its time limit)
 TRAIN_LR = 1e-4
 TRAIN_BATCH = 32
 TRAIN_SEQ = 128
@@ -518,7 +541,8 @@ ARCH_CUTS = {"granite-20b": 4, "deepseek-coder-33b": 4,
              # attention), paligemma from 9 (18) to 4, xlstm from 12,
              # hubert from 48
              "gemma2-2b": 7, "recurrentgemma-9b": 10, "paligemma-3b": 4,
-             "xlstm-125m": 6, "hubert-xlarge": 24}
+             # and hubert from 24 to 12 beside http_mesh_path (slice 19)
+             "xlstm-125m": 6, "hubert-xlarge": 12}
 # xlstm_encode_path: one Runtime.encode of 4 x 512 seeded tokens, two mLSTM
 # chunks of 256, so the chunk hand-off runs on the card
 XLSTM_ENCODE = (4, 512)
@@ -556,9 +580,9 @@ EXPECTED_ARCHS = {
     "deepseek_coder_decode_path": {"quant_linear": 17, "addnorm_quant": 2,
                                    "dynamic_quant": 3,
                                    "decode_attention": 2},
-    "hubert_encode_path": {"quant_linear": 84, "addnorm_quant": 12,
-                           "dynamic_quant": 12,
-                           "quant_flash_attention": 12},
+    "hubert_encode_path": {"quant_linear": 42, "addnorm_quant": 6,
+                           "dynamic_quant": 6,
+                           "quant_flash_attention": 6},
     "paligemma_path": {"quant_linear": 17, "addnorm_quant": 2,
                        "dynamic_quant": 3},
     "paligemma_decode_path": {"quant_linear": 17, "addnorm_quant": 2,
@@ -5299,6 +5323,470 @@ def _compare_rows(ref, got):
             "max_rel": worst, "argmax_differ": differ, "tokens_kept": kept}
 
 
+# ---------------------------------------------------------------------------
+# http_mesh_path: the HTTP front-end on mesh ranks (slice 19), run inside
+# mesh_path's ranks on the engines they built
+# ---------------------------------------------------------------------------
+
+
+def _http_mesh_session(rank, fe_or_engines, scenario, counted):
+    """One front-end session on a mesh: rank 0 serves ``scenario`` over
+    HTTP (:func:`run_http`) with its driver publishing each pass's engine
+    operations; every other rank replays them (``driver.follow``). Kernel
+    launches and collectives are counted over the session on each rank;
+    ``counted()`` gives (forwards or ticks) so far. Returns the rank's
+    record."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.distributed import comm
+    from repro_torch.serve.frontend.driver import follow
+    torch.cuda.synchronize()
+    before = counted()
+    kernels.reset_launches()
+    comm.reset_stats()
+    t = time.perf_counter()
+    if rank == 0:
+        out = run_http(fe_or_engines, scenario)
+    else:
+        out = {"replayed": follow(**fe_or_engines,
+                                  receive=comm.broadcast_object)}
+    torch.cuda.synchronize()
+    out.update(session_s=time.perf_counter() - t,
+               launches=kernels.launch_counts(), units=counted() - before,
+               collectives=dict(comm.STATS), control=dict(comm.CONTROL))
+    return out
+
+
+def _http_mesh_encode(rank, eng, requests, device):
+    """``http_mesh_path``'s encode on one topology: ``mesh_path``'s 32
+    requests over HTTP to a front-end on rank 0 whose engine shares the
+    meshed ``eng``'s runtime, every rank running every forward; then each
+    rank feeds the micro-batches rank 0's batcher made, in order, to
+    ``eng`` itself (the direct meshed engine, timed) and holds each
+    request's logits against the front-end's."""
+    import asyncio
+    import numpy as np
+    from repro_torch.distributed import comm
+    from repro_torch.serve import EncoderRequest, EncoderServeEngine
+    from repro_torch.serve.frontend import HTTPFrontend
+
+    served = EncoderServeEngine(eng.cfg, eng.params, eng.plan,
+                                target=eng.target, runtime=eng.runtime,
+                                max_batch=HTTP_SLOTS, max_wait=0.005,
+                                max_len=HTTP_MAX_LEN, device=device)
+    batches, logits = [], {}
+    ready, step = served.batcher.ready, served.step
+
+    def spy_ready(now=None, force=False):
+        got = ready(now, force)
+        batches.extend([r.uid for r in reqs] for _, reqs in got)
+        return got
+
+    def spy_step(now=None, force=False):
+        done = step(now, force)
+        logits.update({r.uid: np.asarray(r.logits) for r in done})
+        return done
+    served.batcher.ready, served.step = spy_ready, spy_step
+
+    async def scenario(port):
+        t = time.perf_counter()
+        res = await asyncio.gather(*(http_json(
+            port, "POST", "/v1/encode", {"tokens": toks})
+            for toks in requests))
+        return {"results": res, "wall": time.perf_counter() - t}
+
+    if rank == 0:
+        fe = HTTPFrontend(encoder=served, port=0, log=_quiet,
+                          publish=comm.broadcast_object)
+        got = _http_mesh_session(rank, fe, scenario,
+                                 lambda: eng.runtime.stats["calls"])
+        got["p50"] = fe.driver.latency.quantile(0.5)
+        got["p95"] = fe.driver.latency.quantile(0.95)
+    else:
+        got = _http_mesh_session(rank, {"encoder": served}, None,
+                                 lambda: eng.runtime.stats["calls"])
+    # every rank replays rank 0's batches, so every rank runs the same
+    # collectives; a follower's own batches must equal them
+    order = comm.broadcast_object(batches if rank == 0 else None)
+    by_uid = {}
+    # the front-end numbers its requests from 1 in arrival order: map each
+    # uid to its tokens through rank 0's record of what it answered
+    tokens = comm.broadcast_object(
+        {o["uid"]: requests[i] for i, (s, _, o) in enumerate(
+            got["results"]) if s == 200} if rank == 0 else None)
+    t = time.perf_counter()
+    for group in order:
+        calls = eng.runtime.stats["calls"]
+        for uid in group:
+            eng.submit(EncoderRequest(uid=uid, tokens=list(tokens[uid])))
+        by_uid.update({r.uid: r for r in eng.run()})
+        if eng.runtime.stats["calls"] - calls != 1:
+            fail(f"http_mesh_path: a micro-batch of {len(group)} took "
+                 f"{eng.runtime.stats['calls'] - calls} forwards")
+    direct_wall = time.perf_counter() - t
+    diff = max((float(np.abs(logits[u] - by_uid[u].logits).max())
+                for u in by_uid), default=float("inf"))
+    rec = {"batches_equal_rank_0": batches == order,
+           "micro_batches": [len(g) for g in order],
+           "engine_vs_direct_max_abs": diff,
+           "answered": len(logits), "direct_wall_s": direct_wall,
+           "direct_requests_per_s": len(requests) / direct_wall,
+           "session_s": got["session_s"], "launches": got["launches"],
+           "forwards": got["units"], "control": got["control"],
+           "collectives": got["collectives"]}
+    if rank == 0:
+        statuses = [s for s, _, _ in got["results"]]
+        objs = {o["uid"]: o for s, _, o in got["results"] if s == 200}
+        http = {u: np.asarray(o["logits"], np.float32)
+                for u, o in objs.items()}
+        rec.update(
+            statuses=dict(collections.Counter(statuses)),
+            http_vs_direct_max_abs=max(
+                (float(np.abs(http[u] - by_uid[u].logits).max())
+                 for u in http), default=float("inf")),
+            predictions_equal=all(
+                objs[u]["prediction"] == int(by_uid[u].prediction)
+                for u in objs) and len(objs) == len(requests),
+            http_wall_s=got["wall"],
+            http_requests_per_s=len(requests) / got["wall"],
+            latency_p50_s=got["p50"], latency_p95_s=got["p95"],
+            listen_s=got["listen_s"])
+    else:
+        rec["replayed"] = got["replayed"]
+    return rec
+
+
+def _http_mesh_drain(rank, eng, device):
+    """A drain on a mesh: one request in flight (its forced flush held at
+    a gate on rank 0 until the new request's answer is read) answers 200,
+    a request after ``begin_drain`` 503, then rank 0's ``stop`` ends the
+    follower and both ranks return."""
+    import asyncio
+    import threading
+    from repro_torch.distributed import comm
+    from repro_torch.serve import EncoderServeEngine
+    from repro_torch.serve.frontend import HTTPFrontend
+
+    served = EncoderServeEngine(eng.cfg, eng.params, eng.plan,
+                                target=eng.target, runtime=eng.runtime,
+                                max_batch=HTTP_SLOTS, max_wait=30.0,
+                                max_len=HTTP_MAX_LEN, device=device)
+    if rank:
+        got = _http_mesh_session(rank, {"encoder": served}, None,
+                                 lambda: 0)
+        return {"replayed": got["replayed"]}
+    gate = threading.Event()
+    step = served.step
+
+    def gated(now=None, force=False):
+        if force:
+            gate.wait(HTTP_SESSION_S)
+        return step(now, force)
+    served.step = gated
+    fe = HTTPFrontend(encoder=served, port=0, log=_quiet,
+                      publish=comm.broadcast_object)
+
+    async def drain(port):
+        try:
+            inflight = asyncio.create_task(http_json(
+                port, "POST", "/v1/encode", {"tokens": [4, 5, 9, 2]}))
+            for _ in range(1000):
+                if fe.driver.inflight:
+                    break
+                await asyncio.sleep(0.01)
+            fe.begin_drain()
+            rejected = await http_json(port, "POST", "/v1/encode",
+                                       {"tokens": [5, 5, 9, 2]})
+        finally:
+            gate.set()
+        done = await inflight
+        await asyncio.wait_for(fe.serve_forever(), HTTP_SESSION_S)
+        return {"done": done, "rejected": rejected}
+
+    got = _http_mesh_session(rank, fe, drain, lambda: 0)
+    return {"inflight_status": got["done"][0],
+            "new_status": got["rejected"][0],
+            "retry_after": got["rejected"][1].get("retry-after")}
+
+
+def _http_mesh_generate(rank, make_engine, prompts, direct_run=None):
+    """``http_mesh_path``'s generate on one topology: the prompts as
+    concurrent SSE streams of ``MESH_MAX_TOKENS`` tokens to a meshed
+    decode front-end on rank 0, every rank ticking; then a fresh engine
+    of the same mesh serves them directly (timed), unless ``direct_run``
+    (``mesh_path``'s own free-running record at this topology: its tokens,
+    wall and pages) already did: tokens, the ``done`` transcripts and the
+    pages left."""
+    import asyncio
+    from repro_torch.distributed import comm
+    from repro_torch.serve.frontend import HTTPFrontend
+
+    eng = make_engine()
+
+    async def scenario(port):
+        t = time.perf_counter()
+        res = await asyncio.gather(*(http_sse(
+            port, {"prompt": p, "max_tokens": MESH_MAX_TOKENS})
+            for p in prompts))
+        return {"results": res, "wall": time.perf_counter() - t}
+
+    if rank == 0:
+        fe = HTTPFrontend(decode=eng, port=0, log=_quiet,
+                          publish=comm.broadcast_object)
+        got = _http_mesh_session(rank, fe, scenario,
+                                 lambda: eng.stats["ticks"])
+        got["p50"] = fe.driver.latency.quantile(0.5)
+        got["p95"] = fe.driver.latency.quantile(0.95)
+    else:
+        got = _http_mesh_session(rank, {"decode": eng}, None,
+                                 lambda: eng.stats["ticks"])
+    if direct_run is None:
+        direct = make_engine()
+        want, direct_wall = serve_decode(direct, prompts,
+                                         max_tokens=MESH_MAX_TOKENS)
+        direct_pages = direct.kv_pages_in_use
+    else:
+        want, direct_wall, direct_pages = (direct_run["tokens"],
+                                           direct_run["wall_s"],
+                                           direct_run["pages_in_use"])
+    generated = len(prompts) * MESH_MAX_TOKENS
+    rec = {"ticks": got["units"], "launches": got["launches"],
+           "session_s": got["session_s"], "control": got["control"],
+           "collectives": got["collectives"],
+           "pages_in_use_after": eng.kv_pages_in_use + direct_pages,
+           "direct_reused_from_mesh_path": direct_run is not None,
+           "direct_wall_s": direct_wall,
+           "direct_generated_tokens_per_s": generated / direct_wall}
+    if rank == 0:
+        streams, bad = {}, []
+        for i, (status, events) in enumerate(got["results"]):
+            toks = ([d["token"] for e, d in events if e == "token"]
+                    if status == 200 else None)
+            done = ([d for e, d in events if e == "done"]
+                    if toks is not None else [])
+            streams[i] = toks
+            if status != 200 or len(done) != 1 \
+                    or done[0]["tokens"] != toks \
+                    or len(toks) != MESH_MAX_TOKENS:
+                bad.append((i, status, len(done), toks and len(toks)))
+        rec.update(tokens_equal_direct=streams == want, bad_streams=bad,
+                   sse_wall_s=got["wall"],
+                   sse_generated_tokens_per_s=generated / got["wall"],
+                   latency_p50_s=got["p50"], latency_p95_s=got["p95"])
+    else:
+        rec["replayed"] = got["replayed"]
+    return rec
+
+
+def _children(pid: int) -> dict:
+    """{pid: command line} of ``pid``'s child processes, read from /proc."""
+    import os
+    out = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            if ppid == pid:
+                with open(f"/proc/{d}/cmdline", "rb") as f:
+                    out[int(d)] = f.read().replace(b"\0", b" ").decode()
+        except (OSError, ValueError, IndexError):
+            continue
+    return out
+
+
+def start_http_mesh_cli():
+    """Start ``http_mesh_path``'s server CLI in the background once the
+    kernels are built (it loads them; its ranks build full-width BERT-base
+    and calibrate on the mesh beside the earlier phases): ``python -m
+    repro_torch.launch.server --arch bert-base --plan <the tiled golden
+    plan> --backend fused --mesh 2,1 --port 0``, in a session of its own
+    so every rank can be stopped. Its output lines are read, with their
+    times, by a thread. Returns its handle."""
+    import os
+    import queue
+    import tempfile
+    import threading
+    from repro_torch.core.plan import PrecisionPlan
+    tmp = Path(tempfile.mkdtemp(prefix="samp_http_mesh_"))
+    golden = PrecisionPlan.load(str(GOLDEN_PLAN))
+    PrecisionPlan(golden.layers * TILE, golden.float_dtype).save(
+        str(tmp / "golden_x3.json"))
+    argv = [sys.executable, "-m", "repro_torch.launch.server", "--arch",
+            "bert-base", "--task", "tnews", "--mesh", "2,1"] \
+        + _server_argv(tmp / "golden_x3.json")
+    err = (tmp / "server.err").open("w")
+    cli = {"tmp": tmp, "err": err, "t0": time.perf_counter(),
+           "lines": queue.Queue(), "out": []}
+    cli["proc"] = subprocess.Popen(
+        argv, stdout=subprocess.PIPE, stderr=err, text=True, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        start_new_session=True)
+
+    def read():
+        for line in cli["proc"].stdout:
+            cli["lines"].put((time.perf_counter(), line.rstrip()))
+        cli["lines"].put((time.perf_counter(), None))
+    threading.Thread(target=read, daemon=True).start()
+    return cli
+
+
+def stop_http_mesh_cli(cli):
+    """Stop the server CLI's session (its ranks with it) if it still runs,
+    and remove its files."""
+    import os
+    import shutil
+    import signal
+    if cli is None:
+        return
+    if cli["proc"].poll() is None:
+        os.killpg(cli["proc"].pid, signal.SIGKILL)
+        cli["proc"].wait()
+    cli["err"].close()
+    shutil.rmtree(cli["tmp"], ignore_errors=True)
+
+
+def phase_http_mesh_cli(cli, model, card):
+    """``http_mesh_path``'s CLI, started by :func:`start_http_mesh_cli`:
+    its ``listening on`` line (the start-up seconds since its start), its
+    two ranks among its children, ``/healthz`` and one ``/v1/encode``
+    answered, then SIGTERM: exit 0 within ``HTTP_EXIT_S`` after ``drained;
+    bye``, and no rank left."""
+    import asyncio
+    import os
+    import queue
+    import re
+    import signal
+    proc, out = cli["proc"], cli["out"]
+    port = start_s = None
+
+    def err():
+        cli["err"].flush()
+        return (cli["tmp"] / "server.err").read_text()[-3000:]
+    while port is None:
+        left = HTTP_START_S - (time.perf_counter() - cli["t0"])
+        try:
+            at, line = cli["lines"].get(timeout=max(left, 0.0))
+        except queue.Empty:
+            fail(f"http_mesh_path: the meshed server printed no listening "
+                 f"line in {HTTP_START_S} s: {out} {err()}")
+        if line is None:
+            fail(f"http_mesh_path: the meshed server exited "
+                 f"({proc.wait()}) before listening: {out} {err()}")
+        out.append(line)
+        m = re.search(r"listening on http://[\d.]+:(\d+)", line)
+        if m:
+            port, start_s = int(m.group(1)), at - cli["t0"]
+    ranks = {p: c for p, c in _children(proc.pid).items()
+             if "multiprocessing" in c and "resource_tracker" not in c}
+
+    async def scenario():
+        return (await http_json(port, "GET", "/healthz"),
+                await http_json(port, "POST", "/v1/encode",
+                                {"tokens": model["requests"][0]}),
+                (await http_exchange(port, "GET", "/metrics"))[2])
+
+    health, encoded, metrics = asyncio.run(scenario())
+    t = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(HTTP_EXIT_S)
+    except subprocess.TimeoutExpired:
+        rc = None
+    exit_s = time.perf_counter() - t
+    left = [p for p in ranks if os.path.exists(f"/proc/{p}")]
+    while (item := cli["lines"].get(timeout=HTTP_EXIT_S))[1] is not None:
+        out.append(item[1])
+    info = [ln for ln in metrics.decode("utf-8").splitlines()
+            if ln.startswith("samp_build_info")]
+    rec = {"phase": "http_mesh_path", "part": "cli", "card": card,
+           "mesh": "2,1", "start_s": start_s, "ranks": len(ranks),
+           "healthz": health[2], "encode_status": encoded[0],
+           "logits": len(encoded[2].get("logits", [])),
+           "build_info": info, "exit_code": rc, "exit_s": exit_s,
+           "ranks_left": left, "last_line": out[-1] if out else None,
+           "kernels_lines": [ln for ln in out if "kernels loaded" in ln],
+           "overlaps": "the train CLIs' tail, flash_path to mesh_path"}
+    emit(rec)
+    if health[0] != 200 or encoded[0] != 200 or rec["logits"] != 15 \
+            or len(ranks) != 2 or not any('mesh="data=2,model=1"' in ln
+                                          for ln in info):
+        fail(f"http_mesh_path: the meshed server CLI: {rec} {err()}")
+    if rc != 0 or left or "drained; bye" not in out[-1] \
+            or len(rec["kernels_lines"]) != 1:
+        fail(f"http_mesh_path: the meshed server CLI exited {rc} "
+             f"{exit_s:.1f} s after SIGTERM, ranks left {left}: {out} "
+             f"{err()}")
+    return rec
+
+
+def _check_http_mesh(ranks, card, failures):
+    """``http_mesh_path``'s gates and records, from ``mesh_path``'s ranks:
+    each rank's served logits 0.0 from the direct meshed engine fed the
+    same micro-batches (rank 0's HTTP answers too, and the follower's
+    batches equal rank 0's), predictions equal, SSE tokens equal to the
+    direct meshed engine's with one ``done`` a stream, no page in use,
+    launches a forward or tick as ``EXPECTED_MESH``, and the drain's
+    200 / 503. Returns the launches a rank a forward or tick."""
+    per_rank = collections.defaultdict(dict)
+    for r in ranks:
+        rank = r["rank"]
+        for t in MESH_TOPOLOGIES:
+            e, d = r[f"http encode {t}"], r[f"http drain {t}"]
+            fwd = max(e["forwards"], 1)
+            per = {k: v / fwd for k, v in e["launches"].items() if v}
+            per_rank[("http_mesh_encode", t)][rank] = per
+            want = EXPECTED_MESH[("mesh_encode_path", t)]
+            emit({"phase": "http_mesh_path", "part": "encode", "rank": rank,
+                  "topology": t, "model": "bert-base",
+                  "launches_per_forward": per, "drain": d, "card": card,
+                  **{k: v for k, v in e.items() if k != "launches"}})
+            if e["engine_vs_direct_max_abs"] != 0.0 \
+                    or not e["batches_equal_rank_0"] \
+                    or e["answered"] != N_REQUESTS:
+                failures.append(
+                    f"http_mesh_path rank {rank} encode on {t}: "
+                    f"{e['answered']} answered, "
+                    f"{e['engine_vs_direct_max_abs']} from the direct "
+                    f"engine, batches equal rank 0's "
+                    f"{e['batches_equal_rank_0']}")
+            if rank == 0 and (e["statuses"] != {200: N_REQUESTS}
+                              or e["http_vs_direct_max_abs"] != 0.0
+                              or not e["predictions_equal"]):
+                failures.append(
+                    f"http_mesh_path encode on {t}: statuses "
+                    f"{e['statuses']}, HTTP logits "
+                    f"{e['http_vs_direct_max_abs']} from the direct "
+                    f"engine, predictions equal {e['predictions_equal']}")
+            if per != want:
+                failures.append(f"http_mesh_path rank {rank} encode on {t} "
+                                f"launched {per} a forward, not {want}")
+            if rank == 0 and (d["inflight_status"], d["new_status"],
+                              d["retry_after"]) != (200, 503, "5"):
+                failures.append(f"http_mesh_path drain on {t}: {d}")
+            g = r[f"http generate {t}"]
+            ticks = max(g["ticks"], 1)
+            per = {k: v / ticks for k, v in g["launches"].items() if v}
+            per_rank[("http_mesh_decode", t)][rank] = per
+            want = EXPECTED_MESH[("mesh_decode_path", t)]
+            emit({"phase": "http_mesh_path", "part": "generate",
+                  "rank": rank, "topology": t, "model": "qwen2-0.5b",
+                  "launches_per_tick": per, "card": card,
+                  **{k: v for k, v in g.items() if k != "launches"}})
+            if g["pages_in_use_after"] or (rank == 0 and (
+                    not g["tokens_equal_direct"] or g["bad_streams"])):
+                failures.append(
+                    f"http_mesh_path rank {rank} generate on {t}: tokens "
+                    f"equal the direct engine's "
+                    f"{g.get('tokens_equal_direct')}, bad streams "
+                    f"{g.get('bad_streams')}, "
+                    f"{g['pages_in_use_after']} pages in use after")
+            if per != want:
+                failures.append(f"http_mesh_path rank {rank} generate on "
+                                f"{t} launched {per} a tick, not {want}")
+    return per_rank
+
 def _mesh_rank(rank, device, job):
     """One rank of ``mesh_path``: full-width BERT-base and qwen2-0.5b
     calibrated on the mesh, quantized, and served at each topology, with
@@ -5355,6 +5843,11 @@ def _mesh_rank(rank, device, job):
             rec["rank_rows_max_abs_diff"] = _rank_rows_exact(eng, calls,
                                                              device)
         out[f"encode {t}"] = rec
+        t0 = time.perf_counter()
+        out[f"http encode {t}"] = _http_mesh_encode(
+            rank, eng, model["requests"], device)
+        out[f"http drain {t}"] = _http_mesh_drain(rank, eng, device)
+        out["http_s"] = out.get("http_s", 0.0) + time.perf_counter() - t0
     del qparams, eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -5413,6 +5906,16 @@ def _mesh_rank(rank, device, job):
                          MESH_MAX_TOKENS)
     runs["1,2"] = decode(tree, golden, meshes["1,2"], DECODE_SLOTS,
                          MESH_MAX_TOKENS, forced=runs["unmeshed"])
+    t0 = time.perf_counter()
+    for t in MESH_TOPOLOGIES:
+        # data parallel's direct run is mesh_path's own free-running one;
+        # tensor parallel's there is teacher-forced, so it gets its own
+        out[f"http generate {t}"] = _http_mesh_generate(
+            rank, lambda: ServeEngine(cfg, *tree, batch_slots=DECODE_SLOTS,
+                                      mesh=meshes[t], precision=golden,
+                                      **kw), prompts,
+            runs["2,1"] if t == "2,1" else None)
+    out["http_s"] += time.perf_counter() - t0
     u8 = runs["unmeshed"]
     out["decode"] = {t: summary(r) for t, r in runs.items()}
     out["decode"]["unmeshed"]["finite"] = all(
@@ -5645,6 +6148,10 @@ def phase_mesh(main, device, card, max_err):
             name = case.split()[0]
             if case != "quant_linear shard":      # a rel-Linf
                 max_err[name] = max(max_err[name], e)
+    http = _check_http_mesh(ranks, card, failures)
+    emit({"phase": "http_mesh_path", "part": "summary", "card": card,
+          "seconds_per_rank": [r["http_s"] for r in ranks],
+          "note": "inside mesh_path's ranks, on the engines they built"})
     emit({"phase": "mesh_path", "part": "summary", "spawn_s": spawn_s,
           "seconds": time.perf_counter() - t0,
           "peak_bytes_per_rank": [r["peak_bytes"] for r in ranks],
@@ -5657,9 +6164,10 @@ def phase_mesh(main, device, card, max_err):
                   "multi-GPU speed"})
     if failures:
         fail("mesh_path: " + "; ".join(failures))
+    per_rank.update(http)
     return {name: {f"{path}_{'dp' if t == '2,1' else 'tp'}":
                    int(per_rank[(path, t)][0].get(name, 0))
-                   for (path, t) in EXPECTED_MESH}
+                   for (path, t) in per_rank}
             for name in KERNELS}
 
 
@@ -6656,14 +7164,25 @@ def main() -> int:
         now = time.perf_counter()
         laps[name] = laps.get(name, 0.0) + now - t_last[0]
         t_last[0] = now
-    clis = start_train_clis()
+    clis, server = start_train_clis(), None
     try:
-        phase_build()
-        lap("build, beside the training CLIs")
-        phase_train_clis(card, clis)
-        lap("the training CLIs past the build")
+        try:
+            phase_build()
+            lap("build, beside the training CLIs")
+            server = start_http_mesh_cli()
+            phase_train_clis(card, clis)
+            lap("the training CLIs past the build")
+        finally:
+            stop_train_clis(clis)
+        return run_paths(device, card, laps, lap, server)
     finally:
-        stop_train_clis(clis)
+        stop_http_mesh_cli(server)
+
+
+def run_paths(device, card, laps, lap, server) -> int:
+    """Every phase after the build, in order; ``server`` is the meshed
+    server CLI started beside them."""
+    import torch
     flash = phase_flash(device)
     lap("flash_path")
     from repro_torch.core.samp import int8_dataflow_variant
@@ -6691,7 +7210,9 @@ def main() -> int:
     lap("http_path")
     timed, max_err = {}, collections.defaultdict(float)
     mesh = phase_mesh(paths[0], device, card, max_err)
-    lap("mesh_path")
+    lap("mesh_path, with http_mesh_path in its ranks")
+    phase_http_mesh_cli(server, model, card)
+    lap("http_mesh_path's CLI")
     paths.append(phase_mesh_train(model, device, card))
     lap("mesh_train_path")
     check_kernels(paths, device, timed, max_err)

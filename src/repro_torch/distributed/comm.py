@@ -18,11 +18,18 @@
   training: ``reduce_scatter_tensor``, which gloo takes on CPU tensors and,
   on the H100 with torch 2.11, on CUDA tensors (``probe_gloo_cuda``), so
   no all-reduce-then-narrow stands in for it.
+* :func:`broadcast_object` sends a picklable host object from rank 0 to
+  every rank: the control channel of a meshed HTTP server. It runs over a
+  gloo group on the CPU that :func:`init` creates beside the default
+  group, so it never touches a card and works where the default group is
+  NCCL (whose object broadcast would need CUDA tensors).
 * :func:`spawn` starts ``world`` ranks with the ``spawn`` start method, runs
   ``fn`` on each and returns their results in rank order. It joins with a
-  deadline: a rank that raises, dies or hangs past it fails the run with
-  the ranks' tracebacks and every rank is stopped, so a hung collective
-  never hangs the caller.
+  deadline (or none, for a server): a rank that raises, dies or hangs past
+  it fails the run with the ranks' tracebacks and every rank is stopped,
+  so a hung collective never hangs the caller. It can forward the
+  signals the caller receives to rank 0, and a rank whose caller dies
+  ends itself.
 
 :data:`STATS` counts the collectives a process ran, their bytes and the
 seconds its host spent in them.
@@ -31,9 +38,12 @@ from __future__ import annotations
 
 import datetime
 import os
+import pickle
 import queue
 import shutil
+import signal
 import tempfile
+import threading
 import time
 import traceback
 import warnings
@@ -51,11 +61,18 @@ COLLECTIVES = ("all_reduce", "all_reduce_max", "all_reduce_int32",
 #: in, host seconds
 STATS = {"calls": 0, "bytes": 0, "seconds": 0.0}
 
+#: the control channel's share of :data:`STATS` (:func:`broadcast_object`)
+CONTROL = {"calls": 0, "bytes": 0, "seconds": 0.0}
+
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+#: the gloo group on the CPU that carries :func:`broadcast_object`
+_control = None
 
 
 def reset_stats() -> None:
     STATS.update(calls=0, bytes=0, seconds=0.0)
+    CONTROL.update(calls=0, bytes=0, seconds=0.0)
 
 
 def rank_device(rank: int, kind: str = "cuda") -> torch.device:
@@ -82,11 +99,29 @@ def init(rank: int, world: int, store_path: str, device: torch.device, *,
     backend = backend_for(world, device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
+    global _control
     store = dist.FileStore(store_path, world)
-    dist.init_process_group(
-        backend, store=store, rank=rank, world_size=world,
-        timeout=datetime.timedelta(seconds=timeout_s))
+    timeout = datetime.timedelta(seconds=timeout_s)
+    dist.init_process_group(backend, store=store, rank=rank,
+                            world_size=world, timeout=timeout)
+    _control = dist.new_group(backend="gloo", timeout=timeout)
     return backend
+
+
+def broadcast_object(obj=None):
+    """Rank 0's picklable ``obj`` on every rank (the others pass nothing),
+    over the control group on the CPU; counted in :data:`STATS` by its
+    pickled bytes."""
+    t0 = time.perf_counter()
+    box = [obj]
+    dist.broadcast_object_list(box, src=0, group=_control, device="cpu")
+    seconds = time.perf_counter() - t0
+    nbytes = len(pickle.dumps(box[0]))
+    for stats in (STATS, CONTROL):
+        stats["calls"] += 1
+        stats["bytes"] += nbytes
+        stats["seconds"] += seconds
+    return box[0]
 
 
 def all_reduce(t: torch.Tensor, group=None, op: str = "sum") -> torch.Tensor:
@@ -190,7 +225,22 @@ def probe_gloo_cuda(device: torch.device, group=None) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _exit_with_parent() -> None:
+    """End this rank when the process that spawned it is gone (killed
+    where it could stop no rank), so a server's ranks never outlive it."""
+    parent = os.getppid()
+
+    def watch():
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        os._exit(1)
+    threading.Thread(target=watch, daemon=True,
+                     name="samp-parent-watch").start()
+
+
 def _worker(rank, world, store_path, device_kind, threads, fn, args, q):
+    global _control
+    _exit_with_parent()
     try:
         if threads:
             torch.set_num_threads(threads)
@@ -201,20 +251,25 @@ def _worker(rank, world, store_path, device_kind, threads, fn, args, q):
     except BaseException:
         q.put((rank, False, traceback.format_exc()))
     finally:
+        _control = None
         if dist.is_initialized():
             dist.destroy_process_group()
 
 
 def spawn(world: int, fn: Callable, args: Sequence = (), *,
-          device: str = "cuda", deadline_s: float = 600.0,
-          threads: Optional[int] = None) -> list:
+          device: str = "cuda", deadline_s: Optional[float] = 600.0,
+          threads: Optional[int] = None,
+          forward_signals: Sequence[int] = ()) -> list:
     """Run ``fn(rank, device, *args)`` on ``world`` spawned ranks joined in
     one process group, and return the results in rank order. ``fn`` and its
     results must pickle (numpy, not tensors: a rank's tensors do not
     outlive it); ``device`` is ``"cuda"`` (ranks round-robin on the
     cards) or ``"cpu"``; ``threads`` sets each rank's torch threads. A rank
-    that raises or dies, or a run past ``deadline_s``, stops every rank and
-    raises ``RuntimeError`` with what each rank reported."""
+    that raises or dies, or a run past ``deadline_s`` (None: no deadline),
+    stops every rank and raises ``RuntimeError`` with what each rank
+    reported. Each signal of ``forward_signals`` that this process receives
+    while the ranks run goes on to rank 0 (a server's SIGTERM: rank 0
+    drains and tells the others to stop)."""
     import multiprocessing
     ctx = multiprocessing.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="samp_pg_")
@@ -224,14 +279,19 @@ def spawn(world: int, fn: Callable, args: Sequence = (), *,
                                threads, fn, tuple(args), q))
              for r in range(world)]
     results, errors = {}, {}
+
+    def forward(sig, _frame):
+        if procs[0].pid is not None and procs[0].exitcode is None:
+            os.kill(procs[0].pid, sig)
+    previous = {sig: signal.signal(sig, forward) for sig in forward_signals}
     try:
         for p in procs:
             p.start()
-        end = time.monotonic() + deadline_s
+        end = None if deadline_s is None else time.monotonic() + deadline_s
         while len(results) + len(errors) < world:
             if errors:
                 break               # the others may wait in a collective
-            left = end - time.monotonic()
+            left = 1.0 if end is None else end - time.monotonic()
             if left <= 0:
                 raise RuntimeError(
                     f"spawn: ranks {sorted(set(range(world)) - set(results))}"
@@ -260,12 +320,17 @@ def spawn(world: int, fn: Callable, args: Sequence = (), *,
             p.join(timeout=30)
         return [results[r] for r in range(world)]
     finally:
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
         for p in procs:
             if p.is_alive():
                 p.terminate()
+        end = time.monotonic() + 10.0       # one grace period for all
         for p in procs:
-            p.join(timeout=10)
+            p.join(timeout=max(end - time.monotonic(), 0.0))
+        for p in procs:
             if p.is_alive():
                 p.kill()
+                p.join(timeout=10)
         q.close()
         shutil.rmtree(tmp, ignore_errors=True)

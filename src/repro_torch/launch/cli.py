@@ -55,10 +55,9 @@ def add_serving_flags(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
                          "on CUDA, reference on the CPU)")
     ap.add_argument("--mesh", default="1,1",
                     help="serving mesh as 'dp,tp' (data-parallel x tensor-"
-                         "parallel ranks); 1,1 = unmeshed. launch.serve "
-                         "spawns dp*tp ranks, round-robin on the cards "
-                         "(gloo where they share one); the HTTP server "
-                         "serves unmeshed only (ROADMAP queue 1 item 8c)")
+                         "parallel ranks); 1,1 = unmeshed. Both serving "
+                         "entrypoints spawn dp*tp ranks, round-robin on "
+                         "the cards (gloo where they share one)")
     ap.add_argument("--slots", type=int, default=4,
                     help="decode batch slots / encoder micro-batch size")
     ap.add_argument("--max-len", type=int, default=128)

@@ -9,7 +9,8 @@ the sharding rules and the runtime read: ``shape`` (axis -> size),
 which :meth:`ProcessMesh.all_reduce`, :meth:`ProcessMesh.all_gather`,
 :meth:`ProcessMesh.all_to_all` and :meth:`ProcessMesh.reduce_scatter`
 run (outside autograd: :mod:`repro_torch.distributed.autograd` wraps them
-for training).
+for training). :class:`RecordingMesh` has the same surface over no ranks:
+its collectives only record themselves, for the dry-run.
 
 Where the JAX package raises when ``dp * tp`` exceeds the visible devices,
 ranks here go round-robin on the cards (``cuda:(rank % device_count)``):
@@ -19,6 +20,7 @@ CLIs do. Importing this module touches no device.
 """
 from __future__ import annotations
 
+import collections
 import itertools
 from typing import Optional
 
@@ -125,6 +127,77 @@ class ProcessMesh:
     def __repr__(self) -> str:
         dims = ",".join(f"{a}={n}" for a, n in self.shape.items())
         return f"<ProcessMesh {dims} rank={self.rank} {self.backend}>"
+
+
+class RecordingMesh:
+    """A shape-only stand-in for :class:`ProcessMesh`, with no process
+    group: the same ``shape``, ``axis_names``, ``coords`` (``coords`` picks
+    the rank; the first by default), ``rank``, :meth:`size` and
+    :meth:`index`. Its collectives return tensors of the shapes the real
+    ones return (each rank's ``t`` stands in for every rank's) and
+    record each call as :data:`repro_torch.distributed.comm.STATS` counts
+    it: a call, and the input's bytes, on an axis over one rank. The
+    dry-run runs a step on ``meta`` tensors over it
+    (:mod:`repro_torch.launch.dryrun`)."""
+
+    backend = "none"
+
+    def __init__(self, shape: dict, coords: Optional[dict] = None):
+        self.shape = {a: int(n) for a, n in shape.items()}
+        self.axis_names = tuple(shape)
+        self.coords = {a: 0 for a in self.axis_names}
+        self.coords.update(coords or {})
+        self.rank = 0
+        for a in self.axis_names:
+            self.rank = self.rank * self.shape[a] + self.coords[a]
+        self.calls: collections.Counter = collections.Counter()
+        self.bytes: collections.Counter = collections.Counter()
+
+    size = ProcessMesh.size
+    index = ProcessMesh.index
+
+    def group(self, axis: str):
+        return None
+
+    def _record(self, kind: str, t: torch.Tensor) -> None:
+        self.calls[kind] += 1
+        self.bytes[kind] += t.numel() * t.element_size()
+
+    def all_reduce(self, t: torch.Tensor, axis: str,
+                   op: str = "sum") -> torch.Tensor:
+        if self.size(axis) == 1:
+            return t
+        self._record("all_reduce", t)
+        return t.contiguous()
+
+    def all_gather(self, t: torch.Tensor, axis: str,
+                   dim: int) -> torch.Tensor:
+        if self.size(axis) == 1:
+            return t
+        self._record("all_gather", t)
+        return torch.cat([t.contiguous()] * self.size(axis), dim=dim)
+
+    def all_to_all(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        if self.size(axis) == 1:
+            return t
+        self._record("all_to_all", t)
+        return torch.empty_like(t.contiguous())
+
+    def reduce_scatter(self, t: torch.Tensor, axis: str,
+                       dim: int) -> torch.Tensor:
+        if self.size(axis) == 1:
+            return t
+        self._record("reduce_scatter", t)
+        n = t.shape[dim] // self.size(axis)
+        return t.narrow(dim, 0, n).contiguous()
+
+    def reset(self) -> None:
+        self.calls.clear()
+        self.bytes.clear()
+
+    def __repr__(self) -> str:
+        dims = ",".join(f"{a}={n}" for a, n in self.shape.items())
+        return f"<RecordingMesh {dims} rank={self.rank}>"
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> ProcessMesh:

@@ -284,6 +284,9 @@ def serve_encoder(cfg, args, device, mesh=None) -> None:
                                 max_batch=args.slots, max_len=args.max_len,
                                 backend=args.backend, router=router,
                                 device=device, mesh=mesh)
+    if cfg.frontend == "audio":
+        _serve_frames(cfg, args, server, spec, device)
+        return
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
         n = int(rng.integers(4, args.max_len // 2))
@@ -308,6 +311,55 @@ def serve_encoder(cfg, args, device, mesh=None) -> None:
     if router is not None:
         print(f"[serve] clusters: {dict(router.requests_by_cluster)} "
               f"({router.active_plans} active plan(s))")
+
+
+def request_frames(cfg, args) -> list:
+    """An audio config's requests: request ``i`` has as many frames as the
+    token requests' lengths draw, its unit-normal features from
+    ``np.random.default_rng(seed + i)``, as ``launch/train.py`` seeds a
+    batch's frames."""
+    rng = np.random.default_rng(args.seed)
+    out = []
+    for i in range(args.requests):
+        n = int(rng.integers(4, args.max_len // 2))
+        out.append(np.random.default_rng(args.seed + i).standard_normal(
+            (n, cfg.frontend_dim), np.float32))
+    return out
+
+
+def _serve_frames(cfg, args, server, spec, device) -> None:
+    """Serve an audio config: the micro-batcher queues token lists, so the
+    requests' frames go through the engine's runtime in batches of
+    ``--slots``, each zero-padded to its longest request."""
+    frames = request_frames(cfg, args)
+    t0 = time.perf_counter()
+    preds, batches = [], 0
+    for lo in range(0, len(frames), args.slots):
+        group = frames[lo:lo + args.slots]
+        lengths = np.asarray([len(f) for f in group], np.int32)
+        batch = np.zeros((len(group), int(lengths.max()), cfg.frontend_dim),
+                         np.float32)
+        for i, f in enumerate(group):
+            batch[i, :len(f)] = f
+        logits = server.runtime.encode(server.params, {"frames": batch},
+                                       lengths)
+        for i in range(len(group)):
+            row = logits[i][:int(lengths[i])] if spec.token_level \
+                else logits[i]
+            preds.append(np.asarray(spec.predict(row)))
+        batches += 1
+    dt = time.perf_counter() - t0
+    for i, (f, p) in enumerate(zip(frames, preds)):
+        print(f"  req{i}: {len(f)} frames -> {p.tolist()}")
+    rs = server.runtime.stats
+    print(f"[serve] task={args.task} target={spec.name} "
+          f"backend={server.runtime.backend.name} "
+          f"mesh={mesh_fingerprint(server.runtime.mesh)}: {len(frames)} "
+          f"requests in {batches} micro-batches, {dt:.2f}s "
+          f"({len(frames) / max(dt, 1e-9):.1f} req/s "
+          f"{_device_name(device)}); "
+          f"{rs['traces']} build(s) / {rs['executables']} cached "
+          f"callable(s)")
 
 
 def _serve(args, device, mesh=None) -> None:

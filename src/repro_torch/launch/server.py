@@ -19,6 +19,10 @@
     # the reduced config through the kernels' plain versions, on the CPU
     ... --device cpu
 
+    # on a mesh: dp-way data parallel x tp-way tensor parallel, dp * tp
+    # ranks; rank 0 listens and sends every engine call to the others
+    ... --mesh 2,1
+
     curl -s localhost:8080/v1/encode -d '{"tokens": [2, 17, 9, 41]}'
     curl -sN localhost:8080/v1/generate -d '{"prompt": [2, 17], "max_tokens": 8}'
     curl -s localhost:8080/metrics
@@ -31,14 +35,31 @@ in-flight requests, exit). On the card the CUDA kernels are built and
 loaded before the listener opens, so no request pays the compiler.
 ``--port 0`` binds an ephemeral port and prints it. See
 docs/http-serving.md for the endpoint contracts, backpressure semantics,
-and the metrics catalog. ``--mesh`` other than ``1,1`` exits: on a mesh
-the engine driver would have to run every engine call on every rank
-(ROADMAP queue 1 item 8c); ``launch/serve.py`` serves meshes.
+and the metrics catalog.
+
+``--mesh dp,tp`` other than ``1,1`` spawns ``dp * tp`` ranks
+(:func:`repro_torch.distributed.comm.spawn`), as ``launch/serve.py`` does.
+Every rank builds the same model on the mesh and the same engines. Rank 0
+runs the front-end; its engine driver sends each pass's engine operations
+to the other ranks over a gloo control group on the CPU, and they replay
+them on their own engines
+(:func:`~repro_torch.serve.frontend.driver.follow`), so every rank runs
+every forward's collectives. This process builds the kernels before it
+spawns the ranks, and forwards SIGTERM / SIGINT to rank 0, which drains,
+then stops the others; the followers ignore both signals. A rank that
+fails stops every rank, and this process exits non-zero with its
+traceback.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
+import signal
+import sys
 import time
+
+import torch
 
 from repro_torch.launch.cli import (add_serving_flags, check_mesh,
                                     parse_cluster_model, resolve_task,
@@ -49,18 +70,28 @@ from repro_torch.serve import EncoderServeEngine, ServeEngine
 from repro_torch.serve.frontend import HTTPFrontend
 
 
-def build_frontend(args, *, log=print) -> HTTPFrontend:
+def build_frontend(args, *, log=print, publish=None) -> HTTPFrontend:
     """Build engine(s) for the requested deployment and mount them.
 
     ``--task lm`` mounts the decode engine only. An encoder task on a
     decode-capable arch mounts BOTH engines over one param tree, so a
-    single server answers /v1/encode and /v1/generate.
+    single server answers /v1/encode and /v1/generate. On a ``--mesh``
+    this runs on rank 0 of the spawned ranks, with ``publish`` the
+    control channel to the others.
     """
-    if check_mesh(args.mesh) != (1, 1):
-        raise SystemExit(
-            f"--mesh {args.mesh}: the HTTP server serves unmeshed; on a mesh "
-            f"its engine driver would run every engine call on every rank "
-            f"(ROADMAP queue 1 item 8c). launch.serve serves meshes")
+    from repro_torch.launch.mesh import make_serving_mesh
+    mesh = make_serving_mesh(args.mesh)
+    encoder, decode = build_engines(args, mesh, log=log)
+    return HTTPFrontend(encoder=encoder, decode=decode, host=args.host,
+                        port=args.port, max_pending=args.max_pending,
+                        default_deadline_s=args.deadline_s, log=log,
+                        publish=publish)
+
+
+def build_engines(args, mesh=None, *, log=print) -> tuple:
+    """``(encoder, decode)`` engines of the deployment (either may be
+    None) on ``mesh``: the model calibrated on the mesh, as
+    ``launch.serve --mesh`` builds it."""
     cfg, device = serving_config(args)
     task_name = resolve_task(cfg, args.task)
     cluster_model = parse_cluster_model(args.clusters)
@@ -78,7 +109,7 @@ def build_frontend(args, *, log=print) -> HTTPFrontend:
             params, plan, precision = build_model(
                 cfg, args.policy, seed=args.seed, plan_file=args.plan,
                 strategy=args.strategy, max_latency=args.max_latency,
-                device=device, log=log)
+                device=device, log=log, mesh=mesh)
     else:
         spec, head = encoder_head(cfg, task_name, args.max_len)
         router = None
@@ -96,22 +127,21 @@ def build_frontend(args, *, log=print) -> HTTPFrontend:
             params, plan, precision = build_model(
                 cfg, args.policy, seed=args.seed, head=head,
                 plan_file=args.plan, strategy=args.strategy,
-                max_latency=args.max_latency, device=device, log=log)
+                max_latency=args.max_latency, device=device, log=log,
+                mesh=mesh)
         encoder = EncoderServeEngine(cfg, params, plan, target=spec,
                                      max_batch=args.slots,
                                      max_wait=args.max_wait,
                                      max_len=args.max_len,
                                      backend=args.backend, router=router,
-                                     device=device)
+                                     device=device, mesh=mesh)
     if cfg.supports_decode:
         decode = ServeEngine(cfg, params, plan, batch_slots=args.slots,
                              max_len=args.max_len, seed=args.seed,
                              backend=args.backend, page_size=args.page_size,
                              kv_cache=args.kv_dtype, precision=precision,
-                             router=decode_router, device=device)
-    return HTTPFrontend(encoder=encoder, decode=decode, host=args.host,
-                        port=args.port, max_pending=args.max_pending,
-                        default_deadline_s=args.deadline_s, log=log)
+                             router=decode_router, device=device, mesh=mesh)
+    return encoder, decode
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -136,10 +166,16 @@ def load_kernels(frontend: HTTPFrontend, *, log=print) -> None:
     """Build (or find built) and load the CUDA kernels when a mounted
     engine launches them: the build is lazy (``kernels.build``), and a
     first request must not pay the compiler inside its deadline."""
-    engines = [e for e in (frontend.encoder, frontend.decode) if e]
-    if not any(e.runtime.device.type == "cuda"
-               and e.runtime.backend.name != "reference" for e in engines):
-        return
+    _load_kernels((frontend.encoder, frontend.decode), log)
+
+
+def _load_kernels(engines, log) -> None:
+    if any(e is not None and e.runtime.device.type == "cuda"
+           and e.runtime.backend.name != "reference" for e in engines):
+        _build_kernels(log)
+
+
+def _build_kernels(log) -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     build.library()
@@ -147,11 +183,58 @@ def load_kernels(frontend: HTTPFrontend, *, log=print) -> None:
         flush=True)
 
 
+def _silent(*args, **kw) -> None:
+    pass
+
+
+def _server_rank(rank: int, device, args) -> dict:
+    """One rank of a meshed server. Rank 0 builds the front-end and serves
+    until a drain; the others ignore SIGTERM / SIGINT (a terminal's SIGINT
+    reaches every process of its group, and a follower that died inside a
+    collective would hang rank 0), build the same engines silently and
+    replay rank 0's engine operations until its ``stop``. Each loads the
+    kernels this process built."""
+    from repro_torch.distributed import comm
+    from repro_torch.serve.frontend.driver import follow
+    if rank == 0:
+        fe = build_frontend(args, publish=comm.broadcast_object)
+        load_kernels(fe, log=_silent)
+        fe.run_forever()
+        if fe.driver.failure is not None:
+            raise RuntimeError("engine failure on rank 0") \
+                from fe.driver.failure
+        return {"rank": 0, "counts": dict(fe.driver.counts)}
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, signal.SIG_IGN)
+    from repro_torch.launch.mesh import make_serving_mesh
+    with contextlib.redirect_stdout(io.StringIO()):
+        encoder, decode = build_engines(args, make_serving_mesh(args.mesh),
+                                        log=_silent)
+        _load_kernels((encoder, decode), _silent)
+    return {"rank": rank, "replayed": follow(
+        encoder=encoder, decode=decode, receive=comm.broadcast_object)}
+
+
 def main(argv=None):
     args = make_parser().parse_args(argv)
-    frontend = build_frontend(args)
-    load_kernels(frontend)
-    frontend.run_forever()
+    dp, tp = check_mesh(args.mesh)
+    if (dp, tp) == (1, 1):
+        frontend = build_frontend(args)
+        load_kernels(frontend)
+        frontend.run_forever()
+        return
+    _, device = serving_config(args)
+    if device.type == "cuda" and args.backend != "reference":
+        _build_kernels(print)           # once, before any rank compiles
+    from repro_torch.distributed import comm
+    try:
+        comm.spawn(dp * tp, _server_rank, (args,), device=device.type,
+                   deadline_s=None,
+                   threads=(max(1, torch.get_num_threads() // (dp * tp))
+                            if device.type == "cpu" else None),
+                   forward_signals=(signal.SIGTERM, signal.SIGINT))
+    except RuntimeError as e:
+        sys.exit(f"[server] {e}")
 
 
 if __name__ == "__main__":

@@ -90,3 +90,23 @@ def params_specs(cfg: ArchConfig, policy: EncoderPolicy,
     """The float parameter tree on the meta device."""
     return T.init_params(cfg, policy, head=head, device="meta",
                          dtype=param_dtype)
+
+
+def prefill_step(params, batch, caches, cfg: ArchConfig, plan,
+                 scheme: T.QuantScheme = T.QuantScheme(), *,
+                 chunk=T.DEFAULT_CHUNK, backend=None, mesh=None,
+                 moe_groups: int = 1, data_shard: bool = False):
+    """Serving prefill: the full-sequence forward writing the KV caches,
+    the last position's logits only (what a real prefill returns).
+    Encoder-only configs return the full per-frame logits and no cache.
+    ``mesh`` (with the MoE ``moe_groups`` / ``data_shard``) runs the
+    tensor-parallel forward over this rank's block, where the JAX package
+    passes its sharding ``constrain``."""
+    kw = dict(chunk=chunk, backend=backend, mesh=mesh,
+              moe_groups=moe_groups, data_shard=data_shard)
+    if not cfg.supports_decode:
+        return T.forward(params, batch, cfg, plan, scheme, **kw), None
+    hidden, new_caches = T.forward(params, batch, cfg, plan, scheme,
+                                   caches=caches, pos=0, return_hidden=True,
+                                   **kw)
+    return T.unembed(hidden[:, -1:], params, cfg, mesh), new_caches

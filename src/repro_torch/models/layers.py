@@ -595,7 +595,10 @@ def _cache_write(kv_cache: dict, new: dict, positions: torch.Tensor,
     if positions.ndim == 1:                          # uniform path
         S = positions.shape[0]
         write_S = min(S, W)      # ring smaller than prefill: keep the tail
-        slot = 0 if write_S < S else int(kv_cache["pos"][0]) % W
+        # a meta cache (the dry-run's) has no position to read: the slot
+        # moves the write, not its shapes
+        slot = (0 if write_S < S or kv_cache["pos"].is_meta
+                else int(kv_cache["pos"][0]) % W)
         start = min(slot, W - write_S)   # dynamic_update_slice's clamp
         for key, val in new.items():
             kv_cache[key][:, start:start + write_S] = \

@@ -48,14 +48,19 @@ class HTTPFrontend:
     ``max_pending`` bounds admitted-but-unfinished requests;
     ``default_deadline_s`` applies to requests that state no
     ``deadline_ms`` (None = no deadline). ``port=0`` binds an ephemeral
-    port (read it back from ``self.port`` after :meth:`start`)."""
+    port (read it back from ``self.port`` after :meth:`start`).
+    ``publish`` makes this the rank 0 of a meshed server: the driver sends
+    each pass's engine operations through it to the follower ranks
+    (:func:`~repro_torch.serve.frontend.driver.follow`), and an engine
+    failure drains the front-end, so the rank returns and reports it."""
 
     def __init__(self, *, encoder=None, decode=None,
                  host: str = "127.0.0.1", port: int = 8000,
                  max_pending: int = 64,
                  default_deadline_s: Optional[float] = None,
                  tick_interval: float = 0.002,
-                 registry: Optional[MetricsRegistry] = None, log=print):
+                 registry: Optional[MetricsRegistry] = None, log=print,
+                 publish=None):
         self.encoder = encoder
         self.decode = decode
         self.host = host
@@ -65,7 +70,8 @@ class HTTPFrontend:
         self.registry = registry or MetricsRegistry()
         self.driver = EngineDriver(encoder=encoder, decode=decode,
                                    max_pending=max_pending,
-                                   tick_interval=tick_interval)
+                                   tick_interval=tick_interval,
+                                   publish=publish)
         self.draining = False
         self._uids = itertools.count(1)
         self._server: Optional[asyncio.base_events.Server] = None
@@ -172,6 +178,10 @@ class HTTPFrontend:
     # -- lifecycle -----------------------------------------------------------
     async def start(self) -> "HTTPFrontend":
         self._done = asyncio.Event()
+        if self.driver.publish is not None:
+            loop = asyncio.get_running_loop()
+            self.driver.on_failure = (
+                lambda: loop.call_soon_threadsafe(self.begin_drain))
         self.driver.start()
         self._server = await asyncio.start_server(self._handle, self.host,
                                                   self.port)

@@ -218,6 +218,12 @@ class MicroBatcher:
                                                         len(q)))]))
         return out
 
+    def due(self, now: float, force: bool = False) -> bool:
+        """Whether :meth:`ready` at ``now`` would pop a batch."""
+        return any(q and (force or len(q) >= self.max_batch
+                          or now - q[0].arrival >= self.max_wait)
+                   for q in self._queues.values())
+
     def depth_by_cluster(self) -> dict[int, int]:
         """Queued request count per cluster id."""
         out: dict[int, int] = {}

@@ -27,6 +27,7 @@ from repro_torch.launch import cli as C
 from repro_torch.launch import serve as S
 from repro_torch.launch import server as SV
 from repro_torch.models import transformer as T
+from repro_torch.serve import EncoderServeEngine
 
 from test_torch_frontend import http_json
 from test_torch_support import GOLDEN, jax_to_numpy
@@ -135,15 +136,18 @@ def _args(*argv):
 
 @pytest.mark.parametrize("spec", ["2,1", "1,2", "4,2"])
 def test_mesh_other_than_1_1_exits_naming_item_8(spec):
-    """Since slice 16 ``launch.serve`` serves a mesh (``--mesh 1,2`` runs
-    in tests/test_torch_mesh.py): the shared flag surface takes it, and
-    only the HTTP server still exits, naming ROADMAP item 8c."""
+    """Both serving CLIs serve a mesh (``launch.serve --mesh 1,2`` in
+    tests/test_torch_mesh.py, ``launch.server --mesh 2,1`` in
+    tests/test_torch_server_mesh.py): the server's flag surface takes the
+    mesh, and ``build_frontend`` outside the ranks ``main`` spawns, with no
+    process group, raises ``ProcessMesh``'s "needs its ranks" error."""
     assert C.check_mesh(spec) == tuple(int(p) for p in spec.split(","))
-    cfg, device = C.serving_config(_args("--mesh", spec, "--device", "cpu"))
+    args = _args("--mesh", spec, "--device", "cpu")
+    assert args.mesh == spec
+    cfg, device = C.serving_config(args)
     assert device.type == "cpu" and cfg == get_config("bert-base").reduced()
-    with pytest.raises(SystemExit, match="item 8c"):
-        SV.build_frontend(_args("--mesh", spec, "--device", "cpu"),
-                          log=SILENT)
+    with pytest.raises(ValueError, match="needs its ranks"):
+        SV.build_frontend(args, log=SILENT)
 
 
 @pytest.mark.parametrize("spec", ["2", "a,b", "0,1"])
@@ -258,6 +262,46 @@ def test_serve_cli_runs_on_cpu(argv):
     summary = [ln for ln in out.stdout.splitlines()
                if ln.startswith("[serve] ") and " requests" in ln]
     assert summary and "CPU)" in summary[0], out.stdout
+
+
+@pytest.mark.parametrize("mesh", ["1,1", "1,2"])
+def test_serve_cli_predicts_hubert_as_runtime_encode_of_its_frames(mesh):
+    """``launch.serve --arch hubert-xlarge``: an audio config's requests
+    are seeded frames (``request_frames``), encoded through the engine's
+    runtime in batches of ``--slots``; the CLI's predictions equal
+    ``Runtime.encode`` of the same frames over the same model, unmeshed
+    and at ``--mesh 1,2``. The JAX package's CLI feeds this config token
+    lists and fails (its runtime reads ``frames``), so there is no JAX
+    output to match."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "hubert-xlarge", "--device", "cpu", "--mesh", mesh, "--requests",
+         "6", "--slots", "4"], capture_output=True, text=True,
+        timeout=RUN_S, cwd=ROOT, env={**ENV, "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stderr
+    got = [int(m.group(2)) for m in re.finditer(
+        r"req(\d+): \d+ frames -> (\d+)", out.stdout)]
+    cfg = get_config("hubert-xlarge").reduced()
+    args = argparse.Namespace(seed=0, requests=6, max_len=128)
+    frames = S.request_frames(cfg, args)
+    spec, head = S.encoder_head(cfg, "tnews", 128)
+    params, plan, _ = S.build_model(cfg, head=head, log=SILENT,
+                                    device="cpu")
+    rt = EncoderServeEngine(cfg, params, plan, target=spec,
+                            device="cpu").runtime
+    want = []
+    for lo in (0, 4):
+        group = frames[lo:lo + 4]
+        lens = np.asarray([len(f) for f in group], np.int32)
+        batch = np.zeros((len(group), lens.max(), cfg.frontend_dim),
+                         np.float32)
+        for i, f in enumerate(group):
+            batch[i, :len(f)] = f
+        want += [int(np.argmax(row)) for row in rt.encode(
+            params, {"frames": batch}, lens)]
+    assert got == want and len(got) == 6
+    assert f"mesh={'unmeshed' if mesh == '1,1' else 'data=1,model=2'}" \
+        in out.stdout
 
 
 def test_server_cli_answers_and_drains_on_sigterm():

@@ -638,3 +638,359 @@ def run_train_mesh(rank: int, device, job: dict) -> dict:
            "stats": dict(comm.STATS)}
     out["jax modules"] = _jax_loaded()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the HTTP server on a mesh (tests/test_torch_server_mesh.py)
+# ---------------------------------------------------------------------------
+
+SERVER_SLOTS = 4
+
+
+def server_args(arch: str, mesh: str, *extra):
+    """``launch.server``'s flags for a reduced model on the CPU."""
+    from repro_torch.launch import server as SV
+    task = ["--task", "lm", "--page-size", "8", "--kv-dtype",
+            "int8_per_token", "--max-len", "64"] if arch != "bert-base" \
+        else ["--task", "tnews", "--max-wait", "0.01"]
+    return SV.make_parser().parse_args(
+        ["--arch", arch, "--plan", GOLDEN, "--device", "cpu", "--mesh", mesh,
+         "--port", "0", "--slots", str(SERVER_SLOTS), *task, *extra])
+
+
+async def http(port: int, method: str, path: str, body=None):
+    """One request on its own connection: ``(status, headers, body)``, the
+    body parsed as JSON or, for an event stream, as its events."""
+    import asyncio
+    import json
+    from repro_torch.serve.frontend import protocol
+    data = b"" if body is None else json.dumps(body).encode()
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        writer.write((f"{method} {path} HTTP/1.1\r\nHost: x\r\n"
+                      f"Content-Length: {len(data)}\r\n\r\n").encode()
+                     + data)
+        await writer.drain()
+        raw = await asyncio.wait_for(reader.read(), 120)
+    finally:
+        writer.close()
+    head, _, payload = raw.partition(b"\r\n\r\n")
+    lines = head.decode("latin1").split("\r\n")
+    headers = {k.strip().lower(): v.strip() for k, _, v in
+               (ln.partition(":") for ln in lines[1:])}
+    status, kind = int(lines[0].split()[1]), headers.get("content-type")
+    if kind == "text/event-stream":
+        return status, headers, protocol.parse_sse(payload.decode())
+    if kind == "application/json":
+        return status, headers, json.loads(payload)
+    return status, headers, payload.decode()
+
+
+def _session(rank, fe, engines, scenario) -> dict:
+    """Rank 0 serves ``scenario(fe, port)`` on the front-end ``fe`` (which
+    publishes to the followers) and stops it; every other rank replays
+    the published operations on ``engines``."""
+    import asyncio
+    from repro_torch.distributed import comm
+    from repro_torch.serve.frontend.driver import follow
+    if rank:
+        return {"replayed": follow(**engines,
+                                   receive=comm.broadcast_object)}
+
+    async def main():
+        await fe.start()
+        try:
+            return await asyncio.wait_for(scenario(fe, fe.port), 120)
+        finally:
+            await fe.stop()
+    return asyncio.run(main())
+
+
+class _Batches:
+    """Records an encoder engine's micro-batches (uids, as flushed) and
+    the logits it retires."""
+
+    def __init__(self, eng):
+        import numpy as np
+        self.batches, self.logits = [], {}
+        ready, step = eng.batcher.ready, eng.step
+
+        def spy_ready(now=None, force=False):
+            got = ready(now, force)
+            self.batches.extend([r.uid for r in reqs] for _, reqs in got)
+            return got
+
+        def spy_step(now=None, force=False):
+            done = step(now, force)
+            self.logits.update({r.uid: np.asarray(r.logits) for r in done})
+            return done
+        eng.batcher.ready, eng.step = spy_ready, spy_step
+
+
+def _frontend_or_engines(rank, args, **kw):
+    """Rank 0: ``launch.server.build_frontend`` publishing to the
+    followers; the others: ``build_engines`` on the same mesh."""
+    from repro_torch.distributed import comm
+    from repro_torch.launch import server as SV
+    from repro_torch.launch.mesh import make_serving_mesh
+    if rank == 0:
+        fe = SV.build_frontend(args, log=_silent,
+                               publish=comm.broadcast_object)
+        return fe, {"encoder": fe.encoder, "decode": fe.decode}
+    enc, dec = SV.build_engines(args, make_serving_mesh(args.mesh),
+                                log=_silent)
+    return None, {"encoder": enc, "decode": dec}
+
+
+def _silent(*a, **k):
+    pass
+
+
+def _serve_encode(rank, t, requests) -> dict:
+    """BERT over HTTP at topology ``t``; then ``launch.serve --mesh``'s
+    meshed engine fed the micro-batches rank 0's batcher made."""
+    import asyncio
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import comm
+    from repro_torch.launch import serve as S
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serve import EncoderRequest, EncoderServeEngine
+    args = server_args("bert-base", t)
+    fe, engines = _frontend_or_engines(rank, args)
+    rec = _Batches(engines["encoder"])
+
+    async def scenario(fe, port):
+        return {"results": await asyncio.gather(*(http(
+            port, "POST", "/v1/encode", {"tokens": toks})
+            for toks in requests))}
+    got = _session(rank, fe, engines, scenario)
+    order = comm.broadcast_object(rec.batches if rank == 0 else None)
+    tokens = comm.broadcast_object(
+        {o["uid"]: requests[i] for i, (_, _, o) in enumerate(
+            got["results"])} if rank == 0 else None)
+    # launch.serve's engine on the same mesh, built as serve_encoder does
+    cfg = get_config("bert-base").reduced()
+    mesh = make_serving_mesh(t)
+    spec, head = S.encoder_head(cfg, args.task, args.max_len)
+    params, plan, _ = S.build_model(cfg, args.policy, seed=args.seed,
+                                    head=head, plan_file=args.plan,
+                                    device="cpu", mesh=mesh, log=_silent)
+    direct = EncoderServeEngine(cfg, params, plan, target=spec,
+                                max_batch=args.slots, max_len=args.max_len,
+                                backend=args.backend, device="cpu",
+                                mesh=mesh)
+    want, forwards = {}, []
+    for group in order:
+        calls = direct.runtime.stats["calls"]
+        for uid in group:
+            direct.submit(EncoderRequest(uid=uid, tokens=tokens[uid]))
+        want.update({r.uid: np.asarray(r.logits) for r in direct.run()})
+        forwards.append(direct.runtime.stats["calls"] - calls)
+    out = {"batches": rec.batches, "rank0_batches": order,
+           "served": rec.logits, "direct": want, "direct_forwards": forwards,
+           "tokens": tokens}
+    if rank == 0:
+        out["http"] = [(s, o) for s, _, o in got["results"]]
+    else:
+        out["replayed"] = got["replayed"]
+    return out
+
+
+def _serve_generate(rank, t, prompts, max_tokens) -> dict:
+    """qwen2 SSE streams at topology ``t``; then ``launch.serve --mesh``'s
+    meshed ServeEngine on the same prompts."""
+    import asyncio
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as S
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serve import Request, ServeEngine
+    args = server_args("qwen2-0.5b", t)
+    fe, engines = _frontend_or_engines(rank, args)
+
+    async def scenario(fe, port):
+        return {"results": await asyncio.gather(*(http(
+            port, "POST", "/v1/generate",
+            {"prompt": p, "max_tokens": max_tokens}) for p in prompts))}
+    got = _session(rank, fe, engines, scenario)
+    cfg = get_config("qwen2-0.5b").reduced()
+    mesh = make_serving_mesh(t)
+    params, plan, precision = S.build_model(
+        cfg, args.policy, seed=args.seed, plan_file=args.plan, device="cpu",
+        mesh=mesh, log=_silent)
+    direct = ServeEngine(cfg, params, plan, batch_slots=args.slots,
+                         max_len=args.max_len, seed=args.seed,
+                         backend=args.backend, page_size=args.page_size,
+                         kv_cache=args.kv_dtype, precision=precision,
+                         device="cpu", mesh=mesh)
+    for i, p in enumerate(prompts):
+        direct.submit(Request(uid=i, prompt=p, max_tokens=max_tokens))
+    out = {"direct": {r.uid: r.output for r in direct.run()},
+           "pages_in_use": engines["decode"].kv_pages_in_use,
+           "direct_pages_in_use": direct.kv_pages_in_use}
+    if rank == 0:
+        out["streams"] = [(s, ev) for s, _, ev in got["results"]]
+    else:
+        out["replayed"] = got["replayed"]
+    return out
+
+
+def _admission(rank, t) -> dict:
+    """429 at ``max_pending``, 504 past a deadline (evicted on every rank)
+    and a drain (200 in flight, 503 new) on engines sharing the meshed
+    encoder's runtime."""
+    import asyncio
+    import threading
+    from repro_torch.distributed import comm
+    from repro_torch.launch import server as SV
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serve import EncoderServeEngine
+    from repro_torch.serve.frontend import HTTPFrontend
+    args = server_args("bert-base", t)
+    base, _ = SV.build_engines(args, make_serving_mesh(t), log=_silent)
+
+    def engine(max_wait):
+        return EncoderServeEngine(base.cfg, base.params, base.plan,
+                                  target=base.target, runtime=base.runtime,
+                                  max_batch=SERVER_SLOTS, max_wait=max_wait,
+                                  max_len=64, device="cpu")
+
+    def frontend(eng, **kw):
+        return (HTTPFrontend(encoder=eng, port=0, log=_silent,
+                             publish=comm.broadcast_object, **kw)
+                if rank == 0 else None)
+    out = {}
+    eng = engine(0.5)
+
+    async def burst(fe, port):
+        res = await asyncio.gather(*(http(port, "POST", "/v1/encode",
+                                          {"tokens": [3 + i, 5, 9, 2]})
+                                     for i in range(6)))
+        return {"statuses": sorted(s for s, _, _ in res),
+                "retry": sorted({h.get("retry-after") for s, h, _ in res
+                                 if s == 429})}
+    out["burst"] = _session(rank, frontend(eng, max_pending=2),
+                            {"encoder": eng}, burst)
+    out["burst_batches"] = eng._stats["batches"]
+    eng = engine(10.0)
+
+    async def deadline(fe, port):
+        s, _, o = await http(port, "POST", "/v1/encode",
+                             {"tokens": [3, 5, 9, 2], "deadline_ms": 100})
+        return {"status": s, "error": o.get("error")}
+    out["deadline"] = _session(rank, frontend(eng), {"encoder": eng},
+                               deadline)
+    out["deadline_evicted"] = eng.batcher.evicted
+    out["deadline_batches"] = eng._stats["batches"]
+    eng = engine(30.0)
+    gate = threading.Event()
+    if rank == 0:
+        step = eng.step
+
+        def gated(now=None, force=False):
+            if force:
+                gate.wait(60)
+            return step(now, force)
+        eng.step = gated
+
+    async def drain(fe, port):
+        try:
+            inflight = asyncio.create_task(http(
+                port, "POST", "/v1/encode", {"tokens": [4, 5, 9, 2]}))
+            for _ in range(1000):
+                if fe.driver.inflight:
+                    break
+                await asyncio.sleep(0.01)
+            fe.begin_drain()
+            new = await http(port, "POST", "/v1/encode",
+                             {"tokens": [5, 5, 9, 2]})
+        finally:
+            gate.set()
+        done = await inflight
+        await asyncio.wait_for(fe.serve_forever(), 60)
+        return {"inflight": done[0], "new": new[0],
+                "retry": new[1].get("retry-after")}
+    out["drain"] = _session(rank, frontend(eng), {"encoder": eng}, drain)
+    out["drain_batches"] = eng._stats["batches"]
+    return out
+
+
+def _bert_weights(params_np) -> None:
+    """Make ``init_params`` give a BERT config the test's weights (the JAX
+    package's, as numpy), so both the server and ``launch.serve``'s engines
+    build from what the test's JAX reference holds."""
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.models import transformer as T
+    init = T.init_params
+
+    def weights(cfg, policy=None, **kw):
+        if cfg.family != "bert":
+            return init(cfg, policy, **kw)
+        return params_from_numpy(params_np, T.build_plan(cfg, policy),
+                                 kw.get("device", "cuda"))
+    T.init_params = weights
+
+
+def run_server_mesh(rank: int, device, job: dict) -> dict:
+    """The HTTP server's sessions at each topology on this rank; returns
+    what the test checks."""
+    _bert_weights(job["bert_params"])
+    out = {"rank": rank}
+    for t in TOPOLOGIES:
+        out[f"encode {t}"] = _serve_encode(rank, t, job["requests"])
+        out[f"generate {t}"] = _serve_generate(rank, t, job["prompts"],
+                                               job["max_tokens"])
+        out[f"admission {t}"] = _admission(rank, t)
+    out["jax modules"] = _jax_loaded()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the dry-run's steps on real ranks (tests/test_torch_dryrun.py)
+# ---------------------------------------------------------------------------
+
+
+def run_dryrun_mesh(rank: int, device, job: dict) -> dict:
+    """The dry-run's reduced decode and train steps of ``job``'s cells,
+    run for real at each topology: the collectives ``comm.STATS`` counts
+    on this rank."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import plan_from_policy
+    from repro_torch.core.precision import make_policy
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.sharding import Rules, shard_params
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import transformer as T
+    cfg = get_config(job["arch"]).reduced()
+    policy = make_policy(cfg, "float")
+    precision = plan_from_policy(policy)
+    out = {"rank": rank}
+    for t in TOPOLOGIES:
+        mesh = make_serving_mesh(t)
+        for kind, (B, S) in job["cells"].items():
+            params, plan = D.cell_params(cfg, precision, torch.float32,
+                                         device="cpu")
+            gen = torch.Generator().manual_seed(0)
+            tokens = torch.randint(1, cfg.vocab_size, (B, 1 if kind ==
+                                                       "decode" else S),
+                                   generator=gen, dtype=torch.int32)
+            comm.reset_stats()
+            if kind == "train":
+                D.train_step(cfg, policy, params, {"tokens": tokens}, mesh,
+                             device="cpu")
+            else:
+                rules = Rules(cfg, mesh, fsdp=False)
+                lo, hi, _ = D.serve_rows(cfg, mesh, B)
+                caches = T.init_caches(cfg, plan, hi - lo, S,
+                                       torch.float32, device="cpu",
+                                       mesh=mesh)
+                comm.reset_stats()
+                with torch.no_grad():
+                    D.decode_step(cfg, plan,
+                                  shard_params(params, rules, mesh), caches,
+                                  tokens, S - 1, mesh)
+            out[f"{kind} {t}"] = {k: comm.STATS[k] for k in ("calls",
+                                                             "bytes")}
+    out["jax modules"] = _jax_loaded()
+    return out
